@@ -1,0 +1,212 @@
+"""KV-cache write and fused decode attention over lane-merged caches.
+
+Counterparts of ``modelopt_tpu/kernels/attention.py::dense_kv_write`` and
+``::fused_decode_attention``. Caches are [B, S, KH*D] (heads merged into the
+last dim, the reference's layout) and are updated IN PLACE: where the
+reference donates/aliases the cache buffers, these functions write into the
+tensors they are given and hand the same tensors back.
+
+On CUDA tensors the wrappers launch ``csrc/kv_write.cu`` and
+``csrc/fused_decode_attention.cu``; on CPU tensors the ``*_plain`` versions
+compute the same functions (and serve as the card's oracles).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def _clamped_starts(start: torch.Tensor, S: int, T: int) -> list:
+    return [min(max(int(s), 0), S - T) for s in start.tolist()]
+
+
+def dense_kv_write_plain(cache: torch.Tensor, vals: torch.Tensor,
+                         start: torch.Tensor) -> torch.Tensor:
+    """Write vals [B, T, KH*D] into cache [B, S, KH*D] at rows
+    [start[b], start[b]+T), start clamped to [0, S-T] like the reference's
+    vmapped dynamic_update_slice."""
+    T = vals.shape[1]
+    for b, s in enumerate(_clamped_starts(start, cache.shape[1], T)):
+        cache[b, s:s + T] = vals[b].to(cache.dtype)
+    return cache
+
+
+def dense_kv_write(cache: torch.Tensor, vals: torch.Tensor,
+                   start: torch.Tensor) -> torch.Tensor:
+    """In-place per-slot cache write (see ``dense_kv_write_plain``)."""
+    B, S, KHD = cache.shape
+    T = vals.shape[1]
+    if vals.shape[0] != B or vals.shape[2] != KHD or T > S:
+        raise ValueError(f"dense_kv_write: cache {tuple(cache.shape)}, "
+                         f"vals {tuple(vals.shape)}")
+    if cache.device.type == "cpu":
+        return dense_kv_write_plain(cache, vals, start)
+    vals = vals.to(cache.dtype)
+    row_bytes = KHD * cache.element_size()
+    if row_bytes % 16 or start.dtype != torch.int32 or start.shape != (B,):
+        raise ValueError("dense_kv_write: rows must be 16-byte multiples and "
+                         "start int32 [B]")
+    _build.check_cuda("dense_kv_write", cache, vals, start)
+    if cache.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("dense_kv_write: cache and vals must be 16-byte aligned")
+    fn = _build.function("kv_write", [_build.c_ptr] * 3 + [_build.c_int] * 4
+                         + [_build.c_ptr])
+    with torch.cuda.device(cache.device):
+        err = fn(cache.data_ptr(), vals.data_ptr(), start.data_ptr(), B, S, T,
+                 row_bytes, _build.stream(cache))
+    dense_kv_write.launches += 1
+    _build.raise_on_error("kv_write", err)
+    return cache
+
+
+dense_kv_write.launches = 0
+
+
+def _scalar(t, device) -> torch.Tensor:
+    """A scale as a 0-d f32 tensor on ``device`` (None = 1)."""
+    if t is None:
+        return torch.ones((), device=device)
+    return torch.as_tensor(t, dtype=torch.float32, device=device).reshape(())
+
+
+def _decode_chunk(S: int, chunk: int) -> int:
+    # the reference's rule (attention.py:559): 256-key chunks only when they
+    # tile S, else one chunk of S — it changes the int8 probability codes
+    return S if S % chunk else chunk
+
+
+def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
+                                 k_scale=None, v_scale=None,
+                                 out_dtype=torch.bfloat16, chunk: int = 256):
+    """Plain PyTorch fused decode step with the reference kernel's rounding
+    points (see csrc/fused_decode_attention.cu for the list)."""
+    B, S, KHD = k_cache.shape
+    KH, G, D = q.shape[1:]
+    chunk = _decode_chunk(S, chunk)
+    dev = q.device
+    int8 = k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8
+    ks, vs = (_scalar(t, dev) for t in (k_scale, v_scale))
+    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D), device=dev))
+    L = pos.long().clamp(max=S - 1)
+    qf = q.to(torch.bfloat16).float()                        # [B, KH, G, D]
+    if int8:
+        qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        q8 = torch.round(qf * (127.0 / qmax))
+        fs = qmax * (inv_sqrt_d / 127.0)
+    k4 = k_cache.view(B, S, KH, D)
+    v4 = v_cache.view(B, S, KH, D)
+    m = torch.full((B, KH, G, 1), -1e30, device=dev)
+    l = torch.zeros((B, KH, G, 1), device=dev)
+    acc = torch.zeros((B, KH, G, D), device=dev)
+    n_chunks = -(-int(L.max()) // chunk) if B else 0
+    for c in range(n_chunks):
+        base = c * chunk
+        kb = k4[:, base:base + chunk]
+        vb = v4[:, base:base + chunk]
+        if int8:
+            # integer dots: exact in f32 (|sum| <= 127*127*128 < 2^24)
+            s = torch.einsum("bhgd,bthd->bhgt", q8, kb.float()) * fs
+        else:
+            s = torch.einsum("bhgd,bthd->bhgt", qf,
+                             kb.to(torch.bfloat16).float()) * inv_sqrt_d
+        col = base + torch.arange(kb.shape[1], device=dev)
+        s = torch.where(col[None, None, None, :] < L[:, None, None, None], s,
+                        torch.tensor(-1e30, device=dev))
+        m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_cur)
+        e = torch.exp(s - m_cur)
+        if int8:
+            e8 = torch.round(e * 127.0)
+            esum = e8.sum(-1, keepdim=True) * (1.0 / 127.0)
+            # e8 . v8 sums pass 2^24: exact in f64
+            y = (torch.einsum("bhgt,bthd->bhgd", e8.double(), vb.double())
+                 .float() * (1.0 / 127.0))
+        else:
+            esum = e.sum(-1, keepdim=True)
+            y = torch.einsum("bhgt,bthd->bhgd", e.to(torch.bfloat16).float(),
+                             vb.to(torch.bfloat16).float())
+        live = (base < L)[:, None, None, None]
+        l = torch.where(live, l * alpha + esum, l)
+        acc = torch.where(live, acc * alpha + y, acc)
+        m = torch.where(live, m_cur, m)
+    kn = k_new.reshape(B, KH, 1, D).float()
+    vn = v_new.reshape(B, KH, 1, D).float()
+    s_n = (qf * kn).sum(-1, keepdim=True) * inv_sqrt_d
+    m_fin = torch.maximum(m, s_n)
+    alpha = torch.exp(m - m_fin)
+    e_n = torch.exp(s_n - m_fin)
+    l_fin = l * alpha + e_n
+    acc = acc * alpha + e_n * vn
+    out = acc * (vs / l_fin.clamp_min(1e-30))
+    rows = torch.arange(B, device=dev)
+    k_cache[rows, L] = k_new.reshape(B, KHD).to(k_cache.dtype)
+    v_cache[rows, L] = v_new.reshape(B, KHD).to(v_cache.dtype)
+    return out.to(out_dtype), k_cache, v_cache
+
+
+def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
+                           k_scale=None, v_scale=None, out_dtype=torch.bfloat16,
+                           chunk: int = 256, sinks=None, softcap=None):
+    """One decode step: write k/v_new [B, 1, KH*D] (already cache codes) into
+    the caches at row ``pos[b]`` IN PLACE and return the attention of
+    q [B, KH, G, D] over the pos[b]+1 keys, with the caches:
+    ``(out [B, KH, G, D], k_cache, v_cache)``. A pos at or past the cache
+    end is clamped to S-1. ``k_scale``/``v_scale``: f32 scalars for int8
+    codes (None = 1)."""
+    if sinks is not None or softcap is not None:
+        raise NotImplementedError(
+            "fused_decode_attention: attention sinks and logit softcap are not "
+            "ported yet")
+    B, S, KHD = k_cache.shape
+    KH, G, D = q.shape[1:]
+    if q.shape[0] != B or KH * D != KHD or v_cache.shape != k_cache.shape:
+        raise ValueError(f"fused_decode_attention: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    if q.device.type == "cpu":
+        return fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                                            pos, k_scale, v_scale, out_dtype,
+                                            chunk)
+    if k_cache.dtype not in (torch.int8, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+        raise NotImplementedError(
+            f"fused_decode_attention: {k_cache.dtype} caches are not ported "
+            "to the card (int8 and bf16 are)")
+    if D != 128 or G not in (1, 2, 4, 8):
+        raise NotImplementedError(
+            f"fused_decode_attention: the CUDA kernel takes D=128 and G in "
+            f"(1, 2, 4, 8), got D={D}, G={G}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_decode_attention: out_dtype {out_dtype}")
+    chunk = _decode_chunk(S, chunk)
+    if 4 * G * chunk > 200 * 1024:
+        raise NotImplementedError(
+            f"fused_decode_attention: a {chunk}-key chunk of scores does not "
+            "fit shared memory")
+    q = q.to(torch.bfloat16).contiguous()
+    k_new = k_new.to(k_cache.dtype).contiguous()
+    v_new = v_new.to(v_cache.dtype).contiguous()
+    if pos.dtype != torch.int32 or pos.shape != (B,):
+        raise ValueError("fused_decode_attention: pos must be int32 [B]")
+    scales = [None if t is None else _scalar(t, q.device)
+              for t in (k_scale, v_scale)]
+    _build.check_cuda("fused_decode_attention", q, k_new, v_new, k_cache,
+                      v_cache, pos, *scales)
+    out = torch.empty(B, KH, G, D, dtype=out_dtype, device=q.device)
+    f32 = out_dtype == torch.float32
+    fn = _build.function("fused_decode_attention", [_build.c_ptr] * 10
+                         + [_build.c_int] * 6 + [_build.c_ptr])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+                 _build.ptr(scales[0]), _build.ptr(scales[1]),
+                 out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
+                 B, S, KH, G, chunk, int(k_cache.dtype == torch.int8),
+                 _build.stream(q))
+    fused_decode_attention.launches += 1
+    _build.raise_on_error("fused_decode_attention", err)
+    return out, k_cache, v_cache
+
+
+fused_decode_attention.launches = 0
+

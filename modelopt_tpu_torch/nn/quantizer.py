@@ -1,0 +1,129 @@
+"""TensorQuantizer and the active-config context.
+
+Port of ``modelopt_tpu/nn/quantizer.py`` for the serving slice. Each
+quantizer knows its path (``layers_0/attn/k_quantizer``, the reference's
+naming, set by ``assign_paths``) and resolves its specs from the active
+QuantizeConfig at call time; its calibrated ``amax`` is a buffer (None until
+calibrated). Behaviour follows the phase (core.bundle): CALIB passes x
+through and max-updates amax, QUANT quantizes, OFF is identity.
+
+Ported specs: per-tensor static int8 (calibrated amax, also the real-codes
+path for the KV cache) and per-token dynamic int8. Sequential chains,
+pre-quant scales, rotation, affine and fp specs raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.bundle import PHASE_CALIB, PHASE_OFF, PHASE_QUANT, current_phase
+from ..quant.config import QuantizeConfig
+from ..quant.fake_quant import fake_quantize
+from ..quant.qspec import QuantizerSpec
+
+_ACTIVE_CFG: contextvars.ContextVar = contextvars.ContextVar("quant_cfg", default=None)
+
+
+@contextlib.contextmanager
+def quantization_active(cfg: QuantizeConfig):
+    """Bind the active QuantizeConfig while a bundle's module runs."""
+    token = _ACTIVE_CFG.set(cfg)
+    try:
+        yield
+    finally:
+        _ACTIVE_CFG.reset(token)
+
+
+def active_quant_config() -> Optional[QuantizeConfig]:
+    return _ACTIVE_CFG.get()
+
+
+def _needs_static_amax(spec: QuantizerSpec) -> bool:
+    if spec.dynamic:
+        return False
+    if spec.block is None:
+        return True
+    if not spec.block.dynamic:
+        return True
+    return spec.block.two_level
+
+
+def assign_paths(root: nn.Module) -> None:
+    """Give every module its reference path: ``layers_0.attn.k_quantizer``
+    becomes ``layers_0/attn/k_quantizer``."""
+    for name, mod in root.named_modules():
+        mod.path = name.replace(".", "/")
+
+
+class TensorQuantizer(nn.Module):
+    """A quantization point (input/weight/output/k/v/q quantizer)."""
+
+    def __init__(self):
+        super().__init__()
+        self.path = ""
+        self.register_buffer("amax", None)
+
+    def specs(self):
+        cfg = active_quant_config()
+        return cfg.resolve(self.path) if cfg is not None else None
+
+    def forward(self, x: torch.Tensor, with_scale: bool = False,
+                skip_fake: bool = False):
+        """``with_scale=True``: for a calibrated per-tensor static int8 spec in
+        QUANT phase return ``(int8 codes, f32 scale)`` — the KV cache's real
+        codes, scale = max(amax, 1e-12)/127, codes = clip(round(x/scale),
+        -127, 127); otherwise ``(x', None)``. ``skip_fake=True``: the caller's
+        GEMM quantizes the activations itself (per-token int8)."""
+
+        def ret(y, scale=None):
+            return (y, scale) if with_scale else y
+
+        phase = current_phase()
+        if phase == PHASE_OFF:
+            return ret(x)
+        specs = self.specs()
+        if not specs:
+            return ret(x)
+        if skip_fake and phase == PHASE_QUANT:
+            return ret(x)
+        sp = specs[0]
+        if (with_scale and phase == PHASE_QUANT and len(specs) == 1
+                and sp.enable and sp.block is None and sp.axis is None
+                and not sp.dynamic and not sp.rotate and self.amax is not None):
+            if sp.is_fp:
+                raise NotImplementedError("fp8 KV-cache codes are not ported")
+            if sp.num_bits == 8:
+                scale = self.amax.float().clamp_min(1e-12) / 127.0
+                codes = torch.clamp(torch.round(x.float() / scale), -127.0, 127.0)
+                return codes.to(torch.int8), scale
+        if len(specs) > 1:
+            raise NotImplementedError("sequential quantizer chains are not ported")
+        if sp.enable:
+            x = self._apply_one(x, sp, phase)
+        return ret(x)
+
+    def _apply_one(self, x: torch.Tensor, spec: QuantizerSpec, phase: str):
+        if spec.bias_mode is not None:
+            raise NotImplementedError("affine quantizers are not ported")
+        needs_amax = _needs_static_amax(spec)
+        if phase == PHASE_CALIB:
+            if needs_amax:
+                if spec.block is not None or spec.axis is not None:
+                    raise NotImplementedError(
+                        "calibration of per-channel / static-block amax is not ported")
+                stat = x.detach().abs().amax().float()
+                self.amax = stat if self.amax is None else torch.maximum(self.amax, stat)
+            return x
+        amax = None
+        if needs_amax:
+            if self.amax is None:
+                raise ValueError(
+                    f"Quantizer {self.path} has no calibrated 'amax'. Run "
+                    "calibrate() first (or use a dynamic spec).")
+            amax = self.amax
+        return fake_quantize(x, spec, amax=amax)
