@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("w4a8_gemm", "kv_write", "fused_decode_attention",
-           "flash_prefill_attention")
+           "flash_prefill_attention", "w4a16_gemm", "grouped_w4a8_gemm")
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
@@ -77,17 +77,19 @@ def build_all(names=SOURCES) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def function(name: str, argtypes):
-    """The C entry point ``name`` of ``csrc/<name>.cu`` (built on first use),
-    returning the launch's cudaGetLastError() as an int."""
+def function(name: str, argtypes, source: str = None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``; built on first use), returning the launch's
+    cudaGetLastError() as an int."""
+    source = source or name
     with _LOCK:
-        fn = _LIBS.get(name)
+        fn = _LIBS.get((source, name))
         if fn is None:
-            build_all((name,))
-            fn = getattr(ctypes.CDLL(_paths(name)[1]), name)
+            build_all((source,))
+            fn = getattr(ctypes.CDLL(_paths(source)[1]), name)
             fn.argtypes = list(argtypes)
             fn.restype = c_int
-            _LIBS[name] = fn
+            _LIBS[(source, name)] = fn
         return fn
 
 

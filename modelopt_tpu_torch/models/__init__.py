@@ -6,8 +6,10 @@ from .transformer import (
     llama3_8b_config,
     llama_config,
     make_cache,
+    qwen3_moe_config,
+    tiny_moe_test_config,
     tiny_test_config,
 )
 
 __all__ = ["Decoder", "DecoderConfig", "llama3_8b_config", "llama_config",
-           "make_cache", "tiny_test_config"]
+           "make_cache", "qwen3_moe_config", "tiny_moe_test_config", "tiny_test_config"]

@@ -1,10 +1,12 @@
 """Carry a reference (JAX) model's variables into the port.
 
 ``from_jax_variables`` takes the reference bundle's variables as a nested
-dict of numpy arrays — ``params`` (kernels [in, out], embedding, norm
-scales) and ``quant`` (packed ``qweight`` {data, scale} in the same [in, out]
-layout, k/v quantizer ``amax``) — and loads them into a port Decoder, so
-both packages compute the same model. Every leaf must be consumed: a leaf
+dict of numpy arrays — ``params`` (kernels [in, out] and expert kernels
+[E, in, out], embedding, norm scales including the q/k norms, the MoE
+router's kernel and bias) and ``quant`` (packed ``qweight`` {data, scale}
+in the same [in, out] layout, the folded [in, E*out] one for experts, k/v
+quantizer ``amax``) — and loads them into a port Decoder, so both packages
+compute the same model. Every leaf must be consumed: a leaf
 the port has no place for (a pre-quant scale, an unported quantizer state)
 raises instead of being dropped.
 """
@@ -17,7 +19,7 @@ from torch import nn
 
 from ..core.bundle import ModelBundle, ModeRecord
 from ..core.tree import flatten_with_paths
-from ..nn.layers import QuantDense
+from ..nn.layers import QuantDense, QuantEinsum
 from ..nn.quantizer import TensorQuantizer
 from ..quant import mode as _mode  # noqa: F401  (registers quantize/compress)
 from ..quant.config import get_config
@@ -54,7 +56,8 @@ def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
     compressed = False
     for mod in model.modules():
         base = mod.path
-        if isinstance(mod, QuantDense) and f"quant/{base}/qweight/data" in leaves:
+        if (isinstance(mod, (QuantDense, QuantEinsum))
+                and f"quant/{base}/qweight/data" in leaves):
             mod.set_qweight({"data": take(f"quant/{base}/qweight/data"),
                              "scale": take(f"quant/{base}/qweight/scale")})
             compressed = True

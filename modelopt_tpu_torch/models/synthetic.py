@@ -1,13 +1,16 @@
-"""Build a compressed Llama-scale bundle without its full-precision weights.
+"""Build a compressed Llama- or Qwen3-MoE-scale bundle without its
+full-precision weights.
 
 Port of ``modelopt_tpu/models/synthetic.py::build_compressed_bundle``. The
 decoder is built on the meta device; then, layer by layer on ``device``,
 every kernel the preset quantizes is drawn from a ``torch.Generator`` in
 bf16 (``N(0, 1) * init_scale``) and packed at once, so the transient is one
-weight; norm scales start at 1 and every other parameter (embedding,
-lm_head) is drawn the same way in ``param_dtype``. The bundle carries
-``quantize`` and ``compress`` records, like a quantized-then-compressed
-model.
+weight; an expert kernel [E, in, out] is drawn directly in its folded shape
+[in, E*out] (the reference's synthetic.py:62-72; one Qwen3-30B-A3B gate
+weight is a 403 MB transient). Norm scales start at 1 and every other
+parameter (embedding, lm_head, router) is drawn the same way in
+``param_dtype``. The bundle carries ``quantize`` and ``compress`` records,
+like a quantized-then-compressed model.
 """
 
 from __future__ import annotations
@@ -16,10 +19,10 @@ import torch
 from torch import nn
 
 from ..core.bundle import ModelBundle, ModeRecord
-from ..nn.layers import QuantDense, RMSNorm
+from ..nn.layers import QuantDense, QuantEinsum, RMSNorm
 from ..quant import mode as _mode  # noqa: F401  (registers quantize/compress)
 from ..quant.config import get_config
-from ..quant.qtensor import compressible_format, quantize_qtensor
+from ..quant.qtensor import compressible_format, quantize_qtensor, spec_folds
 from .transformer import Decoder, DecoderConfig
 
 
@@ -29,9 +32,14 @@ def build_compressed_bundle(cfg: DecoderConfig, quant_preset, seed: int = 0,
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Decoder(cfg, device="meta")
     for mod in model.modules():
+        shape = None
+        specs = qcfg.resolve(mod.path + "/weight_quantizer")
         if isinstance(mod, QuantDense):
-            specs = qcfg.resolve(mod.path + "/weight_quantizer")
             shape = (mod.in_features, mod.features)
+        elif isinstance(mod, QuantEinsum) and specs and spec_folds(specs[0]):
+            E, fin, fout = mod.kernel_shape
+            shape = (fin, E * fout)
+        if shape is not None:
             if specs and specs[0].enable and compressible_format(specs[0], shape):
                 w = torch.randn(shape, generator=gen, device=device,
                                 dtype=torch.bfloat16) * init_scale

@@ -1,11 +1,15 @@
-"""Quantization-aware decoder-only transformer, llama family.
+"""Quantization-aware decoder-only transformer: the llama family and
+Qwen3-MoE.
 
-Port of the llama path of ``modelopt_tpu/models/transformer.py``: RMSNorm,
-RoPE (plain or llama3-scaled), grouped-query attention with a
-lane-merged [B, S, KH*D] KV cache, silu-GLU MLP, optional fused qkv and
-gate_up projections. Module names follow the reference
-(``layers_0/attn/qkv_proj``, ``layers_0/mlp/gate_up_proj``, ``lm_head``...),
-so quantize configs and reference variables address the same paths.
+Port of the llama and Qwen3-MoE paths of
+``modelopt_tpu/models/transformer.py``: RMSNorm, RoPE (plain or
+llama3-scaled), grouped-query attention with optional per-head q/k RMSNorm
+and a lane-merged [B, S, KH*D] KV cache, silu-GLU MLP, optional fused qkv and
+gate_up projections, and a softmax top-k routed MoE block computed dense
+over all experts, as the reference does. Module names follow the reference
+(``layers_0/attn/qkv_proj``, ``layers_0/mlp/gate_up_proj``,
+``layers_0/moe/down_proj``, ``lm_head``...), so quantize configs and
+reference variables address the same paths.
 
 Cached forwards go through the kernels: T > 1 writes the chunk's K/V with
 ``dense_kv_write`` then attends with ``flash_prefill_attention``; T == 1 is
@@ -25,14 +29,15 @@ from torch import nn
 
 from ..kernels.attention import dense_kv_write, fused_decode_attention
 from ..kernels.flash_attention import flash_prefill_attention
-from ..nn.layers import QuantDense, QuantEmbed, RMSNorm
+from ..nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
 from ..nn.quantizer import TensorQuantizer, assign_paths
 
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """The reference's DecoderConfig, restricted to the fields the llama
-    family uses."""
+    family and Qwen3-MoE use. Routing variants the port does not run yet
+    raise NotImplementedError."""
 
     vocab_size: int = 32000
     hidden_size: int = 2048
@@ -54,6 +59,25 @@ class DecoderConfig:
     rope_scaling: Optional[tuple] = None
     fused_qkv: bool = False
     fused_gate_up: bool = False
+    # the embedding table doubles as the LM head (no lm_head parameters)
+    tie_word_embeddings: bool = False
+    # Qwen3-style per-head RMSNorm on q/k (over head_dim, before RoPE)
+    qk_norm: bool = False
+    # MoE; 0 experts = dense MLP. Dense MLPs for the first k layers.
+    num_experts: int = 0
+    experts_per_token: int = 2
+    moe_intermediate_size: Optional[int] = None  # None = intermediate_size
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    first_k_dense: int = 0
+    router_bias: bool = False
+    # routing variants of the reference not ported yet (defaults only)
+    router_score: str = "softmax"
+    router_correction_bias: bool = False
+    n_group: Optional[int] = None
+    n_shared_experts: int = 0
+    moe_activation: str = "silu_glu"
+    moe_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -61,6 +85,19 @@ class DecoderConfig:
         if self.activation != "silu_glu" or self.norm != "rmsnorm" or self.positions != "rope":
             raise NotImplementedError(
                 "the port's decoder covers the llama family (silu_glu, rmsnorm, rope)")
+        unported = {
+            "router_score": self.router_score != "softmax",
+            "router_correction_bias": self.router_correction_bias,
+            "n_group": bool(self.n_group and self.n_group > 1),
+            "n_shared_experts": bool(self.n_shared_experts),
+            "moe_activation": self.moe_activation != "silu_glu",
+            "moe_bias": self.moe_bias,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"MoE options {bad} are not ported (softmax top-k routing with "
+                "silu-GLU experts is)")
 
     @property
     def kv_heads(self) -> int:
@@ -69,6 +106,9 @@ class DecoderConfig:
     @property
     def dims_per_head(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    def is_moe(self, layer: int) -> bool:
+        return self.num_experts > 0 and layer >= self.first_k_dense
 
 
 def make_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
@@ -153,6 +193,11 @@ class Attention(nn.Module):
             self.k_proj = dense(Hd, KH * D)
             self.v_proj = dense(Hd, KH * D)
         self.o_proj = dense(H * D, Hd)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(D, epsilon=cfg.norm_eps, dtype=cfg.dtype,
+                                  param_dtype=cfg.param_dtype, device=device)
+            self.k_norm = RMSNorm(D, epsilon=cfg.norm_eps, dtype=cfg.dtype,
+                                  param_dtype=cfg.param_dtype, device=device)
         self.q_quantizer = TensorQuantizer()
         self.k_quantizer = TensorQuantizer()
         self.v_quantizer = TensorQuantizer()
@@ -171,6 +216,9 @@ class Attention(nn.Module):
         q = q.reshape(B, T, H, D)
         k = k.reshape(B, T, KH, D)
         v = v.reshape(B, T, KH, D)
+        if cfg.qk_norm:  # Qwen3: RMSNorm over head_dim on q and k, before RoPE
+            q = self.q_norm(q)
+            k = self.k_norm(k)
         q = _rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = _rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         q = self.q_quantizer(q)
@@ -243,8 +291,73 @@ class MLP(nn.Module):
         return self.down_proj(nn.functional.silu(gate) * up)
 
 
-class Block(nn.Module):
+class Router(nn.Module):
+    """The MoE router: an unquantized f32 linear layer (the reference's
+    ``nn.Dense(E, dtype=float32)``), kernel [hidden, E] in ``param_dtype``
+    cast to f32 for the product."""
+
+    def __init__(self, in_features: int, n_experts: int, use_bias: bool,
+                 param_dtype: torch.dtype, device="cuda"):
+        super().__init__()
+        self.path = ""
+        self.kernel = nn.Parameter(torch.empty(in_features, n_experts, dtype=param_dtype,
+                                               device=device), requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(n_experts, dtype=param_dtype, device=device),
+                                  requires_grad=False) if use_bias else None)
+
+    def forward(self, x):
+        y = torch.matmul(x.float(), self.kernel.float())
+        return y if self.bias is None else y + self.bias.float()
+
+
+class MoEBlock(nn.Module):
+    """Softmax top-k routed experts (Qwen3-MoE / Mixtral semantics of the
+    reference's MoEBlock): affinities over all experts, the top
+    ``experts_per_token`` selected, their weights gathered from the
+    affinities, renormalised (``norm_topk_prob``) and post-scaled. Compute is
+    dense over all experts, masked by the gates, as in the reference; the
+    down-projection takes the gates and returns the combined [B, T, hidden]
+    (one fused kernel on the W4A8 decode path)."""
+
     def __init__(self, cfg: DecoderConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        E, Hd = cfg.num_experts, cfg.hidden_size
+        inter = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.router = Router(Hd, E, cfg.router_bias, cfg.param_dtype, device)
+
+        def experts(shape, spec):
+            return QuantEinsum(spec, shape, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                               device=device)
+
+        self.gate_proj = experts((E, Hd, inter), "btd,edf->btef")
+        self.up_proj = experts((E, Hd, inter), "btd,edf->btef")
+        self.down_proj = experts((E, inter, Hd), "bteo,eod->bted")
+
+    def route(self, x):
+        """x [B, T, hidden] -> (gates [B, T, E] f32, selected expert ids
+        [B, T, k], affinities [B, T, E])."""
+        cfg = self.cfg
+        E, k = cfg.num_experts, cfg.experts_per_token
+        scores = torch.softmax(self.router(x), dim=-1)
+        _, sel = torch.topk(scores, k, dim=-1)
+        weights = scores.gather(-1, sel)
+        if cfg.norm_topk_prob:
+            weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+        weights = weights * cfg.routed_scaling_factor
+        # compare-and-sum into a dense gate matrix, as the reference does
+        eids = torch.arange(E, device=x.device)
+        gates = torch.where(sel[..., None] == eids, weights[..., None], 0.0).sum(dim=-2)
+        return gates, sel, scores
+
+    def forward(self, x):
+        gates, _, _ = self.route(x)
+        h = nn.functional.silu(self.gate_proj(x)) * self.up_proj(x)  # [B, T, E, I]
+        return self.down_proj(h, gates=gates.to(self.cfg.dtype))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: DecoderConfig, device="cuda", layer: int = 0):
         super().__init__()
 
         def norm():
@@ -254,12 +367,16 @@ class Block(nn.Module):
         self.input_norm = norm()
         self.attn = Attention(cfg, device)
         self.post_attn_norm = norm()
-        self.mlp = MLP(cfg, device)
+        if cfg.is_moe(layer):
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, mask=None, cache_kv=None):
         h, new_kv = self.attn(self.input_norm(x), positions, mask, cache_kv)
         x = x + h
-        return x + self.mlp(self.post_attn_norm(x)), new_kv
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.post_attn_norm(x)), new_kv
 
 
 class Decoder(nn.Module):
@@ -272,13 +389,14 @@ class Decoder(nn.Module):
         self.embed_tokens = QuantEmbed(cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
                                        param_dtype=cfg.param_dtype, device=device)
         for i in range(cfg.num_layers):
-            self.add_module(f"layers_{i}", Block(cfg, device))
+            self.add_module(f"layers_{i}", Block(cfg, device, layer=i))
         self.final_norm = RMSNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
                                   dtype=cfg.dtype, param_dtype=cfg.param_dtype,
                                   device=device)
-        self.lm_head = QuantDense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
-                                  dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                                  device=device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = QuantDense(cfg.hidden_size, cfg.vocab_size, use_bias=False,
+                                      dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                                      device=device)
         assign_paths(self)
 
     def layers(self):
@@ -312,6 +430,8 @@ class Decoder(nn.Module):
         x = self.final_norm(x)
         if logits_index is not None:
             x = x[torch.arange(B, device=dev), logits_index.long()]
+        if self.cfg.tie_word_embeddings:
+            return self.embed_tokens.attend(x), new_cache
         return self.lm_head(x), new_cache
 
 
@@ -333,6 +453,35 @@ def llama3_8b_config(**overrides) -> DecoderConfig:
     )
     base.update(overrides)
     return llama_config(**base)
+
+
+def qwen3_moe_config(**overrides) -> DecoderConfig:
+    """Qwen3-MoE (Qwen3-30B-A3B, Hugging Face ``Qwen/Qwen3-30B-A3B``
+    config.json): qk-norm and softmax top-8 of 128 routed experts."""
+    base = dict(
+        vocab_size=151936, hidden_size=2048, num_layers=48, num_heads=32,
+        num_kv_heads=4, head_dim=128, intermediate_size=6144,
+        moe_intermediate_size=768, num_experts=128, experts_per_token=8,
+        norm_topk_prob=True, qk_norm=True, rope_theta=1e6, norm_eps=1e-6,
+        max_position_embeddings=40960,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
+
+
+def tiny_moe_test_config(**overrides) -> DecoderConfig:
+    """Small Qwen3-MoE-shaped config for tests: 2 layers, 2 heads and 1 KV
+    head of head_dim 128 (the attention kernels' D), 4 experts, top-2,
+    qk-norm; widths whole int4 blocks (K/2 % 128 == 0)."""
+    base = dict(
+        vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+        num_kv_heads=1, head_dim=128, intermediate_size=512,
+        moe_intermediate_size=256, num_experts=4, experts_per_token=2,
+        norm_topk_prob=True, qk_norm=True, rope_theta=1e6, norm_eps=1e-6,
+        max_position_embeddings=256,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
 
 
 def tiny_test_config(**overrides) -> DecoderConfig:

@@ -3,9 +3,9 @@
 Port of ``modelopt_tpu/quant/config.py``: the same rule engine (ordered
 fnmatch rules on quantizer paths such as
 ``layers_0/attn/qkv_proj/weight_quantizer``, later matches overriding
-earlier ones attribute by attribute) and, of the presets, the three the
-serving slice runs: ``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG`` and
-``INT8_KV_CFG``.
+earlier ones attribute by attribute) and, of the presets, the four the
+serving paths run: ``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG``,
+``INT8_KV_CFG`` and ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16).
 
 Layout convention (kept from the reference): weight kernels are
 ``[in_features, out_features]``, so per-output-channel weight scales are
@@ -156,11 +156,13 @@ INT8_KV_CFG = _cfg(_W_INT8_PC, _A_INT8_PT, extra=KV_CACHE_INT8,
                    algorithm={"method": "smoothquant"})
 W4A8_INT8KV_CFG = _cfg(_W_INT4_BLOCK, _A_INT8_PER_TOKEN, extra=KV_CACHE_INT8,
                        algorithm={"method": "awq_lite"})
+INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _cfg(_W_INT4_BLOCK, None)
 
 choices = {
     "W4A8_INT8_DYNAMIC_CFG": W4A8_INT8_DYNAMIC_CFG,
     "INT8_KV_CFG": INT8_KV_CFG,
     "W4A8_INT8KV_CFG": W4A8_INT8KV_CFG,
+    "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
 }
 
 

@@ -11,6 +11,12 @@ packed weight from either package feeds the other:
   * INT8: int8 [K, N] with per-out-channel f32 scales [1, N].
 
 Scales are the dequantization multipliers (w ~ code * scale).
+
+MoE expert kernels [E, in, out] pack as their FOLDED view [in, E*out]
+(``fold_experts``, the reference's quant/compress.py:37-49): expert e is
+columns e*out:(e+1)*out, in-dim scale blocks map one to one, and each
+expert's scales fall out of its own columns. Specs with a positive
+(explicit per-expert) axis do not fold (``spec_folds``).
 """
 
 from __future__ import annotations
@@ -68,6 +74,27 @@ def quantize_int8(w: torch.Tensor) -> dict:
 
 def dequantize_int8(qt: dict) -> torch.Tensor:
     return qt["data"].float() * qt["scale"]
+
+
+def spec_folds(spec: QuantizerSpec) -> bool:
+    """Whether a 3-D expert kernel under ``spec`` packs through the folded
+    view: no axis or block axis counted from the front."""
+    axes = tuple(spec.axis or ())
+    if spec.block is not None:
+        axes = axes + tuple(int(a) for a, _ in spec.block.sizes)
+    return not any(a >= 0 for a in axes)
+
+
+def fold_experts(kernel: torch.Tensor) -> torch.Tensor:
+    """[E, in, out] -> [in, E*out]."""
+    E, fin, fout = kernel.shape
+    return kernel.transpose(0, 1).reshape(fin, E * fout)
+
+
+def unfold_experts(w2d: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[in, E*out] -> [E, in, out], the inverse of ``fold_experts``."""
+    fin = w2d.shape[0]
+    return w2d.reshape(fin, n_experts, -1).transpose(0, 1)
 
 
 def compressible_format(spec: QuantizerSpec, shape):

@@ -37,11 +37,11 @@ WIDE = dict(hidden_size=256, intermediate_size=512, fused_qkv=True, fused_gate_u
 B, T, S, STEPS = 2, 12, 32, 3
 
 
-def reference_bundle(preset, jdtype=jnp.bfloat16, seed=0, lm_scale=1.0):
+def reference_bundle(preset, jdtype=jnp.bfloat16, seed=0, lm_scale=1.0, **overrides):
     """A JAX ModelBundle whose weights come from numpy: projections packed by
     the reference's quantize_int4, embedding / norms / lm_head in f32."""
     rng = np.random.default_rng(seed)
-    cfg = jt.tiny_test_config(dtype=jdtype, **WIDE)
+    cfg = jt.tiny_test_config(dtype=jdtype, **WIDE, **overrides)
     module = jt.Decoder(cfg)
     ids = jnp.zeros((1, 8), jnp.int32)
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), ids)["params"]
@@ -73,8 +73,8 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def port_cfg(tdtype=torch.bfloat16):
-    return tt.tiny_test_config(dtype=tdtype, **WIDE)
+def port_cfg(tdtype=torch.bfloat16, **overrides):
+    return tt.tiny_test_config(dtype=tdtype, **WIDE, **overrides)
 
 
 def jax_calibrate(jb):
@@ -162,3 +162,29 @@ def test_uncached_forward_matches():
     want = np.asarray(lj, np.float32)
     np.testing.assert_allclose(lt.float().numpy(), want, rtol=0,
                                atol=5e-2 * np.abs(want).max())
+
+
+def test_tied_lm_head_matches():
+    """``tie_word_embeddings``: no lm_head parameters; the embedding table is
+    the LM head (``QuantEmbed.attend``) in both packages, uncached and
+    cached (prefill then one decode step), at the bf16 bar above."""
+    preset = "W4A8_INT8_DYNAMIC_CFG"
+    jb = reference_bundle(preset, tie_word_embeddings=True)
+    assert "lm_head" not in jb.variables["params"]
+    ids = np.random.default_rng(3).integers(1, 256, (B, T)).astype(np.int32)
+    fn = jax.jit(jb.make_fn())
+    lj, _ = fn(jb.variables, jnp.asarray(ids))
+    jcache = jt.make_cache(jb.module.cfg, B, S)
+    _, jcache = fn(jb.variables, jnp.asarray(ids[:, :-1]), jcache)
+    lj1, _ = fn(jb.variables, jnp.asarray(ids[:, -1:]), jcache)
+    cfg = port_cfg(tie_word_embeddings=True)
+    tb = from_jax_variables(to_numpy(jb.variables), cfg, preset, device="cpu")
+    assert not hasattr(tb.module, "lm_head")
+    lt, _ = tb.apply(torch.from_numpy(ids))
+    tcache = tt.make_cache(cfg, B, S, device="cpu")
+    _, tcache = tb.apply(torch.from_numpy(ids[:, :-1]), tcache)
+    lt1, _ = tb.apply(torch.from_numpy(ids[:, -1:]), tcache)
+    for got, want in ((lt, lj), (lt1, lj1)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=5e-2 * np.abs(want).max())

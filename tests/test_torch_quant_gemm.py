@@ -84,18 +84,19 @@ def test_qgemm_matches_reference(rng, M):
 
 
 def test_qgemm_dequantize_path_is_cpu_only(rng):
-    """Formats without a ported kernel (here int4 weights with bf16
-    activations, the TPU's w4a16_gemm) take dequantize + matmul on the CPU,
-    matching the reference at bf16 tolerance; on any other device they
+    """Formats without a ported kernel (here int8 per-channel weights with
+    bf16 activations, the TPU's w8a16_gemm) take dequantize + matmul on the
+    CPU, matching the reference at bf16 tolerance; on any other device they
     raise rather than let a library matmul stand in for the kernel."""
     K, N = 256, 128
     x = rng.standard_normal((4, K)).astype(np.float32)
     w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
-    p = jq.quantize_int4(jnp.asarray(w))
-    yj = np.asarray(jb.qgemm(jnp.asarray(x, jnp.bfloat16), p, SPEC, (K, N))
+    p = jq.quantize_int8(jnp.asarray(w))
+    jspec = QuantizerSpec(num_bits=8, axis=(-1,))
+    yj = np.asarray(jb.qgemm(jnp.asarray(x, jnp.bfloat16), p, jspec, (K, N))
                     .astype(jnp.float32))
     pt = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
-    spec = TSpec(num_bits=4, block={-2: 128})
+    spec = TSpec(num_bits=8, axis=(-1,))
     yt = tb.qgemm(torch.from_numpy(x).bfloat16(), pt, spec, (K, N)).float().numpy()
     np.testing.assert_allclose(yt, yj, rtol=0, atol=2e-2 * np.abs(yj).max())
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
