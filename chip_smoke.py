@@ -13,14 +13,19 @@ Phases, in order (any failure exits non-zero):
      25 launches, L2 flushed before each) and the least time the card could
      take for the same work: the MoE kernels (K6 w4a16_gemm at the four
      projection shapes, K10 grouped_w4a16_gemm, K12
-     grouped_w4a8_combine_gemm with routed and dense gate scales), then
-     K1-K4 with K2 and K4 at both GQA groups the paths run (G = 4 and 8);
+     grouped_w4a8_combine_gemm with routed and dense gate scales, and at
+     DeepSeek's straddle shape K=1408), then K1-K4 with K2 and K4 at both
+     GQA groups the paths run (G = 4 and 8), then K5 decode_attention at
+     the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
+     with one chunk and with two, and on a bf16 cache;
   3. parity: small models built from the same numpy weights on the CPU
      (plain versions) and on the card (kernels), prefill and 4 decode steps
      compared: a 2-layer Qwen3-MoE at the real per-expert geometry (hidden
      2048, expert width 768, 32/4 heads, 8 experts, top-2) under
-     W4A8_INT8KV_CFG and under INT4_BLOCKWISE_WEIGHT_ONLY_CFG, and a
-     2-layer llama;
+     W4A8_INT8KV_CFG and under INT4_BLOCKWISE_WEIGHT_ONLY_CFG, a 2-layer
+     DeepSeek-V2 at the real attention and expert widths (hidden 2048, 16
+     heads, r=512, dr=64, expert width 1408, 2 shared, 8 experts, top-2)
+     under W4A8_INT8KV_CFG with an int8 latent cache, and a 2-layer llama;
   4. serving paths, one after the other (each model freed before the next
      is built), each on random weights from a seed, served by ServingEngine
      (max_batch 8, max_seq_len 2176, prefill buckets (32, 544), multi_step
@@ -33,6 +38,9 @@ Phases, in order (any failure exits non-zero):
        C: Qwen3-30B-A3B (full width and depth) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
+       D: DeepSeek-V2-Lite (full width and depth: MLA, 64 experts top-6
+          plus 2 shared, a dense first layer) under W4A8_INT8KV_CFG, the
+          int8 latent cache calibrated by one 64-token forward;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request.
 Then one JSON line of per-kernel numbers, and last the device line.
@@ -61,7 +69,8 @@ REPEATS = 25
 PRIMARY = ("M=8 K=4096 N=28672",
            "B=8 S=2176 KH=8 G=4 D=128 int8 ragged pos",
            "M=8 K=2048 N=98304 bf16 out",
-           "E=128 M=8 K=768 N=2048")  # K12 reports its first row (routed gscale)
+           "E=128 M=8 K=768 N=2048",  # K12 reports its first row (routed gscale)
+           "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088")
 
 SOURCES = {
     "w4a8_gemm": ("modelopt_tpu_torch/csrc/w4a8_gemm.cu",
@@ -78,6 +87,8 @@ SOURCES = {
                            "modelopt_tpu/kernels/quant_gemm.py:653"),
     "grouped_w4a8_combine_gemm": ("modelopt_tpu_torch/csrc/grouped_w4a8_gemm.cu",
                                   "modelopt_tpu/kernels/quant_gemm.py:773"),
+    "decode_attention": ("modelopt_tpu_torch/csrc/decode_attention.cu",
+                         "modelopt_tpu/kernels/attention.py:257"),
 }
 # kernels each serving path must launch
 PATH_KERNELS = {
@@ -87,6 +98,7 @@ PATH_KERNELS = {
           "flash_prefill_attention", "grouped_w4a8_combine_gemm"),
     "C": ("w4a16_gemm", "grouped_w4a16_gemm", "dense_kv_write",
           "fused_decode_attention", "flash_prefill_attention"),
+    "D": ("w4a8_gemm", "dense_kv_write", "decode_attention", "grouped_w4a8_combine_gemm"),
 }
 
 
@@ -331,6 +343,77 @@ def kernel_phase(torch, results: dict) -> None:
                err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * B * keys * KH * G * D, BF16_FLOPS)
 
+    mla_decode_kernel(torch, gen, timer, record)
+
+
+def mla_decode_kernel(torch, gen, timer, record) -> None:
+    """K5 at the MLA decode shape of DeepSeek-V2-Lite: B=8 slots, one
+    shared KV head, G=16 query heads, D=640 (the 576-wide latent row
+    padded), the same int8 latent tensor as K and V, lengths spread over
+    1..1088; S=2176 is one chunk of S (2176 % 256 != 0), S=512 two chunks,
+    where the 7-bit codes are rounded against a running max; then a bf16
+    cache at the path shape."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    dev = "cuda"
+    # Kernel and plain version run the same exact integer dots and the same
+    # f32 operations in the same order; they differ only where expf and
+    # torch.exp round a probability code e8 across .5. One flipped code
+    # moves an output by <= 254 * vs / sum(e8) <= 2 * vs (sum(e8) >= 127 on
+    # a live row); the bar takes half of that, vs, as K2 does, plus one
+    # bf16 ulp of the largest output for the final rounding.
+    log("K5 decode_attention")
+    B, G, D, vs_ = 8, 16, 640, 0.03
+    for S, top in ((2176, 1088), (512, 512)):
+        q = (torch.randn(B, 1, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        lat = torch.randint(-127, 128, (B, S, D), generator=gen, device=dev,
+                            dtype=torch.int8)
+        lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+        sc = torch.tensor(vs_, device=dev)
+        out = ka.decode_attention(q, lat, lat, lengths, sc, sc)
+        ref = ka.decode_attention_plain(q, lat, lat, lengths, sc, sc)
+        err = (out.float() - ref.float()).abs().max().item()
+        top_ref = ref.float().abs().max().item()
+        tol = vs_ + 2.0 ** (math.floor(math.log2(top_ref)) - 7)
+        ms = timer(lambda: ka.decode_attention(q, lat, lat, lengths, sc, sc))
+        plain_ms = timer(lambda: ka.decode_attention_plain(q, lat, lat, lengths, sc, sc), 5)
+        kv = (lat.float() * vs_).to(torch.bfloat16)[:, None]   # [B, 1, S, D]
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q.reshape(B, G, 1, D), kv, kv, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        live = int(lengths.long().sum())
+        # the aliased K = V rows are read once; q in, out back, bf16
+        nbytes = live * D + 2 * B * G * D * 2
+        record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} int8 K=V lengths 1..{top}",
+               err, tol, ms, plain_ms, lib_ms, nbytes, 4 * live * G * D, INT8_OPS)
+
+    # A bf16 cache (off the served paths: MLA decodes a bf16 latent cache
+    # with einsums, as the reference does) at the same shape. Kernel and
+    # plain version sum in f32 in another order and may round a
+    # probability to the other bf16 after a different exp(), ~1e-4 on an
+    # output; a sum that differs in its last bits may then round to the
+    # neighbouring bf16 output, one ulp of the largest output.
+    S, top = 2176, 1088
+    q = torch.randn(B, 1, G, D, generator=gen, device=dev).to(torch.bfloat16)
+    lat = torch.randn(B, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+    out = ka.decode_attention(q, lat, lat, lengths)
+    ref = ka.decode_attention_plain(q, lat, lat, lengths)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 1e-3 + 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    ms = timer(lambda: ka.decode_attention(q, lat, lat, lengths))
+    plain_ms = timer(lambda: ka.decode_attention_plain(q, lat, lat, lengths), 5)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q.reshape(B, G, 1, D), lat[:, None], lat[:, None], attn_mask=mask[:, None, None, :],
+        enable_gqa=True))
+    live = int(lengths.long().sum())
+    record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} bf16 K=V lengths 1..{top}",
+           err, tol, ms, plain_ms, lib_ms, live * D * 2 + 2 * B * G * D * 2,
+           4 * live * G * D, BF16_FLOPS)
+
 
 def w4a16_bar(torch, ref, x, wdq) -> float:
     """How far a W4A16 kernel may sit from its plain version: both multiply
@@ -346,7 +429,8 @@ def w4a16_bar(torch, ref, x, wdq) -> float:
 
 
 def moe_kernels(torch, gen, timer, record) -> None:
-    """K6, K10 and K12 at the Qwen3-30B-A3B paths' shapes."""
+    """K6, K10 and K12 at the Qwen3-30B-A3B paths' shapes, K12 also at
+    DeepSeek-V2-Lite's."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
     from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
 
@@ -399,22 +483,42 @@ def moe_kernels(torch, gen, timer, record) -> None:
                BF16_FLOPS)
 
     log("K12 grouped_w4a8_combine_gemm")
-    # K12 — exact integer dots, each expert's f32 block update and gated term
-    # rounded as the plain version rounds them, the terms summed in expert
-    # order: bit-exact (tolerance 0), and the same bits on a second launch.
-    # gscale as the W4A8 decode makes it (8 routed experts per row, gate x
-    # the row's activation scale), then dense random. The bound counts the
-    # work this gscale needs: the weights of experts some row is routed to,
-    # the products of non-zero (expert, row) pairs.
+    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 8, ("routed", "dense"))
+    del qt, wdq
+    # DeepSeek-V2-Lite's decode down projection: 64 experts of [1408, 2048],
+    # K/2 = 704 = 5 * 128 + 64, so one scale block straddles the halves
+    E, K, N = 64, 1408, 2048
+    w = torch.randn(K, E * N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+    qt = quantize_int4(w)
+    del w
+    wdq = dequantize_int4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1).contiguous()
+    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 6, ("routed",))
+    del qt, wdq
+
+
+def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, kinds) -> None:
+    """K12 rows at one expert geometry. Exact integer dots, each expert's
+    f32 block update and gated term rounded as the plain version rounds
+    them, the terms summed in expert order: bit-exact (tolerance 0), and the
+    same bits on a second launch. gscale as the W4A8 decode makes it
+    (``top_k`` routed experts per row, gate x the row's activation scale),
+    or dense random. The bound counts the work this gscale needs: the
+    weights of experts some row is routed to, the products of non-zero
+    (expert, row) pairs."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+
+    dev = "cuda"
     M = 8
+    per_expert = K * N // 2 + (K // 128) * N * 4  # packed bytes + scale bytes
     xs = torch.rand(E, M, 1, generator=gen, device=dev) * 0.05
     xq = torch.randint(-127, 128, (E, M, K), generator=gen, device=dev, dtype=torch.int8)
     routed = torch.zeros(E, M, device=dev)
-    top = torch.rand(M, E, generator=gen, device=dev).topk(8, dim=-1).indices
-    routed.T.scatter_(1, top, torch.rand(M, 8, generator=gen, device=dev) / 4)
+    top = torch.rand(M, E, generator=gen, device=dev).topk(top_k, dim=-1).indices
+    routed.T.scatter_(1, top, torch.rand(M, top_k, generator=gen, device=dev) / 4)
     dense = torch.rand(E, M, generator=gen, device=dev)
     xfq = (xq.float() * xs).to(torch.bfloat16)
-    for kind, gates in (("routed", routed), ("dense", dense)):
+    for kind in kinds:
+        gates = routed if kind == "routed" else dense
         gsc = (xs[..., 0] * gates).contiguous()
         y = kq.grouped_w4a8_combine_gemm(xq, gsc, qt["data"], qt["scale"], N)
         ref = kq.grouped_w4a8_combine_gemm_plain(xq, gsc, qt["data"], qt["scale"], N)
@@ -433,7 +537,6 @@ def moe_kernels(torch, gen, timer, record) -> None:
                f"({used} experts used)", err, 0.0, ms, plain_ms, lib_ms,
                used * (M * K + per_expert) + E * M * 4 + M * N * 4, 2 * pairs * K * N,
                INT8_OPS)
-    del qt, wdq
 
 
 # --------------------------------------------------------------------------
@@ -442,15 +545,19 @@ def moe_kernels(torch, gen, timer, record) -> None:
 def _numpy_variables(cfg, preset, seed=0, router_scale=0.1):
     """Reference-layout variables (nested dict of numpy arrays) drawn from a
     numpy seed: packed int4 weights for the quantized projections (expert
-    kernels packed in their folded [in, E*out] view), f32 embedding /
-    lm_head / router / norm scales."""
+    kernels packed in their folded [in, E*out] view, MLA's absorbed
+    kv_b_proj like a linear layer), f32 kernels where no packed format fits
+    (fake-quantized in every forward), f32 embedding / lm_head / router /
+    norm scales."""
     import numpy as np
     import torch
 
+    from modelopt_tpu_torch.models.mla import AbsorbedKernel
     from modelopt_tpu_torch.models.transformer import Decoder, Router
     from modelopt_tpu_torch.nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
     from modelopt_tpu_torch.quant.config import get_config
-    from modelopt_tpu_torch.quant.qtensor import fold_experts, quantize_qtensor
+    from modelopt_tpu_torch.quant.qtensor import (compressible_format, fold_experts,
+                                                  quantize_qtensor)
 
     rng = np.random.default_rng(seed)
     qcfg = get_config(preset)
@@ -464,15 +571,16 @@ def _numpy_variables(cfg, preset, seed=0, router_scale=0.1):
 
     for mod in Decoder(cfg, device="meta").modules():
         path = mod.path.split("/")
-        if isinstance(mod, (QuantDense, QuantEinsum)):
-            shape = ((mod.in_features, mod.features) if isinstance(mod, QuantDense)
-                     else mod.kernel_shape)
+        if isinstance(mod, (QuantDense, QuantEinsum, AbsorbedKernel)):
+            shape = (mod.kernel_shape if isinstance(mod, QuantEinsum)
+                     else (mod.in_features, mod.features))
             w = rng.standard_normal(shape).astype(np.float32)
             w /= np.sqrt(shape[-2])
             specs = qcfg.resolve(mod.path + "/weight_quantizer")
-            if specs:
-                wt = torch.from_numpy(w)
-                qt, _ = quantize_qtensor(wt if wt.dim() == 2 else fold_experts(wt), specs[0])
+            wt = torch.from_numpy(w)
+            w2 = wt if wt.dim() == 2 else fold_experts(wt)
+            if specs and compressible_format(specs[0], tuple(w2.shape)):
+                qt, _ = quantize_qtensor(w2, specs[0])
                 put(quant, path + ["qweight", "data"], qt["data"].numpy())
                 put(quant, path + ["qweight", "scale"], qt["scale"].numpy())
             else:
@@ -618,6 +726,25 @@ def small_moe_config():
 MOE_IDS_SEED = 44
 
 
+def small_mla_config():
+    """A 2-layer DeepSeek-V2 at the real attention and expert widths of
+    DeepSeek-V2-Lite: hidden 2048, 16 heads, r=512, dr=64 (a 640-lane
+    latent row), yarn, a dense first layer of width 10944, expert width
+    1408 (straddle blocks), 2 shared experts; 8 experts, top-2, vocab
+    4096."""
+    from modelopt_tpu_torch.models import deepseek_v2_lite_config
+
+    return deepseek_v2_lite_config(num_layers=2, num_experts=8, experts_per_token=2,
+                                   vocab_size=4096, max_position_embeddings=256)
+
+
+# torch seed of the small DeepSeek's ids (2 x 16 prefill tokens, 4 decode
+# steps, 1 routed layer): on the CPU every top-2 choice at a compared
+# position is at least 0.8 in router logits from a tie, every other at
+# least 0.05.
+MLA_IDS_SEED = 1
+
+
 def parity_phase(torch) -> None:
     from modelopt_tpu_torch.models import llama_config
 
@@ -626,6 +753,8 @@ def parity_phase(torch) -> None:
             MOE_IDS_SEED, 2, 16)
     _parity(torch, "Qwen3-MoE W4A16 + bf16 KV", moe, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG",
             torch.bfloat16, MOE_IDS_SEED, 2, 16)
+    _parity(torch, "DeepSeek-V2 W4A8 + int8 latent cache", small_mla_config(),
+            "W4A8_INT8KV_CFG", torch.int8, MLA_IDS_SEED, 2, 16)
     llama = llama_config(vocab_size=4096, hidden_size=1024, num_layers=2, num_heads=8,
                          num_kv_heads=2, intermediate_size=2048,
                          max_position_embeddings=256, rope_theta=500000.0,
@@ -641,15 +770,20 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "C": ("Qwen3-30B-A3B W4A16 + bf16 KV", "qwen3_moe", "INT4_BLOCKWISE_WEIGHT_ONLY_CFG",
           "bfloat16"),
     "A": ("Llama-3-8B W4A8 + int8 KV", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
+    "D": ("DeepSeek-V2-Lite W4A8 + int8 latent cache", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
+          "int8"),
 }
 TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
 def path_config(torch, model: str):
-    from modelopt_tpu_torch.models import llama3_8b_config, qwen3_moe_config
+    from modelopt_tpu_torch.models import (deepseek_v2_lite_config, llama3_8b_config,
+                                           qwen3_moe_config)
 
     if model == "qwen3_moe":  # full width and depth: 48 layers, 128 experts
         return qwen3_moe_config(max_position_embeddings=2176, param_dtype=torch.bfloat16)
+    if model == "deepseek_v2_lite":  # full width and depth: 27 layers, 64 + 2 experts
+        return deepseek_v2_lite_config(param_dtype=torch.bfloat16)
     return llama3_8b_config(max_position_embeddings=2176, param_dtype=torch.bfloat16,
                             fused_qkv=True, fused_gate_up=True)
 
@@ -779,7 +913,7 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
         "w4a8_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel", "fused_decode_kernel",
-        "flash_prefill_kernel", "kv_write_kernel")}
+        "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel")}
     log(f"  profile window ({n_req} requests x {in_len} -> {out_len} tokens, decode ticks "
         f"only; "
         f"{eng.stats['decode_forwards'] - forwards[0]} decode forwards, "

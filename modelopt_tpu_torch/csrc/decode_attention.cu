@@ -1,0 +1,441 @@
+// Read-only decode attention for Hopper (sm_90a): attend G query rows of one
+// KV head over keys [0, lengths[b]) of a cache that is already written.
+//
+// Replaces: modelopt_tpu/kernels/attention.py::decode_attention
+// (Pallas bodies _decode_attn_kernel, _attend_chunk and _finalize_out).
+// MLA decode (models/mla.py) calls it with KH = 1, G = the query heads,
+// D = the latent row padded to 128 lanes (640 for DeepSeek-V2-Lite) and the
+// same latent tensor as K and V.
+//
+// Numerics follow _attend_chunk exactly, per (head, group) row:
+//  * keys are taken in chunks of 256 when S % 256 == 0, else as ONE chunk of
+//    S; the running max, and with it the int8 probability codes, are taken
+//    per chunk, so the chunk rule changes the result and is kept;
+//  * int8 caches: q is rounded to bf16, then requantized per row to int8
+//    with qmax = max|q_row| over the head's D lanes; scores are exact
+//    s8 x s8 -> s32 dots scaled by qmax * k_scale / (127 sqrt(D));
+//    probabilities become 7-bit codes e8 = round(exp(s - m) * 127) against
+//    the running max m, and numerator (e8 x v8 -> s32, exact) and
+//    denominator (sum of e8) use the same codes; the f32 updates
+//    l = l*alpha + esum and acc = acc*alpha + y are rounded op by op in the
+//    plain version's order;
+//  * bf16 caches: bf16 q x k with f32 sums, exp in f32, PV with the
+//    probabilities rounded to bf16, the denominator from the f32 values
+//    (sums in another order than the plain version);
+//  * keys at or past lengths[b] carry -1e30 in the reference (exp gives 0):
+//    here they are not visited; a length past the cache is clamped to S;
+//  * out = acc * (v_scale / max(l, 1e-30)).
+// Only the order of exact integer sums differs from the plain version, so
+// on int8 caches the two differ only where expf rounds a code e8 across .5.
+//
+// What bounds it on an H100: bytes, the live cache rows (lengths[b] * KH * D
+// codes; K and V once each, or once when they are one tensor) over the
+// 3.35 TB/s of HBM.
+//
+// Design: the reference's arithmetic is independent per (head, group) row,
+// so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256
+// threads (64 at the MLA decode shape B=8, G=16), each reading the slot's
+// live rows; the CTAs of one slot meet the same rows in L2. A split over
+// keys would change the running max at which e8 is rounded, so each CTA
+// walks all keys of its slot. Per chunk: each warp scores one key at a
+// time (a lane takes 4 columns of each 128, the row is one coalesced read,
+// a warp shuffle sums it) into shared memory; a block reduction gives the
+// chunk max; threads turn scores into codes; then each warp accumulates
+// e8 x v over its share of the keys for all D columns in registers and the
+// eight warps' integer partials are summed in shared memory into the
+// running f32 output.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <type_traits>
+
+namespace {
+
+constexpr int NT = 256;      // threads per CTA
+constexpr int NW = NT / 32;  // warps per CTA
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int GB>
+__device__ __forceinline__ void block_max(float (&v)[GB], float (*red)[NW]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[g] = fmaxf(v[g], __shfl_xor_sync(FULL, v[g], off));
+    if (lane == 0) red[g][warp] = v[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    float r = red[g][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) r = fmaxf(r, red[g][w]);
+    v[g] = r;
+  }
+  __syncthreads();
+}
+
+template <int GB, typename V>
+__device__ __forceinline__ void block_sum(V (&v)[GB], V (*red)[NW]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[g] += __shfl_xor_sync(FULL, v[g], off);
+    if (lane == 0) red[g][warp] = v[g];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    V r = red[g][0];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) r += red[g][w];
+    v[g] = r;
+  }
+  __syncthreads();
+}
+
+// byte c of a word, sign-extended
+__device__ __forceinline__ int sbyte(int w, int c) { return (w << (24 - 8 * c)) >> 24; }
+
+template <typename CT, int GB, int DJ>
+__global__ void __launch_bounds__(NT)
+decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
+                        const CT* __restrict__ vc, const int* __restrict__ lengths,
+                        const float* __restrict__ kscale, const float* __restrict__ vscale,
+                        float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
+                        int S, int KH, int G, int chunk) {
+  constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
+  constexpr int D = 128 * DJ;
+  extern __shared__ __align__(16) float smem[];
+  float* sc = smem;                     // [GB][chunk] scores, then e / e8 codes
+  float* red = sc + ((GB * chunk + 3) & ~3);  // [NW][GB][D] per-warp PV partials
+  float* acc_s = red + NW * GB * D;     // [GB][D] running output
+  float* sq = acc_s + GB * D;           // [GB][D] q rows (bf16 values)
+  int* q8w = reinterpret_cast<int*>(sq + GB * D);  // [GB][D/4] int8 q codes
+  int* e8 = reinterpret_cast<int*>(sc);
+  int* redi = reinterpret_cast<int*>(red);
+  __shared__ float rf[GB][NW];
+  __shared__ int ri[GB][NW];
+
+  const int ngrp = G / GB;
+  const int bh = blockIdx.x / ngrp;  // b * KH + h
+  const int b = bh / KH, h = bh % KH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int KHD = KH * D;
+  const int L = min(lengths[b], S);
+  const float ks = kscale != nullptr ? *kscale : 1.f;
+  const float vs = vscale != nullptr ? *vscale : 1.f;
+  const float inv_sqrt_d = __fdiv_rn(ks, sqrtf((float)D));
+  const size_t qoff = ((size_t)bh * G + (blockIdx.x % ngrp) * GB) * D;
+
+  for (int i = tid; i < GB * D; i += NT) {
+    sq[i] = __bfloat162float(q[qoff + i]);
+    acc_s[i] = 0.f;
+  }
+  __syncthreads();
+  float fs[GB] = {};
+  if constexpr (kInt8) {
+    float a[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      a[g] = 0.f;
+      for (int i = tid; i < D; i += NT) a[g] = fmaxf(a[g], fabsf(sq[g * D + i]));
+    }
+    block_max<GB>(a, rf);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float qmax = fmaxf(a[g], 1e-30f);
+      const float r = __fdiv_rn(127.f, qmax);
+      int8_t* q8 = reinterpret_cast<int8_t*>(q8w + g * (D / 4));
+      for (int i = tid; i < D; i += NT) q8[i] = (int8_t)(int)rintf(__fmul_rn(sq[g * D + i], r));
+      fs[g] = __fmul_rn(qmax, __fdiv_rn(inv_sqrt_d, 127.f));
+    }
+    __syncthreads();
+  }
+  // a lane's columns: 4 * (lane + 32 j) .. +3 for j < DJ
+  int qw[GB][DJ];
+  float qf[GB][DJ][4];
+#pragma unroll
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      if constexpr (kInt8) {
+        qw[g][j] = q8w[g * (D / 4) + lane + 32 * j];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) qf[g][j][c] = sq[g * D + 4 * (lane + 32 * j) + c];
+      }
+    }
+
+  float m_run[GB], l_run[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m_run[g] = -1e30f;
+    l_run[g] = 0.f;
+  }
+  const CT* kbase = kc + (size_t)b * S * KHD + (size_t)h * D;
+  const CT* vbase = vc + (size_t)b * S * KHD + (size_t)h * D;
+
+  for (int base = 0; base < L; base += chunk) {
+    const int nk = min(chunk, L - base);
+    // scores: one key per warp at a time
+#pragma unroll 2
+    for (int kk = warp; kk < nk; kk += NW) {
+      const CT* krow = kbase + (size_t)(base + kk) * KHD;
+      if constexpr (kInt8) {
+        const int* kw = reinterpret_cast<const int*>(krow);
+        int w[DJ];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) w[j] = kw[lane + 32 * j];
+        int d[GB];
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          d[g] = 0;
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) d[g] = __dp4a(w[j], qw[g][j], d[g]);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) d[g] += __shfl_xor_sync(FULL, d[g], off);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int g = 0; g < GB; ++g) sc[g * chunk + kk] = __fmul_rn((float)d[g], fs[g]);
+        }
+      } else {
+        const uint2* kw = reinterpret_cast<const uint2*>(krow);
+        float d[GB];
+#pragma unroll
+        for (int g = 0; g < GB; ++g) d[g] = 0.f;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const uint2 u = kw[lane + 32 * j];
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float kf = __bfloat162float(e[c]);
+#pragma unroll
+            for (int g = 0; g < GB; ++g) d[g] = fmaf(qf[g][j][c], kf, d[g]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) d[g] += __shfl_xor_sync(FULL, d[g], off);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int g = 0; g < GB; ++g) sc[g * chunk + kk] = __fmul_rn(d[g], inv_sqrt_d);
+        }
+      }
+    }
+    __syncthreads();
+
+    float mc[GB], alpha[GB], esum[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      mc[g] = -1e30f;
+      for (int kk = tid; kk < nk; kk += NT) mc[g] = fmaxf(mc[g], sc[g * chunk + kk]);
+    }
+    block_max<GB>(mc, rf);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      mc[g] = fmaxf(m_run[g], mc[g]);
+      alpha[g] = expf(__fsub_rn(m_run[g], mc[g]));
+    }
+
+    if constexpr (kInt8) {
+      int is[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        is[g] = 0;
+        for (int kk = tid; kk < nk; kk += NT) {
+          const float e = expf(__fsub_rn(sc[g * chunk + kk], mc[g]));
+          const int code = (int)rintf(__fmul_rn(e, 127.f));
+          e8[g * chunk + kk] = code;
+          is[g] += code;
+        }
+      }
+      block_sum<GB, int>(is, ri);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) esum[g] = __fmul_rn((float)is[g], 1.f / 127.f);
+      // e8 x v over this warp's keys, all columns of the lane
+      int a[GB][DJ][4];
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a[g][j][c] = 0;
+#pragma unroll 2
+      for (int kk = warp; kk < nk; kk += NW) {
+        const int* vw = reinterpret_cast<const int*>(vbase + (size_t)(base + kk) * KHD);
+        int w[DJ];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) w[j] = vw[lane + 32 * j];
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          const int ev = e8[g * chunk + kk];
+#pragma unroll
+          for (int j = 0; j < DJ; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a[g][j][c] += ev * sbyte(w[j], c);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j)
+          *reinterpret_cast<int4*>(&redi[(warp * GB + g) * D + 4 * (lane + 32 * j)]) =
+              make_int4(a[g][j][0], a[g][j][1], a[g][j][2], a[g][j][3]);
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        for (int col = tid; col < D; col += NT) {
+          int t = 0;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) t += redi[(w * GB + g) * D + col];
+          const float y = __fmul_rn((float)t, 1.f / 127.f);
+          acc_s[g * D + col] = __fadd_rn(__fmul_rn(acc_s[g * D + col], alpha[g]), y);
+        }
+    } else {
+      float fsum[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        fsum[g] = 0.f;
+        for (int kk = tid; kk < nk; kk += NT) {
+          const float e = expf(__fsub_rn(sc[g * chunk + kk], mc[g]));
+          sc[g * chunk + kk] = e;
+          fsum[g] += e;
+        }
+      }
+      block_sum<GB, float>(fsum, rf);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) esum[g] = fsum[g];
+      float a[GB][DJ][4];
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a[g][j][c] = 0.f;
+#pragma unroll 2
+      for (int kk = warp; kk < nk; kk += NW) {
+        const uint2* vw = reinterpret_cast<const uint2*>(vbase + (size_t)(base + kk) * KHD);
+        float ev[GB];
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+          ev[g] = __bfloat162float(__float2bfloat16(sc[g * chunk + kk]));
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const uint2 u = vw[lane + 32 * j];
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float vf = __bfloat162float(e[c]);
+#pragma unroll
+            for (int g = 0; g < GB; ++g) a[g][j][c] = fmaf(ev[g], vf, a[g][j][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j)
+          *reinterpret_cast<float4*>(&red[(warp * GB + g) * D + 4 * (lane + 32 * j)]) =
+              make_float4(a[g][j][0], a[g][j][1], a[g][j][2], a[g][j][3]);
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        for (int col = tid; col < D; col += NT) {
+          float t = 0.f;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) t += red[(w * GB + g) * D + col];
+          acc_s[g * D + col] = __fadd_rn(__fmul_rn(acc_s[g * D + col], alpha[g]), t);
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      l_run[g] = __fadd_rn(__fmul_rn(l_run[g], alpha[g]), esum[g]);
+      m_run[g] = mc[g];
+    }
+    __syncthreads();  // the next chunk reuses sc and red
+  }
+
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    const float r = __fdiv_rn(vs, fmaxf(l_run[g], 1e-30f));
+    for (int col = tid; col < D; col += NT) {
+      const float o = __fmul_rn(acc_s[g * D + col], r);
+      if (out_bf16 != nullptr)
+        out_bf16[qoff + g * D + col] = __float2bfloat16(o);
+      else
+        out_f32[qoff + g * D + col] = o;
+    }
+  }
+}
+
+template <typename CT, int GB, int DJ>
+int launch(const void* q, const void* kc, const void* vc, const void* lengths,
+           const void* kscale, const void* vscale, void* out_f32, void* out_bf16, int B,
+           int S, int KH, int G, int chunk, cudaStream_t s) {
+  constexpr int D = 128 * DJ;
+  const size_t smem =
+      sizeof(float) * (((size_t)GB * chunk + 3) / 4 * 4 + (size_t)NW * GB * D + 2 * GB * D +
+                       GB * D / 4);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<CT, GB, DJ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  decode_attention_kernel<CT, GB, DJ><<<B * KH * (G / GB), NT, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(kc),
+      static_cast<const CT*>(vc), static_cast<const int*>(lengths),
+      static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+      static_cast<float*>(out_f32), static_cast<__nv_bfloat16*>(out_bf16), S, KH, G, chunk);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT, int GB>
+int dispatch_d(int D, const void* q, const void* kc, const void* vc, const void* lengths,
+               const void* kscale, const void* vscale, void* out_f32, void* out_bf16, int B,
+               int S, int KH, int G, int chunk, cudaStream_t s) {
+  switch (D) {
+    case 128: return launch<CT, GB, 1>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    case 256: return launch<CT, GB, 2>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    case 384: return launch<CT, GB, 3>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    case 512: return launch<CT, GB, 4>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    case 640: return launch<CT, GB, 5>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename CT>
+int dispatch_g(int G, int D, const void* q, const void* kc, const void* vc,
+               const void* lengths, const void* kscale, const void* vscale, void* out_f32,
+               void* out_bf16, int B, int S, int KH, int chunk, cudaStream_t s) {
+  if (G % 2 == 0)
+    return dispatch_d<CT, 2>(D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S,
+                             KH, G, chunk, s);
+  return dispatch_d<CT, 1>(D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH,
+                           G, chunk, s);
+}
+
+}  // namespace
+
+// q bf16 [B, KH, G, D]; caches [B, S, KH*D] of int8 (int8_cache=1) or bf16,
+// 16-byte aligned (K and V may be the same buffer); lengths int32 [B];
+// kscale/vscale f32 scalars on the device or null (scale 1); exactly one of
+// out_f32 / out_bf16 non-null, [B, KH, G, D]. D a multiple of 128 up to 640,
+// G >= 1 (checked by the Python wrapper).
+extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
+                                const void* lengths, const void* kscale, const void* vscale,
+                                void* out_f32, void* out_bf16, int B, int S, int KH, int G,
+                                int D, int chunk, int int8_cache, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * KH * G == 0) return 0;
+  if (int8_cache)
+    return dispatch_g<int8_t>(G, D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B,
+                              S, KH, chunk, s);
+  return dispatch_g<__nv_bfloat16>(G, D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16,
+                                   B, S, KH, chunk, s);
+}

@@ -11,6 +11,18 @@
 // the folded expert layout (expert e is columns e*N..e*N+N-1, each a
 // split-half int4 tensor as in w4a8_gemm.cu). Returns f32 [M, N].
 //
+// K/2 need not be a multiple of 128. With rem = K/2 % 128 (then always 64,
+// since K % 128 == 0) one scale block straddles the half boundary, and the
+// reference's _w4a8_body takes the blocks in this order: the nfull = K/2 /
+// 128 low-half blocks (scale rows 0..nfull-1), then the straddle block, whose
+// integer dot is the low-nibble tail (packed rows [nfull*128, K/2), x columns
+// the same) plus the high-nibble head (packed rows [0, rem), x columns
+// [K/2, K/2+rem)) under scale row nfull, then the high-half blocks at packed
+// rows rem + b*128 (x columns K/2 + rem + b*128) under scale rows
+// nfull+1+b. Each such "stage" updates the f32 accumulator once,
+// acc + q*s, in that order. Without a straddle a stage is one block with
+// both halves, acc + q_lo*s_lo + q_hi*s_hi, as before.
+//
 // What bounds it on an H100: the packed expert bytes (K/2 * E*N) over
 // 3.35 TB/s of HBM; at the Qwen3-30B-A3B decode shape (E=128, K=768,
 // N=2048, M=8) about 108 MB, 32 us.
@@ -56,6 +68,54 @@ struct WarpSmem {
   int sx[BM];                // per-row sum of the low-half x (the +8 offset)
 };
 
+// One 128-row step of the K loop: two 64-row segments j, each with its
+// packed rows from ps[j], its low-half x columns from xl[j] and its
+// high-half x columns from xh[j] (-1: none, the rows stay zero), and the
+// scale row(s): s1 >= 0 for an aligned block (acc + q_lo*s[s0] +
+// q_hi*s[s1]), s1 < 0 for a straddle-layout stage (acc + (q_lo+q_hi)*s[s0]).
+struct Stage {
+  int ps[2], xl[2], xh[2], s0, s1;
+};
+
+template <bool kStraddle>
+__device__ __forceinline__ Stage stage_of(int st, int K2, int nfull, int rem) {
+  Stage g;
+  g.s1 = -1;
+  if (!kStraddle) {  // aligned: block st, both halves over the same packed rows
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      g.ps[j] = g.xl[j] = st * KB + 64 * j;
+      g.xh[j] = K2 + st * KB + 64 * j;
+    }
+    g.s0 = st;
+    g.s1 = nfull + st;
+  } else if (st < nfull) {  // low-half block
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      g.ps[j] = g.xl[j] = st * KB + 64 * j;
+      g.xh[j] = -1;
+    }
+    g.s0 = st;
+  } else if (st == nfull) {  // straddle: low tail, then high head
+    g.ps[0] = g.xl[0] = nfull * KB;
+    g.xh[0] = -1;
+    g.ps[1] = 0;
+    g.xl[1] = -1;
+    g.xh[1] = K2;
+    g.s0 = nfull;
+  } else {  // high-half block b, shifted by rem
+    const int b = st - nfull - 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      g.ps[j] = rem + b * KB + 64 * j;
+      g.xl[j] = -1;
+      g.xh[j] = K2 + rem + b * KB + 64 * j;
+    }
+    g.s0 = nfull + 1 + b;
+  }
+  return g;
+}
+
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
@@ -65,6 +125,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// kStraddle: K2 % 128 == 64 (the stage walk above); false compiles the
+// aligned walk with the straddle bookkeeping folded away.
+template <bool kStraddle>
 __global__ void __launch_bounds__(NTH, 1)
 grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restrict__ gscale,
                             const uint8_t* __restrict__ w, const float* __restrict__ scale,
@@ -82,7 +145,9 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
   const int m0 = blockIdx.y * BM;
   const int K = 2 * K2;
   const int EN = E * N;
-  const int nblk = K2 / KB;
+  const int nfull = K2 / KB;
+  const int rem = K2 % KB;
+  const int nstage = kStraddle ? 2 * nfull + 1 : nfull;
   WarpSmem& my = ws[warp];
   float* myp = ps + warp * BM * PP;
 
@@ -101,18 +166,21 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
-      for (int blk = 0; blk < nblk; ++blk) {
-        // x rows m0..m0+15 (zero past M), both halves: 16 x 2 x 8 uint4
+      for (int st = 0; st < nstage; ++st) {
+        const Stage sg = stage_of<kStraddle>(st, K2, nfull, rem);
+        // x rows m0..m0+15 (zero past M and where a segment has no columns
+        // of that half), both halves: 16 x 2 x 8 uint4
 #pragma unroll
         for (int i = lane; i < 2 * BM * (KB / 16); i += 32) {
           const int half = i / (BM * (KB / 16));
           const int r = (i / (KB / 16)) % BM;
           const int c = i % (KB / 16);
+          const int j = c / 4;  // 64-row segment
+          const int col = half ? sg.xh[j] : sg.xl[j];
           const int m = m0 + r;
           uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (m < M)
-            v = *reinterpret_cast<const uint4*>(xe + (size_t)m * K + half * K2 + blk * KB +
-                                                c * 16);
+          if (m < M && (!kStraddle || col >= 0))
+            v = *reinterpret_cast<const uint4*>(xe + (size_t)m * K + col + (c % 4) * 16);
           *reinterpret_cast<uint4*>(&my.xs[half][r][c * 16]) = v;
         }
         // packed [KB, BN] tile of expert e, transposed 4 rows x 4 columns at a time
@@ -120,7 +188,8 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
         for (int i = lane; i < (KB / 4) * (BN / 4); i += 32) {
           const int kr = (i / (BN / 4)) * 4;
           const int nc = (i % (BN / 4)) * 4;
-          const uint8_t* src = w + (size_t)(blk * KB + kr) * EN + (size_t)e * N + n0 + nc;
+          const int prow = sg.ps[kr / 64] + kr % 64;
+          const uint8_t* src = w + (size_t)prow * EN + (size_t)e * N + n0 + nc;
           const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
           const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + EN);
           const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)EN);
@@ -174,16 +243,23 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const size_t col = (size_t)e * N + n0 + j * 8 + 2 * t;
-          const float2 slo = *reinterpret_cast<const float2*>(scale + (size_t)blk * EN + col);
-          const float2 shi =
-              *reinterpret_cast<const float2*>(scale + (size_t)(nblk + blk) * EN + col);
+          const float2 s0 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s0 * EN + col);
+          if (!kStraddle) {
+            const float2 s1 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s1 * EN + col);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int qlo = lo[j][c] - 8 * ((c & 2) ? sx1 : sx0);
-            const int qhi = hi[j][c] >> 4;
-            acc[j][c] = __fadd_rn(
-                __fadd_rn(acc[j][c], __fmul_rn((float)qlo, (c & 1) ? slo.y : slo.x)),
-                __fmul_rn((float)qhi, (c & 1) ? shi.y : shi.x));
+            for (int c = 0; c < 4; ++c) {
+              const int qlo = lo[j][c] - 8 * ((c & 2) ? sx1 : sx0);
+              const int qhi = hi[j][c] >> 4;
+              acc[j][c] = __fadd_rn(
+                  __fadd_rn(acc[j][c], __fmul_rn((float)qlo, (c & 1) ? s0.y : s0.x)),
+                  __fmul_rn((float)qhi, (c & 1) ? s1.y : s1.x));
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int q = (lo[j][c] - 8 * ((c & 2) ? sx1 : sx0)) + (hi[j][c] >> 4);
+              acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn((float)q, (c & 1) ? s0.y : s0.x));
+            }
           }
         }
         __syncwarp();
@@ -225,18 +301,19 @@ constexpr size_t SMEM_BYTES = NW * sizeof(WarpSmem) + NW * BM * PP * sizeof(floa
 }  // namespace
 
 // xq int8 [E, M, 2*K2]; gscale f32 [E, M]; packed uint8 [K2, E*N]; scale f32
-// [2*K2/128, E*N]; out f32 [M, N]. Needs K2 % 128 == 0, N % 16 == 0 and
-// 16-byte aligned xq (checked by the Python wrapper).
+// [2*K2/128, E*N]; out f32 [M, N]. Needs K2 % 64 == 0 (K2 % 128 == 64 is the
+// straddle layout), N % 16 == 0 and 16-byte aligned xq (checked by the
+// Python wrapper).
 extern "C" int grouped_w4a8_combine_gemm(const void* xq, const void* gscale, const void* packed,
                                          const void* scale, void* out, int E, int M, int N,
                                          int K2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(grouped_w4a8_combine_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = (K2 % KB) ? grouped_w4a8_combine_kernel<true> : grouped_w4a8_combine_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  grouped_w4a8_combine_kernel<<<grid, NTH, SMEM_BYTES, s>>>(
+  kernel<<<grid, NTH, SMEM_BYTES, s>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(gscale),
       static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
       static_cast<float*>(out), E, M, N, K2);

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 twin. Every wrapper counts its launches in a ``launches`` attribute."""
 
-from .attention import dense_kv_write, fused_decode_attention
+from .attention import decode_attention, dense_kv_write, fused_decode_attention
 from .flash_attention import flash_prefill_attention
 from .quant_gemm import (grouped_w4a8_combine_gemm, grouped_w4a16_gemm, w4a8_gemm,
                          w4a16_gemm)
@@ -14,6 +14,7 @@ KERNELS = {
     "w4a16_gemm": w4a16_gemm,
     "grouped_w4a16_gemm": grouped_w4a16_gemm,
     "grouped_w4a8_combine_gemm": grouped_w4a8_combine_gemm,
+    "decode_attention": decode_attention,
 }
 
 

@@ -1,14 +1,17 @@
-"""KV-cache write and fused decode attention over lane-merged caches.
+"""KV-cache write, fused decode attention and read-only decode attention
+over lane-merged caches.
 
-Counterparts of ``modelopt_tpu/kernels/attention.py::dense_kv_write`` and
-``::fused_decode_attention``. Caches are [B, S, KH*D] (heads merged into the
-last dim, the reference's layout) and are updated IN PLACE: where the
-reference donates/aliases the cache buffers, these functions write into the
-tensors they are given and hand the same tensors back.
+Counterparts of ``modelopt_tpu/kernels/attention.py::dense_kv_write`` (K3),
+``::fused_decode_attention`` (K2) and ``::decode_attention`` (K5). Caches
+are [B, S, KH*D] (heads merged into the last dim, the reference's layout);
+K2 and K3 update them IN PLACE: where the reference donates/aliases the
+cache buffers, these functions write into the tensors they are given and
+hand the same tensors back. K5 only reads.
 
-On CUDA tensors the wrappers launch ``csrc/kv_write.cu`` and
-``csrc/fused_decode_attention.cu``; on CPU tensors the ``*_plain`` versions
-compute the same functions (and serve as the card's oracles).
+On CUDA tensors the wrappers launch ``csrc/kv_write.cu``,
+``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu``; on CPU
+tensors the ``*_plain`` versions compute the same functions (and serve as
+the card's oracles).
 """
 
 from __future__ import annotations
@@ -77,23 +80,21 @@ def _decode_chunk(S: int, chunk: int) -> int:
     return S if S % chunk else chunk
 
 
-def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
-                                 k_scale=None, v_scale=None,
-                                 out_dtype=torch.bfloat16, chunk: int = 256):
-    """Plain PyTorch fused decode step with the reference kernel's rounding
-    points (see csrc/fused_decode_attention.cu for the list)."""
-    B, S, KHD = k_cache.shape
-    KH, G, D = q.shape[1:]
-    chunk = _decode_chunk(S, chunk)
-    dev = q.device
-    int8 = k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8
-    ks, vs = (_scalar(t, dev) for t in (k_scale, v_scale))
+def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int):
+    """The reference's ``_attend_chunk`` over every chunk holding a key
+    below ``L[b]`` (the online softmax state after them): q rows qf
+    [B, KH, G, D] in f32 (bf16 values), caches [B, S, KH*D], scalar k scale
+    ``ks``. Returns (m, l, acc) of shapes [B, KH, G, 1] x 2 and
+    [B, KH, G, D]."""
+    B, S, _ = k_cache.shape
+    KH, G, D = qf.shape[1:]
+    dev = qf.device
     inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D), device=dev))
-    L = pos.long().clamp(max=S - 1)
-    qf = q.to(torch.bfloat16).float()                        # [B, KH, G, D]
     if int8:
         qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
-        q8 = torch.round(qf * (127.0 / qmax))
+        # a true division, as the kernels and the reference compute it
+        # (``127.0 / t`` would be ``t.reciprocal() * 127``, rounded twice)
+        q8 = torch.round(qf * (torch.tensor(127.0, device=dev) / qmax))
         fs = qmax * (inv_sqrt_d / 127.0)
     k4 = k_cache.view(B, S, KH, D)
     v4 = v_cache.view(B, S, KH, D)
@@ -106,7 +107,7 @@ def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
         kb = k4[:, base:base + chunk]
         vb = v4[:, base:base + chunk]
         if int8:
-            # integer dots: exact in f32 (|sum| <= 127*127*128 < 2^24)
+            # integer dots: exact in f32 (|sum| <= 127*127*640 < 2^24)
             s = torch.einsum("bhgd,bthd->bhgt", q8, kb.float()) * fs
         else:
             s = torch.einsum("bhgd,bthd->bhgt", qf,
@@ -131,6 +132,24 @@ def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
         l = torch.where(live, l * alpha + esum, l)
         acc = torch.where(live, acc * alpha + y, acc)
         m = torch.where(live, m_cur, m)
+    return m, l, acc
+
+
+def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
+                                 k_scale=None, v_scale=None,
+                                 out_dtype=torch.bfloat16, chunk: int = 256):
+    """Plain PyTorch fused decode step with the reference kernel's rounding
+    points (see csrc/fused_decode_attention.cu for the list)."""
+    B, S, KHD = k_cache.shape
+    KH, G, D = q.shape[1:]
+    chunk = _decode_chunk(S, chunk)
+    dev = q.device
+    int8 = k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8
+    ks, vs = (_scalar(t, dev) for t in (k_scale, v_scale))
+    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D), device=dev))
+    L = pos.long().clamp(max=S - 1)
+    qf = q.to(torch.bfloat16).float()                        # [B, KH, G, D]
+    m, l, acc = _attend_chunks(qf, k_cache, v_cache, L, ks, int8, chunk)
     kn = k_new.reshape(B, KH, 1, D).float()
     vn = v_new.reshape(B, KH, 1, D).float()
     s_n = (qf * kn).sum(-1, keepdim=True) * inv_sqrt_d
@@ -210,3 +229,99 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
 
 fused_decode_attention.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K5: read-only decode attention
+# ---------------------------------------------------------------------------
+# what the CUDA kernel was written for (csrc/decode_attention.cu)
+DECODE_MAX_G = 16
+DECODE_MAX_D = 640
+
+
+def decode_attention_ok(q_shape, S: int, cache_dtype) -> bool:
+    """The reference's rule for its TPU kernel (``decode_attention_ok``):
+    quantized caches (int8 or e4m3) with S <= 8192 and D % 128 == 0; other
+    decodes take the einsum path. The reference's CPU branch (always the
+    einsum path) is not followed: on a CPU tensor the wrapper computes the
+    kernel's twin."""
+    D = q_shape[-1]
+    return (cache_dtype in (torch.int8, torch.float8_e4m3fn) and S <= 8192
+            and D % 128 == 0)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, k_scale=None,
+                           v_scale=None, out_dtype=torch.bfloat16,
+                           chunk: int = 256):
+    """Plain PyTorch K5 with the reference kernel's rounding points (the
+    chunk rule, q requantized to int8 per (head, group) row, 7-bit
+    probability codes against the running max; see
+    csrc/decode_attention.cu): attention of q [B, KH, G, D] over keys
+    [0, lengths[b]) of caches [B, S, KH*D] -> [B, KH, G, D]."""
+    S = k_cache.shape[1]
+    chunk = _decode_chunk(S, chunk)
+    dev = q.device
+    int8 = k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8
+    ks, vs = (_scalar(t, dev) for t in (k_scale, v_scale))
+    L = lengths.long().clamp(max=S)
+    _, l, acc = _attend_chunks(q.to(torch.bfloat16).float(), k_cache, v_cache, L,
+                               ks, int8, chunk)
+    return (acc * (vs / l.clamp_min(1e-30))).to(out_dtype)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
+                     out_dtype=torch.bfloat16, chunk: int = 256, sinks=None,
+                     softcap=None):
+    """Attention of q [B, KH, G, D] over the first ``lengths[b]`` keys of
+    caches [B, S, KH*D] (int8 codes with f32 scalar scales, or bf16), which
+    it only reads; K and V may be one tensor (MLA passes its latent cache
+    twice). A length past the cache is clamped to S. Returns
+    [B, KH, G, D] in ``out_dtype``."""
+    if sinks is not None or softcap is not None:
+        raise NotImplementedError(
+            "decode_attention: attention sinks and logit softcap are not ported yet")
+    if torch.float8_e4m3fn in (k_cache.dtype, v_cache.dtype):
+        raise NotImplementedError("decode_attention: e4m3 caches are not ported yet")
+    B, S, KHD = k_cache.shape
+    KH, G, D = q.shape[1:]
+    if q.shape[0] != B or KH * D != KHD or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    if lengths.shape != (B,):
+        raise ValueError("decode_attention: lengths must be [B]")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths, k_scale,
+                                      v_scale, out_dtype, chunk)
+    if k_cache.dtype not in (torch.int8, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+        raise NotImplementedError(
+            f"decode_attention: {k_cache.dtype} caches are not ported to the card "
+            "(int8 and bf16 are)")
+    if D % 128 or D > DECODE_MAX_D or not 1 <= G <= DECODE_MAX_G:
+        raise NotImplementedError(
+            f"decode_attention: the CUDA kernel takes D a multiple of 128 up to "
+            f"{DECODE_MAX_D} and G up to {DECODE_MAX_G}, got D={D}, G={G}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attention: out_dtype {out_dtype}")
+    if lengths.dtype != torch.int32:
+        raise ValueError("decode_attention: lengths must be int32")
+    chunk = _decode_chunk(S, chunk)
+    q = q.to(torch.bfloat16).contiguous()
+    scales = [None if t is None else _scalar(t, q.device) for t in (k_scale, v_scale)]
+    _build.check_cuda("decode_attention", q, k_cache, v_cache, lengths, *scales)
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention: caches must be 16-byte aligned")
+    out = torch.empty(B, KH, G, D, dtype=out_dtype, device=q.device)
+    f32 = out_dtype == torch.float32
+    fn = _build.function("decode_attention", [_build.c_ptr] * 8
+                         + [_build.c_int] * 7 + [_build.c_ptr])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 lengths.data_ptr(), _build.ptr(scales[0]), _build.ptr(scales[1]),
+                 out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
+                 B, S, KH, G, D, chunk, int(k_cache.dtype == torch.int8),
+                 _build.stream(q))
+    decode_attention.launches += 1
+    _build.raise_on_error("decode_attention", err)
+    return out
+
+
+decode_attention.launches = 0

@@ -9,9 +9,13 @@ same function with its ``*_plain`` twin, which also serves as the card's
 oracle.
 
 Packed layout (quant/qtensor.py): uint8 [K/2, N] hybrid split-half nibbles,
-f32 scales [K/block, N] — rows [0, K/(2*block)) scale the low half. The
-grouped kernels take the folded expert layout [K/2, E*N] (expert e is
-columns e*N:(e+1)*N, quant/qtensor.py::fold_experts).
+f32 scales [K/block, N] — rows [0, K/(2*block)) scale the low half. When
+K/2 is not a whole number of blocks (K=1408: the straddle layout) scale row
+K/2 // block covers the low half's tail and the high half's head, and the
+high half's blocks follow it. The grouped kernels take the folded expert
+layout [K/2, E*N] (expert e is columns e*N:(e+1)*N,
+quant/qtensor.py::fold_experts). Every twin computes straddle shapes; of
+the CUDA kernels K12 takes them, K1, K6 and K10 refuse them.
 """
 
 from __future__ import annotations
@@ -26,22 +30,22 @@ from . import _build
 PREFILL_MIN_M = 256
 
 
-def _straddle_check(K2: int, block: int) -> None:
-    if K2 % block:
-        raise NotImplementedError(
-            "scale blocks straddling the split-half boundary (K/2 % block != 0) "
-            "are not ported yet")
-
-
 def _block_dots(xf: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 block: int, n_per_expert=None) -> torch.Tensor:
     """f32 ``xf [..., M, K] @ W`` with the kernels' rounding points: one
-    product per scale block and half, then ``acc + d_lo*s_lo`` and
-    ``+ d_hi*s_hi`` in f32, block by block. ``n_per_expert``: W is the
-    folded [K/2, E*N] layout and xf [E, M, K]; returns [E, M, N]."""
+    product per scale block, its scale on the f32 accumulator
+    (``acc + d*s``), block by block in the reference's order
+    (``_w4a8_body`` / ``_w4a16_body``). When K/2 % block == 0 each block's
+    halves go together, ``acc + d_lo*s_lo + d_hi*s_hi``. Otherwise (straddle
+    shapes, K=1408: ``rem = K/2 % block``) every low-half block comes first,
+    then the block straddling the half boundary (the low-nibble tail of
+    packed rows [nfull*block, K/2) plus the high-nibble head of packed rows
+    [0, rem), summed before its one scale row ``nfull``), then the high-half
+    blocks at packed rows rem + b*block with scale rows nfull+1+b.
+    ``n_per_expert``: W is the folded [K/2, E*N] layout and xf [E, M, K];
+    returns [E, M, N]."""
     K2 = packed.shape[0]
-    _straddle_check(K2, block)
-    nblk = K2 // block
+    nfull, rem = divmod(K2, block)
     p = packed.to(torch.int32)
     qlo = ((p & 0xF) - 8).float()
     qhi = (((p >> 4) ^ 8) - 8).float()
@@ -52,12 +56,24 @@ def _block_dots(xf: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                         for a in (qlo, qhi, scale))
     acc = torch.zeros(*xf.shape[:-1], qlo.shape[-1], dtype=torch.float32,
                       device=xf.device)
-    for b in range(nblk):
-        rows = slice(b * block, (b + 1) * block)
-        dlo = xf[..., rows] @ qlo[..., rows, :]
-        dhi = xf[..., K2 + b * block:K2 + (b + 1) * block] @ qhi[..., rows, :]
-        acc = acc + dlo * sc[..., b:b + 1, :]
-        acc = acc + dhi * sc[..., nblk + b:nblk + b + 1, :]
+
+    def lo(r0, n):
+        return xf[..., r0:r0 + n] @ qlo[..., r0:r0 + n, :]
+
+    def hi(r0, n):
+        return xf[..., K2 + r0:K2 + r0 + n] @ qhi[..., r0:r0 + n, :]
+
+    if rem == 0:
+        for b in range(nfull):
+            acc = acc + lo(b * block, block) * sc[..., b:b + 1, :]
+            acc = acc + hi(b * block, block) * sc[..., nfull + b:nfull + b + 1, :]
+        return acc
+    for b in range(nfull):
+        acc = acc + lo(b * block, block) * sc[..., b:b + 1, :]
+    acc = acc + (lo(nfull * block, rem) + hi(0, rem)) * sc[..., nfull:nfull + 1, :]
+    for b in range(nfull):
+        r = nfull + 1 + b
+        acc = acc + hi(rem + b * block, block) * sc[..., r:r + 1, :]
     return acc
 
 
@@ -68,11 +84,13 @@ def _check_packed(name, packed, scale, block, K, EN):
                          f"scale {tuple(scale.shape)}")
 
 
-def _check_card(name, packed, scale, block, N, n_mult):
-    if block != 128 or packed.shape[0] % block:
+def _check_card(name, packed, scale, block, N, n_mult, straddle=False):
+    """What the CUDA kernels take: block-128 weights, N a multiple of
+    ``n_mult``; straddle shapes (K/2 % 128 == 64) only where ``straddle``."""
+    if block != 128 or (packed.shape[0] % block and not straddle) or packed.shape[0] % 64:
         raise NotImplementedError(
             f"the CUDA {name} takes block-128 weights with K/2 % 128 == 0; "
-            "straddle shapes (K=1408, 2880) are not ported yet")
+            "straddle shapes (K=1408, 2880) are not ported to it yet")
     if N % n_mult:
         raise ValueError(f"{name}: N={N} must be a multiple of {n_mult}")
     if (packed.dtype, scale.dtype) != (torch.uint8, torch.float32):
@@ -237,7 +255,7 @@ def grouped_w4a8_combine_gemm(xq: torch.Tensor, gscale: torch.Tensor,
                          f"want {(E, M)}")
     if xq.device.type == "cpu":
         return grouped_w4a8_combine_gemm_plain(xq, gscale, packed, scale, N, block)
-    _check_card("grouped_w4a8_combine_gemm", packed, scale, block, N, 16)
+    _check_card("grouped_w4a8_combine_gemm", packed, scale, block, N, 16, straddle=True)
     if (xq.dtype, gscale.dtype) != (torch.int8, torch.float32):
         raise ValueError("grouped_w4a8_combine_gemm: wants int8 x, f32 gscale")
     _build.check_cuda("grouped_w4a8_combine_gemm", xq, gscale, packed, scale)

@@ -2,10 +2,11 @@
 
 ``from_jax_variables`` takes the reference bundle's variables as a nested
 dict of numpy arrays — ``params`` (kernels [in, out] and expert kernels
-[E, in, out], embedding, norm scales including the q/k norms, the MoE
-router's kernel and bias) and ``quant`` (packed ``qweight`` {data, scale}
-in the same [in, out] layout, the folded [in, E*out] one for experts, k/v
-quantizer ``amax``) — and loads them into a port Decoder, so both packages
+[E, in, out], embedding, norm scales including the q/k and MLA norms, the
+MoE router's kernel and bias, MLA's absorbed ``kv_b_proj`` kernel, a
+kernel left dense by ``compress``) and ``quant`` (packed ``qweight``
+{data, scale} in the same [in, out] layout, the folded [in, E*out] one for
+experts, k/v and latent quantizer ``amax``) — and loads them into a port Decoder, so both packages
 compute the same model. Every leaf must be consumed: a leaf
 the port has no place for (a pre-quant scale, an unported quantizer state)
 raises instead of being dropped.
@@ -23,6 +24,7 @@ from ..nn.layers import QuantDense, QuantEinsum
 from ..nn.quantizer import TensorQuantizer
 from ..quant import mode as _mode  # noqa: F401  (registers quantize/compress)
 from ..quant.config import get_config
+from .mla import AbsorbedKernel
 from .transformer import Decoder, DecoderConfig
 
 
@@ -56,7 +58,7 @@ def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
     compressed = False
     for mod in model.modules():
         base = mod.path
-        if (isinstance(mod, (QuantDense, QuantEinsum))
+        if (isinstance(mod, (QuantDense, QuantEinsum, AbsorbedKernel))
                 and f"quant/{base}/qweight/data" in leaves):
             mod.set_qweight({"data": take(f"quant/{base}/qweight/data"),
                              "scale": take(f"quant/{base}/qweight/scale")})

@@ -1,5 +1,5 @@
-"""Build a compressed Llama- or Qwen3-MoE-scale bundle without its
-full-precision weights.
+"""Build a compressed Llama-, Qwen3-MoE- or DeepSeek-scale bundle without
+its full-precision weights.
 
 Port of ``modelopt_tpu/models/synthetic.py::build_compressed_bundle``. The
 decoder is built on the meta device; then, layer by layer on ``device``,
@@ -10,7 +10,11 @@ weight; an expert kernel [E, in, out] is drawn directly in its folded shape
 weight is a 403 MB transient). Norm scales start at 1 and every other
 parameter (embedding, lm_head, router) is drawn the same way in
 ``param_dtype``. The bundle carries ``quantize`` and ``compress`` records,
-like a quantized-then-compressed model.
+like a quantized-then-compressed model. A kernel the preset quantizes but
+no packed format fits (DeepSeek-V2-Lite's first down projection, K=10944)
+stays a dense ``param_dtype`` kernel, fake-quantized in every forward, as
+the reference's ``compress`` leaves it; MLA's absorbed ``kv_b_proj`` packs
+like any linear layer.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..nn.layers import QuantDense, QuantEinsum, RMSNorm
 from ..quant import mode as _mode  # noqa: F401  (registers quantize/compress)
 from ..quant.config import get_config
 from ..quant.qtensor import compressible_format, quantize_qtensor, spec_folds
+from .mla import AbsorbedKernel
 from .transformer import Decoder, DecoderConfig
 
 
@@ -34,7 +39,7 @@ def build_compressed_bundle(cfg: DecoderConfig, quant_preset, seed: int = 0,
     for mod in model.modules():
         shape = None
         specs = qcfg.resolve(mod.path + "/weight_quantizer")
-        if isinstance(mod, QuantDense):
+        if isinstance(mod, (QuantDense, AbsorbedKernel)):
             shape = (mod.in_features, mod.features)
         elif isinstance(mod, QuantEinsum) and specs and spec_folds(specs[0]):
             E, fin, fout = mod.kernel_shape

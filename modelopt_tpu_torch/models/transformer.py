@@ -1,15 +1,18 @@
-"""Quantization-aware decoder-only transformer: the llama family and
-Qwen3-MoE.
+"""Quantization-aware decoder-only transformer: the llama family,
+Qwen3-MoE and DeepSeek-V2.
 
-Port of the llama and Qwen3-MoE paths of
-``modelopt_tpu/models/transformer.py``: RMSNorm, RoPE (plain or
-llama3-scaled), grouped-query attention with optional per-head q/k RMSNorm
-and a lane-merged [B, S, KH*D] KV cache, silu-GLU MLP, optional fused qkv and
-gate_up projections, and a softmax top-k routed MoE block computed dense
-over all experts, as the reference does. Module names follow the reference
+Port of the llama, Qwen3-MoE and DeepSeek-V2 paths of
+``modelopt_tpu/models/transformer.py``: RMSNorm, RoPE (plain, llama3- or
+yarn-scaled), grouped-query attention with optional per-head q/k RMSNorm
+and a lane-merged [B, S, KH*D] KV cache, multi-head latent attention
+(``models/mla.py``, a [B, S, pad128(r+dr)] latent cache), silu-GLU MLP,
+optional fused qkv and gate_up projections, and a softmax top-k routed MoE
+block with optional always-on shared experts, computed dense over all
+experts, as the reference does. Module names follow the reference
 (``layers_0/attn/qkv_proj``, ``layers_0/mlp/gate_up_proj``,
-``layers_0/moe/down_proj``, ``lm_head``...), so quantize configs and
-reference variables address the same paths.
+``layers_0/moe/down_proj``, ``layers_1/moe/shared_experts/up_proj``,
+``lm_head``...), so quantize configs and reference variables address the
+same paths.
 
 Cached forwards go through the kernels: T > 1 writes the chunk's K/V with
 ``dense_kv_write`` then attends with ``flash_prefill_attention``; T == 1 is
@@ -36,8 +39,8 @@ from ..nn.quantizer import TensorQuantizer, assign_paths
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """The reference's DecoderConfig, restricted to the fields the llama
-    family and Qwen3-MoE use. Routing variants the port does not run yet
-    raise NotImplementedError."""
+    family, Qwen3-MoE and DeepSeek-V2 use. Routing variants the port does
+    not run yet raise NotImplementedError."""
 
     vocab_size: int = 32000
     hidden_size: int = 2048
@@ -78,6 +81,15 @@ class DecoderConfig:
     n_shared_experts: int = 0
     moe_activation: str = "silu_glu"
     moe_bias: bool = False
+    # Multi-head Latent Attention (DeepSeek V2/V3, models/mla.py): the KV
+    # cache stores one shared latent row [kv_lora_rank + qk_rope_head_dim]
+    # per token instead of per-head K/V
+    attention_type: str = "mha"  # "mha" | "mla"
+    q_lora_rank: Optional[int] = None  # None = direct q projection
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -89,7 +101,6 @@ class DecoderConfig:
             "router_score": self.router_score != "softmax",
             "router_correction_bias": self.router_correction_bias,
             "n_group": bool(self.n_group and self.n_group > 1),
-            "n_shared_experts": bool(self.n_shared_experts),
             "moe_activation": self.moe_activation != "silu_glu",
             "moe_bias": self.moe_bias,
         }
@@ -97,7 +108,9 @@ class DecoderConfig:
         if bad:
             raise NotImplementedError(
                 f"MoE options {bad} are not ported (softmax top-k routing with "
-                "silu-GLU experts is)")
+                "silu-GLU experts and shared experts is)")
+        if self.attention_type not in ("mha", "mla"):
+            raise NotImplementedError(f"attention_type {self.attention_type!r} is not ported")
 
     @property
     def kv_heads(self) -> int:
@@ -114,13 +127,21 @@ class DecoderConfig:
 def make_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
     """Static-shape KV cache: per-layer tuples of [batch, max_len, KH*D]
-    (heads merged into the last dim) and per-slot ``lengths`` [batch]."""
+    (heads merged into the last dim) and per-slot ``lengths`` [batch]. MLA
+    (the reference's :198-209): one shared latent row per token,
+    [batch, max_len, pad128(kv_lora_rank + qk_rope_head_dim)] in "k", and a
+    [batch, max_len, 0] placeholder in "v"."""
     dtype = dtype or cfg.dtype
-    shape = (batch, max_len, cfg.kv_heads * cfg.dims_per_head)
+    if cfg.attention_type == "mla":
+        dc = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        kshape = (batch, max_len, -(-dc // 128) * 128)
+        vshape = (batch, max_len, 0)
+    else:
+        kshape = vshape = (batch, max_len, cfg.kv_heads * cfg.dims_per_head)
     return {
-        "k": tuple(torch.zeros(shape, dtype=dtype, device=device)
+        "k": tuple(torch.zeros(kshape, dtype=dtype, device=device)
                    for _ in range(cfg.num_layers)),
-        "v": tuple(torch.zeros(shape, dtype=dtype, device=device)
+        "v": tuple(torch.zeros(vshape, dtype=dtype, device=device)
                    for _ in range(cfg.num_layers)),
         "lengths": torch.zeros(batch, dtype=torch.int32, device=device),
     }
@@ -129,21 +150,70 @@ def make_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
 _FREQ_CACHE: dict = {}
 
 
-def _rope_freq_on(d: int, theta: float, scaling, device) -> torch.Tensor:
-    """``_rope_freq`` kept per device: a fresh host-to-device copy in every
+def _rope_freq_on(d: int, theta: float, scaling, device):
+    """``_rope_params`` kept per device: a fresh host-to-device copy in every
     layer would make each forward wait for the card twice a layer."""
     key = (d, theta, scaling, str(device))
-    freq = _FREQ_CACHE.get(key)
-    if freq is None:
-        freq = _FREQ_CACHE[key] = _rope_freq(d, theta, scaling).to(device)
-    return freq
+    hit = _FREQ_CACHE.get(key)
+    if hit is None:
+        freq, mscale = _rope_params(d, theta, scaling)
+        hit = _FREQ_CACHE[key] = (freq.to(device), mscale)
+    return hit
 
 
-def _rope_freq(d: int, theta: float, scaling) -> torch.Tensor:
+def _yarn_get_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN attention-magnitude correction (arXiv:2309.00071 eq. 22)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_inv_freq(d: int, theta: float, scaling: dict):
+    """YaRN-scaled inverse frequencies and the cos/sin attention factor (the
+    reference's ``_yarn_inv_freq``: the public formula, HF
+    ``_compute_yarn_parameters`` with truncate=True), computed in float64
+    and rounded to f32. Returns (inv_freq [d//2] numpy f32, factor)."""
+    factor = float(scaling["factor"])
+    original_max = int(scaling.get("original_max_position_embeddings", 4096))
+    beta_fast = float(scaling.get("beta_fast", 32))
+    beta_slow = float(scaling.get("beta_slow", 1))
+    truncate = bool(scaling.get("truncate", True))
+    attention_factor = scaling.get("attention_factor")
+    if attention_factor is None:
+        mscale = scaling.get("mscale")
+        mscale_all = scaling.get("mscale_all_dim")
+        if mscale and mscale_all:
+            attention_factor = (_yarn_get_mscale(factor, mscale)
+                                / _yarn_get_mscale(factor, mscale_all))
+        else:
+            attention_factor = _yarn_get_mscale(factor)
+    pos_freqs = theta ** (np.arange(0, d, 2, dtype=np.float64) / d)
+    inv_extra = 1.0 / pos_freqs
+    inv_inter = 1.0 / (factor * pos_freqs)
+
+    def corr_dim(rot):
+        return d * math.log(original_max / (rot * 2 * math.pi)) / (2 * math.log(theta))
+
+    low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+    if truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, d - 1)
+    ramp = np.clip((np.arange(d // 2, dtype=np.float64) - low) / max(high - low, 1e-3), 0, 1)
+    extra_factor = 1.0 - ramp
+    inv_freq = inv_inter * (1 - extra_factor) + inv_extra * extra_factor
+    return inv_freq.astype(np.float32), float(attention_factor)
+
+
+def _rope_params(d: int, theta: float, scaling):
+    """(inverse frequencies [d//2] f32, cos/sin factor) for plain, llama3 or
+    yarn RoPE."""
     half = d // 2
     if scaling is None:
-        return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half))
+        return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half)), 1.0
     sdict = dict(scaling)
+    if sdict.get("rope_type") == "yarn":
+        inv, mscale = _yarn_inv_freq(d, theta, sdict)
+        return torch.from_numpy(inv), mscale
     if sdict.get("rope_type") != "llama3":
         raise NotImplementedError(f"rope scaling {sdict.get('rope_type')!r} is not ported")
     # Llama-3.1+ context extension (public formula): low-frequency bands
@@ -158,19 +228,22 @@ def _rope_freq(d: int, theta: float, scaling) -> torch.Tensor:
     smoothed = (1 - smooth) * base_freq / factor + smooth * base_freq
     out_f = np.where(wavelen > old_ctx / lowf, base_freq / factor,
                      np.where(wavelen < old_ctx / highf, base_freq, smoothed))
-    return torch.from_numpy(out_f.astype(np.float32))
+    return torch.from_numpy(out_f.astype(np.float32)), 1.0
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float, scaling=None):
     """Rotary embeddings on x [B, T, heads, D] at positions [B, T]. As the
     reference's code does, the two HALVES of the head dim rotate together
-    (x[..., :D/2] with x[..., D/2:]), not interleaved pairs."""
+    (x[..., :D/2] with x[..., D/2:]), not interleaved pairs; cos and sin
+    carry yarn's attention factor."""
     d = x.shape[-1]
     half = d // 2
-    freq = _rope_freq_on(d, theta, scaling, x.device)
+    freq, mscale = _rope_freq_on(d, theta, scaling, x.device)
     angles = positions[..., None].float() * freq                 # [B, T, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -267,10 +340,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: DecoderConfig, device="cuda"):
+    """silu-GLU MLP of width ``intermediate_size`` (default the config's)."""
+
+    def __init__(self, cfg: DecoderConfig, device="cuda", intermediate_size=None):
         super().__init__()
         self.cfg = cfg
-        Hd, I = cfg.hidden_size, cfg.intermediate_size
+        Hd, I = cfg.hidden_size, intermediate_size or cfg.intermediate_size
 
         def dense(fin, fout):
             return QuantDense(fin, fout, use_bias=cfg.mlp_bias, dtype=cfg.dtype,
@@ -311,13 +386,16 @@ class Router(nn.Module):
 
 
 class MoEBlock(nn.Module):
-    """Softmax top-k routed experts (Qwen3-MoE / Mixtral semantics of the
-    reference's MoEBlock): affinities over all experts, the top
-    ``experts_per_token`` selected, their weights gathered from the
+    """Softmax top-k routed experts (Qwen3-MoE / Mixtral / DeepSeek-V2
+    semantics of the reference's MoEBlock): affinities over all experts, the
+    top ``experts_per_token`` selected, their weights gathered from the
     affinities, renormalised (``norm_topk_prob``) and post-scaled. Compute is
     dense over all experts, masked by the gates, as in the reference; the
     down-projection takes the gates and returns the combined [B, T, hidden]
-    (one fused kernel on the W4A8 decode path)."""
+    (one fused kernel on the W4A8 decode path). DeepSeek's
+    ``n_shared_experts`` add one always-on MLP of width
+    ``n_shared_experts * moe_intermediate_size`` (``shared_experts``) to the
+    routed output."""
 
     def __init__(self, cfg: DecoderConfig, device="cuda"):
         super().__init__()
@@ -333,6 +411,8 @@ class MoEBlock(nn.Module):
         self.gate_proj = experts((E, Hd, inter), "btd,edf->btef")
         self.up_proj = experts((E, Hd, inter), "btd,edf->btef")
         self.down_proj = experts((E, inter, Hd), "bteo,eod->bted")
+        if cfg.n_shared_experts:
+            self.shared_experts = MLP(cfg, device, cfg.n_shared_experts * inter)
 
     def route(self, x):
         """x [B, T, hidden] -> (gates [B, T, E] f32, selected expert ids
@@ -353,7 +433,10 @@ class MoEBlock(nn.Module):
     def forward(self, x):
         gates, _, _ = self.route(x)
         h = nn.functional.silu(self.gate_proj(x)) * self.up_proj(x)  # [B, T, E, I]
-        return self.down_proj(h, gates=gates.to(self.cfg.dtype))
+        out = self.down_proj(h, gates=gates.to(self.cfg.dtype))
+        if self.cfg.n_shared_experts:
+            out = out + self.shared_experts(x)
+        return out
 
 
 class Block(nn.Module):
@@ -365,7 +448,12 @@ class Block(nn.Module):
                            param_dtype=cfg.param_dtype, device=device)
 
         self.input_norm = norm()
-        self.attn = Attention(cfg, device)
+        if cfg.attention_type == "mla":
+            from .mla import MLAttention
+
+            self.attn = MLAttention(cfg, device)
+        else:
+            self.attn = Attention(cfg, device)
         self.post_attn_norm = norm()
         if cfg.is_moe(layer):
             self.moe = MoEBlock(cfg, device)
@@ -417,6 +505,12 @@ class Decoder(nn.Module):
         if cache is None:
             causal = positions[:, None, :] <= positions[:, :, None]
             mask = torch.where(causal, 0.0, -1e9).float()
+        elif self.cfg.attention_type == "mla":
+            # MLA's cached einsum path (prefill, bf16-cache decode): keys at
+            # cache rows <= the query's position, [B, T, S]
+            key_pos = torch.arange(cache["k"][0].shape[1], device=dev)
+            mask = torch.where(key_pos[None, None, :] <= positions[:, :, None], 0.0,
+                               -1e9).float()
         ks, vs = [], []
         for i, layer in enumerate(self.layers()):
             cache_kv = None if cache is None else (cache["k"][i], cache["v"][i], positions)
@@ -479,6 +573,64 @@ def tiny_moe_test_config(**overrides) -> DecoderConfig:
         moe_intermediate_size=256, num_experts=4, experts_per_token=2,
         norm_topk_prob=True, qk_norm=True, rope_theta=1e6, norm_eps=1e-6,
         max_position_embeddings=256,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
+
+
+def deepseek_v2_lite_config(**overrides) -> DecoderConfig:
+    """DeepSeek-V2-Lite (Hugging Face ``deepseek-ai/DeepSeek-V2-Lite``
+    config.json): MLA with r=512 and no q compression, yarn RoPE, 64
+    softmax-routed experts (top-6, no renormalisation) plus 2 shared, a
+    dense first layer."""
+    base = dict(
+        vocab_size=102400, hidden_size=2048, num_layers=27, num_heads=16,
+        intermediate_size=10944, moe_intermediate_size=1408,
+        num_experts=64, experts_per_token=6, n_shared_experts=2,
+        norm_topk_prob=False, first_k_dense=1, rope_theta=10000.0,
+        rope_scaling=(("rope_type", "yarn"), ("factor", 40.0),
+                      ("original_max_position_embeddings", 4096),
+                      ("beta_fast", 32.0), ("beta_slow", 1.0),
+                      ("mscale", 0.707), ("mscale_all_dim", 0.707)),
+        max_position_embeddings=163840,
+        attention_type="mla", q_lora_rank=None, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
+
+
+def tiny_mla_test_config(**overrides) -> DecoderConfig:
+    """Small MLA config for tests (the reference's): a low-rank q, a latent
+    cache, shared and routed experts."""
+    base = dict(
+        vocab_size=256, hidden_size=64, num_layers=2, num_heads=2,
+        intermediate_size=128, moe_intermediate_size=64,
+        num_experts=4, experts_per_token=2, n_shared_experts=1,
+        first_k_dense=1, max_position_embeddings=128,
+        attention_type="mla", q_lora_rank=32, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+    )
+    base.update(overrides)
+    return DecoderConfig(**base)
+
+
+def small_mla_compressed_config(**overrides) -> DecoderConfig:
+    """Small DeepSeek-V2-shaped config whose widths reach the compressed
+    kernels: hidden 256, 2 heads, r=128 and dr=64 (a 192-wide latent row
+    padded to 256), a dense first layer of width 320 (not a whole number
+    of int4 blocks, so fake-quantized like V2-Lite's 10944), 4 experts of
+    width 384 (K/2 = 192: straddle blocks, like 1408), top-2, 2 shared
+    experts, V2-Lite's yarn scaling."""
+    base = dict(
+        vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+        intermediate_size=320, moe_intermediate_size=384,
+        num_experts=4, experts_per_token=2, n_shared_experts=2,
+        norm_topk_prob=False, first_k_dense=1, rope_theta=10000.0,
+        rope_scaling=deepseek_v2_lite_config().rope_scaling,
+        max_position_embeddings=256,
+        attention_type="mla", q_lora_rank=None, kv_lora_rank=128,
+        qk_nope_head_dim=64, qk_rope_head_dim=64, v_head_dim=64,
     )
     base.update(overrides)
     return DecoderConfig(**base)

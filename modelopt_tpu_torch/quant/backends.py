@@ -6,7 +6,8 @@ kernel on the card, its plain twin on the CPU): with int8 activations to
 ``w4a8_gemm`` with the reference's per-token activation quantization,
 weight-only to ``w4a16_gemm`` at every M. MoE down-projections of at most
 256 rows take the grouped kernels: with int8 activations and gates the fused
-``grouped_w4a8_combine_gemm``, weight-only ``grouped_w4a16_gemm``. Above 256
+``grouped_w4a8_combine_gemm`` (straddle widths such as DeepSeek's K=1408
+included), weight-only ``grouped_w4a16_gemm``. Above 256
 rows the reference has no grouped kernel and leaves dequantize + einsum to
 XLA; the port runs those same steps with ``torch.einsum``, on both devices.
 Every other packed format or shape is dequantized and multiplied on the CPU

@@ -1,10 +1,13 @@
-"""Fake quantization for the specs of the serving slice.
+"""Fake quantization for the specs of the serving slices.
 
-Port of the int8 parts of ``modelopt_tpu/quant/fake_quant.py``: per-tensor
-static int8 (a calibrated amax) and per-token dynamic int8 (a scale per row
-from this call's values). Other specs (fp formats, int4 fake-quant,
-two-level blocks) raise NotImplementedError. Inference only: no straight-
-through gradients are defined.
+Port of the integer parts of ``modelopt_tpu/quant/fake_quant.py``:
+per-tensor static int8 (a calibrated amax), per-token dynamic int8 (a scale
+per row from this call's values) and dynamic one-level integer blocks (the
+int4 block-128 weight spec on a kernel too ragged to pack, such as
+DeepSeek-V2-Lite's first down projection, K=10944), with the reference's
+zero padding of a dimension the block does not divide. Other specs (fp
+formats, two-level or static blocks) raise NotImplementedError. Inference
+only: no straight-through gradients are defined.
 """
 
 from __future__ import annotations
@@ -37,6 +40,46 @@ def fake_quant_int8_per_token(x: torch.Tensor, spec: QuantizerSpec) -> torch.Ten
     return y.to(x.dtype)
 
 
+def fake_quant_block_int(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
+    """Dynamic one-level integer block fake quantization (the reference's
+    ``_blocked`` + ``fake_quant_block``): each blocked axis is zero-padded up
+    to a multiple of its block (zeros never raise a block's amax) and split
+    into (n_blocks, block); scale = max(amax, 1e-24) / bound per block,
+    round-half-even(clip(x / scale, -bound-1, bound)) * scale in f32, then
+    the padding is cut away."""
+    xf = x.float()
+    shape = xf.shape
+    sizes = dict(spec.block.sizes)
+    pads = [0] * xf.dim()
+    bs_dim = [None] * xf.dim()
+    for i, d in enumerate(shape):
+        bs = next((s for a, s in sizes.items() if a % xf.dim() == i), None)
+        if bs is None:
+            continue
+        bs = d if bs <= 0 else min(bs, max(d, 1))
+        bs_dim[i] = bs
+        pads[i] = (-d) % bs
+    if any(pads):
+        pad_arg = []
+        for p in reversed(pads):
+            pad_arg += [0, p]
+        xf = torch.nn.functional.pad(xf, pad_arg)
+    padded = xf.shape
+    new_shape, block_axes = [], []
+    for i, d in enumerate(padded):
+        if bs_dim[i] is None:
+            new_shape.append(d)
+        else:
+            new_shape += [d // bs_dim[i], bs_dim[i]]
+            block_axes.append(len(new_shape) - 1)
+    xb = xf.reshape(new_shape)
+    amax = xb.abs().amax(dim=tuple(block_axes), keepdim=True)
+    scale = amax.clamp_min(_TINY) / spec.int_bound
+    y = torch.round(torch.clamp(xb / scale, -spec.int_bound - 1, spec.int_bound)) * scale
+    y = y.reshape(padded)[tuple(slice(0, d) for d in shape)]
+    return y.to(x.dtype)
+
+
 def is_per_token_int8(spec: QuantizerSpec) -> bool:
     return bool(not spec.is_fp and spec.num_bits == 8 and spec.block is not None
                 and spec.block.dynamic and not spec.block.two_level
@@ -53,6 +96,9 @@ def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None) -> torch.Tens
     if spec.block is not None:
         if is_per_token_int8(spec):
             return fake_quant_int8_per_token(x, spec)
+        if (spec.block.dynamic and not spec.block.two_level
+                and spec.block.scale_format is None and not spec.block.four_over_six):
+            return fake_quant_block_int(x, spec)
         raise NotImplementedError(f"block fake quantization of {spec} is not ported")
     if spec.axis is not None:
         raise NotImplementedError("per-channel fake quantization is not ported")

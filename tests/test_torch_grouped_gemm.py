@@ -70,10 +70,27 @@ def test_grouped_w4a8_combine_plain_matches_pallas(rng, interp, M):
     np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-4, atol=1e-2)
 
 
-def test_grouped_w4a8_combine_is_expert_order_sum(rng):
+@pytest.mark.parametrize("M", [3, 8])
+def test_grouped_w4a8_combine_straddle_matches_pallas(rng, interp, M):
+    """K=384 (K/2 % 128 == 64, the layout of DeepSeek's K=1408 experts): the
+    twin's straddle order against the Pallas kernel, at the same bar as the
+    aligned shapes."""
+    E, K, N = 4, 384, 128
+    p, pt = _packed(rng, E, K, N)
+    xq = rng.integers(-127, 128, (E, M, K)).astype(np.int8)
+    gs = rng.standard_normal((E, M)).astype(np.float32)
+    yj = np.asarray(jk.grouped_w4a8_combine_gemm(jnp.asarray(xq), jnp.asarray(gs), p["data"],
+                                                 p["scale"], N, block=128))
+    yt = tk.grouped_w4a8_combine_gemm(torch.from_numpy(xq), torch.from_numpy(gs),
+                                      pt["data"], pt["scale"], N)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("K", [256, 384])
+def test_grouped_w4a8_combine_is_expert_order_sum(rng, K):
     """The twin is the per-expert K1 product gated and summed in expert
     order, bit for bit (the order the CUDA kernel keeps)."""
-    E, K, N, M = 3, 256, 64, 5
+    E, N, M = 3, 64, 5
     _, pt = _packed(rng, E, K, N)
     xq = torch.from_numpy(rng.integers(-127, 128, (E, M, K)).astype(np.int8))
     gs = torch.from_numpy(rng.standard_normal((E, M)).astype(np.float32))

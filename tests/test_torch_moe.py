@@ -295,7 +295,10 @@ def test_uncached_forward_matches_above_256_rows(preset, compressed):
 
 
 def test_unported_routing_variants_raise():
-    for kw in (dict(router_score="sigmoid"), dict(n_group=4), dict(n_shared_experts=1),
+    """Routing variants still unported raise; shared experts (DeepSeek) are
+    ported now (test_torch_mla.py) and build."""
+    assert port_cfg(n_shared_experts=1).n_shared_experts == 1
+    for kw in (dict(router_score="sigmoid"), dict(n_group=4),
                dict(moe_activation="swiglu_oai"), dict(moe_bias=True),
                dict(router_correction_bias=True)):
         with pytest.raises(NotImplementedError, match="not ported"):

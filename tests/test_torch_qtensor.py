@@ -58,3 +58,50 @@ def test_int8_per_channel_bit_exact(rng):
     pt = tq.quantize_int8(torch.from_numpy(w))
     np.testing.assert_array_equal(np.asarray(pj["data"]), pt["data"].numpy())
     np.testing.assert_array_equal(np.asarray(pj["scale"]), pt["scale"].numpy())
+
+
+@pytest.mark.parametrize("K,N", [(384, 64), (1408, 32)])
+def test_straddle_pack_quantize_dequantize_bit_exact(rng, K, N):
+    """K % 128 == 0 with (K/2) % 128 == 64 (DeepSeek's expert width 1408):
+    one scale block straddles the split-half boundary. Codes, scales and
+    dequantized weights are bit-identical both ways."""
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    pj = jq.quantize_int4(jnp.asarray(w), block=128)
+    pt = tq.quantize_int4(torch.from_numpy(w), block=128)
+    np.testing.assert_array_equal(np.asarray(pj["data"]), pt["data"].numpy())
+    np.testing.assert_array_equal(np.asarray(pj["scale"]), pt["scale"].numpy())
+    assert pt["scale"].shape == (K // 128, N)
+    np.testing.assert_array_equal(tq.unpack_int4(pt["data"]).numpy(),
+                                  np.asarray(jq.unpack_int4(pj["data"])))
+    np.testing.assert_array_equal(tq.dequantize_int4(pt).numpy(),
+                                  np.asarray(jq.dequantize_int4(pj)))
+
+
+def test_straddle_folded_experts_bit_exact(rng):
+    """The folded expert view [in, E*out] of straddle-shaped experts
+    (in = 384) packs as the reference's compress packs it, and each
+    expert's dequantized columns unfold to its own [in, out]."""
+    E, fin, fout = 3, 384, 32
+    w = rng.standard_normal((E, fin, fout)).astype(np.float32)
+    folded = tq.fold_experts(torch.from_numpy(w))
+    pj = jq.quantize_int4(jnp.asarray(w.transpose(1, 0, 2).reshape(fin, E * fout)))
+    pt = tq.quantize_int4(folded)
+    np.testing.assert_array_equal(np.asarray(pj["data"]), pt["data"].numpy())
+    np.testing.assert_array_equal(np.asarray(pj["scale"]), pt["scale"].numpy())
+    per_expert = tq.unfold_experts(tq.dequantize_int4(pt), E)
+    for e in range(E):
+        own = tq.dequantize_int4(tq.quantize_int4(torch.from_numpy(w[e])))
+        np.testing.assert_array_equal(per_expert[e].numpy(), own.numpy())
+
+
+@pytest.mark.parametrize("K", [256, 384, 1408, 10944, 320])
+def test_compressible_format_follows_reference(K):
+    """int4 packs whole scale blocks of even K (``need_half=False``): the
+    straddle shapes pack, K=10944 and K=320 (K % 128 == 64) do not, in both
+    packages."""
+    from modelopt_tpu.quant.qspec import QuantizerSpec as JSpec
+    from modelopt_tpu_torch.quant.qspec import QuantizerSpec as TSpec
+
+    want = jq.compressible_format(JSpec(num_bits=4, block={-2: 128}), (K, 64))
+    got = tq.compressible_format(TSpec(num_bits=4, block={-2: 128}), (K, 64))
+    assert got == want == ("int4" if K % 128 == 0 else None)

@@ -55,12 +55,49 @@ def test_w4a8_plain_matches_pallas(rng, interp, M):
     np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-4, atol=1e-2)
 
 
+@pytest.mark.parametrize("M", [1, 8, 300])
+def test_w4a8_straddle_plain_matches_pallas(rng, interp, M):
+    """K=384 (K/2 % 128 == 64): one scale block straddles the split-half
+    boundary. The twin takes the reference's straddle order (low-half
+    blocks, the straddle block's two integer dots summed under one scale
+    row, then the high-half blocks shifted by 64 rows); held at the
+    reference suite's bar like the aligned shapes."""
+    K, N = 384, 256
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    xq = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    p = jq.quantize_int4(jnp.asarray(w), block=128)
+    yj = np.asarray(jk.w4a8_gemm(jnp.asarray(xq), p["data"], p["scale"], block=128))
+    yt = tk.w4a8_gemm(torch.from_numpy(xq), torch.from_numpy(np.array(p["data"])),
+                      torch.from_numpy(np.array(p["scale"])), block=128)
+    assert yt.shape == (M, N)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-4, atol=1e-2)
+
+
 def test_w4a8_straddle_refused(rng):
-    """K/2 % block != 0 (K=1408-style straddle blocks) is not ported: the
-    wrapper raises instead of computing something else."""
-    p = tq.quantize_int4(torch.randn(704, 128), block=64)
+    """The CUDA K1 does not take straddle shapes yet: a tensor off the CPU
+    with K/2 % 128 != 0 is refused before any launch (the twin above
+    computes them on the CPU)."""
+    p = tq.quantize_int4(torch.randn(384, 128))
+    x = torch.empty(2, 384, dtype=torch.int8, device="meta")
     with pytest.raises(NotImplementedError, match="straddl"):
-        tk.w4a8_gemm(torch.zeros(2, 704, dtype=torch.int8), p["data"], p["scale"], block=64)
+        tk.w4a8_gemm(x, p["data"].to("meta"), p["scale"].to("meta"))
+
+
+def test_block_dots_straddle_order(rng):
+    """The straddle order spelled out with the integer dots: acc over the
+    low-half block, then the straddle block (low tail + high head under
+    scale row 1), then the high-half block under scale row 2, each added
+    in f32 as ``acc + q*s``: bit for bit."""
+    K, N, M = 384, 64, 3
+    qt = tq.quantize_int4(torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)))
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.float32))
+    q = tq.unpack_int4(qt["data"]).float()  # rows in original order
+    s = qt["scale"]
+    acc = torch.zeros(M, N)
+    acc = acc + (x[:, :128] @ q[:128]) * s[0:1]
+    acc = acc + (x[:, 128:192] @ q[128:192] + x[:, 192:256] @ q[192:256]) * s[1:2]
+    acc = acc + (x[:, 256:] @ q[256:]) * s[2:3]
+    assert torch.equal(tk.w4a8_gemm_plain(x.to(torch.int8), qt["data"], qt["scale"]), acc)
 
 
 @pytest.mark.parametrize("M", [4, 300])

@@ -104,12 +104,42 @@ def test_grouped_w4a16_plain_matches_pallas(rng, interp, M, out):
         np.testing.assert_allclose(yt[e].float().numpy(), yj[e], rtol=0, atol=bar)
 
 
+@pytest.mark.parametrize("M", [1, 300])
+def test_w4a16_straddle_plain_matches_pallas(rng, interp, M):
+    """K=384 (K/2 % 128 == 64), the reference's straddle order in the twin
+    (low-half blocks, the straddle block's two f32 dots summed under one
+    scale row, the high-half blocks): held to ``order_bar``, plain and
+    grouped."""
+    K, N, E = 384, 256, 2
+    w = rng.standard_normal((K, E * N)).astype(np.float32) / np.sqrt(K)
+    p = jq.quantize_int4(jnp.asarray(w), block=128)
+    wd = np.asarray(jq.dequantize_int4(p, 128))
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    yj = np.asarray(jk.w4a16_gemm(jnp.asarray(x[0], jnp.bfloat16), p["data"], p["scale"],
+                                  block=128, out_dtype=jnp.float32))
+    yt = tk.w4a16_gemm(torch.from_numpy(x[0]).bfloat16(), _t(p["data"]), _t(p["scale"]),
+                       out_dtype=torch.float32)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0,
+                               atol=order_bar(yj, _bf16(x[0]), wd, "f32"))
+    gj = np.asarray(jk.grouped_w4a16_gemm(jnp.asarray(x, jnp.bfloat16), p["data"], p["scale"],
+                                          N, block=128, out_dtype=jnp.float32))
+    gt = tk.grouped_w4a16_gemm(torch.from_numpy(x).bfloat16(), _t(p["data"]), _t(p["scale"]),
+                               N, out_dtype=torch.float32)
+    for e in range(E):
+        np.testing.assert_allclose(gt[e].numpy(), gj[e], rtol=0, atol=order_bar(
+            gj[e], _bf16(x[e]), wd[:, e * N:(e + 1) * N], "f32"))
+
+
 def test_w4a16_straddle_refused():
-    """K/2 % block != 0 is not ported: the wrapper raises instead of
-    computing something else."""
-    p = tq.quantize_int4(torch.randn(704, 128), block=64)
+    """The CUDA K6 and K10 do not take straddle shapes yet: a tensor off
+    the CPU with K/2 % 128 != 0 is refused before any launch."""
+    p = tq.quantize_int4(torch.randn(384, 256))
+    x = torch.empty(2, 384, dtype=torch.bfloat16, device="meta")
+    data, scale = p["data"].to("meta"), p["scale"].to("meta")
     with pytest.raises(NotImplementedError, match="straddl"):
-        tk.w4a16_gemm(torch.zeros(2, 704), p["data"], p["scale"], block=64)
+        tk.w4a16_gemm(x, data, scale)
+    with pytest.raises(NotImplementedError, match="straddl"):
+        tk.grouped_w4a16_gemm(x.reshape(2, 1, 384), data, scale, 128)
 
 
 def test_w4a16_off_cpu_never_computes_the_twin():
