@@ -17,7 +17,10 @@ Phases, in order (any failure exits non-zero):
      DeepSeek's straddle shape K=1408), then K1-K4 with K2 and K4 at both
      GQA groups the paths run (G = 4 and 8), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
-     with one chunk and with two, and on a bf16 cache;
+     with one chunk and with two, and on a bf16 cache; then K15
+     paged_decode_attention at path E's decode shape (int8 pools, and bf16
+     off the paths) and path F's (one int8 latent pool as K and V), and K16
+     paged_kv_write at a prefill chunk and at E's and F's decode steps;
   3. parity: small models built from the same numpy weights on the CPU
      (plain versions) and on the card (kernels), prefill and 4 decode steps
      compared: a 2-layer Qwen3-MoE at the real per-expert geometry (hidden
@@ -26,6 +29,8 @@ Phases, in order (any failure exits non-zero):
      DeepSeek-V2 at the real attention and expert widths (hidden 2048, 16
      heads, r=512, dr=64, expert width 1408, 2 shared, 8 experts, top-2)
      under W4A8_INT8KV_CFG with an int8 latent cache, and a 2-layer llama;
+     the llama and the DeepSeek-V2 again over paged caches (64-row pages
+     scattered over the pool);
   4. serving paths, one after the other (each model freed before the next
      is built), each on random weights from a seed, served by ServingEngine
      (max_batch 8, max_seq_len 2176, prefill buckets (32, 544), multi_step
@@ -33,14 +38,19 @@ Phases, in order (any failure exits non-zero):
      prompt tokens -> 64 new tokens each, greedy. Launch counters are zeroed
      just before each measured run and read just after: every kernel of the
      path must have launched, and no kernel of another path;
-       B: Qwen3-30B-A3B (full width and depth) under W4A8_INT8KV_CFG, KV
-          scales calibrated by one 64-token forward;
-       C: Qwen3-30B-A3B (full width and depth) under
+       B: Qwen3-30B-A3B (full width, 24 of its 48 layers, so that the
+          script keeps within about 600 s) under W4A8_INT8KV_CFG, KV scales
+          calibrated by one 64-token forward;
+       C: Qwen3-30B-A3B (full width, 24 of 48 layers) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
        D: DeepSeek-V2-Lite (full width and depth: MLA, 64 experts top-6
           plus 2 shared, a dense first layer) under W4A8_INT8KV_CFG, the
           int8 latent cache calibrated by one 64-token forward;
+       E: A's model over a paged KV cache: int8 pools of 145 pages of 64
+          rows per layer (8 requests' worst case of 18 pages each, plus the
+          null page; 53% of the dense cache);
+       F: D's model over a paged int8 latent pool of 145 pages;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request.
 Then one JSON line of per-kernel numbers, and last the device line.
@@ -70,7 +80,9 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "B=8 S=2176 KH=8 G=4 D=128 int8 ragged pos",
            "M=8 K=2048 N=98304 bf16 out",
            "E=128 M=8 K=768 N=2048",  # K12 reports its first row (routed gscale)
-           "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088")
+           "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088",
+           "B=8 PMAX=34 ps=64 KH=8 G=4 D=128 int8 ragged lengths",
+           "B=1 T=544 row=1024 int8")
 
 SOURCES = {
     "w4a8_gemm": ("modelopt_tpu_torch/csrc/w4a8_gemm.cu",
@@ -89,6 +101,10 @@ SOURCES = {
                                   "modelopt_tpu/kernels/quant_gemm.py:773"),
     "decode_attention": ("modelopt_tpu_torch/csrc/decode_attention.cu",
                          "modelopt_tpu/kernels/attention.py:257"),
+    "paged_decode_attention": ("modelopt_tpu_torch/csrc/decode_attention.cu",
+                               "modelopt_tpu/kernels/paged_attention.py:65"),
+    "paged_kv_write": ("modelopt_tpu_torch/csrc/paged_kv_write.cu",
+                       "modelopt_tpu/kernels/paged_attention.py:126"),
 }
 # kernels each serving path must launch
 PATH_KERNELS = {
@@ -99,6 +115,9 @@ PATH_KERNELS = {
     "C": ("w4a16_gemm", "grouped_w4a16_gemm", "dense_kv_write",
           "fused_decode_attention", "flash_prefill_attention"),
     "D": ("w4a8_gemm", "dense_kv_write", "decode_attention", "grouped_w4a8_combine_gemm"),
+    "E": ("w4a8_gemm", "paged_kv_write", "paged_decode_attention"),
+    "F": ("w4a8_gemm", "paged_kv_write", "paged_decode_attention",
+          "grouped_w4a8_combine_gemm"),
 }
 
 
@@ -149,21 +168,12 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-def kernel_phase(torch, results: dict) -> None:
-    import torch.nn.functional as F
-
-    from modelopt_tpu_torch.kernels import attention as ka
-    from modelopt_tpu_torch.kernels import flash_attention as kf
-    from modelopt_tpu_torch.kernels import quant_gemm as kq
-    from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
-
-    timer = Timer(torch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
-
+def recorder(results: dict):
+    """``record(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes, ops,
+    rate)``: one kernel row into ``results``, failing if ``err`` is above
+    ``tol``; ``nbytes`` counts each input read once and each output written
+    once."""
     def record(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate):
-        """One kernel row; ``nbytes`` counts each input read once and each
-        output written once."""
         bound_b = nbytes / HBM_BPS * 1e3
         bound_o = ops / rate * 1e3
         row = {"shape": shape, "max_abs_err": err, "tol": tol, "ms": ms,
@@ -176,6 +186,21 @@ def kernel_phase(torch, results: dict) -> None:
             f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
         if not err <= tol:
             raise AssertionError(f"{name} {shape}: error {err} above {tol}")
+    return record
+
+
+def kernel_phase(torch, results: dict) -> None:
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import attention as ka
+    from modelopt_tpu_torch.kernels import flash_attention as kf
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+    from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev = "cuda"
+    record = recorder(results)
 
     moe_kernels(torch, gen, timer, record)
 
@@ -344,6 +369,7 @@ def kernel_phase(torch, results: dict) -> None:
                4 * B * keys * KH * G * D, BF16_FLOPS)
 
     mla_decode_kernel(torch, gen, timer, record)
+    paged_kernels(torch, gen, timer, record)
 
 
 def mla_decode_kernel(torch, gen, timer, record) -> None:
@@ -413,6 +439,125 @@ def mla_decode_kernel(torch, gen, timer, record) -> None:
     record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} bf16 K=V lengths 1..{top}",
            err, tol, ms, plain_ms, lib_ms, live * D * 2 + 2 * B * G * D * 2,
            4 * live * G * D, BF16_FLOPS)
+
+
+PAGE_SIZE, PAGED_POOL = 64, 145  # paths E and F: 64-row pages, 145 a pool
+
+
+def page_table(torch, lengths, pmax: int, n_pages: int, seed: int = 0):
+    """An int32 page table [B, pmax] on the card giving each slot the pages
+    its length needs, drawn without repeats from a shuffled pool (page 0,
+    the null page, excluded); unused entries point at page 0."""
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    pt = torch.zeros(len(lengths), pmax, dtype=torch.int32)
+    used = 0
+    for b, L in enumerate(lengths):
+        n = -(-int(L) // PAGE_SIZE)
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    return pt.to("cuda")
+
+
+def paged_kernels(torch, gen, timer, record) -> None:
+    """K15 at path E's decode shape (B=8 slots, KH=8, G=4, D=128, 64-row
+    pages, PMAX=34, ragged lengths up to the whole table) on int8 pools and
+    on bf16 pools (off the paths), and at path F's (KH=1, G=16, D=640, one
+    int8 latent pool as K and V, lengths 1..1088); every pool of 145 pages
+    holds random codes, the null page too (a read of it would show). K16 at
+    a prefill chunk (T=544 tokens of E's 1024-byte rows) and at E's and F's
+    decode steps (8 slots, one row each, distinct targets)."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import paged_attention as kp
+
+    dev = "cuda"
+    ps, pmax, P = PAGE_SIZE, 2176 // PAGE_SIZE, PAGED_POOL
+    # K15: as K5 (the same kernel body), kernel and plain version differ only
+    # where expf and torch.exp round a 7-bit code across .5: an int8 bar of
+    # vs plus one bf16 ulp of the largest output; bf16 pools, f32 sums in
+    # another order, 1e-3 plus one output ulp.
+    log("K15 paged_decode_attention")
+    lengths_e = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32,
+                             device=dev)
+    lengths_f = torch.linspace(1, 1088, 8, device=dev).round().to(torch.int32)
+    cases = (("E", 8, 4, 128, "int8", lengths_e), ("E", 8, 4, 128, "bf16", lengths_e),
+             ("F", 1, 16, 640, "int8", lengths_f))
+    for path, KH, G, D, kind, lengths in cases:
+        B = lengths.shape[0]
+        pt = page_table(torch, lengths.tolist(), pmax, P)
+        q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        if kind == "int8":
+            pools = [torch.randint(-127, 128, (P, ps, KH * D), generator=gen, device=dev,
+                                   dtype=torch.int8) for _ in range(2 if KH > 1 else 1)]
+            ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
+            if KH == 1:  # MLA: one latent tensor and scale as K and V
+                ks = vs
+            deq = [(p.float() * s).to(torch.bfloat16) for p, s in zip(pools, (ks, vs))]
+            rate = INT8_OPS
+        else:
+            pools = [torch.randn(P, ps, KH * D, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(2)]
+            ks = vs = None
+            deq = pools
+            rate = BF16_FLOPS
+        kpool, vpool = pools[0], pools[-1]
+        out = kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs)
+        ref = kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths, ks, vs)
+        err = (out.float() - ref.float()).abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+        tol = (0.03 if kind == "int8" else 1e-3) + ulp
+        ms = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
+        plain_ms = timer(lambda: kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths,
+                                                                 ks, vs), 5)
+        S = pmax * ps
+        k4 = kp.paged_gather_dense(deq[0], pt).reshape(B, S, KH, D).transpose(1, 2)
+        v4 = kp.paged_gather_dense(deq[-1], pt).reshape(B, S, KH, D).transpose(1, 2)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())
+        qs = q.reshape(B, KH * G, 1, D)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, k4, v4, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        del k4, v4
+        live = int(lengths.long().sum())
+        item = kpool.element_size()
+        # live rows once each (K and V, or the one latent pool), the live
+        # table entries, lengths, q in and out back in bf16
+        nbytes = (len(pools) * live * KH * D * item + 4 * sum(-(-int(L) // ps) for L in
+                  lengths.tolist()) + 4 * B + 2 * 2 * B * KH * G * D)
+        shape = (f"B={B} PMAX={pmax} ps={ps} KH={KH} G={G} D={D} {kind} "
+                 + ("ragged lengths" if path == "E" else "K=V lengths 1..1088"))
+        record("paged_decode_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
+               4 * live * KH * G * D, rate)
+        del pools, deq, kpool, vpool
+
+    # K16: a copy, bit-exact; the decode cases aim every slot at its own row
+    log("K16 paged_kv_write")
+    for B, T, row, start in ((1, 544, 1024, 544), (8, 1, 1024, None), (8, 1, 640, None)):
+        pool = torch.randint(-127, 128, (P, ps, row), generator=gen, device=dev,
+                             dtype=torch.int8)
+        vals = torch.randint(-127, 128, (B, T, row), generator=gen, device=dev,
+                             dtype=torch.int8)
+        if T > 1:  # a prefill chunk at rows [start, start + T) of one slot
+            pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)[None]
+            pt = page_table(torch, [start + T], pmax, P)
+            pids = pt.gather(1, (pos // ps).long())
+            offs = pos % ps
+        else:  # one row per slot, slots on distinct pages
+            pids = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))[:B] + 1)
+            pids = pids.to(dev, torch.int32)[:, None]
+            offs = torch.randint(0, ps, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+        pids, offs = pids.contiguous(), offs.contiguous()
+        got = kp.paged_kv_write(pool.clone(), vals, pids, offs)
+        ref = kp.paged_kv_write_plain(pool.clone(), vals, pids, offs)
+        err = (got.float() - ref.float()).abs().max().item()
+        p2 = pool.clone()
+        ms = timer(lambda: kp.paged_kv_write(p2, vals, pids, offs))
+        plain_ms = timer(lambda: kp.paged_kv_write_plain(p2, vals, pids, offs))
+        li, lo = pids.long(), offs.long()
+        lib_ms = timer(lambda: p2.index_put_((li, lo), vals))
+        # rows read and written once, pids and offs read once
+        record("paged_kv_write", f"B={B} T={T} row={row} int8", err, 0.0, ms, plain_ms,
+               lib_ms, 2 * B * T * row + 8 * B * T, 0, INT8_OPS)
+        del pool, p2
 
 
 def w4a16_bar(torch, ref, x, wdq) -> float:
@@ -612,13 +757,25 @@ def _router_trace(bundle) -> list:
     return trace
 
 
-def _forward_rows(torch, bundle, cfg, ids, T, steps, kv_dtype, dev):
-    """Prefill ids[:, :T] into a fresh cache, then ``steps`` cached decode
-    steps; the last position's logits of each forward, [steps + 1, B, V],
-    on the CPU."""
+def _forward_rows(torch, bundle, cfg, ids, T, steps, kv_dtype, dev, paged=False):
+    """Prefill ids[:, :T] into a fresh cache of 256 rows a slot, then
+    ``steps`` cached decode steps; the last position's logits of each
+    forward, [steps + 1, B, V], on the CPU. ``paged``: a paged cache of
+    64-row pages instead, the slots' pages handed out in turns (slot 0 gets
+    1, 3, 5, 7, ...)."""
     from modelopt_tpu_torch.models import make_cache
+    from modelopt_tpu_torch.serve.paged_cache import (PagedCacheConfig, make_paged_cache,
+                                                      write_page_table)
 
-    cache = make_cache(cfg, ids.shape[0], 256, dtype=kv_dtype, device=dev)
+    B = ids.shape[0]
+    if paged:
+        pmax = 256 // PAGE_SIZE
+        cache = make_paged_cache(cfg, B, PagedCacheConfig(PAGE_SIZE, B * pmax + 1, pmax),
+                                 dtype=kv_dtype, device=dev)
+        for b in range(B):
+            write_page_table(cache, b, list(range(b + 1, B * pmax + 1, B)))
+    else:
+        cache = make_cache(cfg, B, 256, dtype=kv_dtype, device=dev)
     out, cache = bundle.apply(ids[:, :T].to(dev), cache)
     rows = [out[:, -1].float().cpu()]
     for t in range(steps):
@@ -627,7 +784,7 @@ def _forward_rows(torch, bundle, cfg, ids, T, steps, kv_dtype, dev):
     return torch.stack(rows)
 
 
-def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps):
+def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps, paged=False):
     """The CPU half of a parity check: variables drawn from numpy seed 0,
     the model built on the CPU and calibrated there (its k/v amax written
     into the variables, so the card runs with the same scales), the ids
@@ -648,11 +805,11 @@ def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps):
                 node = node.setdefault(k, {})
             node["amax"] = mod.amax.numpy()
     trace = _router_trace(cpu)
-    logits = _forward_rows(torch, cpu, cfg, ids, T, steps, kv_dtype, "cpu")
+    logits = _forward_rows(torch, cpu, cfg, ids, T, steps, kv_dtype, "cpu", paged)
     return variables, ids, logits, trace
 
 
-def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4):
+def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4, paged=False):
     """Prefill of B x T tokens then ``steps`` decode steps, the same numpy
     weights on the CPU (plain versions) and on the card (kernels); holds the
     card's logits to 3% of the largest CPU logit. The int8 GEMMs (K1, K12)
@@ -665,15 +822,18 @@ def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4):
     from modelopt_tpu_torch.models.convert import from_jax_variables
 
     variables, ids, ref, cpu_trace = cpu_reference(torch, cfg, preset, kv_dtype, ids_seed,
-                                                   B, T, steps)
+                                                   B, T, steps, paged)
     gpu = from_jax_variables(variables, cfg, preset, device="cuda")
     gpu_trace = _router_trace(gpu)
-    got = _forward_rows(torch, gpu, cfg, ids, T, steps, kv_dtype, "cuda")
+    got = _forward_rows(torch, gpu, cfg, ids, T, steps, kv_dtype, "cuda", paged)
     if not (torch.isfinite(got).all() and got.shape == (steps + 1, B, cfg.vocab_size)):
         raise AssertionError(f"parity {name}: card logits not finite or misshaped")
     err = (got - ref).abs().max().item()
     tol = 3e-2 * ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    # a greedy choice whose top-2 logits are this close may go either way
+    top2 = ref.topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]).min().item()
     routed = ""
     if cpu_trace:
         k = cfg.experts_per_token
@@ -688,7 +848,8 @@ def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4):
                   f"differ by <= {dlog:.3g}; smallest CPU top-{k} gap {gap_c:.3g} at the "
                   f"compared positions, {gap_o:.3g} elsewhere")
     log(f"  {name}: prefill {B} x {T} + {steps} decode steps: max |logit diff| {err:.4g} "
-        f"(tol {tol:.4g}), argmax agreement {agree:.3f}{routed}")
+        f"(tol {tol:.4g}), argmax agreement {agree:.3f} (smallest CPU top-2 logit gap "
+        f"{tie:.4g}){routed}")
     if not err <= tol:
         raise AssertionError(f"parity {name}: card logits off by {err} > {tol}")
 
@@ -760,6 +921,12 @@ def parity_phase(torch) -> None:
                          max_position_embeddings=256, rope_theta=500000.0,
                          fused_qkv=True, fused_gate_up=True)
     _parity(torch, "llama W4A8 + int8 KV", llama, "W4A8_INT8KV_CFG", torch.int8, 1, 2, 64)
+    # paged: prefill gathers the pages for the einsum path, decode runs K15
+    # (the twin on the CPU), every forward writes through K16
+    _parity(torch, "llama W4A8 + int8 KV pages", llama, "W4A8_INT8KV_CFG", torch.int8, 1, 2,
+            64, paged=True)
+    _parity(torch, "DeepSeek-V2 W4A8 + int8 latent pages", small_mla_config(),
+            "W4A8_INT8KV_CFG", torch.int8, MLA_IDS_SEED, 2, 16, paged=True)
 
 
 # --------------------------------------------------------------------------
@@ -772,7 +939,14 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "A": ("Llama-3-8B W4A8 + int8 KV", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
     "D": ("DeepSeek-V2-Lite W4A8 + int8 latent cache", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
           "int8"),
+    "E": ("Llama-3-8B W4A8 + int8 KV pages", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
+    "F": ("DeepSeek-V2-Lite W4A8 + int8 latent pages", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
+          "int8"),
 }
+# paths over a paged KV cache. A 1024-token request holds at most
+# pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
+# lookahead from its 63rd token), 8 of them 144, plus the null page.
+PAGED = ("E", "F")
 TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
@@ -780,8 +954,9 @@ def path_config(torch, model: str):
     from modelopt_tpu_torch.models import (deepseek_v2_lite_config, llama3_8b_config,
                                            qwen3_moe_config)
 
-    if model == "qwen3_moe":  # full width and depth: 48 layers, 128 experts
-        return qwen3_moe_config(max_position_embeddings=2176, param_dtype=torch.bfloat16)
+    if model == "qwen3_moe":  # full width, 24 of 48 layers, 128 experts
+        return qwen3_moe_config(num_layers=24, max_position_embeddings=2176,
+                                param_dtype=torch.bfloat16)
     if model == "deepseek_v2_lite":  # full width and depth: 27 layers, 64 + 2 experts
         return deepseek_v2_lite_config(param_dtype=torch.bfloat16)
     return llama3_8b_config(max_position_embeddings=2176, param_dtype=torch.bfloat16,
@@ -815,8 +990,18 @@ def serve_path(torch, name) -> dict:
         bad = validate_calibration(bundle)
         n_amax = sum(getattr(m, "amax", None) is not None for m in bundle.module.modules())
         log(f"  calibrated: {n_amax} quantizers hold an amax, {len(bad)} invalid")
+    paging = (dict(paged=True, page_size=PAGE_SIZE, kv_pages=PAGED_POOL) if name in PAGED
+              else {})
     eng = ServingEngine(bundle, max_batch=8, max_seq_len=2176, prefill_buckets=(32, 544),
-                        kv_dtype=kv_dtype, multi_step=16, max_admit=1, device="cuda")
+                        kv_dtype=kv_dtype, multi_step=16, max_admit=1, device="cuda", **paging)
+    kv_bytes = sum(t.numel() * t.element_size() for t in eng.cache["k"] + eng.cache["v"])
+    if paging:
+        dense = sum(t[0].numel() * t.element_size() * 8 * 2176 // PAGE_SIZE
+                    for t in eng.cache["k"] + eng.cache["v"])
+        log(f"  KV pools {PAGED_POOL} pages of {PAGE_SIZE} rows: {kv_bytes / 1e9:.3f} GB, "
+            f"against {dense / 1e9:.3f} GB for the dense cache of 8 x 2176 rows")
+    else:
+        log(f"  KV cache {kv_bytes / 1e9:.3f} GB")
     t0 = time.time()
     run_serving_benchmark(eng, n_requests=1, input_len=TRAFFIC[1], output_len=8,
                           vocab=cfg.vocab_size)
@@ -824,6 +1009,9 @@ def serve_path(torch, name) -> dict:
     launches = measured_run(torch, eng, name)
     profile_window(torch, eng, 8, 32, 24, cfg.vocab_size)
     check_output(torch, eng, cfg.vocab_size)
+    if paging and eng.allocator.free_pages != PAGED_POOL - 1:
+        raise AssertionError(f"path {name}: {eng.allocator.free_pages} pages free at the end, "
+                             f"expected {PAGED_POOL - 1}")
     del eng, bundle
     gc.collect()
     torch.cuda.empty_cache()
@@ -913,7 +1101,8 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
         "w4a8_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel", "fused_decode_kernel",
-        "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel")}
+        "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
+        "paged_attention_kernel", "page_write_kernel")}
     log(f"  profile window ({n_req} requests x {in_len} -> {out_len} tokens, decode ticks "
         f"only; "
         f"{eng.stats['decode_forwards'] - forwards[0]} decode forwards, "

@@ -2,15 +2,24 @@
 // KV head over keys [0, lengths[b]) of a cache that is already written.
 //
 // Replaces: modelopt_tpu/kernels/attention.py::decode_attention
-// (Pallas bodies _decode_attn_kernel, _attend_chunk and _finalize_out).
+// (Pallas bodies _decode_attn_kernel, _attend_chunk and _finalize_out), and
+// through the second entry point paged_decode_attention (K15),
+// modelopt_tpu/kernels/paged_attention.py::paged_decode_attention (Pallas
+// body _paged_attn_kernel: _attend_chunk over one page per grid step). The
+// paged form (kernel paged_attention_kernel, the same body) walks the slot's
+// keys in chunks of one page and takes each chunk's rows from the pool page
+// its table names; nothing else differs,
+// so the page walk rounds the 7-bit codes exactly where the reference's
+// page-per-step grid does.
 // MLA decode (models/mla.py) calls it with KH = 1, G = the query heads,
 // D = the latent row padded to 128 lanes (640 for DeepSeek-V2-Lite) and the
 // same latent tensor as K and V.
 //
 // Numerics follow _attend_chunk exactly, per (head, group) row:
 //  * keys are taken in chunks of 256 when S % 256 == 0, else as ONE chunk of
-//    S; the running max, and with it the int8 probability codes, are taken
-//    per chunk, so the chunk rule changes the result and is kept;
+//    S (paged: one page per chunk); the running max, and with it the int8
+//    probability codes, are taken per chunk, so the chunk rule changes the
+//    result and is kept;
 //  * int8 caches: q is rounded to bf16, then requantized per row to int8
 //    with qmax = max|q_row| over the head's D lanes; scores are exact
 //    s8 x s8 -> s32 dots scaled by qmax * k_scale / (127 sqrt(D));
@@ -30,7 +39,7 @@
 //
 // What bounds it on an H100: bytes, the live cache rows (lengths[b] * KH * D
 // codes; K and V once each, or once when they are one tensor) over the
-// 3.35 TB/s of HBM.
+// 3.35 TB/s of HBM; paged, the same rows wherever their pages lie.
 //
 // Design: the reference's arithmetic is independent per (head, group) row,
 // so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256
@@ -98,13 +107,17 @@ __device__ __forceinline__ void block_sum(V (&v)[GB], V (*red)[NW]) {
 // byte c of a word, sign-extended
 __device__ __forceinline__ int sbyte(int w, int c) { return (w << (24 - 8 * c)) >> 24; }
 
+// The body of both kernels; page_table null: dense cache rows.
 template <typename CT, int GB, int DJ>
-__global__ void __launch_bounds__(NT)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
-                        const CT* __restrict__ vc, const int* __restrict__ lengths,
-                        const float* __restrict__ kscale, const float* __restrict__ vscale,
-                        float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
-                        int S, int KH, int G, int chunk) {
+__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
+                                       const CT* __restrict__ kc, const CT* __restrict__ vc,
+                                       const int* __restrict__ lengths,
+                                       const float* __restrict__ kscale,
+                                       const float* __restrict__ vscale,
+                                       float* __restrict__ out_f32,
+                                       __nv_bfloat16* __restrict__ out_bf16,
+                                       const int* __restrict__ page_table, int S, int KH, int G,
+                                       int chunk) {
   constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
   constexpr int D = 128 * DJ;
   extern __shared__ __align__(16) float smem[];
@@ -174,15 +187,22 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restric
     m_run[g] = -1e30f;
     l_run[g] = 0.f;
   }
-  const CT* kbase = kc + (size_t)b * S * KHD + (size_t)h * D;
-  const CT* vbase = vc + (size_t)b * S * KHD + (size_t)h * D;
+  const CT* kh = kc + (size_t)h * D;
+  const CT* vh = vc + (size_t)h * D;
 
   for (int base = 0; base < L; base += chunk) {
     const int nk = min(chunk, L - base);
+    // the chunk's first cache row: dense, row base of slot b; paged (chunk
+    // = page), row 0 of the pool page the slot's table names for it
+    const size_t row0 = page_table != nullptr
+                            ? (size_t)page_table[(size_t)b * (S / chunk) + base / chunk] * chunk
+                            : (size_t)b * S + base;
+    const CT* kbase = kh + row0 * KHD;
+    const CT* vbase = vh + row0 * KHD;
     // scores: one key per warp at a time
 #pragma unroll 2
     for (int kk = warp; kk < nk; kk += NW) {
-      const CT* krow = kbase + (size_t)(base + kk) * KHD;
+      const CT* krow = kbase + (size_t)kk * KHD;
       if constexpr (kInt8) {
         const int* kw = reinterpret_cast<const int*>(krow);
         int w[DJ];
@@ -268,7 +288,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restric
           for (int c = 0; c < 4; ++c) a[g][j][c] = 0;
 #pragma unroll 2
       for (int kk = warp; kk < nk; kk += NW) {
-        const int* vw = reinterpret_cast<const int*>(vbase + (size_t)(base + kk) * KHD);
+        const int* vw = reinterpret_cast<const int*>(vbase + (size_t)kk * KHD);
         int w[DJ];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) w[j] = vw[lane + 32 * j];
@@ -320,7 +340,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restric
           for (int c = 0; c < 4; ++c) a[g][j][c] = 0.f;
 #pragma unroll 2
       for (int kk = warp; kk < nk; kk += NW) {
-        const uint2* vw = reinterpret_cast<const uint2*>(vbase + (size_t)(base + kk) * KHD);
+        const uint2* vw = reinterpret_cast<const uint2*>(vbase + (size_t)kk * KHD);
         float ev[GB];
 #pragma unroll
         for (int g = 0; g < GB; ++g)
@@ -374,50 +394,90 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restric
   }
 }
 
+// K5: rows of slot b at b * S
 template <typename CT, int GB, int DJ>
-int launch(const void* q, const void* kc, const void* vc, const void* lengths,
-           const void* kscale, const void* vscale, void* out_f32, void* out_bf16, int B,
-           int S, int KH, int G, int chunk, cudaStream_t s) {
+__global__ void __launch_bounds__(NT)
+decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
+                        const CT* __restrict__ vc, const int* __restrict__ lengths,
+                        const float* __restrict__ kscale, const float* __restrict__ vscale,
+                        float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
+                        int S, int KH, int G, int chunk) {
+  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, nullptr, S, KH, G,
+                     chunk);
+}
+
+// K15: rows of slot b in the pool pages page_table[b, :] names, chunk = page
+template <typename CT, int GB, int DJ>
+__global__ void __launch_bounds__(NT)
+paged_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
+                       const CT* __restrict__ vc, const int* __restrict__ lengths,
+                       const float* __restrict__ kscale, const float* __restrict__ vscale,
+                       float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
+                       const int* __restrict__ page_table, int S, int KH, int G,
+                       int page_size) {
+  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, page_table, S, KH,
+                     G, page_size);
+}
+
+// one launch's operands (the kernel's pointer arguments, untyped)
+struct Args {
+  const void *q, *kc, *vc, *lengths, *kscale, *vscale, *page_table;
+  void *out_f32, *out_bf16;
+  int B, S, KH, G, chunk;
+};
+
+template <typename CT, int GB, int DJ>
+int launch(const Args& a, cudaStream_t s) {
   constexpr int D = 128 * DJ;
   const size_t smem =
-      sizeof(float) * (((size_t)GB * chunk + 3) / 4 * 4 + (size_t)NW * GB * D + 2 * GB * D +
+      sizeof(float) * (((size_t)GB * a.chunk + 3) / 4 * 4 + (size_t)NW * GB * D + 2 * GB * D +
                        GB * D / 4);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<CT, GB, DJ>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  const bool paged = a.page_table != nullptr;
+  cudaError_t e = paged ? cudaFuncSetAttribute(paged_attention_kernel<CT, GB, DJ>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem)
+                        : cudaFuncSetAttribute(decode_attention_kernel<CT, GB, DJ>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
   if (e != cudaSuccess) return (int)e;
-  decode_attention_kernel<CT, GB, DJ><<<B * KH * (G / GB), NT, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(kc),
-      static_cast<const CT*>(vc), static_cast<const int*>(lengths),
-      static_cast<const float*>(kscale), static_cast<const float*>(vscale),
-      static_cast<float*>(out_f32), static_cast<__nv_bfloat16*>(out_bf16), S, KH, G, chunk);
+  const int grid = a.B * a.KH * (a.G / GB);
+  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+  const auto* kc = static_cast<const CT*>(a.kc);
+  const auto* vc = static_cast<const CT*>(a.vc);
+  const auto* lengths = static_cast<const int*>(a.lengths);
+  const auto* ks = static_cast<const float*>(a.kscale);
+  const auto* vs = static_cast<const float*>(a.vscale);
+  auto* of = static_cast<float*>(a.out_f32);
+  auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
+  if (paged)
+    paged_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
+        q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.page_table), a.S, a.KH,
+        a.G, a.chunk);
+  else
+    decode_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(q, kc, vc, lengths, ks, vs, of,
+                                                               ob, a.S, a.KH, a.G, a.chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename CT, int GB>
-int dispatch_d(int D, const void* q, const void* kc, const void* vc, const void* lengths,
-               const void* kscale, const void* vscale, void* out_f32, void* out_bf16, int B,
-               int S, int KH, int G, int chunk, cudaStream_t s) {
+int dispatch_d(int D, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 128: return launch<CT, GB, 1>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
-    case 256: return launch<CT, GB, 2>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
-    case 384: return launch<CT, GB, 3>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
-    case 512: return launch<CT, GB, 4>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
-    case 640: return launch<CT, GB, 5>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH, G, chunk, s);
+    case 128: return launch<CT, GB, 1>(a, s);
+    case 256: return launch<CT, GB, 2>(a, s);
+    case 384: return launch<CT, GB, 3>(a, s);
+    case 512: return launch<CT, GB, 4>(a, s);
+    case 640: return launch<CT, GB, 5>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename CT>
-int dispatch_g(int G, int D, const void* q, const void* kc, const void* vc,
-               const void* lengths, const void* kscale, const void* vscale, void* out_f32,
-               void* out_bf16, int B, int S, int KH, int chunk, cudaStream_t s) {
-  if (G % 2 == 0)
-    return dispatch_d<CT, 2>(D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S,
-                             KH, G, chunk, s);
-  return dispatch_d<CT, 1>(D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B, S, KH,
-                           G, chunk, s);
+int dispatch(int D, int int8_cache, const Args& a, cudaStream_t s) {
+  if (a.B * a.KH * a.G == 0) return 0;
+  if (int8_cache)
+    return a.G % 2 == 0 ? dispatch_d<int8_t, 2>(D, a, s) : dispatch_d<int8_t, 1>(D, a, s);
+  return a.G % 2 == 0 ? dispatch_d<__nv_bfloat16, 2>(D, a, s)
+                      : dispatch_d<__nv_bfloat16, 1>(D, a, s);
 }
 
 }  // namespace
@@ -431,11 +491,22 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* lengths, const void* kscale, const void* vscale,
                                 void* out_f32, void* out_bf16, int B, int S, int KH, int G,
                                 int D, int chunk, int int8_cache, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B * KH * G == 0) return 0;
-  if (int8_cache)
-    return dispatch_g<int8_t>(G, D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, B,
-                              S, KH, chunk, s);
-  return dispatch_g<__nv_bfloat16>(G, D, q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16,
-                                   B, S, KH, chunk, s);
+  const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, out_f32, out_bf16,
+               B, S, KH, G, chunk};
+  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
+}
+
+// K15, paged decode attention: the same kernel with chunk = page. Pools
+// [n_pages, page_size, KH*D] (int8 or bf16, 16-byte aligned; K and V may be
+// one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
+// valid page (unused ones 0); keys [0, min(lengths[b], pmax * page_size)).
+// Other operands as decode_attention's.
+extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* page_table, const void* lengths,
+                                      const void* kscale, const void* vscale, void* out_f32,
+                                      void* out_bf16, int B, int pmax, int page_size, int KH,
+                                      int G, int D, int int8_cache, void* stream) {
+  const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, out_f32, out_bf16,
+               B, pmax * page_size, KH, G, page_size};
+  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
 }

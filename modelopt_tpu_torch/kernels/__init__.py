@@ -3,6 +3,7 @@ twin. Every wrapper counts its launches in a ``launches`` attribute."""
 
 from .attention import decode_attention, dense_kv_write, fused_decode_attention
 from .flash_attention import flash_prefill_attention
+from .paged_attention import paged_decode_attention, paged_kv_write
 from .quant_gemm import (grouped_w4a8_combine_gemm, grouped_w4a16_gemm, w4a8_gemm,
                          w4a16_gemm)
 
@@ -15,6 +16,8 @@ KERNELS = {
     "grouped_w4a16_gemm": grouped_w4a16_gemm,
     "grouped_w4a8_combine_gemm": grouped_w4a8_combine_gemm,
     "decode_attention": decode_attention,
+    "paged_decode_attention": paged_decode_attention,
+    "paged_kv_write": paged_kv_write,
 }
 
 

@@ -13,14 +13,16 @@ the layer's ``k_quantizer`` and zero-padded to whole 128-lane tiles
     o_lat  = softmax(scores) . c_kv        [B, T, H, r]
     out    = o_lat @ w_v                   [B, T, H, dv]
 
-The latent row is written by ``dense_kv_write`` at every T. A decode step
-(T == 1) over an int8 latent cache is exactly one KV head of read-only
-decode attention: q_eff = [q_lat ; q_pe ; 0-pad] against the padded rows,
-K and V the same tensor, the value projection commuted out of the PV
-product; it runs ``decode_attention`` (K5) under the reference's rule
-(``decode_attention_ok``). Prefill and decode over a bf16 cache take the
-reference's own einsum path over the dequantized cache. The paged cache is
-not ported (K15/K16): a 4-tuple cache raises NotImplementedError.
+The latent row is written by ``dense_kv_write`` at every T (a paged cache:
+``paged_kv_write`` through the page table). A decode step (T == 1) over an
+int8 latent cache is exactly one KV head of read-only decode attention:
+q_eff = [q_lat ; q_pe ; 0-pad] against the padded rows, K and V the same
+tensor, the value projection commuted out of the PV product; it runs
+``decode_attention`` (K5) under the reference's rule
+(``decode_attention_ok``), or over an int8 latent pool
+``paged_decode_attention`` (K15) under ``paged_attention_ok``. Prefill and
+decode over a bf16 cache take the reference's own einsum path over the
+dequantized cache (a paged one gathered dense first).
 """
 
 from __future__ import annotations
@@ -30,10 +32,12 @@ import torch
 from torch import nn
 
 from ..kernels.attention import decode_attention, decode_attention_ok, dense_kv_write
+from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
+                                       paged_gather_dense, paged_kv_write)
 from ..nn.layers import QuantDense, RMSNorm
 from ..nn.quantizer import TensorQuantizer, active_quant_config
 from ..quant.qtensor import dequantize_qtensor
-from .transformer import DecoderConfig, _rope, _yarn_get_mscale
+from .transformer import DecoderConfig, _page_slots, _rope, _yarn_get_mscale
 
 
 class AbsorbedKernel(nn.Module):
@@ -95,10 +99,11 @@ def _softmax_scale(cfg: DecoderConfig) -> np.float32:
 
 
 class MLAttention(nn.Module):
-    """DeepSeek-style Multi-head Latent Attention. ``cache_kv``: None or
-    (latent cache [B, S, pad128(r+dr)], v placeholder [B, S, 0], positions);
-    the cache is written in place. Returns (out, (latent cache, placeholder)
-    or None)."""
+    """DeepSeek-style Multi-head Latent Attention. ``cache_kv``: None,
+    (latent cache [B, S, pad128(r+dr)], v placeholder [B, S, 0], positions)
+    or, paged, (latent pool [n_pages, page_size, pad128(r+dr)], placeholder
+    [n_pages, page_size, 0], positions, page_table); the cache is written in
+    place. Returns (out, (latent cache, placeholder) or None)."""
 
     def __init__(self, cfg: DecoderConfig, device="cuda"):
         super().__init__()
@@ -135,8 +140,6 @@ class MLAttention(nn.Module):
         H = cfg.num_heads
         r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         dv = cfg.v_head_dim or dn
-        if cache_kv is not None and len(cache_kv) != 3:
-            raise NotImplementedError("MLA over a paged cache is not ported yet")
 
         # queries: optional low rank, per-head nope + rope parts
         if cfg.q_lora_rank:
@@ -159,8 +162,10 @@ class MLAttention(nn.Module):
 
         new_kv = None
         row_scale = None
+        page_table = None
         if cache_kv is not None:
-            ck, cv_ph, positions_kv = cache_kv
+            ck, cv_ph, positions_kv = cache_kv[:3]
+            page_table = cache_kv[3] if len(cache_kv) == 4 else None
             if ck.dtype == torch.int8:
                 row_codes, row_scale = self.k_quantizer(rows, with_scale=True)
                 if row_scale is None:
@@ -174,15 +179,22 @@ class MLAttention(nn.Module):
             pad = ck.shape[-1] - (r + dr)
             if pad:
                 row_codes = nn.functional.pad(row_codes, (0, pad))
-            dense_kv_write(ck, row_codes.contiguous(),
-                           positions_kv[:, 0].to(torch.int32).contiguous())
+            if page_table is not None:
+                pids, offs = _page_slots(page_table, positions_kv, ck.shape[1])
+                paged_kv_write(ck, row_codes.contiguous(), pids, offs)
+            else:
+                dense_kv_write(ck, row_codes.contiguous(),
+                               positions_kv[:, 0].to(torch.int32).contiguous())
             new_kv = (ck, cv_ph)
 
         scale = _softmax_scale(cfg)
         q_lat = torch.einsum("bthd,rhd->bthr", q_nope.to(dt), w_k.to(dt))
 
-        if cache_kv is not None and T == 1 and decode_attention_ok(
-                (B, 1, H, ck.shape[-1]), ck.shape[1], ck.dtype):
+        if cache_kv is not None and T == 1 and (
+                decode_attention_ok((B, 1, H, ck.shape[-1]), ck.shape[1], ck.dtype)
+                if page_table is None else
+                ck.dtype == torch.int8
+                and paged_attention_ok(B, 1, H, ck.shape[-1], ck.shape[1])):
             # one shared KV head over the latent rows: q_eff scaled so the
             # kernel's 1/sqrt(Dc) becomes the MLA scale
             Dc = ck.shape[-1]
@@ -195,13 +207,20 @@ class MLAttention(nn.Module):
             qmul = float(torch.tensor(float(scale * np.float32(Dc ** 0.5))).to(dt))
             q_eff = (q_eff * qmul)[:, None].contiguous()          # [B, 1, H, Dc]
             lengths = (positions[:, 0] + 1).to(torch.int32).contiguous()
-            o_lat = decode_attention(q_eff, ck, ck, lengths, k_scale=row_scale,
-                                     v_scale=row_scale, out_dtype=dt)[:, 0][..., :r]
+            if page_table is None:
+                o_lat = decode_attention(q_eff, ck, ck, lengths, k_scale=row_scale,
+                                         v_scale=row_scale, out_dtype=dt)
+            else:
+                o_lat = paged_decode_attention(q_eff, ck, ck, page_table, lengths,
+                                               k_scale=row_scale, v_scale=row_scale,
+                                               out_dtype=dt)
+            o_lat = o_lat[:, 0][..., :r]
             out = torch.einsum("bhr,rhd->bhd", o_lat, w_v.to(dt)).reshape(B, 1, H * dv)
             return self.o_proj(out), new_kv
 
         if cache_kv is not None:
-            lat = ck[..., :r + dr].to(dt)
+            lat = (ck if page_table is None else paged_gather_dense(ck, page_table))
+            lat = lat[..., :r + dr].to(dt)
             if row_scale is not None:
                 lat = lat * row_scale.to(dt)
             c_all, kpe_all = lat[..., :r], lat[..., r:]           # [B, S, r], [B, S, dr]

@@ -16,8 +16,12 @@ same paths.
 
 Cached forwards go through the kernels: T > 1 writes the chunk's K/V with
 ``dense_kv_write`` then attends with ``flash_prefill_attention``; T == 1 is
-one ``fused_decode_attention`` step. Caches are updated IN PLACE (the
-reference donates them through jitted steps instead).
+one ``fused_decode_attention`` step. A paged cache (``serve/paged_cache.py``:
+per-layer page pools and a ``page_table``) writes through ``paged_kv_write``
+at every T; T == 1 attends with ``paged_decode_attention`` under the
+reference's rule, other forwards gather the pages dense and take the
+reference's masked einsum. Caches are updated IN PLACE (the reference
+donates them through jitted steps instead).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from torch import nn
 
 from ..kernels.attention import dense_kv_write, fused_decode_attention
 from ..kernels.flash_attention import flash_prefill_attention
+from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
+                                       paged_gather_dense, paged_kv_write)
 from ..nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
 from ..nn.quantizer import TensorQuantizer, assign_paths
 
@@ -231,6 +237,17 @@ def _rope_params(d: int, theta: float, scaling):
     return torch.from_numpy(out_f.astype(np.float32)), 1.0
 
 
+def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page_size: int):
+    """Pool targets of the tokens at ``positions`` [B, T]: (page ids, in-page
+    offsets), int32 [B, T]. A position at or past the table's capacity (a
+    slot at the cache cap writing on an idle tick) takes the table's last
+    column, as the reference's gather clamps the column index."""
+    col = torch.div(positions, page_size, rounding_mode="floor").clamp(
+        max=page_table.shape[1] - 1)
+    pids = page_table.gather(1, col.long())
+    return pids.contiguous(), (positions % page_size).to(torch.int32).contiguous()
+
+
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float, scaling=None):
     """Rotary embeddings on x [B, T, heads, D] at positions [B, T]. As the
     reference's code does, the two HALVES of the head dim rotate together
@@ -276,8 +293,9 @@ class Attention(nn.Module):
         self.v_quantizer = TensorQuantizer()
 
     def forward(self, x, positions, mask=None, cache_kv=None):
-        """cache_kv: None or (k_cache, v_cache, positions) — caches written in
-        place. Returns (out, (k_cache, v_cache) or None)."""
+        """cache_kv: None, (k_cache, v_cache, positions) or, paged,
+        (k_pool, v_pool, positions, page_table) — caches written in place.
+        Returns (out, (k_cache, v_cache) or None)."""
         cfg = self.cfg
         H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         G = H // KH
@@ -297,7 +315,8 @@ class Attention(nn.Module):
         q = self.q_quantizer(q)
 
         if cache_kv is not None:
-            ck, cv, positions_kv = cache_kv
+            ck, cv, positions_kv = cache_kv[:3]
+            page_table = cache_kv[3] if len(cache_kv) == 4 else None
             if ck.dtype == torch.int8:
                 k_codes, k_scale = self.k_quantizer(k, with_scale=True)
                 v_codes, v_scale = self.v_quantizer(v, with_scale=True)
@@ -313,6 +332,9 @@ class Attention(nn.Module):
                 raise NotImplementedError(f"{ck.dtype} KV caches are not ported")
             k_rows = k_codes.reshape(B, T, KH * D)
             v_rows = v_codes.reshape(B, T, KH * D)
+            if page_table is not None:
+                return self._paged(q, k_rows, v_rows, ck, cv, positions, positions_kv,
+                                   page_table, k_scale, v_scale, mask)
             start = positions_kv[:, 0].to(torch.int32).contiguous()
             if T == 1:
                 out, ck, cv = fused_decode_attention(
@@ -328,15 +350,51 @@ class Attention(nn.Module):
             return self.o_proj(out.reshape(B, T, H * D)), (ck, cv)
 
         # uncached: einsum attention with an additive mask [B, T, S]
-        k = self.k_quantizer(k)
-        v = self.v_quantizer(v)
-        qg = q.reshape(B, T, KH, G, D)
+        return self._einsum(q, self.k_quantizer(k), self.v_quantizer(v), mask), None
+
+    def _einsum(self, q, k, v, mask):
+        """The reference's einsum attention: q [B, T, H, D] against keys and
+        values [B, S, KH, D] in the model dtype, f32 scores plus the additive
+        mask [B, T, S], probabilities rounded to the model dtype; through
+        o_proj."""
+        cfg = self.cfg
+        H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        B, T = q.shape[:2]
+        qg = q.reshape(B, T, KH, H // KH, D)
         scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) \
             / torch.sqrt(torch.tensor(float(D)))
-        scores = scores + mask[:, None, None]
+        scores = scores + mask[:, None, None, :, :k.shape[1]]
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(cfg.dtype))
-        return self.o_proj(out.reshape(B, T, H * D)), None
+        return self.o_proj(out.reshape(B, T, H * D))
+
+    def _paged(self, q, k_rows, v_rows, k_pool, v_pool, positions, positions_kv, page_table,
+               k_scale, v_scale, mask):
+        """The paged cache (the reference's :481-492 write, :603-635 read):
+        rows written through the page table at every T; a decode step under
+        ``paged_attention_ok`` attends through the pools in place, any other
+        forward gathers the pages dense ([B, PMAX * page_size] keys),
+        dequantizes them in the model dtype and takes the masked einsum."""
+        cfg = self.cfg
+        H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        B, T = q.shape[:2]
+        ps = k_pool.shape[1]
+        pids, offs = _page_slots(page_table, positions_kv, ps)
+        paged_kv_write(k_pool, k_rows, pids, offs)
+        paged_kv_write(v_pool, v_rows, pids, offs)
+        new_kv = (k_pool, v_pool)
+        if T == 1 and paged_attention_ok(B, KH, H // KH, D, ps):
+            lengths = (positions[:, 0] + 1).to(torch.int32).contiguous()
+            out = paged_decode_attention(
+                q[:, 0].reshape(B, KH, H // KH, D).contiguous(), k_pool, v_pool, page_table,
+                lengths, k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
+            return self.o_proj(out.reshape(B, 1, H * D)), new_kv
+        k = paged_gather_dense(k_pool, page_table).reshape(B, -1, KH, D)
+        v = paged_gather_dense(v_pool, page_table).reshape(B, -1, KH, D)
+        if k_scale is not None:
+            k = k.to(cfg.dtype) * k_scale.to(cfg.dtype)
+            v = v.to(cfg.dtype) * v_scale.to(cfg.dtype)
+        return self._einsum(q, k, v, mask), new_kv
 
 
 class MLP(nn.Module):
@@ -491,8 +549,9 @@ class Decoder(nn.Module):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_layers)]
 
     def forward(self, input_ids, cache=None, positions=None, logits_index=None):
-        """``cache``: a ``make_cache`` dict (its k/v tensors are written in
-        place; the returned cache carries lengths + T). ``logits_index`` [B]:
+        """``cache``: a ``make_cache`` or ``make_paged_cache`` dict (its k/v
+        tensors are written in place; the returned cache carries lengths + T
+        and the page table). ``logits_index`` [B]:
         compute logits only at that position per row -> [B, V]."""
         B, T = input_ids.shape
         dev = input_ids.device
@@ -501,19 +560,27 @@ class Decoder(nn.Module):
             base = (cache["lengths"][:, None] if cache is not None
                     else torch.zeros(B, 1, dtype=torch.int32, device=dev))
             positions = base + torch.arange(T, dtype=torch.int32, device=dev)[None]
+        paged = cache is not None and "page_table" in cache
         mask = None
         if cache is None:
             causal = positions[:, None, :] <= positions[:, :, None]
             mask = torch.where(causal, 0.0, -1e9).float()
-        elif self.cfg.attention_type == "mla":
-            # MLA's cached einsum path (prefill, bf16-cache decode): keys at
-            # cache rows <= the query's position, [B, T, S]
-            key_pos = torch.arange(cache["k"][0].shape[1], device=dev)
+        elif paged or self.cfg.attention_type == "mla":
+            # the cached einsum paths (MLA prefill and bf16-cache decode, the
+            # paged gather path): keys at cache rows <= the query's position,
+            # [B, T, S]; paged, S is the table's capacity PMAX * page_size
+            S = (cache["page_table"].shape[1] * cache["k"][0].shape[1] if paged
+                 else cache["k"][0].shape[1])
+            key_pos = torch.arange(S, device=dev)
             mask = torch.where(key_pos[None, None, :] <= positions[:, :, None], 0.0,
                                -1e9).float()
         ks, vs = [], []
         for i, layer in enumerate(self.layers()):
-            cache_kv = None if cache is None else (cache["k"][i], cache["v"][i], positions)
+            cache_kv = None
+            if cache is not None:
+                cache_kv = (cache["k"][i], cache["v"][i], positions)
+                if paged:
+                    cache_kv = cache_kv + (cache["page_table"],)
             x, new_kv = layer(x, positions, mask, cache_kv)
             if new_kv is not None:
                 ks.append(new_kv[0])
@@ -521,6 +588,8 @@ class Decoder(nn.Module):
         new_cache = None
         if cache is not None:
             new_cache = {"k": tuple(ks), "v": tuple(vs), "lengths": cache["lengths"] + T}
+            if paged:
+                new_cache["page_table"] = cache["page_table"]
         x = self.final_norm(x)
         if logits_index is not None:
             x = x[torch.arange(B, device=dev), logits_index.long()]

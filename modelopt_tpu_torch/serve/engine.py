@@ -1,15 +1,22 @@
 """Continuous-batching serving engine for quantized decoders.
 
-Port of ``modelopt_tpu/serve/engine.py`` (dense KV cache, plain decode):
+Port of ``modelopt_tpu/serve/engine.py`` (dense or paged KV cache, plain
+decode):
 
   * a fixed slot count and a static [B, S, KH*D] KV cache with per-slot
     ``lengths``; slots admit new requests as others finish;
+  * ``paged=True``: page pools shared by all slots instead
+    (``serve/paged_cache.py``); a request gets pages for its prompt when it
+    is admitted (it waits in the queue while the pool is short), decoding
+    slots grow by the tokens a tick or burst can write, and a finished
+    request's pages go back to the pool;
   * every tick admits up to ``max_admit`` queued requests and runs one
     decode for all decoding slots; prompts longer than the largest prefill
     bucket stream in bucket-size chunks, one chunk per tick;
-  * a slot's prefill runs through the views ``cache[l][slot:slot+1]``, so
-    the kernels write the engine's cache in place (the reference slices
-    and re-inserts it with dynamic_slice / dynamic_update_slice);
+  * a slot's prefill runs through the views ``cache[l][slot:slot+1]`` (paged:
+    the whole pools and the slot's page-table row), so the kernels write
+    the engine's cache in place (the reference slices and re-inserts it
+    with dynamic_slice / dynamic_update_slice);
   * decode ticks write every slot's KV at ``lengths[b]`` — idle and
     prefilling slots too, at a row that is overwritten before it is read —
     and advance only the decoding slots;
@@ -20,8 +27,8 @@ Port of ``modelopt_tpu/serve/engine.py`` (dense KV cache, plain decode):
     ``torch.Generator`` on the engine's device; every emitted token carries
     its log-probability under the unfiltered, untempered distribution.
 
-Paged KV, speculative modes, a device mesh, and the top-k / top-p / min-p
-filters and penalties are not ported: the engine and ``submit`` raise
+Speculative modes, a device mesh, and the top-k / top-p / min-p filters
+and penalties are not ported: the engine and ``submit`` raise
 NotImplementedError for them.
 """
 
@@ -36,6 +43,8 @@ import torch
 
 from ..core.bundle import ModelBundle
 from ..models.transformer import make_cache
+from .paged_cache import (PagedAllocator, PagedCacheConfig, make_paged_cache, pages_needed,
+                          write_page_table)
 
 
 @dataclasses.dataclass
@@ -75,13 +84,15 @@ class ServingEngine:
     def __init__(self, bundle: ModelBundle, max_batch: int = 8,
                  max_seq_len: int = 512, prefill_buckets=(64, 256),
                  kv_dtype=None, seed: int = 0, speculative: int = 0,
-                 paged: bool = False, max_admit: int = 2, multi_step: int = 1,
-                 spec_sampling: bool = False, spec_tree=None, mesh=None,
-                 device="cuda"):
+                 paged: bool = False, page_size: int = 64, kv_pages: Optional[int] = None,
+                 max_admit: int = 2, multi_step: int = 1, spec_sampling: bool = False,
+                 spec_tree=None, mesh=None, device="cuda"):
+        """``paged=True`` switches to the paged KV cache of ``page_size``-row
+        pages; ``kv_pages`` sizes the pool, the null page included (default:
+        the worst case ``max_batch * max_seq_len / page_size + 1``; pass less
+        to oversubscribe)."""
         if speculative or spec_sampling or spec_tree is not None:
             raise NotImplementedError("speculative decoding is not ported yet")
-        if paged:
-            raise NotImplementedError("the paged KV cache is not ported yet")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported yet")
         if multi_step < 1:
@@ -108,8 +119,20 @@ class ServingEngine:
                     raise ValueError(
                         "each prefill bucket must divide every larger one "
                         "(chunked-prefill starts must stay bucket-aligned)")
-        self.cache = make_cache(self.cfg, max_batch, max_seq_len, dtype=kv_dtype,
-                                device=self.device)
+        self.paged = paged
+        if paged:
+            if max_seq_len % page_size:
+                raise ValueError("max_seq_len must be a page_size multiple")
+            pmax = max_seq_len // page_size
+            n_pages = kv_pages or (max_batch * pmax + 1)
+            self.pcfg = PagedCacheConfig(page_size=page_size, n_pages=n_pages,
+                                         max_pages_per_slot=pmax)
+            self.cache = make_paged_cache(self.cfg, max_batch, self.pcfg, dtype=kv_dtype,
+                                          device=self.device)
+            self.allocator = PagedAllocator(n_pages)
+        else:
+            self.cache = make_cache(self.cfg, max_batch, max_seq_len, dtype=kv_dtype,
+                                    device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._slots: list[Optional[Request]] = [None] * max_batch
         self._queue: deque[Request] = deque()
@@ -165,6 +188,16 @@ class ServingEngine:
         req.slot = slot
         self._slots[slot] = req
         self._prefilling.add(slot)
+        if self.paged:
+            n = pages_needed(len(req.prompt) + 1, self.pcfg.page_size)
+            pages = self.allocator.alloc(slot, n)
+            if pages is None:  # pool exhausted: requeue and leave the slot
+                self._slots[slot] = None
+                self._prefilling.discard(slot)
+                req.slot = None
+                self._queue.appendleft(req)
+                return
+            write_page_table(self.cache, slot, pages)
 
     def _prefill_chunk(self, req: Request) -> int:
         """Ingest the next chunk of req's prompt; returns tokens emitted."""
@@ -175,11 +208,14 @@ class ServingEngine:
         ids[0, :len(chunk)] = torch.tensor(chunk, dtype=torch.int32)
         final = start + len(chunk) >= len(req.prompt)
         self.stats["prefill_chunks"] += 1
-        sub = {
-            "k": tuple(a[slot:slot + 1] for a in self.cache["k"]),
-            "v": tuple(a[slot:slot + 1] for a in self.cache["v"]),
-            "lengths": torch.full((1,), start, dtype=torch.int32, device=self.device),
-        }
+        lengths = torch.full((1,), start, dtype=torch.int32, device=self.device)
+        if self.paged:
+            sub = {"k": self.cache["k"], "v": self.cache["v"], "lengths": lengths,
+                   "page_table": self.cache["page_table"][slot:slot + 1]}
+        else:
+            sub = {"k": tuple(a[slot:slot + 1] for a in self.cache["k"]),
+                   "v": tuple(a[slot:slot + 1] for a in self.cache["v"]),
+                   "lengths": lengths}
         # logits only at the chunk's last true token
         logits, _ = self.bundle.apply(
             ids.to(self.device), sub,
@@ -212,6 +248,23 @@ class ServingEngine:
         return torch.tensor([r is not None and i not in self._prefilling
                              for i, r in enumerate(self._slots)], device=self.device)
 
+    def _grow_pages(self, lookahead: int = 1) -> None:
+        """Give each decoding slot pages for its next ``lookahead`` tokens (a
+        burst writes up to that many before the host regains control)."""
+        for slot, req in enumerate(self._slots):
+            if req is None or slot in self._prefilling:
+                continue
+            cur_len = len(req.prompt) + len(req.out_tokens)
+            # the device deactivates a slot at the cache cap, so never ask
+            # the allocator for pages past max_seq_len
+            need = pages_needed(min(cur_len + lookahead, self.max_seq_len),
+                                self.pcfg.page_size)
+            have = len(self.allocator.owned.get(slot, []))
+            if need > have:
+                if self.allocator.alloc(slot, need - have) is None:
+                    raise RuntimeError("KV page pool exhausted; raise kv_pages or lower load")
+                write_page_table(self.cache, slot, self.allocator.owned[slot])
+
     def _decode_tick(self, tokens, active):
         """One decode forward over all slots; lengths advance where active."""
         old = self.cache["lengths"]
@@ -234,12 +287,20 @@ class ServingEngine:
                 break
             req = self._queue.popleft()
             self._admit(req, free[0])
+            if req.slot is None:
+                break  # page pool full: stop admitting this tick
             produced += self._prefill_chunk(req)
             admitted += 1
         if self.num_decoding == 0:
             self._drain_prefills()
             return produced
         n = self.multi_step if (not self._queue and not self._prefilling) else 1
+        if n > 1:
+            # the burst counts host-side emissions: settle deferred prefill
+            # tokens before the pages are sized
+            self._drain_prefills()
+        if self.paged:
+            self._grow_pages(lookahead=n)
         if n > 1:
             return produced + self._burst(n)
         toks, lps = self._decode_tick(self._tokens, self._active_mask())
@@ -260,8 +321,8 @@ class ServingEngine:
         return produced + decoded
 
     def _burst(self, n: int) -> int:
-        """n decode ticks with one host sync; per-slot stopping on device."""
-        self._drain_prefills()
+        """n decode ticks with one host sync; per-slot stopping on device
+        (``step`` drains the deferred prefill tokens first)."""
         dev = self.device
         active = self._active_mask()
         remaining = torch.tensor(
@@ -312,6 +373,9 @@ class ServingEngine:
                 req.out_logprobs = req.out_logprobs[:-len(hit_stop)]
             req.done = True
             if req.slot is not None:
+                if self.paged:
+                    self.allocator.free_slot(req.slot)
+                    write_page_table(self.cache, req.slot, [])
                 self._slots[req.slot] = None
                 self._prefilling.discard(req.slot)
                 req.slot = None

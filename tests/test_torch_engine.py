@@ -141,7 +141,7 @@ def test_temperature_runs_and_unported_options_raise(bundles):
     with pytest.raises(NotImplementedError):
         e.submit(PROMPTS[0], repetition_penalty=1.2)
     with pytest.raises(NotImplementedError):
-        ServingEngine(tb, paged=True, device="cpu")
+        ServingEngine(tb, speculative=1, device="cpu")
     with pytest.raises(ValueError, match="multiple"):
         ServingEngine(tb, max_seq_len=60, prefill_buckets=(8, 16), device="cpu")
 

@@ -334,16 +334,6 @@ def test_uncalibrated_int8_latent_cache_raises(compressed):
         mod.amax = amax
 
 
-def test_paged_mla_cache_raises(compressed):
-    _, tb = compressed
-    attn = tb.module.layers_0.attn
-    x = torch.zeros(1, 1, 256, dtype=torch.bfloat16)
-    pos = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="paged"):
-        attn(x, pos, None, (torch.zeros(4, 8, 256), torch.zeros(4, 8, 0), pos,
-                            torch.zeros(1, 2, dtype=torch.int32)))
-
-
 # --------------------------------------------------------------------------
 # serving: both engines, f32 model dtype
 # --------------------------------------------------------------------------
