@@ -14,7 +14,10 @@ Phases, in order (any failure exits non-zero):
      take for the same work: the MoE kernels (K6 w4a16_gemm at the four
      projection shapes, K10 grouped_w4a16_gemm, K12
      grouped_w4a8_combine_gemm with routed and dense gate scales, and at
-     DeepSeek's straddle shape K=1408), then K1-K4 with K2 and K4 at both
+     DeepSeek's straddle shape K=1408), the fp / int8 weight kernels (K7
+     w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, K9
+     nvfp4_gemm at Qwen3-30B-A3B's, K13 grouped_nvfp4_gemm at its expert
+     down projection), then K1-K4 with K2 and K4 at both
      GQA groups the paths run (G = 4 and 8), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
@@ -30,7 +33,9 @@ Phases, in order (any failure exits non-zero):
      heads, r=512, dr=64, expert width 1408, 2 shared, 8 experts, top-2)
      under W4A8_INT8KV_CFG with an int8 latent cache, and a 2-layer llama;
      the llama and the DeepSeek-V2 again over paged caches (64-row pages
-     scattered over the pool);
+     scattered over the pool); the llama under FP8_DEFAULT_CFG (activation
+     amax calibrated on the CPU) and the Qwen3-MoE under
+     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache;
   4. serving paths, one after the other (each model freed before the next
      is built), each on random weights from a seed, served by ServingEngine
      (max_batch 8, max_seq_len 2176, prefill buckets (32, 544), multi_step
@@ -44,13 +49,19 @@ Phases, in order (any failure exits non-zero):
        C: Qwen3-30B-A3B (full width, 24 of 48 layers) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
-       D: DeepSeek-V2-Lite (full width and depth: MLA, 64 experts top-6
-          plus 2 shared, a dense first layer) under W4A8_INT8KV_CFG, the
-          int8 latent cache calibrated by one 64-token forward;
+       D: DeepSeek-V2-Lite (full width: MLA, 64 experts top-6 plus 2
+          shared, a dense first layer; 14 of its 27 layers, so that the
+          script keeps near 600 s) under W4A8_INT8KV_CFG, the int8 latent
+          cache calibrated by one 64-token forward;
        E: A's model over a paged KV cache: int8 pools of 145 pages of 64
           rows per layer (8 requests' worst case of 18 pages each, plus the
           null page; 53% of the dense cache);
        F: D's model over a paged int8 latent pool of 145 pages;
+       G: A's model under FP8_DEFAULT_CFG (e4m3 weights, static e4m3
+          activations calibrated by one 64-token forward), bf16 KV cache;
+       H: A's model under INT8_WEIGHT_ONLY_CFG, bf16 KV cache;
+       I: B's model (24 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
+          cache;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request.
 Then one JSON line of per-kernel numbers, and last the device line.
@@ -82,7 +93,8 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "E=128 M=8 K=768 N=2048",  # K12 reports its first row (routed gscale)
            "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088",
            "B=8 PMAX=34 ps=64 KH=8 G=4 D=128 int8 ragged lengths",
-           "B=1 T=544 row=1024 int8")
+           "B=1 T=544 row=1024 int8",
+           "M=8 K=4096 N=28672 bf16 out")
 
 SOURCES = {
     "w4a8_gemm": ("modelopt_tpu_torch/csrc/w4a8_gemm.cu",
@@ -105,6 +117,14 @@ SOURCES = {
                                "modelopt_tpu/kernels/paged_attention.py:65"),
     "paged_kv_write": ("modelopt_tpu_torch/csrc/paged_kv_write.cu",
                        "modelopt_tpu/kernels/paged_attention.py:126"),
+    "w8a16_gemm": ("modelopt_tpu_torch/csrc/w8a16_gemm.cu",
+                   "modelopt_tpu/kernels/quant_gemm.py:513"),
+    "wfp8_gemm": ("modelopt_tpu_torch/csrc/w8a16_gemm.cu",
+                  "modelopt_tpu/kernels/quant_gemm.py:548"),
+    "nvfp4_gemm": ("modelopt_tpu_torch/csrc/nvfp4_gemm.cu",
+                   "modelopt_tpu/kernels/quant_gemm.py:610"),
+    "grouped_nvfp4_gemm": ("modelopt_tpu_torch/csrc/nvfp4_gemm.cu",
+                           "modelopt_tpu/kernels/quant_gemm.py:843"),
 }
 # kernels each serving path must launch
 PATH_KERNELS = {
@@ -118,6 +138,10 @@ PATH_KERNELS = {
     "E": ("w4a8_gemm", "paged_kv_write", "paged_decode_attention"),
     "F": ("w4a8_gemm", "paged_kv_write", "paged_decode_attention",
           "grouped_w4a8_combine_gemm"),
+    "G": ("wfp8_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    "H": ("w8a16_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    "I": ("nvfp4_gemm", "grouped_nvfp4_gemm", "dense_kv_write", "fused_decode_attention",
+          "flash_prefill_attention"),
 }
 
 
@@ -203,6 +227,7 @@ def kernel_phase(torch, results: dict) -> None:
     record = recorder(results)
 
     moe_kernels(torch, gen, timer, record)
+    fp_kernels(torch, gen, timer, record)
 
     # K1 — exact integer dots; the f32 block update repeats the plain
     # version's rounding, so the tolerance only absorbs the bf16 output
@@ -573,6 +598,96 @@ def w4a16_bar(torch, ref, x, wdq) -> float:
     return order + 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def fp_kernels(torch, gen, timer, record) -> None:
+    """K7 w8a16_gemm and K8 wfp8_gemm at paths G's and H's projection
+    shapes (Llama-3-8B's fused qkv, o, fused gate_up and down), K9
+    nvfp4_gemm at path I's (Qwen3-30B-A3B's q, k / v, o and folded gate /
+    up), K13 grouped_nvfp4_gemm at I's expert down projection. Rows M hold
+    both tilings of each kernel: M = 8 a decode step (the 16 x 64 tile),
+    M = 32 the 32-token prefill bucket of the profile windows and the small
+    NVFP4 parity, M = 128 the small FP8 parity's prefill (the 64 x 64 tile,
+    one and two tiles down M; K13 at 8 and 32). Each kernel
+    and its plain version multiply the same bf16 x by the same weights,
+    exact in bf16 (int8, e4m3, e2m1 times its e4m3 block scale), in f32, and
+    apply the f32 scale once: they differ only in the order of the f32 sums,
+    the W4A16 bar of the dequantized weight. The library call multiplies x
+    by the dequantized bf16 weight."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+    from modelopt_tpu_torch.quant import qtensor as qt_
+
+    dev = "cuda"
+    for name, quant, dequant in (("w8a16_gemm", qt_.quantize_int8, qt_.dequantize_int8),
+                                 ("wfp8_gemm", qt_.quantize_fp8, qt_.dequantize_fp8)):
+        log(f"{'K7' if name == 'w8a16_gemm' else 'K8'} {name}")
+        fn, plain = getattr(kq, name), getattr(kq, name + "_plain")
+        for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+            w = torch.randn(K, N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+            qt = quant(w)
+            wdq = dequant(qt).to(torch.bfloat16)
+            del w
+            for M in (8, 32, 128):
+                x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                y = fn(x, qt["data"], qt["scale"])
+                ref = plain(x, qt["data"], qt["scale"])
+                err = (y.float() - ref.float()).abs().max().item()
+                tol = w4a16_bar(torch, ref, x, wdq)
+                ms = timer(lambda: fn(x, qt["data"], qt["scale"]))
+                plain_ms = timer(lambda: plain(x, qt["data"], qt["scale"]), 5)
+                lib_ms = timer(lambda: torch.matmul(x, wdq))
+                nbytes = M * K * 2 + K * N + qt["scale"].numel() * 4 + M * N * 2
+                record(name, f"M={M} K={K} N={N} bf16 out", err, tol, ms, plain_ms, lib_ms,
+                       nbytes, 2 * M * K * N, BF16_FLOPS)
+            del qt, wdq
+
+    log("K9 nvfp4_gemm")
+    for K, N in ((2048, 4096), (2048, 512), (4096, 2048), (2048, 98304)):
+        w = torch.randn(K, N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+        qt = qt_.quantize_nvfp4(w)
+        wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16)
+        del w
+        args = (qt["data"], qt["scale"], qt["scale2"])
+        for M in (8, 32, 128):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            y = kq.nvfp4_gemm(x, *args)
+            ref = kq.nvfp4_gemm_plain(x, *args)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = w4a16_bar(torch, ref, x, wdq)
+            ms = timer(lambda: kq.nvfp4_gemm(x, *args))
+            plain_ms = timer(lambda: kq.nvfp4_gemm_plain(x, *args), 5)
+            lib_ms = timer(lambda: torch.matmul(x, wdq))
+            nbytes = M * K * 2 + K * N // 2 + (K // 16) * N + 4 + M * N * 2
+            record("nvfp4_gemm", f"M={M} K={K} N={N} bf16 out", err, tol, ms, plain_ms,
+                   lib_ms, nbytes, 2 * M * K * N, BF16_FLOPS)
+        del qt, wdq
+
+    # I's decode down projection: E=128 experts of [768, 2048], folded
+    log("K13 grouped_nvfp4_gemm")
+    E, K, N = 128, 768, 2048
+    w = torch.randn(K, E * N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+    qt = qt_.quantize_nvfp4(w)
+    del w
+    wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1) \
+        .contiguous()
+    args = (qt["data"], qt["scale"], qt["scale2"], N)
+    for M in (8, 32):
+        x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        y = kq.grouped_nvfp4_gemm(x, *args)
+        ref = kq.grouped_nvfp4_gemm_plain(x, *args)
+        errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
+        bars = [w4a16_bar(torch, ref[e], x[e], wdq[e]) for e in range(E)]
+        if any(a > b for a, b in zip(errs, bars)):
+            raise AssertionError(f"grouped_nvfp4_gemm M={M}: an expert exceeds its bar")
+        err = max(errs)
+        tol = bars[errs.index(err)]
+        ms = timer(lambda: kq.grouped_nvfp4_gemm(x, *args))
+        plain_ms = timer(lambda: kq.grouped_nvfp4_gemm_plain(x, *args), 5)
+        lib_ms = timer(lambda: torch.bmm(x, wdq))
+        nbytes = E * M * K * 2 + E * (K * N // 2 + (K // 16) * N) + 4 + E * M * N * 2
+        record("grouped_nvfp4_gemm", f"E={E} M={M} K={K} N={N} bf16 out", err, tol, ms,
+               plain_ms, lib_ms, nbytes, 2 * E * M * K * N, BF16_FLOPS)
+    del qt, wdq
+
+
 def moe_kernels(torch, gen, timer, record) -> None:
     """K6, K10 and K12 at the Qwen3-30B-A3B paths' shapes, K12 also at
     DeepSeek-V2-Lite's."""
@@ -689,11 +804,11 @@ def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, kinds) -> N
 # --------------------------------------------------------------------------
 def _numpy_variables(cfg, preset, seed=0, router_scale=0.1):
     """Reference-layout variables (nested dict of numpy arrays) drawn from a
-    numpy seed: packed int4 weights for the quantized projections (expert
-    kernels packed in their folded [in, E*out] view, MLA's absorbed
-    kv_b_proj like a linear layer), f32 kernels where no packed format fits
-    (fake-quantized in every forward), f32 embedding / lm_head / router /
-    norm scales."""
+    numpy seed: packed weights for the quantized projections, as CPU
+    tensors (int4, e4m3 or NVFP4; expert kernels packed in their folded
+    [in, E*out] view, MLA's absorbed kv_b_proj like a linear layer), f32
+    kernels where no packed format fits (fake-quantized in every forward),
+    f32 embedding / lm_head / router / norm scales."""
     import numpy as np
     import torch
 
@@ -726,8 +841,8 @@ def _numpy_variables(cfg, preset, seed=0, router_scale=0.1):
             w2 = wt if wt.dim() == 2 else fold_experts(wt)
             if specs and compressible_format(specs[0], tuple(w2.shape)):
                 qt, _ = quantize_qtensor(w2, specs[0])
-                put(quant, path + ["qweight", "data"], qt["data"].numpy())
-                put(quant, path + ["qweight", "scale"], qt["scale"].numpy())
+                for k, v in qt.items():  # tensors: e4m3 has no numpy dtype here
+                    put(quant, path + ["qweight", k], v)
             else:
                 put(params, path + ["kernel"], w)
         elif isinstance(mod, Router):
@@ -755,6 +870,45 @@ def _router_trace(bundle) -> list:
             return gates, sel, scores
         blk.route = route
     return trace
+
+
+def _fake_quant_trace(bundle) -> list:
+    """Hook every TensorQuantizer of ``bundle`` to record each call that
+    fake-quantizes: (path, input, keyword arguments, output), on the CPU."""
+    from modelopt_tpu_torch.nn.quantizer import TensorQuantizer
+
+    trace = []
+
+    def hook(mod, args, kwargs, out):
+        if out is not args[0] and not isinstance(out, tuple):
+            trace.append((mod.path, args[0].detach().cpu().clone(), kwargs,
+                          out.detach().cpu().clone()))
+    for mod in bundle.module.modules():
+        if isinstance(mod, TensorQuantizer):
+            mod.register_forward_hook(hook, with_kwargs=True)
+    return trace
+
+
+def _replay_fake_quant(torch, name, trace, gpu) -> None:
+    """Run each recorded fake-quant call again through the card model's
+    quantizer of the same path, on the same input: the output must be the
+    CPU's bit for bit (amax, true divisions, the e4m3 cast and the bf16
+    rounding are all correctly rounded on both devices)."""
+    from modelopt_tpu_torch.nn.quantizer import TensorQuantizer
+
+    quantizers = {m.path: m for m in gpu.module.modules() if isinstance(m, TensorQuantizer)}
+    if not trace:
+        raise AssertionError(f"parity {name}: no fake-quant call recorded")
+    ints = {2: torch.int16, 4: torch.int32}
+    with gpu.contexts(), torch.no_grad():
+        for path, x, kwargs, want in trace:
+            got = quantizers[path](x.to("cuda"), **kwargs).cpu()
+            if not (got.dtype == want.dtype and torch.equal(
+                    got.view(ints[got.element_size()]), want.view(ints[want.element_size()]))):
+                raise AssertionError(f"parity {name}: {path} fake-quantizes another way on "
+                                     f"the card")
+    log(f"  {name}: {len(trace)} fake-quant calls of {len({t[0] for t in trace})} quantizers "
+        f"repeated on the card on the CPU's inputs: bit-identical")
 
 
 def _forward_rows(torch, bundle, cfg, ids, T, steps, kv_dtype, dev, paged=False):
@@ -788,7 +942,8 @@ def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps, paged=Fal
     """The CPU half of a parity check: variables drawn from numpy seed 0,
     the model built on the CPU and calibrated there (its k/v amax written
     into the variables, so the card runs with the same scales), the ids
-    (torch seed ``ids_seed``), the CPU's logits and its routing trace."""
+    (torch seed ``ids_seed``), the CPU's logits, its routing trace and its
+    fake-quant trace."""
     from modelopt_tpu_torch.models import make_cache
     from modelopt_tpu_torch.models.convert import from_jax_variables
     from modelopt_tpu_torch.quant.api import calibrate
@@ -805,11 +960,45 @@ def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps, paged=Fal
                 node = node.setdefault(k, {})
             node["amax"] = mod.amax.numpy()
     trace = _router_trace(cpu)
+    fq_trace = _fake_quant_trace(cpu)
     logits = _forward_rows(torch, cpu, cfg, ids, T, steps, kv_dtype, "cpu", paged)
-    return variables, ids, logits, trace
+    return variables, ids, logits, trace, fq_trace
 
 
-def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4, paged=False):
+def _perturbed_sums(torch, rel: float):
+    """While active, the plain versions of K7, K8 and K9 scale each f32 sum
+    by (1 + rel * u), u uniform in [-1, 1] from a fixed seed, before their
+    scale and output rounding: another order of the same f32 sums, as a
+    kernel's tensor cores take (the order bar allows up to K * 2^-24)."""
+    import contextlib
+
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+
+    @contextlib.contextmanager
+    def ctx():
+        gen = torch.Generator().manual_seed(0)
+        real = {n: getattr(kq, n) for n in ("w8a16_gemm_plain", "wfp8_gemm_plain",
+                                             "nvfp4_gemm_plain")}
+
+        def wrap(fn):
+            def f(x, *args, out_dtype=torch.bfloat16, **kw):
+                y = fn(x, *args, out_dtype=torch.float32, **kw)
+                u = 2 * torch.rand(y.shape, generator=gen) - 1
+                return (y * (1 + rel * u)).to(out_dtype)
+            return f
+
+        try:
+            for n, fn in real.items():
+                setattr(kq, n, wrap(fn))
+            yield
+        finally:
+            for n, fn in real.items():
+                setattr(kq, n, fn)
+    return ctx()
+
+
+def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4, paged=False,
+            noise_floor=False):
     """Prefill of B x T tokens then ``steps`` decode steps, the same numpy
     weights on the CPU (plain versions) and on the card (kernels); holds the
     card's logits to 3% of the largest CPU logit. The int8 GEMMs (K1, K12)
@@ -818,18 +1007,39 @@ def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4, paged=F
     plain order) and of the lm_head product differ. For a routed model the
     log gives how many routings chose the same experts on both devices, the
     largest router-logit difference and the smallest top-k gap of the CPU
-    run (the ids are chosen so that gap is well above the difference)."""
+    run (the ids are chosen so that gap is well above the difference).
+
+    ``noise_floor``: static e4m3 activations (FP8_DEFAULT_CFG) round every
+    projection's input to 3 mantissa bits, so a last-bit change of a bf16
+    activation near an e4m3 midpoint moves it by a whole e4m3 step. The CPU
+    model is run once more with its GEMMs' f32 sums changed by 2^-20 of
+    themselves (``_perturbed_sums``, far less than the card's other order);
+    the largest logit change of that run, the floor no order of the sums
+    can get under, is added to the bar (0.127 on the llama, against a 3%
+    bar of 0.134, on the CPU). So that this floor hides no fault of the
+    activations' fake-quant, each of the CPU run's fake-quant calls is
+    repeated on the card on the same input and must give the same bits
+    (``_replay_fake_quant``); the GEMMs are held to their plain versions
+    at this parity's M in the kernel phase."""
     from modelopt_tpu_torch.models.convert import from_jax_variables
 
-    variables, ids, ref, cpu_trace = cpu_reference(torch, cfg, preset, kv_dtype, ids_seed,
-                                                   B, T, steps, paged)
+    variables, ids, ref, cpu_trace, fq_trace = cpu_reference(
+        torch, cfg, preset, kv_dtype, ids_seed, B, T, steps, paged)
+    floor = 0.0
+    if noise_floor:
+        with _perturbed_sums(torch, 2.0**-20):
+            again = from_jax_variables(variables, cfg, preset, device="cpu")
+            floor = (_forward_rows(torch, again, cfg, ids, T, steps, kv_dtype, "cpu", paged)
+                     - ref).abs().max().item()
     gpu = from_jax_variables(variables, cfg, preset, device="cuda")
+    if noise_floor:
+        _replay_fake_quant(torch, name, fq_trace, gpu)
     gpu_trace = _router_trace(gpu)
     got = _forward_rows(torch, gpu, cfg, ids, T, steps, kv_dtype, "cuda", paged)
     if not (torch.isfinite(got).all() and got.shape == (steps + 1, B, cfg.vocab_size)):
         raise AssertionError(f"parity {name}: card logits not finite or misshaped")
     err = (got - ref).abs().max().item()
-    tol = 3e-2 * ref.abs().max().item()
+    tol = 3e-2 * ref.abs().max().item() + floor
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
     # a greedy choice whose top-2 logits are this close may go either way
     top2 = ref.topk(2, -1).values
@@ -848,8 +1058,9 @@ def _parity(torch, name, cfg, preset, kv_dtype, ids_seed, B, T, steps=4, paged=F
                   f"differ by <= {dlog:.3g}; smallest CPU top-{k} gap {gap_c:.3g} at the "
                   f"compared positions, {gap_o:.3g} elsewhere")
     log(f"  {name}: prefill {B} x {T} + {steps} decode steps: max |logit diff| {err:.4g} "
-        f"(tol {tol:.4g}), argmax agreement {agree:.3f} (smallest CPU top-2 logit gap "
-        f"{tie:.4g}){routed}")
+        f"(tol {tol:.4g}" + (f", of which the CPU's noise floor {floor:.4g}" if noise_floor
+                             else "")
+        + f"), argmax agreement {agree:.3f} (smallest CPU top-2 logit gap {tie:.4g}){routed}")
     if not err <= tol:
         raise AssertionError(f"parity {name}: card logits off by {err} > {tol}")
 
@@ -885,6 +1096,10 @@ def small_moe_config():
 # attention). A choice flipped at a compared position would move the
 # logits by a whole expert's output.
 MOE_IDS_SEED = 44
+# the same for the NVFP4 weights (path I's preset), which route otherwise:
+# on seed 27 every top-2 choice at a compared position is at least 0.20
+# from a tie, every other at least 0.11 (seed 44 leaves 0.09 and 0.015)
+MOE_NVFP4_IDS_SEED = 27
 
 
 def small_mla_config():
@@ -927,6 +1142,13 @@ def parity_phase(torch) -> None:
             64, paged=True)
     _parity(torch, "DeepSeek-V2 W4A8 + int8 latent pages", small_mla_config(),
             "W4A8_INT8KV_CFG", torch.int8, MLA_IDS_SEED, 2, 16, paged=True)
+    # paths G and I: K8 (the fp8 activations' amax calibrated on the CPU and
+    # carried to the card), K9 and K13 (their twins on the CPU); prefill
+    # rows at most 256 ride the kernels too
+    _parity(torch, "llama FP8 + bf16 KV", llama, "FP8_DEFAULT_CFG", torch.bfloat16, 1, 2, 64,
+            noise_floor=True)
+    _parity(torch, "Qwen3-MoE NVFP4 + bf16 KV", moe, "NVFP4_WEIGHT_ONLY_CFG", torch.bfloat16,
+            MOE_NVFP4_IDS_SEED, 2, 16)
 
 
 # --------------------------------------------------------------------------
@@ -942,6 +1164,11 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "E": ("Llama-3-8B W4A8 + int8 KV pages", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
     "F": ("DeepSeek-V2-Lite W4A8 + int8 latent pages", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
           "int8"),
+    "G": ("Llama-3-8B FP8 W8A8 + bf16 KV", "llama3_8b", "FP8_DEFAULT_CFG", "bfloat16"),
+    "H": ("Llama-3-8B INT8 weight-only + bf16 KV", "llama3_8b", "INT8_WEIGHT_ONLY_CFG",
+          "bfloat16"),
+    "I": ("Qwen3-30B-A3B NVFP4 weight-only + bf16 KV", "qwen3_moe", "NVFP4_WEIGHT_ONLY_CFG",
+          "bfloat16"),
 }
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
@@ -957,18 +1184,37 @@ def path_config(torch, model: str):
     if model == "qwen3_moe":  # full width, 24 of 48 layers, 128 experts
         return qwen3_moe_config(num_layers=24, max_position_embeddings=2176,
                                 param_dtype=torch.bfloat16)
-    if model == "deepseek_v2_lite":  # full width and depth: 27 layers, 64 + 2 experts
-        return deepseek_v2_lite_config(param_dtype=torch.bfloat16)
+    if model == "deepseek_v2_lite":  # full width, 14 of 27 layers, 64 + 2 experts
+        return deepseek_v2_lite_config(num_layers=14, param_dtype=torch.bfloat16)
     return llama3_8b_config(max_position_embeddings=2176, param_dtype=torch.bfloat16,
                             fused_qkv=True, fused_gate_up=True)
 
 
+def static_quantizers(bundle) -> list:
+    """Paths of the quantizers of ``bundle`` that run in its forward with a
+    spec needing a calibrated amax: the int8 KV cache's k / v, FP8's static
+    e4m3 activations (a compressed layer's weight quantizer never runs)."""
+    from modelopt_tpu_torch.nn.quantizer import TensorQuantizer, _needs_static_amax
+
+    cfg = bundle.records[0].config
+    packed = {m.path for m in bundle.module.modules() if getattr(m, "compressed", False)}
+    out = []
+    for m in bundle.module.modules():
+        specs = cfg.resolve(m.path) if isinstance(m, TensorQuantizer) else None
+        if (specs and _needs_static_amax(specs[0])
+                and not (m.path.endswith("/weight_quantizer")
+                         and m.path.rsplit("/", 1)[0] in packed)):
+            out.append(m.path)
+    return out
+
+
 def serve_path(torch, name) -> dict:
     """Build path ``name``'s compressed model on the card (random weights,
-    seed 0); under an int8 KV cache calibrate its scales with one 64-token
-    forward; warm the engine up with one request, serve TRAFFIC
-    (``measured_run``), profile a window of decode ticks, check one more
-    request, and free the model. Returns the measured run's launches."""
+    seed 0); when it has static quantizers (an int8 KV cache, FP8's
+    activations) calibrate them with one 64-token forward; warm the engine
+    up with one request, serve TRAFFIC (``measured_run``), profile a window
+    of decode ticks, check one more request, and free the model. Returns
+    the measured run's launches."""
     from modelopt_tpu_torch.models import make_cache
     from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
     from modelopt_tpu_torch.quant.api import calibrate, validate_calibration
@@ -978,12 +1224,14 @@ def serve_path(torch, name) -> dict:
     cfg = path_config(torch, model)
     kv_dtype = getattr(torch, kv)
     t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
     bundle = build_compressed_bundle(cfg, preset, seed=0, device="cuda")
     torch.cuda.synchronize()
     log(f"  built compressed model ({cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"{cfg.num_experts} experts) in {time.time() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if kv_dtype == torch.int8:
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak while packing "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    if static_quantizers(bundle):
         ids = torch.randint(1, cfg.vocab_size, (1, 64), dtype=torch.int32, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(0))
         calibrate(bundle, "max", lambda f: f(ids, make_cache(cfg, 1, 64, device="cuda")))
@@ -1102,7 +1350,8 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
         "w4a8_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
-        "paged_attention_kernel", "page_write_kernel")}
+        "paged_attention_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
+        "nvfp4_kernel", "nvfp4_reduce_splits")}
     log(f"  profile window ({n_req} requests x {in_len} -> {out_len} tokens, decode ticks "
         f"only; "
         f"{eng.stats['decode_forwards'] - forwards[0]} decode forwards, "

@@ -4,8 +4,8 @@ twin. Every wrapper counts its launches in a ``launches`` attribute."""
 from .attention import decode_attention, dense_kv_write, fused_decode_attention
 from .flash_attention import flash_prefill_attention
 from .paged_attention import paged_decode_attention, paged_kv_write
-from .quant_gemm import (grouped_w4a8_combine_gemm, grouped_w4a16_gemm, w4a8_gemm,
-                         w4a16_gemm)
+from .quant_gemm import (grouped_nvfp4_gemm, grouped_w4a8_combine_gemm, grouped_w4a16_gemm,
+                         nvfp4_gemm, w4a8_gemm, w4a16_gemm, w8a16_gemm, wfp8_gemm)
 
 KERNELS = {
     "w4a8_gemm": w4a8_gemm,
@@ -18,6 +18,10 @@ KERNELS = {
     "decode_attention": decode_attention,
     "paged_decode_attention": paged_decode_attention,
     "paged_kv_write": paged_kv_write,
+    "w8a16_gemm": w8a16_gemm,
+    "wfp8_gemm": wfp8_gemm,
+    "nvfp4_gemm": nvfp4_gemm,
+    "grouped_nvfp4_gemm": grouped_nvfp4_gemm,
 }
 
 

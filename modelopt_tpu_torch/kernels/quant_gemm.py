@@ -1,12 +1,15 @@
-"""Int4-weight GEMMs: W4A8, W4A16 and their grouped (per-expert) forms.
+"""Quantized-weight GEMMs: int4 (W4A8, W4A16 and their grouped forms),
+int8, e4m3 and NVFP4.
 
 Counterparts of ``modelopt_tpu/kernels/quant_gemm.py``: ``w4a8_gemm`` (K1),
-``w4a16_gemm`` (K6), ``grouped_w4a16_gemm`` (K10) and
-``grouped_w4a8_combine_gemm`` (K12). On a CUDA tensor each wrapper launches
-its hand-written kernel (``csrc/w4a8_gemm.cu``, ``csrc/w4a16_gemm.cu``,
-``csrc/grouped_w4a8_gemm.cu``) or raises; on a CPU tensor it computes the
-same function with its ``*_plain`` twin, which also serves as the card's
-oracle.
+``w4a16_gemm`` (K6), ``w8a16_gemm`` (K7), ``wfp8_gemm`` (K8),
+``nvfp4_gemm`` (K9), ``grouped_w4a16_gemm`` (K10),
+``grouped_w4a8_combine_gemm`` (K12) and ``grouped_nvfp4_gemm`` (K13). On a
+CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/w4a8_gemm.cu``, ``csrc/w4a16_gemm.cu``, ``csrc/grouped_w4a8_gemm.cu``,
+``csrc/w8a16_gemm.cu``, ``csrc/nvfp4_gemm.cu``) or raises; on a CPU tensor
+it computes the same function with its ``*_plain`` twin, which also serves
+as the card's oracle.
 
 Packed layout (quant/qtensor.py): uint8 [K/2, N] hybrid split-half nibbles,
 f32 scales [K/block, N] — rows [0, K/(2*block)) scale the low half. When
@@ -274,3 +277,227 @@ def grouped_w4a8_combine_gemm(xq: torch.Tensor, gscale: torch.Tensor,
 
 
 grouped_w4a8_combine_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: byte weights (int8 per-channel, e4m3 per-tensor)
+# ---------------------------------------------------------------------------
+def w8a16_gemm_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch W8A16 with the kernel's rounding points: x rounded to
+    bf16, the int8 weights exact, one f32 product over K, then ``* scale``
+    [1, N] in f32 and ``out_dtype``."""
+    acc = x.to(torch.bfloat16).float() @ data.float()
+    return (acc * scale.float()).to(out_dtype)
+
+
+def wfp8_gemm_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch W(FP8)A16: as ``w8a16_gemm_plain`` with e4m3 weights
+    (exact in bf16) and one f32 scale [1, 1]."""
+    acc = x.to(torch.bfloat16).float() @ data.float()
+    return (acc * scale.float().reshape(1, 1)).to(out_dtype)
+
+
+# CTAs a byte / NVFP4 product aims for at decode: about four resident on
+# each of the H100's 132 SMs, enough weight bytes in flight to draw HBM
+SPLIT_TARGET_CTAS = 512
+
+
+def _k_splits(tiles: int, steps: int) -> int:
+    """K splits per output tile that bring ``tiles`` output tiles to about
+    SPLIT_TARGET_CTAS CTAs, at least one 128-row step per split."""
+    return max(1, min(steps, -(-SPLIT_TARGET_CTAS // tiles)))
+
+
+def _tiles(E, M, N) -> int:
+    """Output tiles of the CUDA tilings (16 x 64 up to M = 16, 64 x 64
+    above) over E experts."""
+    return E * (N // 64) * (1 if M <= 16 else -(-M // 64))
+
+
+def _check_byte(name, x, data, scale, scale_shape):
+    if data.shape[0] != x.shape[-1] or tuple(scale.shape) != scale_shape:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, W {tuple(data.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+
+
+def _byte_launch(name, x, data, scale, out_dtype, want_dtype):
+    M, K = x.shape
+    N = data.shape[1]
+    if K % 128 or N % 64:
+        raise NotImplementedError(f"the CUDA {name} takes K % 128 == 0 and N % 64 == 0, "
+                                  f"got K={K}, N={N}")
+    if (data.dtype, scale.dtype) != (want_dtype, torch.float32):
+        raise ValueError(f"{name}: wants {want_dtype} W, f32 scale")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
+    x = x.to(torch.bfloat16).contiguous()
+    _build.check_cuda(name, x, data, scale)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+    fn = _build.function(name, [_build.c_ptr] * 6 + [_build.c_int] * 4 + [_build.c_ptr],
+                         source="w8a16_gemm")
+    out = torch.empty(M, N, dtype=out_dtype, device=x.device)
+    f32 = out_dtype == torch.float32
+    splits = _k_splits(_tiles(1, M, N), K // 128)
+    part = torch.empty(splits, M, N, device=x.device) if splits > 1 else None
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), data.data_ptr(), scale.data_ptr(),
+                 out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
+                 _build.ptr(part), M, N, K, splits, _build.stream(x))
+    return out, err
+
+
+def w8a16_gemm(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [M, K] (rounded to bf16) @ int8 W [K, N] * scale [1, N] -> [M, N]
+    in ``out_dtype`` (f32 or bf16)."""
+    _check_byte("w8a16_gemm", x, data, scale, (1, data.shape[1]))
+    if x.device.type == "cpu":
+        return w8a16_gemm_plain(x, data, scale, out_dtype=out_dtype)
+    out, err = _byte_launch("w8a16_gemm", x, data, scale, out_dtype, torch.int8)
+    w8a16_gemm.launches += 1
+    _build.raise_on_error("w8a16_gemm", err)
+    return out
+
+
+w8a16_gemm.launches = 0
+
+
+def wfp8_gemm(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [M, K] (rounded to bf16) @ e4m3 W [K, N] * scale [1, 1] -> [M, N]
+    in ``out_dtype`` (f32 or bf16)."""
+    _check_byte("wfp8_gemm", x, data, scale, (1, 1))
+    if x.device.type == "cpu":
+        return wfp8_gemm_plain(x, data, scale, out_dtype=out_dtype)
+    out, err = _byte_launch("wfp8_gemm", x, data, scale, out_dtype, torch.float8_e4m3fn)
+    wfp8_gemm.launches += 1
+    _build.raise_on_error("wfp8_gemm", err)
+    return out
+
+
+wfp8_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9 / K13: NVFP4 and its grouped form
+# ---------------------------------------------------------------------------
+def _decode_e2m1(code: torch.Tensor) -> torch.Tensor:
+    """int32 codes 0..15 (sign, exponent, exponent, mantissa) -> f32 by the
+    reference kernel's bit assembly: exponent field 126+e for e > 0, 0.5 or
+    0 for e == 0."""
+    s = (code >> 3) & 1
+    e = (code >> 1) & 3
+    m = code & 1
+    bits = (s << 31) | torch.where(e > 0, ((126 + e) << 23) | (m << 22), m * (126 << 23))
+    return bits.view(torch.float32)
+
+
+def nvfp4_unit_weights(packed: torch.Tensor, scale: torch.Tensor,
+                       block: int = 16) -> torch.Tensor:
+    """The bf16 weights the NVFP4 kernels multiply, in f32 [K, EN]: each
+    e2m1 value times its e4m3 block scale (at most 6 significant bits:
+    exact in f32 and in bf16); ``scale2`` is left to the f32 result."""
+    p = packed.to(torch.int32)
+    vals = torch.cat([_decode_e2m1(p & 0xF), _decode_e2m1(p >> 4)], dim=0)
+    return vals * scale.float().repeat_interleave(block, dim=0)
+
+
+def nvfp4_gemm_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                     scale2: torch.Tensor, block: int = 16,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch NVFP4 with the kernel's rounding points: x rounded to
+    bf16, the exact scaled weights, one f32 product over K, then
+    ``* scale2`` in f32 and ``out_dtype``."""
+    acc = x.to(torch.bfloat16).float() @ nvfp4_unit_weights(packed, scale, block)
+    return (acc * scale2.float().reshape(1, 1)).to(out_dtype)
+
+
+def grouped_nvfp4_gemm_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                             scale2: torch.Tensor, n_per_expert: int, block: int = 16,
+                             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Per-expert ``nvfp4_gemm_plain``: x [E, M, K] on the folded layout ->
+    [E, M, N]."""
+    E, _, K = x.shape
+    w = nvfp4_unit_weights(packed, scale, block).reshape(K, E, n_per_expert).transpose(0, 1)
+    acc = torch.bmm(x.to(torch.bfloat16).float(), w)
+    return (acc * scale2.float().reshape(1, 1, 1)).to(out_dtype)
+
+
+def _check_nvfp4(name, packed, scale, scale2, block, K, EN):
+    K2 = packed.shape[0]
+    if (K != 2 * K2 or K2 % block or tuple(scale.shape) != (K // block, EN)
+            or packed.shape[1] != EN or scale2.numel() != 1):
+        raise ValueError(f"{name}: shapes K={K}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)}, scale2 {tuple(scale2.shape)}")
+
+
+def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped):
+    E, M, K = x3.shape
+    K2 = packed.shape[0]
+    if block != 16 or K2 % 128 or n % 64:
+        raise NotImplementedError(f"the CUDA {name} takes block-16 scales, K/2 % 128 == 0 "
+                                  f"and N % 64 == 0, got block {block}, K={K}, N={n}")
+    if (packed.dtype, scale.dtype, scale2.dtype) != (torch.uint8, torch.float8_e4m3fn,
+                                                     torch.float32):
+        raise ValueError(f"{name}: wants uint8 packed, e4m3 scale, f32 scale2")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
+    x3 = x3.to(torch.bfloat16).contiguous()
+    _build.check_cuda(name, x3, packed, scale, scale2)
+    if x3.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
+    out = torch.empty(E, M, n, dtype=out_dtype, device=x3.device)
+    f32 = out_dtype == torch.float32
+    splits = _k_splits(_tiles(E, M, n), K2 // 128)
+    part = torch.empty(E, splits, M, n, device=x3.device) if splits > 1 else None
+    ints = [E, M, n, K2, splits] if grouped else [M, n, K2, splits]
+    fn = _build.function(name, [_build.c_ptr] * 7 + [_build.c_int] * len(ints) + [_build.c_ptr],
+                         source="nvfp4_gemm")
+    with torch.cuda.device(x3.device):
+        err = fn(x3.data_ptr(), packed.data_ptr(), scale.data_ptr(), scale2.data_ptr(),
+                 out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
+                 _build.ptr(part), *ints, _build.stream(x3))
+    return out, err
+
+
+def nvfp4_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+               scale2: torch.Tensor, block: int = 16, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x [M, K] (rounded to bf16) @ NVFP4 W (packed uint8 [K/2, N], e4m3
+    scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``."""
+    M, K = x.shape
+    N = packed.shape[1]
+    _check_nvfp4("nvfp4_gemm", packed, scale, scale2, block, K, N)
+    if x.device.type == "cpu":
+        return nvfp4_gemm_plain(x, packed, scale, scale2, block, out_dtype=out_dtype)
+    out, err = _nvfp4_launch("nvfp4_gemm", x[None], packed, scale, scale2, N, block,
+                             out_dtype, grouped=False)
+    nvfp4_gemm.launches += 1
+    _build.raise_on_error("nvfp4_gemm", err)
+    return out[0]
+
+
+nvfp4_gemm.launches = 0
+
+
+def grouped_nvfp4_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                       scale2: torch.Tensor, n_per_expert: int, block: int = 16,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Per-expert NVFP4 GEMMs ``y[e] = x[e] @ W_e`` in one launch: x
+    [E, M, K] (rounded to bf16), packed/scale the folded [K/2, E*N] and
+    [K/block, E*N] layout, one scale2 -> [E, M, N] in ``out_dtype``."""
+    E, M, K = x.shape
+    _check_nvfp4("grouped_nvfp4_gemm", packed, scale, scale2, block, K, E * n_per_expert)
+    if x.device.type == "cpu":
+        return grouped_nvfp4_gemm_plain(x, packed, scale, scale2, n_per_expert, block,
+                                        out_dtype)
+    out, err = _nvfp4_launch("grouped_nvfp4_gemm", x, packed, scale, scale2, n_per_expert,
+                             block, out_dtype, grouped=True)
+    grouped_nvfp4_gemm.launches += 1
+    _build.raise_on_error("grouped_nvfp4_gemm", err)
+    return out
+
+
+grouped_nvfp4_gemm.launches = 0

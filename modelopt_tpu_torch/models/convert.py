@@ -1,15 +1,16 @@
 """Carry a reference (JAX) model's variables into the port.
 
 ``from_jax_variables`` takes the reference bundle's variables as a nested
-dict of numpy arrays — ``params`` (kernels [in, out] and expert kernels
-[E, in, out], embedding, norm scales including the q/k and MLA norms, the
-MoE router's kernel and bias, MLA's absorbed ``kv_b_proj`` kernel, a
-kernel left dense by ``compress``) and ``quant`` (packed ``qweight``
+dict of numpy arrays (or tensors) — ``params`` (kernels [in, out] and
+expert kernels [E, in, out], embedding, norm scales including the q/k and
+MLA norms, the MoE router's kernel and bias, MLA's absorbed ``kv_b_proj``
+kernel, a kernel left dense by ``compress``) and ``quant`` (packed ``qweight``
 {data, scale} in the same [in, out] layout, the folded [in, E*out] one for
-experts, k/v and latent quantizer ``amax``) — and loads them into a port Decoder, so both packages
-compute the same model. Every leaf must be consumed: a leaf
-the port has no place for (a pre-quant scale, an unported quantizer state)
-raises instead of being dropped.
+experts, plus NVFP4's ``scale2``, the e4m3 arrays of fp8 and NVFP4 weights
+carried bit for bit; calibrated quantizer ``amax``) — and loads them into a
+port Decoder, so both packages compute the same model. Every leaf must be
+consumed: a leaf the port has no place for (a pre-quant scale, an unported
+quantizer state) raises instead of being dropped.
 """
 
 from __future__ import annotations
@@ -28,12 +29,18 @@ from .mla import AbsorbedKernel
 from .transformer import Decoder, DecoderConfig
 
 
+_BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _tensor(arr, device) -> torch.Tensor:
-    arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()) \
-            .view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.name in _BIT_VIEWS:  # ml_dtypes types torch cannot read: the bits
+        raw, dtype = _BIT_VIEWS[arr.dtype.name]
+        return torch.from_numpy(arr.view(raw).copy()).view(dtype).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
 
 
 def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
@@ -60,8 +67,10 @@ def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
         base = mod.path
         if (isinstance(mod, (QuantDense, QuantEinsum, AbsorbedKernel))
                 and f"quant/{base}/qweight/data" in leaves):
-            mod.set_qweight({"data": take(f"quant/{base}/qweight/data"),
-                             "scale": take(f"quant/{base}/qweight/scale")})
+            qt = {k: take(f"quant/{base}/qweight/{k}") for k in ("data", "scale")}
+            if f"quant/{base}/qweight/scale2" in leaves:  # NVFP4
+                qt["scale2"] = take(f"quant/{base}/qweight/scale2")
+            mod.set_qweight(qt)
             compressed = True
         if isinstance(mod, TensorQuantizer) and f"quant/{base}/amax" in leaves:
             mod.amax = take(f"quant/{base}/amax").float()

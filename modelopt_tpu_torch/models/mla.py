@@ -34,13 +34,13 @@ from torch import nn
 from ..kernels.attention import decode_attention, decode_attention_ok, dense_kv_write
 from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
                                        paged_gather_dense, paged_kv_write)
-from ..nn.layers import QuantDense, RMSNorm
+from ..nn.layers import PackedWeight, QuantDense, RMSNorm
 from ..nn.quantizer import TensorQuantizer, active_quant_config
 from ..quant.qtensor import dequantize_qtensor
 from .transformer import DecoderConfig, _page_slots, _rope, _yarn_get_mscale
 
 
-class AbsorbedKernel(nn.Module):
+class AbsorbedKernel(PackedWeight, nn.Module):
     """A linear layer consumed ABSORBED: its (fake-)quantized kernel
     [in, out] is read directly instead of being applied to activations.
     Names follow QuantDense (``kernel``, ``qweight``, ``weight_quantizer``),
@@ -58,19 +58,8 @@ class AbsorbedKernel(nn.Module):
         self.path = ""
         self.kernel = nn.Parameter(torch.empty(in_features, features, dtype=param_dtype,
                                                device=device), requires_grad=False)
-        self.register_buffer("qweight_data", None)
-        self.register_buffer("qweight_scale", None)
+        self._init_qweight()
         self.weight_quantizer = TensorQuantizer()
-
-    @property
-    def compressed(self) -> bool:
-        return self.qweight_data is not None
-
-    def set_qweight(self, qt: dict) -> None:
-        """Replace the kernel by a packed weight {data, scale}."""
-        self.kernel = None
-        self.qweight_data = qt["data"]
-        self.qweight_scale = qt["scale"]
 
     def forward(self) -> torch.Tensor:
         if self.compressed:
@@ -79,8 +68,7 @@ class AbsorbedKernel(nn.Module):
             if not (specs and specs[0].enable):
                 raise ValueError(f"{self.path}: qweight present but no active "
                                  "weight-quantizer spec to interpret it")
-            qt = {"data": self.qweight_data, "scale": self.qweight_scale}
-            return dequantize_qtensor(qt, specs[0], (self.in_features, self.features)) \
+            return dequantize_qtensor(self.qweight, specs[0], (self.in_features, self.features)) \
                 .to(self.param_dtype)
         return self.weight_quantizer(self.kernel)
 

@@ -9,12 +9,13 @@ weight; an expert kernel [E, in, out] is drawn directly in its folded shape
 [in, E*out] (the reference's synthetic.py:62-72; one Qwen3-30B-A3B gate
 weight is a 403 MB transient). Norm scales start at 1 and every other
 parameter (embedding, lm_head, router) is drawn the same way in
-``param_dtype``. The bundle carries ``quantize`` and ``compress`` records,
-like a quantized-then-compressed model. A kernel the preset quantizes but
-no packed format fits (DeepSeek-V2-Lite's first down projection, K=10944)
-stays a dense ``param_dtype`` kernel, fake-quantized in every forward, as
-the reference's ``compress`` leaves it; MLA's absorbed ``kv_b_proj`` packs
-like any linear layer.
+``param_dtype``. Every packed format of ``quant/qtensor.py`` is drawn so
+(int4, int8, e4m3, NVFP4). The bundle carries ``quantize`` and
+``compress`` records, like a quantized-then-compressed model. A kernel the
+preset quantizes but no packed format fits (DeepSeek-V2-Lite's first down
+projection, K=10944) stays a dense ``param_dtype`` kernel, fake-quantized
+in every forward, as the reference's ``compress`` leaves it; MLA's
+absorbed ``kv_b_proj`` packs like any linear layer.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@ QuantDense, QuantEinsum, QuantEmbed, RMSNorm).
 
 Weights keep the reference's layout: a dense kernel is [in, out], so a
 layer computes ``x @ kernel``; a compressed layer holds the packed
-``qweight`` ({data, scale}, the same [in, out] layout) instead of a kernel
-and multiplies through ``quant.backends.qgemm``. An expert kernel
+``qweight`` ({data, scale}, plus NVFP4's ``scale2``; the same [in, out]
+layout) instead of a kernel and multiplies through
+``quant.backends.qgemm``. An expert kernel
 [E, in, out] is packed in its folded [in, E*out] view (quant/qtensor.py).
 """
 
@@ -20,7 +21,36 @@ from ..quant.qtensor import dequantize_qtensor, unfold_experts
 from .quantizer import TensorQuantizer, active_quant_config
 
 
-class QuantDense(nn.Module):
+class PackedWeight:
+    """The packed-weight buffers of a compressed layer (mixed into an
+    nn.Module): ``qweight_data``, ``qweight_scale`` and NVFP4's
+    ``qweight_scale2`` (None for the other formats)."""
+
+    def _init_qweight(self) -> None:
+        self.register_buffer("qweight_data", None)
+        self.register_buffer("qweight_scale", None)
+        self.register_buffer("qweight_scale2", None)
+
+    @property
+    def compressed(self) -> bool:
+        return self.qweight_data is not None
+
+    def set_qweight(self, qt: dict) -> None:
+        """Replace the dense kernel by a packed weight {data, scale[, scale2]}."""
+        self.kernel = None
+        self.qweight_data = qt["data"]
+        self.qweight_scale = qt["scale"]
+        self.qweight_scale2 = qt.get("scale2")
+
+    @property
+    def qweight(self) -> dict:
+        qt = {"data": self.qweight_data, "scale": self.qweight_scale}
+        if self.qweight_scale2 is not None:
+            qt["scale2"] = self.qweight_scale2
+        return qt
+
+
+class QuantDense(PackedWeight, nn.Module):
     """Linear layer with input/weight/output quantization points."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
@@ -37,21 +67,10 @@ class QuantDense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features, dtype=param_dtype,
                                               device=device), requires_grad=False)
                      if use_bias else None)
-        self.register_buffer("qweight_data", None)
-        self.register_buffer("qweight_scale", None)
+        self._init_qweight()
         self.input_quantizer = TensorQuantizer()
         self.weight_quantizer = TensorQuantizer()
         self.output_quantizer = TensorQuantizer()
-
-    @property
-    def compressed(self) -> bool:
-        return self.qweight_data is not None
-
-    def set_qweight(self, qt: dict) -> None:
-        """Replace the dense kernel by a packed weight {data, scale}."""
-        self.kernel = None
-        self.qweight_data = qt["data"]
-        self.qweight_scale = qt["scale"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = active_quant_config()
@@ -65,7 +84,7 @@ class QuantDense(nn.Module):
             if not specs:
                 raise ValueError(f"{self.path}: qweight present but no active "
                                  "weight-quantizer spec to interpret it")
-            qt = {"data": self.qweight_data, "scale": self.qweight_scale}
+            qt = self.qweight
             y2d = qgemm(x.reshape(-1, self.in_features), qt, specs[0],
                         (self.in_features, self.features), out_dtype=dtype,
                         act_int8=act_int8, act_raw=skip_fake)
@@ -88,7 +107,7 @@ def _act_int8(cfg, path: str):
     return act_int8, act_backend_quantizes(aspecs)
 
 
-class QuantEinsum(nn.Module):
+class QuantEinsum(PackedWeight, nn.Module):
     """Einsum layer with quantization points (kernel ``kernel_shape``). The
     MoE experts use two contractions, ``btd,edf->btef`` (gate / up) and
     ``bteo,eod->bted`` (down, kernel [E, in, out]); given ``gates``
@@ -112,21 +131,10 @@ class QuantEinsum(nn.Module):
         self.path = ""
         self.kernel = nn.Parameter(torch.empty(self.kernel_shape, dtype=param_dtype,
                                                device=device), requires_grad=False)
-        self.register_buffer("qweight_data", None)
-        self.register_buffer("qweight_scale", None)
+        self._init_qweight()
         self.input_quantizer = TensorQuantizer()
         self.weight_quantizer = TensorQuantizer()
         self.output_quantizer = TensorQuantizer()
-
-    @property
-    def compressed(self) -> bool:
-        return self.qweight_data is not None
-
-    def set_qweight(self, qt: dict) -> None:
-        """Replace the kernel by a packed folded weight {data, scale}."""
-        self.kernel = None
-        self.qweight_data = qt["data"]
-        self.qweight_scale = qt["scale"]
 
     def forward(self, x: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = active_quant_config()
@@ -142,7 +150,7 @@ class QuantEinsum(nn.Module):
                 raise ValueError(f"{self.path}: qweight present but no active "
                                  "weight-quantizer spec to interpret it")
             E, fin, fout = self.kernel_shape
-            qt = {"data": self.qweight_data, "scale": self.qweight_scale}
+            qt = self.qweight
             kw = dict(out_dtype=dtype, act_int8=act_int8, act_raw=skip_fake)
             if self.einsum_str == "btd,edf->btef":
                 # the folded view is a plain [fin, E*fout] GEMM

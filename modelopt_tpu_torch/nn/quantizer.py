@@ -8,8 +8,11 @@ calibrated). Behaviour follows the phase (core.bundle): CALIB passes x
 through and max-updates amax, QUANT quantizes, OFF is identity.
 
 Ported specs: per-tensor static int8 (calibrated amax, also the real-codes
-path for the KV cache) and per-token dynamic int8. Sequential chains,
-pre-quant scales, rotation, affine and fp specs raise NotImplementedError.
+path for the KV cache), per-token dynamic int8, per-tensor static fp (the
+FP8 presets' e4m3 activations) and NVFP4's two-level blocks (a calibrated
+per-tensor amax over dynamic block scales). Sequential chains, pre-quant
+scales, rotation, affine specs and e4m3 KV-cache codes raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -111,9 +114,11 @@ class TensorQuantizer(nn.Module):
         if spec.bias_mode is not None:
             raise NotImplementedError("affine quantizers are not ported")
         needs_amax = _needs_static_amax(spec)
+        # NVFP4's dynamic two-level blocks calibrate one per-tensor amax
+        two_level = spec.block is not None and spec.block.dynamic and spec.block.two_level
         if phase == PHASE_CALIB:
             if needs_amax:
-                if spec.block is not None or spec.axis is not None:
+                if (spec.block is not None and not two_level) or spec.axis is not None:
                     raise NotImplementedError(
                         "calibration of per-channel / static-block amax is not ported")
                 stat = x.detach().abs().amax().float()
@@ -126,4 +131,6 @@ class TensorQuantizer(nn.Module):
                     f"Quantizer {self.path} has no calibrated 'amax'. Run "
                     "calibrate() first (or use a dynamic spec).")
             amax = self.amax
+        if two_level:
+            return fake_quantize(x, spec, tensor_amax=amax)
         return fake_quantize(x, spec, amax=amax)

@@ -1,19 +1,26 @@
 """Compressed-GEMM dispatch (port of ``modelopt_tpu/quant/backends.py``:
 ``qgemm``, ``grouped_qgemm``, ``moe_down_qgemm``).
 
-int4 weights go to the int4 kernels of ``kernels.quant_gemm`` (the CUDA
-kernel on the card, its plain twin on the CPU): with int8 activations to
-``w4a8_gemm`` with the reference's per-token activation quantization,
-weight-only to ``w4a16_gemm`` at every M. MoE down-projections of at most
-256 rows take the grouped kernels: with int8 activations and gates the fused
-``grouped_w4a8_combine_gemm`` (straddle widths such as DeepSeek's K=1408
-included), weight-only ``grouped_w4a16_gemm``. Above 256
-rows the reference has no grouped kernel and leaves dequantize + einsum to
-XLA; the port runs those same steps with ``torch.einsum``, on both devices.
-Every other packed format or shape is dequantized and multiplied on the CPU
-only: on the card it belongs to a kernel not yet ported (``w8a16_gemm``,
-``grouped_w4a8_gemm``, ...), so a CUDA tensor raises there. (The reference
-routes its CPU calls to the dequantize path; this port keeps the kernels'
+One static rule beside the kernels of ``kernels.quant_gemm`` (each the CUDA
+kernel on the card, its plain twin on the CPU):
+  * int4 weights with int8 activations: ``w4a8_gemm`` with the reference's
+    per-token activation quantization; int4 weight-only: ``w4a16_gemm`` at
+    every M;
+  * int8, e4m3 and NVFP4 weights at M <= 256 rows: ``w8a16_gemm``,
+    ``wfp8_gemm``, ``nvfp4_gemm``, for every shape their layouts take (a
+    shape the CUDA kernel cannot take raises on the card);
+  * MoE down-projections at M <= 256: int4 with int8 activations and gates
+    the fused ``grouped_w4a8_combine_gemm`` (straddle widths such as
+    DeepSeek's K=1408 included), int4 weight-only ``grouped_w4a16_gemm``,
+    NVFP4 ``grouped_nvfp4_gemm``;
+  * everything else, above 256 rows in particular, the reference's
+    dequantize + ``torch.matmul`` / ``torch.einsum``, which the JAX package
+    also computes outside any Pallas kernel, on both devices.
+Two cases belong to kernels not yet ported and raise on a CUDA tensor
+(the CPU keeps the dequantize path): int8 weights with int8 activations
+above 256 rows (``int8_dynamic_gemm``) and int4 experts with int8
+activations but no gates (``grouped_w4a8_gemm``). (The reference routes
+its CPU calls to the dequantize path; this port keeps the kernels'
 arithmetic on both devices, so a CPU run checks the card's.)
 """
 
@@ -21,8 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.quant_gemm import (PREFILL_MIN_M, grouped_w4a8_combine_gemm,
-                                  grouped_w4a16_gemm, w4a8_gemm, w4a16_gemm)
+from ..kernels.quant_gemm import (PREFILL_MIN_M, grouped_nvfp4_gemm,
+                                  grouped_w4a8_combine_gemm, grouped_w4a16_gemm, nvfp4_gemm,
+                                  w4a8_gemm, w4a16_gemm, w8a16_gemm, wfp8_gemm)
 from .qspec import QuantizerSpec
 from .qtensor import block_of, compressible_format, dequantize_qtensor
 
@@ -78,12 +86,21 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
         # and CPU calls to a dequantize + matmul; the port's kernel serves all
         return w4a16_gemm(x2d, qt["data"], qt["scale"], block=block_of(spec),
                           out_dtype=out_dtype)
-    if x2d.device.type != "cpu":
-        raise NotImplementedError(
-            f"qgemm: {fmt} weights{' with int8 activations' if act_int8 else ''} "
-            "have no CUDA kernel yet (only int4 weights)")
     if act_int8 and act_raw:
+        # a 16-bit product still serves A8: one per-token rounding
         x2d = _fq_int8_per_token(x2d)
+    if x2d.shape[0] <= PREFILL_MIN_M:
+        if fmt == "int8":
+            return w8a16_gemm(x2d, qt["data"], qt["scale"], out_dtype=out_dtype)
+        if fmt == "fp8":
+            return wfp8_gemm(x2d, qt["data"], qt["scale"], out_dtype=out_dtype)
+        if fmt == "nvfp4":
+            return nvfp4_gemm(x2d, qt["data"], qt["scale"], qt["scale2"],
+                              block=block_of(spec, 16), out_dtype=out_dtype)
+    elif fmt == "int8" and act_int8 and x2d.device.type != "cpu":
+        raise NotImplementedError(
+            "qgemm: int8 weights with int8 activations above 256 rows have no CUDA "
+            "kernel yet (int8_dynamic_gemm is not ported)")
     w = dequantize_qtensor(qt, spec, kn).to(out_dtype)
     return torch.matmul(x2d.to(out_dtype), w)
 
@@ -91,13 +108,13 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
 def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtype=None,
                   act_int8: bool = False, act_raw: bool = False) -> torch.Tensor:
     """Per-expert GEMMs for MoE down-projections: x3 [M, E, K] (token-major)
-    against the FOLDED packed weight [K, E*N] -> [M, E, N]. int4 weight-only
-    at M <= 256 rides ``grouped_w4a16_gemm``; int4 above 256 rows runs the
+    against the FOLDED packed weight [K, E*N] -> [M, E, N]. At M <= 256,
+    int4 weight-only rides ``grouped_w4a16_gemm`` and NVFP4
+    ``grouped_nvfp4_gemm``; int4 with int8 activations belongs to the
+    unported ``grouped_w4a8_gemm`` (CPU only). Every other case runs the
     reference's XLA steps (per-(token, expert) int8 fake-quant when the
     layer skipped its own, dequantized weight in ``out_dtype``, one batched
-    product) with ``torch.einsum`` on either device. int4 with int8
-    activations at M <= 256 belongs to the unported ``grouped_w4a8_gemm``
-    and other formats to unported kernels: CPU only."""
+    product) with ``torch.einsum`` on either device."""
     E, K, N = efn
     M = x3.shape[0]
     out_dtype = out_dtype or x3.dtype
@@ -105,19 +122,22 @@ def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtyp
     if fmt is None:
         raise ValueError(f"no compressed format for spec {spec}")
     small = M <= PREFILL_MIN_M
-    if fmt == "int4" and small and not act_int8:
-        xe = x3.to(out_dtype).transpose(0, 1)  # [E, M, K]
-        y = grouped_w4a16_gemm(xe, qt["data"], qt["scale"], N, block=block_of(spec),
-                               out_dtype=out_dtype)
-        return y.transpose(0, 1)
-    if x3.device.type != "cpu" and not (fmt == "int4" and not small):
+    if fmt == "int4" and small and act_int8 and x3.device.type != "cpu":
         raise NotImplementedError(
-            f"grouped_qgemm: {fmt} experts{' with int8 activations' if act_int8 else ''} "
-            f"at M={M} have no CUDA kernel yet (grouped_w4a8_gemm and the "
-            "grouped fp formats are not ported)")
+            f"grouped_qgemm: int4 experts with int8 activations at M={M} have no CUDA "
+            "kernel yet (grouped_w4a8_gemm is not ported)")
     if act_int8 and act_raw:
         # the 16-bit product still serves A8: one per-(token, expert) rounding
         x3 = _fq_int8_per_token(x3)
+    if small and (fmt == "nvfp4" or (fmt == "int4" and not act_int8)):
+        xe = x3.to(out_dtype).transpose(0, 1)  # [E, M, K]
+        if fmt == "int4":
+            y = grouped_w4a16_gemm(xe, qt["data"], qt["scale"], N, block=block_of(spec),
+                                   out_dtype=out_dtype)
+        else:
+            y = grouped_nvfp4_gemm(xe, qt["data"], qt["scale"], qt["scale2"], N,
+                                   block=block_of(spec, 16), out_dtype=out_dtype)
+        return y.transpose(0, 1)
     w3 = dequantize_qtensor(qt, spec, (K, E * N)).to(out_dtype).reshape(K, E, N)
     return torch.einsum("meo,oed->med", x3.to(out_dtype), w3)
 

@@ -3,9 +3,12 @@
 Port of ``modelopt_tpu/quant/config.py``: the same rule engine (ordered
 fnmatch rules on quantizer paths such as
 ``layers_0/attn/qkv_proj/weight_quantizer``, later matches overriding
-earlier ones attribute by attribute) and, of the presets, the four the
+earlier ones attribute by attribute) and, of the presets, those the
 serving paths run: ``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG``,
-``INT8_KV_CFG`` and ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16).
+``INT8_KV_CFG``, ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16),
+``INT8_WEIGHT_ONLY_CFG``, ``FP8_DEFAULT_CFG`` (e4m3 weights and static
+e4m3 activations), ``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG`` and
+its equal ``W4A16_NVFP4_CFG``.
 
 Layout convention (kept from the reference): weight kernels are
 ``[in_features, out_features]``, so per-output-channel weight scales are
@@ -141,7 +144,13 @@ def _cfg(weight: dict, act: Optional[dict] = None, extra: Optional[dict] = None,
 
 _W_INT8_PC = {"num_bits": 8, "axis": (-1,)}            # per-out-channel
 _A_INT8_PT = {"num_bits": 8, "axis": None}             # per-tensor
+_W_FP8 = {"num_bits": (4, 3), "axis": None}
+_A_FP8 = {"num_bits": (4, 3), "axis": None}
 _W_INT4_BLOCK = {"num_bits": 4, "block_sizes": {-2: 128}}
+_W_NVFP4 = {
+    "num_bits": (2, 1),
+    "block_sizes": {-2: 16, "type": "dynamic", "scale_format": "e4m3", "two_level": True},
+}
 # per-token dynamic int8 activations (block of the whole feature dim)
 _A_INT8_PER_TOKEN = {"num_bits": 8, "block_sizes": {-1: 0, "type": "dynamic"}}
 # per-tensor static int8 KV-cache codes + f32 scale (needs calibration)
@@ -157,12 +166,22 @@ INT8_KV_CFG = _cfg(_W_INT8_PC, _A_INT8_PT, extra=KV_CACHE_INT8,
 W4A8_INT8KV_CFG = _cfg(_W_INT4_BLOCK, _A_INT8_PER_TOKEN, extra=KV_CACHE_INT8,
                        algorithm={"method": "awq_lite"})
 INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _cfg(_W_INT4_BLOCK, None)
+INT8_WEIGHT_ONLY_CFG = _cfg(_W_INT8_PC, None)
+FP8_DEFAULT_CFG = _cfg(_W_FP8, _A_FP8)
+FP8_WEIGHT_ONLY_CFG = _cfg(_W_FP8, None)
+NVFP4_WEIGHT_ONLY_CFG = _cfg(_W_NVFP4, None)
+W4A16_NVFP4_CFG = _cfg(_W_NVFP4, None)
 
 choices = {
     "W4A8_INT8_DYNAMIC_CFG": W4A8_INT8_DYNAMIC_CFG,
     "INT8_KV_CFG": INT8_KV_CFG,
     "W4A8_INT8KV_CFG": W4A8_INT8KV_CFG,
     "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
+    "INT8_WEIGHT_ONLY_CFG": INT8_WEIGHT_ONLY_CFG,
+    "FP8_DEFAULT_CFG": FP8_DEFAULT_CFG,
+    "FP8_WEIGHT_ONLY_CFG": FP8_WEIGHT_ONLY_CFG,
+    "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
+    "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
 }
 
 

@@ -1,19 +1,23 @@
 """Fake quantization for the specs of the serving slices.
 
-Port of the integer parts of ``modelopt_tpu/quant/fake_quant.py``:
-per-tensor static int8 (a calibrated amax), per-token dynamic int8 (a scale
-per row from this call's values) and dynamic one-level integer blocks (the
-int4 block-128 weight spec on a kernel too ragged to pack, such as
-DeepSeek-V2-Lite's first down projection, K=10944), with the reference's
-zero padding of a dimension the block does not divide. Other specs (fp
-formats, two-level or static blocks) raise NotImplementedError. Inference
-only: no straight-through gradients are defined.
+Port of ``modelopt_tpu/quant/fake_quant.py`` for: per-tensor static int8
+(a calibrated amax), per-token dynamic int8 (a scale per row from this
+call's values), dynamic one-level integer blocks (the int4 block-128 weight
+spec on a kernel too ragged to pack, such as DeepSeek-V2-Lite's first down
+projection, K=10944), per-tensor fp (the FP8 presets' e4m3 activations and
+weights: ``fake_quant_fp``) and NVFP4's dynamic two-level blocks (e2m1
+elements, e4m3 block scales over an f32 per-tensor scale), with the
+reference's zero padding of a dimension the block does not divide. Other
+specs (per-channel fp, static or e8m0 blocks, 4/6 scales, rotation,
+affine) raise NotImplementedError. Inference only: no straight-through
+gradients are defined.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .formats import FPFormat, cast_to_fp, parse_format
 from .qspec import QuantizerSpec
 
 _TINY = 1e-24
@@ -26,9 +30,19 @@ def fake_quant_int(x: torch.Tensor, amax, num_bits: int = 8, unsigned: bool = Fa
     bound = 2 ** (num_bits - (0 if unsigned else 1)) - 1
     min_bound = 0 if unsigned else (-bound if narrow_range else -bound - 1)
     amax = torch.as_tensor(amax, device=x.device).abs().float().clamp_min(_TINY)
-    scale = bound / amax
+    scale = amax.new_full(amax.shape, float(bound)) / amax  # a true division
     xq = torch.round(torch.clamp(x.float() * scale, min_bound, bound))
     return (xq / scale).to(x.dtype)
+
+
+def fake_quant_fp(x: torch.Tensor, amax, fmt: FPFormat) -> torch.Tensor:
+    """FP fake quantization: scale = maxval / max(|amax|, 1e-24), then
+    cast_to_fp(clip(x * scale, +-maxval)) / scale, in f32 (the clip is
+    cast_to_fp's own saturation)."""
+    amax = torch.as_tensor(amax, device=x.device).abs().float().clamp_min(_TINY)
+    # a true division (``float / tensor`` is a reciprocal times the float)
+    scale = amax.new_full(amax.shape, fmt.maxval) / amax
+    return (cast_to_fp(x.float() * scale, fmt) / scale).to(x.dtype)
 
 
 def fake_quant_int8_per_token(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
@@ -40,14 +54,10 @@ def fake_quant_int8_per_token(x: torch.Tensor, spec: QuantizerSpec) -> torch.Ten
     return y.to(x.dtype)
 
 
-def fake_quant_block_int(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
-    """Dynamic one-level integer block fake quantization (the reference's
-    ``_blocked`` + ``fake_quant_block``): each blocked axis is zero-padded up
-    to a multiple of its block (zeros never raise a block's amax) and split
-    into (n_blocks, block); scale = max(amax, 1e-24) / bound per block,
-    round-half-even(clip(x / scale, -bound-1, bound)) * scale in f32, then
-    the padding is cut away."""
-    xf = x.float()
+def _blocked(xf: torch.Tensor, spec: QuantizerSpec):
+    """The reference's ``_blocked``: each blocked axis zero-padded up to a
+    multiple of its block (zeros never raise a block's amax) and split into
+    (n_blocks, block). Returns (xb, unblock, block_axes)."""
     shape = xf.shape
     sizes = dict(spec.block.sizes)
     pads = [0] * xf.dim()
@@ -72,12 +82,49 @@ def fake_quant_block_int(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
         else:
             new_shape += [d // bs_dim[i], bs_dim[i]]
             block_axes.append(len(new_shape) - 1)
-    xb = xf.reshape(new_shape)
-    amax = xb.abs().amax(dim=tuple(block_axes), keepdim=True)
+
+    def unblock(y):
+        return y.reshape(padded)[tuple(slice(0, d) for d in shape)]
+
+    return xf.reshape(new_shape), unblock, tuple(block_axes)
+
+
+def fake_quant_block_int(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
+    """Dynamic one-level integer block fake quantization (the reference's
+    ``fake_quant_block``): scale = max(amax, 1e-24) / bound per block,
+    round-half-even(clip(x / scale, -bound-1, bound)) * scale in f32, then
+    the padding is cut away."""
+    xb, unblock, axes = _blocked(x.float(), spec)
+    amax = xb.abs().amax(dim=axes, keepdim=True)
     scale = amax.clamp_min(_TINY) / spec.int_bound
     y = torch.round(torch.clamp(xb / scale, -spec.int_bound - 1, spec.int_bound)) * scale
-    y = y.reshape(padded)[tuple(slice(0, d) for d in shape)]
-    return y.to(x.dtype)
+    return unblock(y).to(x.dtype)
+
+
+def _block_scales_two_level(block_amax, elem_max: float, scale_fmt: FPFormat, tensor_amax):
+    """NVFP4's two-level scales: s2 = max(tensor_amax, 1e-24) /
+    (elem_max * scale_fmt.maxval), each block's s1 = cast_to_fp(amax /
+    elem_max / s2, scale_fmt); returns max(s1 * s2, 1e-24)."""
+    s2 = torch.as_tensor(tensor_amax, device=block_amax.device).float().clamp_min(_TINY) \
+        / (elem_max * scale_fmt.maxval)
+    s1 = cast_to_fp(block_amax / elem_max / s2, scale_fmt)
+    return (s1 * s2).clamp_min(_TINY)
+
+
+def fake_quant_block_two_level(x: torch.Tensor, spec: QuantizerSpec,
+                               tensor_amax=None) -> torch.Tensor:
+    """Dynamic two-level fp block fake quantization (NVFP4): per-block amax
+    from this call, the per-tensor amax calibrated (``tensor_amax``) or
+    from this call; cast_to_fp(clip(x / scale, +-maxval)) * scale in f32."""
+    xf = x.float()
+    xb, unblock, axes = _blocked(xf, spec)
+    block_amax = xb.abs().amax(dim=axes, keepdim=True)
+    t_amax = tensor_amax if tensor_amax is not None else xf.abs().amax()
+    scale = _block_scales_two_level(block_amax, spec.maxval,
+                                    parse_format(spec.block.scale_format), t_amax)
+    fmt = spec.fp_format
+    y = cast_to_fp(torch.clamp(xb / scale, -fmt.maxval, fmt.maxval), fmt) * scale
+    return unblock(y).to(x.dtype)
 
 
 def is_per_token_int8(spec: QuantizerSpec) -> bool:
@@ -86,17 +133,29 @@ def is_per_token_int8(spec: QuantizerSpec) -> bool:
                 and tuple(spec.block.sizes) == ((-1, 0),))
 
 
-def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None) -> torch.Tensor:
+def is_two_level_fp(spec: QuantizerSpec) -> bool:
+    """NVFP4's block spec: dynamic two-level blocks of fp elements with
+    e4m3 (non-e8m0) block scales, no 4/6 choice."""
+    b = spec.block
+    return bool(spec.is_fp and b is not None and b.dynamic and b.two_level
+                and b.scale_format not in (None, "e8m0") and not b.four_over_six)
+
+
+def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None,
+                  tensor_amax=None) -> torch.Tensor:
     """Fake-quantize ``x`` per ``spec``; ``amax`` is the calibrated amax for
-    static specs (None = from this call's values)."""
+    static specs (None = from this call's values), ``tensor_amax`` the
+    calibrated per-tensor amax of a two-level block spec."""
     if not spec.enable:
         return x
-    if spec.is_fp or spec.rotate or spec.bias_mode is not None:
+    if spec.rotate or spec.bias_mode is not None:
         raise NotImplementedError(f"fake quantization of {spec} is not ported")
     if spec.block is not None:
         if is_per_token_int8(spec):
             return fake_quant_int8_per_token(x, spec)
-        if (spec.block.dynamic and not spec.block.two_level
+        if is_two_level_fp(spec):
+            return fake_quant_block_two_level(x, spec, tensor_amax)
+        if (not spec.is_fp and spec.block.dynamic and not spec.block.two_level
                 and spec.block.scale_format is None and not spec.block.four_over_six):
             return fake_quant_block_int(x, spec)
         raise NotImplementedError(f"block fake quantization of {spec} is not ported")
@@ -104,4 +163,6 @@ def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None) -> torch.Tens
         raise NotImplementedError("per-channel fake quantization is not ported")
     if amax is None:
         amax = x.abs().amax().float()
+    if spec.is_fp:
+        return fake_quant_fp(x, amax, spec.fp_format)
     return fake_quant_int(x, amax, spec.num_bits, spec.unsigned, spec.narrow_range)

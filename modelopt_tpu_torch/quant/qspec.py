@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+from .formats import FPFormat, parse_format
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
@@ -72,9 +74,19 @@ class QuantizerSpec:
         return not isinstance(self.num_bits, int)
 
     @property
+    def fp_format(self) -> FPFormat:
+        assert self.is_fp
+        return parse_format(self.num_bits)
+
+    @property
     def int_bound(self) -> int:
         assert not self.is_fp
         return 2 ** (self.num_bits - (0 if self.unsigned else 1)) - 1
+
+    @property
+    def maxval(self) -> float:
+        """Largest representable magnitude at unit scale."""
+        return float(self.fp_format.maxval) if self.is_fp else float(self.int_bound)
 
     @staticmethod
     def from_dict(d: Optional[dict]) -> "QuantizerSpec":

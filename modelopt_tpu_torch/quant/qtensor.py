@@ -1,14 +1,18 @@
 """Packed (real-quant) weight storage and (de)quantization.
 
-Port of the int4 and int8 parts of ``modelopt_tpu/quant/qtensor.py``. A
-packed weight is a dict of tensors whose format follows from its
-QuantizerSpec. The int4 layout is bit-identical to the reference's, so a
-packed weight from either package feeds the other:
+Port of the int4, int8, fp8 and NVFP4 parts of
+``modelopt_tpu/quant/qtensor.py``. A packed weight is a dict of tensors
+whose format follows from its QuantizerSpec. Every layout is bit-identical
+to the reference's, so a packed weight from either package feeds the other:
 
   * INT4: uint8 [K/2, N], split-half and HYBRID — the low nibble of row p
     holds weight row p as offset-binary q+8, the high nibble holds row
     K/2+p in two's complement; f32 scales [K/block, N].
   * INT8: int8 [K, N] with per-out-channel f32 scales [1, N].
+  * FP8: e4m3 [K, N] with one f32 scale [1, 1].
+  * NVFP4: uint8 [K/2, N] split-half e2m1 sign-magnitude codes (low
+    nibble row p, high nibble row K/2+p), e4m3 block-16 scales [K/16, N]
+    and one f32 ``scale2`` [1, 1]: w ~ e2m1 * scale * scale2.
 
 Scales are the dequantization multipliers (w ~ code * scale).
 
@@ -76,6 +80,66 @@ def dequantize_int8(qt: dict) -> torch.Tensor:
     return qt["data"].float() * qt["scale"]
 
 
+def quantize_fp8(w: torch.Tensor) -> dict:
+    """w [K, N] -> {'data': e4m3 [K, N], 'scale': f32 [1, 1]}: one scale
+    max(|w|, 1e-12)/448, codes cast with round half to even."""
+    wf = w.float()
+    scale = wf.abs().amax().clamp_min(1e-12) / 448.0
+    data = torch.clamp(wf / scale, -448.0, 448.0).to(torch.float8_e4m3fn)
+    return {"data": data, "scale": scale.reshape(1, 1)}
+
+
+def dequantize_fp8(qt: dict) -> torch.Tensor:
+    return qt["data"].float() * qt["scale"]
+
+
+E2M1_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+
+
+def _encode_e2m1(x: torch.Tensor) -> torch.Tensor:
+    """x already scaled into [-6, 6] -> uint8 codes 0..15 (bit 3 the sign):
+    the nearest e2m1 magnitude, an exact midpoint rounding down (the
+    reference's ``sum(|x| > midpoints)``, here one bucketize: no
+    [..., 7] boolean transient)."""
+    table = torch.tensor(E2M1_VALUES, dtype=torch.float32, device=x.device)
+    mids = (table[:-1] + table[1:]) / 2.0
+    idx = torch.bucketize(x.abs(), mids, out_int32=True)
+    return (idx + 8 * (x < 0).to(torch.int32)).to(torch.uint8)
+
+
+def _decode_e2m1(codes: torch.Tensor) -> torch.Tensor:
+    table = torch.tensor(E2M1_VALUES, dtype=torch.float32, device=codes.device)
+    mag = table[(codes & 7).long()]
+    return torch.where((codes & 8) > 0, -mag, mag)
+
+
+def quantize_nvfp4(w: torch.Tensor, block: int = 16) -> dict:
+    """w [K, N] -> {'data': uint8 [K/2, N] split-half e2m1 codes,
+    'scale': e4m3 [K/block, N], 'scale2': f32 [1, 1]}: scale2 =
+    max(|w|, 1e-12)/(6*448), each block's scale max(amax, 1e-12)/6/scale2
+    cast to e4m3, codes of w / max(scale*scale2, 1e-20) clipped to +-6."""
+    K, N = w.shape
+    wf = w.float()
+    wb = wf.reshape(K // block, block, N)
+    bamax = wb.abs().amax(dim=1, keepdim=True)
+    scale2 = wf.abs().amax().clamp_min(1e-12) / (6.0 * 448.0)
+    s1 = torch.clamp(bamax.clamp_min(1e-12) / 6.0 / scale2, -448.0, 448.0) \
+        .to(torch.float8_e4m3fn)
+    eff = (s1.float() * scale2).clamp_min(1e-20)
+    codes = _encode_e2m1(torch.clamp(wb / eff, -6.0, 6.0)).reshape(K, N)
+    return {"data": codes[:K // 2] | (codes[K // 2:] << 4),
+            "scale": s1[:, 0, :],
+            "scale2": scale2.reshape(1, 1)}
+
+
+def dequantize_nvfp4(qt: dict, block: int = 16) -> torch.Tensor:
+    packed = qt["data"]
+    vals = torch.cat([_decode_e2m1(packed & 0xF), _decode_e2m1(packed >> 4)], dim=0)
+    K, N = vals.shape
+    scale = qt["scale"].float() * qt["scale2"]
+    return (vals.reshape(K // block, block, N) * scale[:, None, :]).reshape(K, N)
+
+
 def spec_folds(spec: QuantizerSpec) -> bool:
     """Whether a 3-D expert kernel under ``spec`` packs through the folded
     view: no axis or block axis counted from the front."""
@@ -99,10 +163,21 @@ def unfold_experts(w2d: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 def compressible_format(spec: QuantizerSpec, shape):
     """Which packed format this spec + 2-D weight shape maps to: "int4",
-    "int8", or None (formats the port does not pack yet also give None)."""
-    if len(shape) != 2 or spec.is_fp:
+    "int8", "fp8", "nvfp4", or None (formats the port does not pack yet,
+    mxfp4, mxfp8 and nf4, also give None)."""
+    if len(shape) != 2:
         return None
     K, _ = shape
+    if spec.is_fp:
+        fmt = spec.fp_format
+        if (fmt.exp_bits, fmt.man_bits) == (4, 3) and spec.block is None:
+            return "fp8"
+        if ((fmt.exp_bits, fmt.man_bits) == (2, 1) and spec.block is not None
+                and spec.block.scale_format != "e8m0"):
+            b = block_of(spec, None) or dict(spec.block.sizes).get(-1)
+            if b and K % b == 0 and K % 2 == 0 and (K // 2) % b == 0:
+                return "nvfp4"
+        return None
     if spec.num_bits == 8 and spec.axis is not None:
         return "int8"
     if spec.num_bits == 4 and spec.block is not None and spec.variant is None:
@@ -124,6 +199,10 @@ def quantize_qtensor(w: torch.Tensor, spec: QuantizerSpec):
         return quantize_int4(w, block_of(spec)), fmt
     if fmt == "int8":
         return quantize_int8(w), fmt
+    if fmt == "fp8":
+        return quantize_fp8(w), fmt
+    if fmt == "nvfp4":
+        return quantize_nvfp4(w, block_of(spec, 16)), fmt
     raise NotImplementedError(f"spec {spec} has no packed format in the port for {tuple(w.shape)}")
 
 
@@ -133,4 +212,8 @@ def dequantize_qtensor(qt: dict, spec: QuantizerSpec, shape) -> torch.Tensor:
         return dequantize_int4(qt, block_of(spec))
     if fmt == "int8":
         return dequantize_int8(qt)
+    if fmt == "fp8":
+        return dequantize_fp8(qt)
+    if fmt == "nvfp4":
+        return dequantize_nvfp4(qt, block_of(spec, 16))
     raise NotImplementedError(f"spec {spec} has no packed format in the port")

@@ -18,6 +18,7 @@ from modelopt_tpu_torch.models import transformer as tt
 from modelopt_tpu_torch.models.convert import from_jax_variables
 from modelopt_tpu_torch.serve import ServingEngine
 from modelopt_tpu_torch.serve.benchmark import run_serving_benchmark
+from tests._test_utils.pallas_interpret import interpreted_kernels  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -97,6 +98,21 @@ def test_greedy_tokens_match_reference_engine(bundles):
         # logprobs of the same tokens: the port's attention kernels take bf16
         # operands (as the reference's kernels do) where the reference's CPU
         # path runs f32 einsums, which moves a logprob by up to ~0.07 here
+        np.testing.assert_allclose(g.out_logprobs, w.out_logprobs, atol=0.15)
+
+
+def test_greedy_tokens_match_interpreted_reference_engine(bundles, interpreted_kernels):
+    """The same seed-5 prompts against the JAX engine run through its
+    interpret-mode decode kernel (K2 on the f32 cache): the same tokens and
+    stop reasons; log-probs within 0.15 (the prefill still differs: the
+    port's K4 twin against the reference's einsums on these short chunks)."""
+    jb, tb = bundles
+    kw = dict(max_batch=2, max_seq_len=64, prefill_buckets=(8, 16), max_admit=1)
+    want = _serve(JaxEngine(jb, **kw))
+    got = _serve(ServingEngine(tb, device="cpu", **kw))
+    for w, g in zip(want, got):
+        assert g.done and g.stop_reason == w.stop_reason
+        assert g.out_tokens == w.out_tokens
         np.testing.assert_allclose(g.out_logprobs, w.out_logprobs, atol=0.15)
 
 

@@ -1,0 +1,237 @@
+"""K7 w8a16_gemm, K8 wfp8_gemm, K9 nvfp4_gemm and K13 grouped_nvfp4_gemm:
+the port's plain twins (what the CUDA kernels are held to on the card)
+against the JAX Pallas kernels in interpret mode; qgemm, grouped_qgemm and
+moe_down_qgemm for int8, e4m3 and NVFP4 weights against the JAX backends
+on the CPU, at M <= 256 (the kernels) and above (dequantize + matmul), and
+the dispatch between them."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from modelopt_tpu.kernels import quant_gemm as jk
+from modelopt_tpu.quant import backends as jb
+from modelopt_tpu.quant import qtensor as jq
+from modelopt_tpu.quant.qspec import QuantizerSpec as JSpec
+from modelopt_tpu_torch.kernels import quant_gemm as tk
+from modelopt_tpu_torch.quant import backends as tb
+from modelopt_tpu_torch.quant.qspec import QuantizerSpec as TSpec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tensors are tiny: torch's intra-op thread pool costs far more
+    than it saves on them (50x on the engine tests), and the suite runs
+    several workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def interp():
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+NVFP4_BLOCK = {-2: 16, "type": "dynamic", "scale_format": "e4m3", "two_level": True}
+SPECS = {"int8": dict(num_bits=8, axis=(-1,)), "fp8": dict(num_bits=(4, 3)),
+         "nvfp4": dict(num_bits=(2, 1), block=NVFP4_BLOCK)}
+JQUANT = {"int8": jq.quantize_int8, "fp8": jq.quantize_fp8, "nvfp4": jq.quantize_nvfp4}
+JDEQ = {"int8": jq.dequantize_int8, "fp8": jq.dequantize_fp8, "nvfp4": jq.dequantize_nvfp4}
+
+
+def _t(a) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
+
+
+def _packed(rng, fmt, K, N):
+    """A weight [K, N] packed by the reference: (reference dict, port dict,
+    dequantized f32 weight)."""
+    w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
+    p = JQUANT[fmt](jnp.asarray(w))
+    return p, {k: _t(v) for k, v in p.items()}, np.asarray(JDEQ[fmt](p))
+
+
+def order_bar(y, x, w, out):
+    """How far two products may differ when both multiply the same bf16 x
+    by the same bf16-exact weights in f32 and only the order of the f32
+    sums differs: K * 2^-24 * max(|x| @ |w|), plus one ulp of the largest
+    output in the output type (test_torch_w4a16.py's bar)."""
+    K = x.shape[-1]
+    order = K * 2.0**-24 * float((np.abs(x) @ np.abs(w)).max())
+    top = float(np.abs(y).max())
+    return order + 2.0**(np.floor(np.log2(top)) - (7 if out == "bf16" else 23))
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _dtypes(out):
+    return (jnp.float32, torch.float32) if out == "f32" else (jnp.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_byte_gemm_plain_matches_pallas(rng, interp, fmt, M, out):
+    """K7 and K8: bf16 x times int8 / e4m3 weights (exact in bf16) in f32,
+    the f32 scale ([1, N] / [1, 1]) on the f32 result; the Pallas kernel
+    tiles N and sums K in its own order: held to ``order_bar``."""
+    K, N = 512, 256
+    p, pt, wd = _packed(rng, fmt, K, N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    jdt, tdt = _dtypes(out)
+    jfn, tfn = (jk.w8a16_gemm, tk.w8a16_gemm) if fmt == "int8" else (jk.wfp8_gemm,
+                                                                      tk.wfp8_gemm)
+    yj = np.asarray(jfn(jnp.asarray(x, jnp.bfloat16), p["data"], p["scale"],
+                        out_dtype=jdt).astype(jnp.float32))
+    yt = tfn(torch.from_numpy(x).bfloat16(), pt["data"], pt["scale"], out_dtype=tdt)
+    assert yt.dtype == tdt and yt.shape == (M, N)
+    np.testing.assert_allclose(yt.float().numpy(), yj, rtol=0,
+                               atol=order_bar(yj, _bf16(x), wd, out))
+
+
+@pytest.mark.parametrize("K", [512, 1024])  # one 256-row chunk a half; two
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+def test_nvfp4_plain_matches_pallas(rng, interp, K, M, out):
+    """K9: each e2m1 value times its e4m3 block scale, exact in bf16, then
+    bf16 x times those in f32 and scale2 on the f32 result. The Pallas
+    kernel sums chunk by chunk (K/2 = 512: two chunks a half), the twin in
+    one product: held to ``order_bar``. The twin's bit-assembled e2m1
+    decode equals the reference kernel's and the packing's table."""
+    N = 256
+    p, pt, wd = _packed(rng, "nvfp4", K, N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    jdt, tdt = _dtypes(out)
+    yj = np.asarray(jk.nvfp4_gemm(jnp.asarray(x, jnp.bfloat16), p["data"], p["scale"],
+                                  p["scale2"], out_dtype=jdt).astype(jnp.float32))
+    yt = tk.nvfp4_gemm(torch.from_numpy(x).bfloat16(), pt["data"], pt["scale"], pt["scale2"],
+                       out_dtype=tdt)
+    assert yt.dtype == tdt and yt.shape == (M, N)
+    np.testing.assert_allclose(yt.float().numpy(), yj, rtol=0,
+                               atol=order_bar(yj, _bf16(x), wd, out))
+    codes = np.arange(16, dtype=np.int32)
+    np.testing.assert_array_equal(
+        tk._decode_e2m1(torch.from_numpy(codes)).numpy(),
+        np.asarray(jk._decode_e2m1(jnp.asarray(codes))))
+    # the kernel's weights are exact in bf16; times scale2 they are the
+    # reference's dequantized weight up to the order of the two f32 scales
+    unit = tk.nvfp4_unit_weights(pt["data"], pt["scale"])
+    assert torch.equal(unit.bfloat16().float(), unit)
+    np.testing.assert_allclose((unit * pt["scale2"]).numpy(), wd, rtol=2.0**-23, atol=0)
+
+
+@pytest.mark.parametrize("K", [512, 768])  # one 256-row chunk a half; two of 192
+@pytest.mark.parametrize("M", [3, 8])
+def test_grouped_nvfp4_plain_matches_pallas(rng, interp, K, M):
+    """K13: K9's arithmetic per expert on the folded layout [K/2, E*N],
+    expert e in columns e*N:(e+1)*N; K=768 is Qwen3-30B-A3B's expert width
+    (K/2 = 384, two 192-row chunks a half): held to ``order_bar`` expert by
+    expert."""
+    E, N = 3, 256
+    p, pt, wd = _packed(rng, "nvfp4", K, E * N)
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    yj = np.asarray(jk.grouped_nvfp4_gemm(jnp.asarray(x, jnp.bfloat16), p["data"], p["scale"],
+                                          p["scale2"], N, out_dtype=jnp.float32))
+    yt = tk.grouped_nvfp4_gemm(torch.from_numpy(x).bfloat16(), pt["data"], pt["scale"],
+                               pt["scale2"], N, out_dtype=torch.float32)
+    assert yt.shape == (E, M, N)
+    for e in range(E):
+        np.testing.assert_allclose(yt[e].numpy(), yj[e], rtol=0, atol=order_bar(
+            yj[e], _bf16(x[e]), wd[:, e * N:(e + 1) * N], "f32"))
+
+
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("fmt", ["int8", "fp8", "nvfp4"])
+def test_qgemm_matches_reference(rng, fmt, M):
+    """qgemm for each new format against the JAX qgemm on the CPU (its
+    dequantize path: bf16 x times the bf16-rounded dequantized weight). The
+    port's twin (M <= 256) multiplies exact weights and scales the f32
+    result; above 256 rows it dequantizes as the reference does. Held at
+    bf16 tolerance, 2^-8 of the output scale plus the weight's bf16
+    rounding summed over K."""
+    K, N = 256, 128
+    p, pt, _ = _packed(rng, fmt, K, N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    yj = np.asarray(jb.qgemm(jnp.asarray(x, jnp.bfloat16), p, JSpec(**SPECS[fmt]), (K, N))
+                    .astype(jnp.float32))
+    yt = tb.qgemm(torch.from_numpy(x).bfloat16(), pt, TSpec(**SPECS[fmt]), (K, N))
+    assert yt.dtype == torch.bfloat16 and yt.shape == (M, N)
+    np.testing.assert_allclose(yt.float().numpy(), yj, rtol=0, atol=2e-2 * np.abs(yj).max())
+
+
+@pytest.mark.parametrize("M", [3, 300])
+def test_grouped_and_moe_down_nvfp4_match_reference(rng, M):
+    """grouped_qgemm and moe_down_qgemm with NVFP4 experts against the JAX
+    backends on the CPU: K13's twin at M <= 256, dequantize + einsum
+    above; bf16 tolerance."""
+    E, K, N = 4, 256, 128
+    p, pt, _ = _packed(rng, "nvfp4", K, E * N)
+    x3 = rng.standard_normal((M, E, K)).astype(np.float32)
+    g = rng.random((M, E)).astype(np.float32)
+    js, ts = JSpec(**SPECS["nvfp4"]), TSpec(**SPECS["nvfp4"])
+    yj = np.asarray(jb.grouped_qgemm(jnp.asarray(x3, jnp.bfloat16), p, js, (E, K, N))
+                    .astype(jnp.float32))
+    yt = tb.grouped_qgemm(torch.from_numpy(x3).bfloat16(), pt, ts, (E, K, N))
+    assert yt.shape == (M, E, N)
+    np.testing.assert_allclose(yt.float().numpy(), yj, rtol=0, atol=2e-2 * np.abs(yj).max())
+    dj = np.asarray(jb.moe_down_qgemm(jnp.asarray(x3, jnp.bfloat16), p, js, (E, K, N),
+                                      jnp.asarray(g, jnp.bfloat16)).astype(jnp.float32))
+    dt = tb.moe_down_qgemm(torch.from_numpy(x3).bfloat16(), pt, ts, (E, K, N),
+                           torch.from_numpy(g).bfloat16())
+    np.testing.assert_allclose(dt.float().numpy(), dj, rtol=0, atol=2e-2 * np.abs(dj).max())
+
+
+def test_dispatch_takes_the_kernels_at_decode(rng, monkeypatch):
+    """At M <= 256 every new format goes through its kernel (the twin on
+    the CPU), MoE down projections through K13; above 256 rows none does
+    (the reference's dequantize + matmul)."""
+    calls = []
+    for name in ("w8a16_gemm", "wfp8_gemm", "nvfp4_gemm", "grouped_nvfp4_gemm"):
+        real = getattr(tb, name)
+        monkeypatch.setattr(tb, name, lambda *a, _n=name, _r=real, **k:
+                            calls.append(_n) or _r(*a, **k))
+    K, N, E = 256, 128, 2
+    for M in (8, 300):
+        x = torch.randn(M, K).bfloat16()
+        for fmt in ("int8", "fp8", "nvfp4"):
+            pt = _packed(rng, fmt, K, N)[1]
+            tb.qgemm(x, pt, TSpec(**SPECS[fmt]), (K, N))
+        pt = _packed(rng, "nvfp4", K, E * N)[1]
+        tb.moe_down_qgemm(torch.randn(M, E, K).bfloat16(), pt, TSpec(**SPECS["nvfp4"]),
+                          (E, K, N), torch.rand(M, E).bfloat16())
+    assert calls == ["w8a16_gemm", "wfp8_gemm", "nvfp4_gemm", "grouped_nvfp4_gemm"]
+
+
+def test_cuda_wrappers_refuse_shapes_they_cannot_take():
+    """Off the CPU a wrapper launches its kernel or raises: shapes outside
+    the CUDA kernels' tiles (K % 128 for K7/K8, K/2 % 128 for K9/K13,
+    N % 64) are refused before any launch, as are wrong dtypes."""
+    meta = dict(device="meta")
+    x = torch.empty(8, 192, dtype=torch.bfloat16, **meta)
+    w8 = torch.empty(192, 128, dtype=torch.int8, **meta)
+    with pytest.raises(NotImplementedError, match="K % 128"):
+        tk.w8a16_gemm(x, w8, torch.empty(1, 128, **meta))
+    x = torch.empty(8, 256, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="wants"):
+        tk.wfp8_gemm(x, torch.empty(256, 128, dtype=torch.int8, **meta),
+                     torch.empty(1, 1, **meta))
+    with pytest.raises(NotImplementedError, match="K/2 % 128"):
+        tk.nvfp4_gemm(torch.empty(8, 192, dtype=torch.bfloat16, **meta),
+                      torch.empty(96, 128, dtype=torch.uint8, **meta),
+                      torch.empty(12, 128, dtype=torch.float8_e4m3fn, **meta),
+                      torch.empty(1, 1, **meta))
+    with pytest.raises(NotImplementedError, match="N % 64"):
+        tk.grouped_nvfp4_gemm(torch.empty(2, 8, 512, dtype=torch.bfloat16, **meta),
+                              torch.empty(256, 2 * 96, dtype=torch.uint8, **meta),
+                              torch.empty(32, 2 * 96, dtype=torch.float8_e4m3fn, **meta),
+                              torch.empty(1, 1, **meta), 96)

@@ -163,18 +163,18 @@ def test_dispatch_sends_decode_shapes_to_the_kernels(rng, monkeypatch):
 
 
 def test_routes_without_a_kernel_raise_off_cpu():
-    """On a tensor off the CPU, a grouped product without a ported kernel
-    raises: int8 activations without gates at M <= 256 (K11) and formats
-    other than int4; int4 above 256 rows is allowed (the reference's XLA
-    steps)."""
+    """On a tensor off the CPU, the grouped product without a ported kernel
+    raises: int8 activations without gates at M <= 256 (K11). Formats for
+    which the reference has no grouped kernel at all (int8 experts) take
+    its XLA steps, dequantize + einsum, on either device, as int4 above 256
+    rows does."""
     E, K, N = 2, 256, 128
     pt = tq.quantize_int4(torch.randn(K, E * N))
     x3 = torch.empty(8, E, K, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         tb.grouped_qgemm(x3, pt, TSPEC, (E, K, N), act_int8=True, act_raw=True)
-    p8 = tq.quantize_int8(torch.randn(K, E * N))
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        tb.grouped_qgemm(x3, p8, TSpec(num_bits=8, axis=(-1,)), (E, K, N))
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        tb.moe_down_qgemm(x3, p8, TSpec(num_bits=8, axis=(-1,)), (E, K, N),
-                          torch.empty(8, E, device="meta"))
+    p8 = {k: v.to("meta") for k, v in tq.quantize_int8(torch.randn(K, E * N)).items()}
+    assert tb.grouped_qgemm(x3, p8, TSpec(num_bits=8, axis=(-1,)), (E, K, N)).shape == (8, E, N)
+    y = tb.moe_down_qgemm(x3, p8, TSpec(num_bits=8, axis=(-1,)), (E, K, N),
+                          torch.empty(8, E, dtype=torch.bfloat16, device="meta"))
+    assert y.shape == (8, N) and y.device.type == "meta"

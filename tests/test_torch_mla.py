@@ -30,6 +30,7 @@ from modelopt_tpu_torch.quant.api import calibrate, validate_calibration
 from modelopt_tpu_torch.quant.fake_quant import fake_quantize as tfake_quantize
 from modelopt_tpu_torch.quant.qspec import QuantizerSpec as TSpec
 from modelopt_tpu_torch.serve import ServingEngine
+from tests._test_utils.pallas_interpret import interpreted_kernels  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -349,15 +350,18 @@ def _prompts(vocab):
     return [rng.integers(1, vocab, n).tolist() for n in PROMPT_LENS]
 
 
-@pytest.mark.parametrize("model", ["tiny_mla", "compressed_int8"])
-def test_greedy_tokens_match_reference_engine(model):
+@pytest.mark.parametrize("model", ["tiny_mla", "compressed_int8", "compressed_int8_interpreted"])
+def test_greedy_tokens_match_reference_engine(model, request):
     """Three staggered requests on ``tiny_mla_test_config`` (unquantized, an
     f32 latent cache: the einsum path in both) and on the small compressed
     config under W4A8_INT8KV_CFG (every token routed to all 4 experts, so
     no top-k choice can flip; an int8 latent cache: the reference's CPU
-    einsum path against the port's K5 twin): the same tokens and stop
-    reasons, log-probs within 1e-4 (f32 paths) and 0.15 (int8 attention
-    rounding, as in test_torch_moe.py)."""
+    einsum path against the port's K5 twin, and again with the reference
+    decoding through its interpret-mode K5, ``interpreted_kernels``): the
+    same tokens and stop reasons, log-probs within 1e-4 (f32 paths) and
+    0.15 (int8 attention rounding, as in test_torch_moe.py)."""
+    if model.endswith("_interpreted"):
+        request.getfixturevalue("interpreted_kernels")
     kw = dict(max_batch=2, max_seq_len=64, prefill_buckets=(8, 16), max_admit=1)
     if model == "tiny_mla":
         tcfg = tt.tiny_mla_test_config(dtype=torch.float32)

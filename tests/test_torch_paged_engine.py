@@ -27,6 +27,7 @@ from modelopt_tpu_torch.models import transformer as tt
 from modelopt_tpu_torch.models.convert import from_jax_variables
 from modelopt_tpu_torch.serve import ServingEngine
 from modelopt_tpu_torch.serve import paged_cache as tpc
+from tests._test_utils.pallas_interpret import interpreted_kernels  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -270,6 +271,35 @@ def test_greedy_tokens_match_reference_paged_engine(f32_models, model):
         assert g.done and g.stop_reason == w.stop_reason
         assert g.out_tokens == w.out_tokens
         np.testing.assert_allclose(g.out_logprobs, w.out_logprobs, atol=lp_tol)
+
+
+@pytest.mark.parametrize("model", ["mha", "mla"])
+def test_greedy_tokens_match_interpreted_reference_paged_engine(f32_models, model,
+                                                                interpreted_kernels):
+    """Seed-5 prompts (where the int8 MLA pool flips a 0.007-gap choice
+    against the reference's XLA path) through both paged engines, the JAX
+    one decoding through its interpret-mode K15: the same tokens and stop
+    reasons; log-probs within 1e-4 on the llama (both prefill by gather +
+    einsum and round the same per-page codes) and 0.15 on the MLA model."""
+    jb, tb = f32_models[model]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, tb.module.cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+
+    def serve(engine):
+        reqs = [engine.submit(p, max_new_tokens=6) for p in prompts[:2]]
+        for _ in range(2):
+            engine.step()
+        reqs.append(engine.submit(prompts[2], max_new_tokens=6))
+        engine.run()
+        return reqs
+
+    want = serve(JaxEngine(jb, **KW, kv_dtype=jnp.int8))
+    got = serve(ServingEngine(tb, device="cpu", **KW, kv_dtype=torch.int8))
+    for w, g in zip(want, got):
+        assert g.done and g.stop_reason == w.stop_reason
+        assert g.out_tokens == w.out_tokens
+        np.testing.assert_allclose(g.out_logprobs, w.out_logprobs,
+                                   atol=1e-4 if model == "mha" else 0.15)
 
 
 def test_paged_decode_to_cache_end_matches_reference(f32_models, monkeypatch):

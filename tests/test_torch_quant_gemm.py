@@ -121,10 +121,12 @@ def test_qgemm_matches_reference(rng, M):
 
 
 def test_qgemm_dequantize_path_is_cpu_only(rng):
-    """Formats without a ported kernel (here int8 per-channel weights with
-    bf16 activations, the TPU's w8a16_gemm) take dequantize + matmul on the
-    CPU, matching the reference at bf16 tolerance; on any other device they
-    raise rather than let a library matmul stand in for the kernel."""
+    """int8 per-channel weights with bf16 activations (K7 w8a16_gemm; its
+    twin on the CPU) match the reference's CPU dequantize + matmul at bf16
+    tolerance. The one qgemm route still without a ported kernel, int8
+    weights with int8 activations above 256 rows (the reference's
+    int8_dynamic_gemm), dequantizes on the CPU only and raises on any other
+    device rather than let a library matmul stand in for the kernel."""
     K, N = 256, 128
     x = rng.standard_normal((4, K)).astype(np.float32)
     w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
@@ -137,4 +139,5 @@ def test_qgemm_dequantize_path_is_cpu_only(rng):
     yt = tb.qgemm(torch.from_numpy(x).bfloat16(), pt, spec, (K, N)).float().numpy()
     np.testing.assert_allclose(yt, yj, rtol=0, atol=2e-2 * np.abs(yj).max())
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        tb.qgemm(torch.empty(4, K, dtype=torch.bfloat16, device="meta"), pt, spec, (K, N))
+        tb.qgemm(torch.empty(300, K, dtype=torch.bfloat16, device="meta"), pt, spec, (K, N),
+                 act_int8=True)
