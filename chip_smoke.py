@@ -22,8 +22,12 @@ Phases, in order (any failure exits non-zero):
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
      paged_decode_attention at path E's decode shape (int8 pools, and bf16
-     off the paths) and path F's (one int8 latent pool as K and V), and K16
-     paged_kv_write at a prefill chunk and at E's and F's decode steps;
+     off the paths) and path F's (one int8 latent pool as K and V), K16
+     paged_kv_write at a prefill chunk and at E's and F's decode steps, K17
+     block_sparse_decode_attention at path J's decode shape (int8 and bf16
+     caches, fewer live blocks than in range, lengths mid-block) and K14
+     flash_attention at J's calibration forwards (and with a window and
+     sinks, and with rows not a multiple of its tile);
   3. parity: small models built from the same numpy weights on the CPU
      (plain versions) and on the card (kernels), prefill and 4 decode steps
      compared: a 2-layer Qwen3-MoE at the real per-expert geometry (hidden
@@ -35,7 +39,9 @@ Phases, in order (any failure exits non-zero):
      the llama and the DeepSeek-V2 again over paged caches (64-row pages
      scattered over the pool); the llama under FP8_DEFAULT_CFG (activation
      amax calibrated on the CPU) and the Qwen3-MoE under
-     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache;
+     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; an f32 llama with
+     skip-softmax (64-row blocks, int8 KV) through cached prefill and
+     greedy decode, tokens and every block selection equal;
   4. serving paths, one after the other (each model freed before the next
      is built), each on random weights from a seed, served by ServingEngine
      (max_batch 8, max_seq_len 2176, prefill buckets (32, 544), multi_step
@@ -63,7 +69,12 @@ Phases, in order (any failure exits non-zero):
        I: B's model (24 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
           cache;
      after each measured run, a torch.profiler window over decode ticks
-     (device time by kernel, idle share) and one checked request.
+     (device time by kernel, idle share) and one checked request;
+       J: A's model and KV calibration, then at the Decoder level (no
+          engine serves skip-softmax): calibrate_skip_softmax on RULER
+          needle batches (K14 in its capture forwards), 8 prompts of 1024
+          tokens prefilled in two chunks, 64 greedy decode steps through
+          K17, with launch asserts and a profile window of 16 decode steps.
 Then one JSON line of per-kernel numbers, and last the device line.
 To iterate on one phase, import this module and call its phase function
 (``kernel_phase``, ``parity_phase``, ``serve_path``) directly after
@@ -73,6 +84,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -85,6 +97,7 @@ import time
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 REPEATS = 25
 # the shape each kernel's summary row reports (all shapes ride along)
 PRIMARY = ("M=8 K=4096 N=28672",
@@ -94,7 +107,9 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088",
            "B=8 PMAX=34 ps=64 KH=8 G=4 D=128 int8 ragged lengths",
            "B=1 T=544 row=1024 int8",
-           "M=8 K=4096 N=28672 bf16 out")
+           "M=8 K=4096 N=28672 bf16 out",
+           "B=8 S=2176 KH=8 G=4 D=128 block=128 NSEL=17 int8 lengths mid-block",
+           "B=2 T=S=1024 KH=8 G=4 D=128 bf16 causal")
 
 SOURCES = {
     "w4a8_gemm": ("modelopt_tpu_torch/csrc/w4a8_gemm.cu",
@@ -125,6 +140,10 @@ SOURCES = {
                    "modelopt_tpu/kernels/quant_gemm.py:610"),
     "grouped_nvfp4_gemm": ("modelopt_tpu_torch/csrc/nvfp4_gemm.cu",
                            "modelopt_tpu/kernels/quant_gemm.py:843"),
+    "block_sparse_decode_attention": ("modelopt_tpu_torch/csrc/decode_attention.cu",
+                                      "modelopt_tpu/kernels/block_sparse_attention.py:61"),
+    "flash_attention": ("modelopt_tpu_torch/csrc/flash_attention.cu",
+                        "modelopt_tpu/kernels/flash_attention.py:108"),
 }
 # kernels each serving path must launch
 PATH_KERNELS = {
@@ -142,6 +161,7 @@ PATH_KERNELS = {
     "H": ("w8a16_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
     "I": ("nvfp4_gemm", "grouped_nvfp4_gemm", "dense_kv_write", "fused_decode_attention",
           "flash_prefill_attention"),
+    "J": ("w4a8_gemm", "dense_kv_write", "flash_attention", "block_sparse_decode_attention"),
 }
 
 
@@ -395,6 +415,7 @@ def kernel_phase(torch, results: dict) -> None:
 
     mla_decode_kernel(torch, gen, timer, record)
     paged_kernels(torch, gen, timer, record)
+    skip_softmax_kernels(torch, gen, timer, record)
 
 
 def mla_decode_kernel(torch, gen, timer, record) -> None:
@@ -583,6 +604,121 @@ def paged_kernels(torch, gen, timer, record) -> None:
         record("paged_kv_write", f"B={B} T={T} row={row} int8", err, 0.0, ms, plain_ms,
                lib_ms, 2 * B * T * row + 8 * B * T, 0, INT8_OPS)
         del pool, p2
+
+
+def _ulp_bf16(x: float) -> float:
+    """One bf16 ulp at the magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def skip_softmax_kernels(torch, gen, timer, record) -> None:
+    """K17 at path J's decode shape (B=8 slots, KH=8, G=4, D=128, S=2176,
+    128-row blocks, NSEL=17 table entries) on int8 and bf16 caches, lengths
+    in the middle of the 9th block, fewer live entries than in-range blocks
+    in shuffled order (forced blocks first, as ``select_blocks`` orders
+    them); K14 at J's calibration forwards (B=2, T=S=1024, KH=8, G=4,
+    D=128, bf16), with a sliding window and sink tokens (D=64), and with a
+    row count that is not a multiple of the 64-row tile (f32)."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
+    from modelopt_tpu_torch.kernels import flash_attention as kf
+
+    dev = "cuda"
+    # K17: as K5 and K15 (the same kernel body), kernel and plain version
+    # differ only where expf and torch.exp round a 7-bit code across .5:
+    # an int8 bar of vs plus one bf16 ulp of the largest output; bf16
+    # caches, f32 sums in another order, 1e-3 plus one output ulp.
+    log("K17 block_sparse_decode_attention")
+    B, KH, G, D, S, bs, nsel = 8, 8, 4, 128, 2176, 128, 17
+    lengths = torch.tensor([1025, 1041, 1057, 1073, 1088, 1029, 1064, 1087], dtype=torch.int32,
+                           device=dev)
+    nvalid = torch.tensor([9, 5, 7, 4, 9, 6, 8, 3], dtype=torch.int32, device=dev)
+    rng = torch.Generator().manual_seed(3)
+    sel = torch.zeros(B, nsel, dtype=torch.int32)
+    for b, n in enumerate(nvalid.tolist()):  # sink 0, recent 7 and 8, then the rest shuffled
+        rest = (torch.randperm(6, generator=rng) + 1).tolist()
+        sel[b, :n] = torch.tensor(([0, 7, 8] + rest)[:n], dtype=torch.int32)
+    sel = sel.to(dev)
+    q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    for kind in ("int8", "bf16"):
+        if kind == "int8":
+            kc, vc = (torch.randint(-127, 128, (B, S, KH * D), generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
+            kd, vd = ((c.float() * sc).to(torch.bfloat16) for c, sc in ((kc, ks), (vc, vs)))
+            rate = INT8_OPS
+        else:
+            kc, vc = (torch.randn(B, S, KH * D, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            ks = vs = None
+            kd, vd = kc, vc
+            rate = BF16_FLOPS
+        args = (q, kc, vc, sel, nvalid, lengths, ks, vs)
+        out = kb.block_sparse_decode_attention(*args, block_size=bs)
+        ref = kb.block_sparse_decode_attention_plain(*args, block_size=bs)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = (0.03 if kind == "int8" else 1e-3) + _ulp_bf16(ref.float().abs().max().item())
+        ms = timer(lambda: kb.block_sparse_decode_attention(*args, block_size=bs))
+        plain_ms = timer(lambda: kb.block_sparse_decode_attention_plain(*args, block_size=bs), 5)
+        # the library call: SDPA over the live blocks, gathered and
+        # dequantized beforehand, dead entries and keys past the length masked
+        k4 = kb._gather_blocks(kd, sel, bs).reshape(B, nsel * bs, KH, D).transpose(1, 2)
+        v4 = kb._gather_blocks(vd, sel, bs).reshape(B, nsel * bs, KH, D).transpose(1, 2)
+        pos = (sel.long()[..., None] * bs + torch.arange(bs, device=dev)).reshape(B, -1)
+        live = (torch.arange(nsel, device=dev)[None, :, None] < nvalid.long()[:, None, None])
+        mask = (pos < lengths.long()[:, None]) & live.expand(B, nsel, bs).reshape(B, -1)
+        qs = q.reshape(B, KH * G, 1, D)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, k4, v4, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        del k4, v4
+        # the live blocks' rows once each (K and V), the table, nvalid,
+        # lengths, q in and out back in bf16; operations on the live keys
+        n_rows = int(nvalid.long().sum()) * bs
+        keys = int(mask.sum())
+        nbytes = (2 * n_rows * KH * D * kc.element_size() + 4 * B * (nsel + 2)
+                  + 2 * 2 * B * KH * G * D)
+        record("block_sparse_decode_attention",
+               f"B={B} S={S} KH={KH} G={G} D={D} block={bs} NSEL={nsel} {kind} lengths "
+               "mid-block", err, tol, ms, plain_ms, lib_ms, nbytes, 4 * keys * KH * G * D, rate)
+        del kc, vc, kd, vd
+
+    # K14: online softmax over 64-key tiles against the one-pass plain
+    # version, both in f32: the rescaled sums differ in rounding, at most
+    # S * 2^-24 * max|v| for S keys; then the output rounds to q's dtype,
+    # one ulp of the largest output in bf16.
+    log("K14 flash_attention")
+    cases = ((2, 1024, 8, 4, 128, None, 0, torch.bfloat16, "causal"),
+             (1, 512, 2, 4, 64, 64, 4, torch.bfloat16, "window=64 sink=4"),
+             (1, 200, 2, 1, 128, None, 0, torch.float32, "200 rows causal"))
+    for B, T, KH, G, D, window, sink, dt, label in cases:
+        q = torch.randn(B, T, KH, G, D, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(B, T, KH, D, generator=gen, device=dev).to(dt) for _ in range(2))
+        fa = dict(causal=True, window=window, sink=sink)
+        out = kf.flash_attention(q, k, v, **fa)
+        ref = kf.flash_attention_plain(q, k, v, **fa)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = T * 2.0**-24 * v.float().abs().max().item()
+        if dt == torch.bfloat16:
+            tol += _ulp_bf16(ref.float().abs().max().item())
+        ms = timer(lambda: kf.flash_attention(q, k, v, **fa))
+        plain_ms = timer(lambda: kf.flash_attention_plain(q, k, v, **fa), 5)
+        # the library call: SDPA on the same q / k / v, KV heads repeated
+        # beforehand; causal, or with the window's key mask
+        qs = q.reshape(B, T, KH * G, D).transpose(1, 2)
+        kr, vr = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+        valid = kf._valid_keys(T, T, True, window, sink, dev)
+        sdpa = (dict(is_causal=True) if window is None else dict(attn_mask=valid))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, kr, vr, **sdpa))
+        del kr, vr
+        pairs = int(valid.sum())
+        item = q.element_size()
+        nbytes = item * (2 * q.numel() + k.numel() + v.numel())
+        shape = (f"B={B} T=S={T} KH={KH} G={G} D={D} "
+                 f"{'bf16' if dt == torch.bfloat16 else 'f32'} {label}")
+        record("flash_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
+               4 * B * KH * G * D * pairs, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        del q, k, v
 
 
 def w4a16_bar(torch, ref, x, wdq) -> float:
@@ -1121,6 +1257,155 @@ def small_mla_config():
 MLA_IDS_SEED = 1
 
 
+@contextlib.contextmanager
+def selection_trace(torch, margins: bool = True):
+    """While active, every ``select_blocks`` call of the decoder appends
+    (sel, nvalid[, margins]) to the yielded list: margins are the smallest
+    distance of an in-range, unforced block's bound from the keep threshold
+    and the smallest gap between two kept, unforced bounds (how far the
+    selection and its order are from changing)."""
+    from modelopt_tpu_torch.models import transformer
+    from modelopt_tpu_torch.sparsity.skip_softmax import block_upper_bounds
+
+    real = transformer.select_blocks
+    trace = []
+
+    def record(q, kmax, kmin, lengths, cfg):
+        sel, nvalid = real(q, kmax, kmin, lengths, cfg)
+        if not margins:
+            trace.append((sel, nvalid))
+            return sel, nvalid
+        ub = block_upper_bounds(q, kmax, kmin)
+        nb = ub.shape[1]
+        n_blocks = (lengths.long()[:, None] + cfg.block_size - 1) // cfg.block_size
+        bidx = torch.arange(nb, device=ub.device)[None]
+        free = (bidx < n_blocks) & (bidx >= cfg.sink_blocks) & (
+            bidx < n_blocks - cfg.recent_blocks)
+        m = torch.where(bidx < n_blocks, ub, -math.inf).amax(1, keepdim=True)
+        gap = torch.where(free, (ub - (m - cfg.tau)).abs(), math.inf).min()
+        kept = torch.where(free & (ub >= m - cfg.tau), ub, -math.inf).sort(1).values
+        steps = (kept[:, 1:] - kept[:, :-1])
+        order = torch.where(torch.isfinite(steps), steps, math.inf).min()
+        trace.append((sel, nvalid, torch.stack([gap, order])))
+        return sel, nvalid
+
+    transformer.select_blocks = record
+    try:
+        yield trace
+    finally:
+        transformer.select_blocks = real
+
+
+def skip_llama_config(torch):
+    """The skip-softmax parity llama: hidden 512, 4 heads and 2 KV heads of
+    D=128, 2 layers, vocab 4096, fused projections, in f32 (its int8 KV
+    cache and 7-bit codes as on path J): with bf16 activations the card's
+    and the CPU's logits differ by bf16 ulps, as large as the gaps that
+    decide greedy tokens and block selection."""
+    from modelopt_tpu_torch.models import llama_config
+
+    return llama_config(vocab_size=4096, hidden_size=512, num_layers=2, num_heads=4,
+                        num_kv_heads=2, intermediate_size=1024, max_position_embeddings=1024,
+                        rope_theta=500000.0, fused_qkv=True, fused_gate_up=True,
+                        dtype=torch.float32)
+
+
+# the skip-softmax parity: 2 prompts of 640 tokens (10 of the cache's 16
+# 64-row blocks), 4 greedy decode steps at tau SKIP_TAU, budget 0.5 (11
+# table entries). On the CPU, with torch seed SKIP_IDS_SEED, every in-range
+# unforced block's bound is at least 0.0047 from the keep threshold, two
+# kept bounds at least 0.009 apart, and every greedy choice 0.149 from a
+# tie.
+SKIP_TAU, SKIP_IDS_SEED, SKIP_PROMPT, SKIP_STEPS, SKIP_MAXLEN = 0.5, 458, 640, 4, 1024
+
+
+def _skip_decode(torch, bundle, cache, tok, dev):
+    """SKIP_STEPS greedy decode steps from ``cache`` (written in place) and
+    the first token ``tok`` [B]: (logits of every step [steps, B, V] on the
+    CPU, the tokens fed [steps, B], the selection trace on the CPU)."""
+    rows, toks = [], []
+    with selection_trace(torch) as trace:
+        for _ in range(SKIP_STEPS):
+            toks.append(tok)
+            out, cache = bundle.apply(tok[:, None].to(dev), cache)
+            rows.append(out[:, -1].float().cpu())
+            tok = rows[-1].argmax(-1).to(torch.int32)
+    return torch.stack(rows), torch.stack(toks), [tuple(t.cpu() for t in r) for r in trace]
+
+
+def skip_parity(torch) -> None:
+    """The skip-softmax llama under W4A8_INT8KV_CFG with an int8 KV cache,
+    64-row blocks: the same numpy weights on the CPU (K1, K3 and K17's
+    twins) and on the card (the kernels), the KV amax calibrated on the CPU
+    and carried over. Each device prefills the prompts into its own cache:
+    last-position logits within the llama parity's 3% of the largest CPU
+    logit. Then both decode greedily from the CPU's prefilled cache (copied
+    to the card): greedy tokens, every step's and layer's ``sel`` and
+    ``nvalid`` equal, logits within the same bar. Decoding from one cache
+    state holds the block selection to the decode path: the two prefills
+    round some of the 1280 tokens' int8 activation and KV codes the other
+    way (last-bit differences of their inputs), which moves bounds by more
+    than a selection's margins (the selections of an H100's own prefill
+    differed at margins of 0.0047)."""
+    from modelopt_tpu_torch.models import make_cache
+    from modelopt_tpu_torch.models.convert import from_jax_variables
+    from modelopt_tpu_torch.quant.api import calibrate
+    from modelopt_tpu_torch.sparsity import sparsify_attention_dynamic
+
+    cfg, preset = skip_llama_config(torch), "W4A8_INT8KV_CFG"
+    variables = _numpy_variables(cfg, preset)
+    ids = torch.randint(1, cfg.vocab_size, (2, SKIP_PROMPT), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(SKIP_IDS_SEED))
+    cpu = from_jax_variables(variables, cfg, preset, device="cpu")
+    calibrate(cpu, "max", lambda f: f(ids[:, :64], make_cache(cfg, 2, 64, device="cpu")))
+    for mod in cpu.module.modules():
+        if getattr(mod, "amax", None) is not None:
+            node = variables["quant"]
+            for k in mod.path.split("/"):
+                node = node.setdefault(k, {})
+            node["amax"] = mod.amax.numpy()
+    ss = dict(block_size=64, tau=SKIP_TAU, budget=0.5)
+    cpu = sparsify_attention_dynamic(cpu, **ss)
+    gpu = sparsify_attention_dynamic(from_jax_variables(variables, cfg, preset, device="cuda"),
+                                     **ss)
+    caches, pre = {}, {}
+    for dev, bundle in (("cpu", cpu), ("cuda", gpu)):
+        cache = make_cache(bundle.module.cfg, 2, SKIP_MAXLEN, torch.int8, device=dev)
+        out, caches[dev] = bundle.apply(ids.to(dev), cache)
+        pre[dev] = out[:, -1].float().cpu()
+    pre_err = (pre["cuda"] - pre["cpu"]).abs().max().item()
+    shared = {k: (tuple(t.to("cuda") for t in v) if isinstance(v, tuple) else v.to("cuda"))
+              for k, v in caches["cpu"].items()}
+    first = pre["cpu"].argmax(-1).to(torch.int32)
+    ref, ref_tok, ref_trace = _skip_decode(torch, cpu, caches["cpu"], first, "cpu")
+    got, tok, trace = _skip_decode(torch, gpu, shared, first, "cuda")
+    if not (torch.isfinite(got).all() and got.shape == ref.shape
+            and torch.isfinite(pre["cuda"]).all()):
+        raise AssertionError("skip parity: card logits not finite or misshaped")
+    err = (got - ref).abs().max().item()
+    tol = 3e-2 * max(pre["cpu"].abs().max().item(), ref.abs().max().item())
+    same_sel = len(trace) == len(ref_trace) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(trace, ref_trace))
+    margins = torch.stack([r[2] for r in ref_trace]).amin(0).tolist()
+    top2 = ref.topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]).min().item()
+    nv = torch.stack([r[1] for r in ref_trace]).float()
+    log(f"  skip-softmax llama W4A8 + int8 KV, tau {SKIP_TAU}: prefill 2 x {SKIP_PROMPT}, "
+        f"each device's own: max |logit diff| {pre_err:.4g}; {SKIP_STEPS} greedy steps from "
+        f"the CPU's cache: max |logit diff| {err:.4g} (tol {tol:.4g}), tokens "
+        f"{'equal' if torch.equal(tok, ref_tok) else 'DIFFER'}, sel / nvalid of "
+        f"{len(ref_trace)} selections {'equal' if same_sel else 'DIFFER'}; nvalid mean "
+        f"{nv.mean().item():.2f} of 11 in-range blocks; CPU margins: bound to threshold "
+        f"{margins[0]:.3g}, between kept bounds {margins[1]:.3g}, top-2 logit gap {tie:.3g}")
+    if not torch.equal(tok, ref_tok):
+        raise AssertionError(f"skip parity: greedy tokens differ {tok.tolist()} "
+                             f"{ref_tok.tolist()}")
+    if not same_sel:
+        raise AssertionError("skip parity: the card selected other blocks than the CPU")
+    if not (err <= tol and pre_err <= tol):
+        raise AssertionError(f"skip parity: card logits off by {err} / {pre_err} > {tol}")
+
+
 def parity_phase(torch) -> None:
     from modelopt_tpu_torch.models import llama_config
 
@@ -1149,6 +1434,8 @@ def parity_phase(torch) -> None:
             noise_floor=True)
     _parity(torch, "Qwen3-MoE NVFP4 + bf16 KV", moe, "NVFP4_WEIGHT_ONLY_CFG", torch.bfloat16,
             MOE_NVFP4_IDS_SEED, 2, 16)
+    # path J: K17 (its twin on the CPU) over the selected blocks
+    skip_parity(torch)
 
 
 # --------------------------------------------------------------------------
@@ -1266,6 +1553,110 @@ def serve_path(torch, name) -> dict:
     return launches
 
 
+SKIP_CALIB_BATCHES = 4  # RULER batches of 2 x 1024 tokens for path J's tau
+
+
+def skip_path(torch) -> dict:
+    """Path J at the Decoder level (the reference engine cannot serve a
+    skip-softmax bundle, so neither does the port's): path A's model
+    (Llama-3-8B, W4A8_INT8KV_CFG, seed 0) and its KV calibration, then,
+    with the launch counters zeroed, ``calibrate_skip_softmax`` on RULER
+    needle batches (uncached capture forwards: K1 and K14) with the
+    reference's defaults (recall 0.99, 128-row blocks, its tau grid, budget
+    1.0), an int8 cache of 8 x 2176 rows with block summaries, 8 random
+    prompts of 1024 tokens prefilled through ``bundle.apply`` in two chunks
+    (544 + 480, as the engine's buckets split them: the masked einsum over
+    the cache), and 64 greedy decode steps (K3 writes, K17 over the
+    selected blocks). Asserts the launches (K1, K3, K14 and K17 > 0, K17 =
+    32 x 64, every other kernel 0) and finite logits and in-vocabulary
+    tokens; logs tau, recalls, the worst head, the rates and how many of
+    the in-range blocks each decode step attended; then profiles 16 more
+    decode steps. Returns the counts."""
+    from modelopt_tpu_torch import kernels
+    from modelopt_tpu_torch.models import make_cache
+    from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
+    from modelopt_tpu_torch.quant.api import calibrate
+    from modelopt_tpu_torch.sparsity import calibrate_skip_softmax, ruler_needle_batches
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = path_config(torch, "llama3_8b")
+    n_req, in_len, steps = 8, 1024, 64
+    bundle = build_compressed_bundle(cfg, "W4A8_INT8KV_CFG", seed=0, device="cuda")
+    ids = torch.randint(1, cfg.vocab_size, (1, 64), dtype=torch.int32, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    calibrate(bundle, "max", lambda f: f(ids, make_cache(cfg, 1, 64, device="cuda")))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    t0 = time.time()
+    batches = ruler_needle_batches(cfg.vocab_size, num_batches=SKIP_CALIB_BATCHES, batch_size=2,
+                                   seq_len=in_len, device="cuda")
+    sb, info = calibrate_skip_softmax(bundle, batches)
+    torch.cuda.synchronize()
+    log(f"  calibrate_skip_softmax on {SKIP_CALIB_BATCHES} RULER batches of 2 x {in_len}: "
+        f"{time.time() - t0:.1f} s, tau {info['tau']}, recalls {info['recalls']}, worst head "
+        f"{info['worst_head']}")
+
+    prompts = torch.randint(1, cfg.vocab_size, (n_req, in_len), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1)).to("cuda")
+    cache = make_cache(sb.module.cfg, n_req, 2176, torch.int8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for lo, hi in ((0, 544), (544, in_len)):  # the engine's bucket split
+        last = torch.full((n_req,), hi - lo - 1, dtype=torch.int32, device="cuda")
+        logits, cache = sb.apply(prompts[:, lo:hi], cache, logits_index=last)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_prefill = time.time() - t0
+    toks = [tok]
+    with selection_trace(torch, margins=False) as trace:
+        t0 = time.time()
+        for _ in range(steps):
+            logits, cache = sb.apply(toks[-1][:, None], cache)
+            toks.append(logits[:, -1].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        t_decode = time.time() - t0
+    launches = kernels.launch_counts()
+    out = torch.stack(toks, 1)
+    if not (torch.isfinite(logits).all() and ((out >= 0) & (out < cfg.vocab_size)).all()
+            and int(cache["lengths"][0]) == in_len + steps):
+        raise AssertionError("path J: bad logits, tokens or lengths")
+    nvalid = torch.stack([t[1] for t in trace]).float()            # [steps * layers, B]
+    in_range = -(-(in_len + steps) // sb.module.cfg.skip_softmax.block_size)
+    new = n_req * (steps + 1)
+    log(f"  {n_req} prompts x {in_len} -> {steps + 1} new tokens (1 from the prefill, "
+        f"{steps} decode steps): prefill {t_prefill:.2f} s, decode {t_decode:.2f} s, output "
+        f"{new / (t_prefill + t_decode):.1f} tok/s, decode {n_req * steps / t_decode:.1f} "
+        f"tok/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  blocks attended per decode step and layer: nvalid mean {nvalid.mean().item():.3f}, "
+        f"min {int(nvalid.min().item())} of {in_range} in range at the last step (skipped "
+        f"share {1 - nvalid.mean().item() / in_range:.3f})")
+    log(f"  launches on path J: {launches}")
+    if launches["block_sparse_decode_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"path J: {launches['block_sparse_decode_attention']} K17 "
+                             f"launches, expected {cfg.num_layers * steps}")
+    missing = [k for k in PATH_KERNELS["J"] if launches[k] <= 0]
+    strays = [k for k in launches if k not in PATH_KERNELS["J"] and launches[k]]
+    if missing or strays:
+        raise AssertionError(f"path J: never launched {missing}, launched {strays}")
+
+    # profile window: 16 more decode steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(16):
+            logits, cache = sb.apply(toks[-1][:, None], cache)
+            toks.append(logits[:, -1].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    report_profile(torch, prof, wall, f"{n_req} slots at {in_len + steps} tokens, 16 decode "
+                   "steps")
+    del sb, bundle, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def measured_run(torch, eng, name) -> dict:
     """Serve TRAFFIC with the launch counters zeroed just before and read
     just after; check that every request got its tokens, that every kernel
@@ -1314,10 +1705,7 @@ def check_output(torch, eng, vocab_size) -> None:
 def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int) -> None:
     """torch.profiler over a short window of decode ticks (n_req fresh
     prompts of in_len tokens, prefilled before the window opens, out_len new
-    tokens each): device time by kernel, kernel launches, device busy time
-    against the wall clock. The profiler's own host cost lengthens the wall
-    time, so the idle share read here is an upper bound."""
-    from torch.autograd import DeviceType
+    tokens each), reported by ``report_profile``."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = torch.Generator().manual_seed(7)
@@ -1332,6 +1720,18 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
         eng.run()
         torch.cuda.synchronize()
         wall = time.time() - t0
+    report_profile(torch, prof, wall,
+                   f"{n_req} requests x {in_len} -> {out_len} tokens, decode ticks only; "
+                   f"{eng.stats['decode_forwards'] - forwards[0]} decode forwards, "
+                   f"{eng.stats['prefill_chunks'] - forwards[1]} prefill chunks")
+
+
+def report_profile(torch, prof, wall: float, what: str) -> None:
+    """Log a profile window: device time by kernel, kernel launches, device
+    busy time against the wall clock (the idle share is an upper bound: the
+    profiler's own host cost lengthens the wall)."""
+    from torch.autograd import DeviceType
+
     by_name = {}
     n_launch = 0
     for ev in prof.key_averages():
@@ -1351,11 +1751,9 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
         "w4a8_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
-        "nvfp4_kernel", "nvfp4_reduce_splits")}
-    log(f"  profile window ({n_req} requests x {in_len} -> {out_len} tokens, decode ticks "
-        f"only; "
-        f"{eng.stats['decode_forwards'] - forwards[0]} decode forwards, "
-        f"{eng.stats['prefill_chunks'] - forwards[1]} prefill chunks): wall "
+        "nvfp4_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
+        "flash_attention_kernel")}
+    log(f"  profile window ({what}): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms in {n_launch} kernels"
         + (f", idle share <= {1 - busy / (wall * 1e3):.3f}" if busy else
            " (no device time recorded: not measured)"))
@@ -1398,6 +1796,9 @@ def main() -> int:
     for name in PATHS:
         log(f"path {name}: {PATHS[name][0]}, ServingEngine ({time.time() - t_start:.0f} s)")
         by_path[name] = serve_path(torch, name)
+    log(f"path J: Llama-3-8B W4A8 + int8 KV, calibrated skip-softmax decode, Decoder "
+        f"({time.time() - t_start:.0f} s)")
+    by_path["J"] = skip_path(torch)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

@@ -3,6 +3,7 @@ nested-dict path helpers."""
 
 from .bundle import (
     PHASE_CALIB,
+    PHASE_CAPTURE,
     PHASE_OFF,
     PHASE_QUANT,
     ModelBundle,
@@ -11,5 +12,5 @@ from .bundle import (
     current_phase,
 )
 
-__all__ = ["PHASE_CALIB", "PHASE_OFF", "PHASE_QUANT", "ModelBundle",
+__all__ = ["PHASE_CALIB", "PHASE_CAPTURE", "PHASE_OFF", "PHASE_QUANT", "ModelBundle",
            "ModeRecord", "apply_mode", "current_phase"]

@@ -18,9 +18,12 @@ from typing import Any
 from .mode import get_mode
 
 # Phases a converted model runs in: quantizers collect amax in CALIB,
-# quantize in QUANT, pass through in OFF.
+# quantize in QUANT, pass through in OFF; CAPTURE quantizes as QUANT does
+# (without the KV cache's real codes or the GEMMs' skipped fake-quant) and
+# records quantizer inputs for calibration algorithms.
 PHASE_QUANT = "quant"
 PHASE_CALIB = "calib"
+PHASE_CAPTURE = "capture"
 PHASE_OFF = "off"
 
 _PHASE_VAR = contextvars.ContextVar("opt_phase", default=PHASE_QUANT)
@@ -67,12 +70,21 @@ class ModelBundle:
                     stack.enter_context(ctx)
             yield
 
-    def apply(self, *args, phase: str = PHASE_QUANT, **kwargs):
-        """Run the module with the mode contexts bound, without autograd."""
+    def apply(self, *args, phase: str = PHASE_QUANT, capture: bool = False, **kwargs):
+        """Run the module with the mode contexts bound, without autograd.
+        ``capture=True`` returns ``(output, records)``: what the quantizers
+        recorded in CAPTURE phase, ``{path: [x.reshape(-1, x.shape[-1]), ...]}``
+        in call order (the reference's ``quant_capture`` collection)."""
         import torch
 
+        from ..nn.quantizer import capture_records
+
         with self.contexts(phase), torch.no_grad():
-            return self.module(*args, **kwargs)
+            if not capture:
+                return self.module(*args, **kwargs)
+            with capture_records() as records:
+                out = self.module(*args, **kwargs)
+            return out, records
 
     def make_fn(self, phase: str = PHASE_QUANT):
         """``fn(*args, **kwargs)`` running the module in ``phase``."""

@@ -11,6 +11,14 @@
 // its table names; nothing else differs,
 // so the page walk rounds the 7-bit codes exactly where the reference's
 // page-per-step grid does.
+// The third entry point, block_sparse_decode_attention (K17), replaces
+// modelopt_tpu/kernels/block_sparse_attention.py::block_sparse_decode_attention
+// (Pallas body _bs_attn_kernel: _attend_chunk over one selected KV block per
+// grid step). Its kernel block_sparse_attention_kernel runs the same body
+// over the first nvalid[b] blocks that sel[b, :] names, in that order, one
+// block per chunk at cache rows b * S + sel[b, p] * block_size; keys of a
+// block at or past lengths[b] score -1e30, as in the reference, so even a
+// block that holds no live key rounds its codes as the Pallas kernel does.
 // MLA decode (models/mla.py) calls it with KH = 1, G = the query heads,
 // D = the latent row padded to 128 lanes (640 for DeepSeek-V2-Lite) and the
 // same latent tensor as K and V.
@@ -32,14 +40,16 @@
 //    probabilities rounded to bf16, the denominator from the f32 values
 //    (sums in another order than the plain version);
 //  * keys at or past lengths[b] carry -1e30 in the reference (exp gives 0):
-//    here they are not visited; a length past the cache is clamped to S;
+//    dense and paged, they are not visited (a length past the cache is
+//    clamped to S); block-sparse, they score -1e30 here too;
 //  * out = acc * (v_scale / max(l, 1e-30)).
 // Only the order of exact integer sums differs from the plain version, so
 // on int8 caches the two differ only where expf rounds a code e8 across .5.
 //
 // What bounds it on an H100: bytes, the live cache rows (lengths[b] * KH * D
 // codes; K and V once each, or once when they are one tensor) over the
-// 3.35 TB/s of HBM; paged, the same rows wherever their pages lie.
+// 3.35 TB/s of HBM; paged, the same rows wherever their pages lie;
+// block-sparse, the rows of the selected blocks only.
 //
 // Design: the reference's arithmetic is independent per (head, group) row,
 // so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256
@@ -107,7 +117,7 @@ __device__ __forceinline__ void block_sum(V (&v)[GB], V (*red)[NW]) {
 // byte c of a word, sign-extended
 __device__ __forceinline__ int sbyte(int w, int c) { return (w << (24 - 8 * c)) >> 24; }
 
-// The body of both kernels; page_table null: dense cache rows.
+// The body of the three kernels; page_table and sel null: dense cache rows.
 template <typename CT, int GB, int DJ>
 __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        const CT* __restrict__ kc, const CT* __restrict__ vc,
@@ -116,8 +126,10 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        const float* __restrict__ vscale,
                                        float* __restrict__ out_f32,
                                        __nv_bfloat16* __restrict__ out_bf16,
-                                       const int* __restrict__ page_table, int S, int KH, int G,
-                                       int chunk) {
+                                       const int* __restrict__ page_table,
+                                       const int* __restrict__ sel,
+                                       const int* __restrict__ nvalid, int nsel, int S, int KH,
+                                       int G, int chunk) {
   constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
   constexpr int D = 128 * DJ;
   extern __shared__ __align__(16) float smem[];
@@ -136,7 +148,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
   const int b = bh / KH, h = bh % KH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int KHD = KH * D;
-  const int L = min(lengths[b], S);
+  const int L = sel != nullptr ? lengths[b] : min(lengths[b], S);
   const float ks = kscale != nullptr ? *kscale : 1.f;
   const float vs = vscale != nullptr ? *vscale : 1.f;
   const float inv_sqrt_d = __fdiv_rn(ks, sqrtf((float)D));
@@ -190,10 +202,15 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
   const CT* kh = kc + (size_t)h * D;
   const CT* vh = vc + (size_t)h * D;
 
-  for (int base = 0; base < L; base += chunk) {
-    const int nk = min(chunk, L - base);
-    // the chunk's first cache row: dense, row base of slot b; paged (chunk
-    // = page), row 0 of the pool page the slot's table names for it
+  // dense and paged: the chunks holding keys [0, L) in order; block-sparse:
+  // the first nvalid[b] blocks of sel[b, :], each whole, keys >= L masked
+  const int nchunks = sel != nullptr ? min(nvalid[b], nsel) : (L + chunk - 1) / chunk;
+  for (int it = 0; it < nchunks; ++it) {
+    const int base = sel != nullptr ? sel[(size_t)b * nsel + it] * chunk : it * chunk;
+    const int nk = sel != nullptr ? chunk : min(chunk, L - base);
+    const int lim = L - base;  // keys kk >= lim lie at or past L
+    // the chunk's first cache row: dense and block-sparse, row base of slot
+    // b; paged (chunk = page), row 0 of the pool page the slot's table names
     const size_t row0 = page_table != nullptr
                             ? (size_t)page_table[(size_t)b * (S / chunk) + base / chunk] * chunk
                             : (size_t)b * S + base;
@@ -202,6 +219,13 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
     // scores: one key per warp at a time
 #pragma unroll 2
     for (int kk = warp; kk < nk; kk += NW) {
+      if (kk >= lim) {  // block-sparse only: a masked key
+        if (lane == 0) {
+#pragma unroll
+          for (int g = 0; g < GB; ++g) sc[g * chunk + kk] = -1e30f;
+        }
+        continue;
+      }
       const CT* krow = kbase + (size_t)kk * KHD;
       if constexpr (kInt8) {
         const int* kw = reinterpret_cast<const int*>(krow);
@@ -402,8 +426,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restric
                         const float* __restrict__ kscale, const float* __restrict__ vscale,
                         float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
                         int S, int KH, int G, int chunk) {
-  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, nullptr, S, KH, G,
-                     chunk);
+  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, nullptr, nullptr,
+                     nullptr, 0, S, KH, G, chunk);
 }
 
 // K15: rows of slot b in the pool pages page_table[b, :] names, chunk = page
@@ -415,16 +439,35 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict
                        float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
                        const int* __restrict__ page_table, int S, int KH, int G,
                        int page_size) {
-  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, page_table, S, KH,
-                     G, page_size);
+  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, page_table, nullptr,
+                     nullptr, 0, S, KH, G, page_size);
+}
+
+// K17: the nvalid[b] blocks of slot b that sel[b, :] names, chunk = block
+template <typename CT, int GB, int DJ>
+__global__ void __launch_bounds__(NT)
+block_sparse_attention_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
+                              const CT* __restrict__ vc, const int* __restrict__ lengths,
+                              const float* __restrict__ kscale,
+                              const float* __restrict__ vscale, float* __restrict__ out_f32,
+                              __nv_bfloat16* __restrict__ out_bf16,
+                              const int* __restrict__ sel, const int* __restrict__ nvalid,
+                              int nsel, int S, int KH, int G, int block_size) {
+  attend<CT, GB, DJ>(q, kc, vc, lengths, kscale, vscale, out_f32, out_bf16, nullptr, sel,
+                     nvalid, nsel, S, KH, G, block_size);
 }
 
 // one launch's operands (the kernel's pointer arguments, untyped)
 struct Args {
-  const void *q, *kc, *vc, *lengths, *kscale, *vscale, *page_table;
+  const void *q, *kc, *vc, *lengths, *kscale, *vscale, *page_table, *sel, *nvalid;
   void *out_f32, *out_bf16;
-  int B, S, KH, G, chunk;
+  int B, S, KH, G, chunk, nsel;
 };
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 template <typename CT, int GB, int DJ>
 int launch(const Args& a, cudaStream_t s) {
@@ -433,13 +476,10 @@ int launch(const Args& a, cudaStream_t s) {
       sizeof(float) * (((size_t)GB * a.chunk + 3) / 4 * 4 + (size_t)NW * GB * D + 2 * GB * D +
                        GB * D / 4);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const bool paged = a.page_table != nullptr;
-  cudaError_t e = paged ? cudaFuncSetAttribute(paged_attention_kernel<CT, GB, DJ>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem)
-                        : cudaFuncSetAttribute(decode_attention_kernel<CT, GB, DJ>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+  const bool paged = a.page_table != nullptr, sparse = a.sel != nullptr;
+  cudaError_t e = paged    ? allow_smem(paged_attention_kernel<CT, GB, DJ>, smem)
+                  : sparse ? allow_smem(block_sparse_attention_kernel<CT, GB, DJ>, smem)
+                           : allow_smem(decode_attention_kernel<CT, GB, DJ>, smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = a.B * a.KH * (a.G / GB);
   const auto* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -454,6 +494,10 @@ int launch(const Args& a, cudaStream_t s) {
     paged_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
         q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.page_table), a.S, a.KH,
         a.G, a.chunk);
+  else if (sparse)
+    block_sparse_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
+        q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.sel),
+        static_cast<const int*>(a.nvalid), a.nsel, a.S, a.KH, a.G, a.chunk);
   else
     decode_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(q, kc, vc, lengths, ks, vs, of,
                                                                ob, a.S, a.KH, a.G, a.chunk);
@@ -491,8 +535,8 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* lengths, const void* kscale, const void* vscale,
                                 void* out_f32, void* out_bf16, int B, int S, int KH, int G,
                                 int D, int chunk, int int8_cache, void* stream) {
-  const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, out_f32, out_bf16,
-               B, S, KH, G, chunk};
+  const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, nullptr, nullptr, out_f32, out_bf16,
+               B, S, KH, G, chunk, 0};
   return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -506,7 +550,22 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
                                       const void* kscale, const void* vscale, void* out_f32,
                                       void* out_bf16, int B, int pmax, int page_size, int KH,
                                       int G, int D, int int8_cache, void* stream) {
-  const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, out_f32, out_bf16,
-               B, pmax * page_size, KH, G, page_size};
+  const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, nullptr, nullptr,
+               out_f32, out_bf16, B, pmax * page_size, KH, G, page_size, 0};
+  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
+}
+
+// K17, block-sparse decode attention: the same kernel over selected blocks.
+// Caches [B, S, KH*D] as decode_attention's, S a multiple of block_size;
+// sel int32 [B, nsel] block indices, each in [0, S / block_size); nvalid
+// int32 [B] (entries p >= nvalid[b] are never read); keys [0, lengths[b]).
+extern "C" int block_sparse_decode_attention(const void* q, const void* kc, const void* vc,
+                                             const void* sel, const void* nvalid,
+                                             const void* lengths, const void* kscale,
+                                             const void* vscale, void* out_f32, void* out_bf16,
+                                             int B, int S, int nsel, int block_size, int KH,
+                                             int G, int D, int int8_cache, void* stream) {
+  const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, sel, nvalid,
+               out_f32, out_bf16, B, S, KH, G, block_size, nsel};
   return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
 }

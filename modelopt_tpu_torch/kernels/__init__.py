@@ -1,7 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-twin. Every wrapper counts its launches in a ``launches`` attribute."""
+twin. Every wrapper counts its launches in a ``launches`` attribute. (K14
+``flash_attention`` is reached through its module, ``kernels.flash_attention``,
+whose name it shares.)"""
 
 from .attention import decode_attention, dense_kv_write, fused_decode_attention
+from .block_sparse_attention import block_sparse_decode_attention
+from . import flash_attention as _flash
 from .flash_attention import flash_prefill_attention
 from .paged_attention import paged_decode_attention, paged_kv_write
 from .quant_gemm import (grouped_nvfp4_gemm, grouped_w4a8_combine_gemm, grouped_w4a16_gemm,
@@ -22,6 +26,8 @@ KERNELS = {
     "wfp8_gemm": wfp8_gemm,
     "nvfp4_gemm": nvfp4_gemm,
     "grouped_nvfp4_gemm": grouped_nvfp4_gemm,
+    "block_sparse_decode_attention": block_sparse_decode_attention,
+    "flash_attention": _flash.flash_attention,
 }
 
 

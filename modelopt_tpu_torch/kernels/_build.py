@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("w4a8_gemm", "kv_write", "fused_decode_attention",
            "flash_prefill_attention", "w4a16_gemm", "grouped_w4a8_gemm",
-           "decode_attention", "paged_kv_write", "w8a16_gemm", "nvfp4_gemm")
+           "decode_attention", "paged_kv_write", "w8a16_gemm", "nvfp4_gemm",
+           "flash_attention")
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()

@@ -80,12 +80,16 @@ def _decode_chunk(S: int, chunk: int) -> int:
     return S if S % chunk else chunk
 
 
-def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int):
+def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int, starts=None,
+                   live=None):
     """The reference's ``_attend_chunk`` over every chunk holding a key
     below ``L[b]`` (the online softmax state after them): q rows qf
     [B, KH, G, D] in f32 (bf16 values), caches [B, S, KH*D], scalar k scale
     ``ks``. Returns (m, l, acc) of shapes [B, KH, G, 1] x 2 and
-    [B, KH, G, D]."""
+    [B, KH, G, D]. Block-sparse (K17): chunk c of slot b is the cache rows
+    [c*chunk, (c+1)*chunk) at key positions ``starts[b, c]`` on, attended
+    where ``live[b, c]`` (both [B, n_chunks]), keys at or past L[b]
+    masked."""
     B, S, _ = k_cache.shape
     KH, G, D = qf.shape[1:]
     dev = qf.device
@@ -101,8 +105,11 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int):
     m = torch.full((B, KH, G, 1), -1e30, device=dev)
     l = torch.zeros((B, KH, G, 1), device=dev)
     acc = torch.zeros((B, KH, G, D), device=dev)
-    n_chunks = -(-int(L.max()) // chunk) if B else 0
-    for c in range(n_chunks):
+    if starts is None:
+        n_chunks = -(-int(L.max()) // chunk) if B else 0
+        starts = (torch.arange(n_chunks, device=dev) * chunk).expand(B, n_chunks)
+        live = starts < L[:, None]
+    for c in range(starts.shape[1]):
         base = c * chunk
         kb = k4[:, base:base + chunk]
         vb = v4[:, base:base + chunk]
@@ -112,8 +119,8 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int):
         else:
             s = torch.einsum("bhgd,bthd->bhgt", qf,
                              kb.to(torch.bfloat16).float()) * inv_sqrt_d
-        col = base + torch.arange(kb.shape[1], device=dev)
-        s = torch.where(col[None, None, None, :] < L[:, None, None, None], s,
+        col = starts[:, c, None] + torch.arange(kb.shape[1], device=dev)    # [B, chunk]
+        s = torch.where(col[:, None, None, :] < L[:, None, None, None], s,
                         torch.tensor(-1e30, device=dev))
         m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_cur)
@@ -128,10 +135,10 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int):
             esum = e.sum(-1, keepdim=True)
             y = torch.einsum("bhgt,bthd->bhgd", e.to(torch.bfloat16).float(),
                              vb.to(torch.bfloat16).float())
-        live = (base < L)[:, None, None, None]
-        l = torch.where(live, l * alpha + esum, l)
-        acc = torch.where(live, acc * alpha + y, acc)
-        m = torch.where(live, m_cur, m)
+        on = live[:, c, None, None, None]
+        l = torch.where(on, l * alpha + esum, l)
+        acc = torch.where(on, acc * alpha + y, acc)
+        m = torch.where(on, m_cur, m)
     return m, l, acc
 
 

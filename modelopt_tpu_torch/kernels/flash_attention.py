@@ -1,11 +1,14 @@
-"""Cached-prefill flash attention: a prompt chunk's queries against the
-slot's KV cache.
+"""Flash attention: cache-free causal attention (K14) and a prompt chunk's
+queries against the slot's KV cache (K4).
 
-Counterpart of ``modelopt_tpu/kernels/flash_attention.py::
-flash_prefill_attention``. On CUDA tensors the wrapper launches
-``csrc/flash_prefill_attention.cu``; on CPU tensors
-``flash_prefill_attention_plain`` computes the same function (and serves as
-the card's oracle).
+Counterparts of ``modelopt_tpu/kernels/flash_attention.py::flash_attention``
+and ``::flash_prefill_attention``. On CUDA tensors the wrappers launch
+``csrc/flash_attention.cu`` and ``csrc/flash_prefill_attention.cu``; on CPU
+tensors ``flash_attention_plain`` and ``flash_prefill_attention_plain``
+compute the same functions (and serve as the card's oracles).
+``flash_attention`` is an autograd function whose backward recomputes
+through ``flash_attention_reference`` (the reference's ``custom_vjp`` over
+its ``_xla_reference``; the TPU kernel has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -16,6 +19,121 @@ from . import _build
 from .attention import _scalar
 
 
+# ---------------------------------------------------------------------------
+# K14: cache-free causal flash attention
+# ---------------------------------------------------------------------------
+def flash_attention_ok(T: int, S: int, D: int) -> bool:
+    """The reference's rule for its TPU kernel: D % 64 == 0, S % 128 == 0
+    and S <= 8192; other uncached forwards take the einsum path. The
+    reference's CPU branch (always the einsum path) is not followed: on a
+    CPU tensor the wrapper computes the kernel's twin. On the card the
+    kernel takes D = 64 and 128 (the wrapper raises on other widths)."""
+    return D % 64 == 0 and S % 128 == 0 and S <= 8192
+
+
+def _valid_keys(T: int, S: int, causal: bool, window, sink: int, device):
+    """[T, S] bool: key s is attended by query position t."""
+    qpos = torch.arange(T, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    valid = torch.ones(T, S, dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (kpos <= qpos)
+    if window is not None:
+        valid = valid & ((kpos > qpos - window) | (kpos < sink))
+    return valid
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window=None, sink: int = 0):
+    """The TPU kernel's math in one pass: q, k, v in f32 as they are, f32
+    scores times 1/sqrt(D), -1e9 on invalid keys, f32 softmax normalized
+    before the f32 PV product; the output in q's dtype. q [B, T, KH, G, D],
+    k / v [B, S, KH, D]."""
+    B, T, KH, G, D = q.shape
+    S = k.shape[1]
+    scores = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float()) * (1.0 / (D ** 0.5))
+    valid = _valid_keys(T, S, causal, window, sink, q.device)
+    scores = torch.where(valid, scores, torch.tensor(-1e9, device=q.device))
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bkgts,bskd->btkgd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_reference(q, k, v, causal: bool = True, window=None, sink: int = 0):
+    """The reference's ``_xla_reference`` (its gradient's ground truth):
+    scores divided by sqrt(D), -1e9 on invalid keys, softmax, in f32; the
+    output in q's dtype. Differentiable."""
+    B, T, KH, G, D = q.shape
+    S = k.shape[1]
+    scores = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float()) / torch.sqrt(
+        torch.tensor(float(D), device=q.device))
+    valid = _valid_keys(T, S, causal, window, sink, q.device)
+    scores = torch.where(valid, scores, torch.tensor(-1e9, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgts,bskd->btkgd", p, v.float()).to(q.dtype)
+
+
+def _flash_forward(q, k, v, causal, window, sink):
+    B, T, KH, G, D = q.shape
+    S = k.shape[1]
+    if k.shape != (B, S, KH, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, sink)
+    if D not in (64, 128):
+        raise NotImplementedError(f"flash_attention: the CUDA kernel takes D = 64 or 128, "
+                                  f"got {D}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise NotImplementedError(
+            f"flash_attention: the CUDA kernel takes q, k, v all bf16 or all f32, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.check_cuda("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attention", [_build.c_ptr] * 4 + [_build.c_int] * 9
+                         + [_build.c_float, _build.c_int, _build.c_ptr])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, KH, G, D,
+                 int(causal), -1 if window is None else int(window), int(sink),
+                 1.0 / (D ** 0.5), int(q.dtype == torch.float32), _build.stream(q))
+    flash_attention.launches += 1
+    _build.raise_on_error("flash_attention", err)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sink):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, sink)
+        return _flash_forward(q, k, v, causal, window, sink)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_reference(*leaves, *ctx.opts)
+            grads = torch.autograd.grad(out, leaves, grad)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True, window=None, sink: int = 0):
+    """Causal grouped-query attention with no cache: q [B, T, KH, G, D]
+    against k, v [B, S, KH, D] (bf16 or f32, one dtype on the card), with
+    an optional sliding ``window`` (keys kpos > qpos - window) that keeps
+    the first ``sink`` keys. Returns [B, T, KH, G, D] in q's dtype. The
+    gradient recomputes through ``flash_attention_reference``."""
+    return _FlashAttention.apply(q, k, v, causal, window, sink)
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: cached-prefill flash attention
+# ---------------------------------------------------------------------------
 def flash_prefill_attention_plain(q, ck, cv, start, k_scale=None, v_scale=None,
                                   out_dtype=torch.bfloat16):
     """The reference kernel's math in one pass: bf16 q, (code * scale) -> bf16

@@ -16,30 +16,40 @@ same paths.
 
 Cached forwards go through the kernels: T > 1 writes the chunk's K/V with
 ``dense_kv_write`` then attends with ``flash_prefill_attention``; T == 1 is
-one ``fused_decode_attention`` step. A paged cache (``serve/paged_cache.py``:
-per-layer page pools and a ``page_table``) writes through ``paged_kv_write``
-at every T; T == 1 attends with ``paged_decode_attention`` under the
-reference's rule, other forwards gather the pages dense and take the
-reference's masked einsum. Caches are updated IN PLACE (the reference
-donates them through jitted steps instead).
+one ``fused_decode_attention`` step. Uncached forwards of T >= 256 rows
+attend with ``flash_attention`` where its rule holds, others with an
+einsum. With ``cfg.skip_softmax`` (``sparsity/skip_softmax.py``) the cache
+also carries per-layer block summaries: every forward writes through
+``dense_kv_write`` and folds its keys into them, a decode step attends the
+selected blocks with ``block_sparse_decode_attention`` and a longer
+forward takes the masked einsum over the cache, as the reference does. A
+paged cache (``serve/paged_cache.py``: per-layer page pools and a
+``page_table``) writes through ``paged_kv_write`` at every T; T == 1
+attends with ``paged_decode_attention`` under the reference's rule, other
+forwards gather the pages dense and take the reference's masked einsum.
+Caches are updated IN PLACE (the reference donates them through jitted
+steps instead).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..kernels.attention import dense_kv_write, fused_decode_attention
-from ..kernels.flash_attention import flash_prefill_attention
+from ..kernels.block_sparse_attention import (block_sparse_decode_attention,
+                                              block_sparse_decode_attention_xla, block_sparse_ok)
+from ..kernels.flash_attention import flash_attention, flash_attention_ok, flash_prefill_attention
 from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
                                        paged_gather_dense, paged_kv_write)
 from ..nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
 from ..nn.quantizer import TensorQuantizer, assign_paths
+from ..sparsity.skip_softmax import init_block_summaries, select_blocks, update_block_summaries
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +106,9 @@ class DecoderConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: Optional[int] = None
+    # calibrated skip-softmax decode attention: a frozen
+    # sparsity.skip_softmax.SkipSoftmaxConfig, or None
+    skip_softmax: Optional[Any] = None
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -136,7 +149,9 @@ def make_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
     (heads merged into the last dim) and per-slot ``lengths`` [batch]. MLA
     (the reference's :198-209): one shared latent row per token,
     [batch, max_len, pad128(kv_lora_rank + qk_rope_head_dim)] in "k", and a
-    [batch, max_len, 0] placeholder in "v"."""
+    [batch, max_len, 0] placeholder in "v". With ``cfg.skip_softmax``: per-layer
+    block summaries "kmax" / "kmin" [batch, max_len / block_size, KH, D] f32
+    (one tensor a layer: they are written in place)."""
     dtype = dtype or cfg.dtype
     if cfg.attention_type == "mla":
         dc = cfg.kv_lora_rank + cfg.qk_rope_head_dim
@@ -144,13 +159,25 @@ def make_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None,
         vshape = (batch, max_len, 0)
     else:
         kshape = vshape = (batch, max_len, cfg.kv_heads * cfg.dims_per_head)
-    return {
+    cache = {
         "k": tuple(torch.zeros(kshape, dtype=dtype, device=device)
                    for _ in range(cfg.num_layers)),
         "v": tuple(torch.zeros(vshape, dtype=dtype, device=device)
                    for _ in range(cfg.num_layers)),
         "lengths": torch.zeros(batch, dtype=torch.int32, device=device),
     }
+    if cfg.skip_softmax is not None:
+        if cfg.attention_type == "mla":
+            raise NotImplementedError("skip-softmax attention covers MHA caches only")
+        bs = cfg.skip_softmax.block_size
+        if max_len % bs:
+            raise ValueError(f"max_len {max_len} not divisible by skip_softmax "
+                             f"block_size {bs}")
+        pairs = [init_block_summaries(batch, max_len, cfg.kv_heads, cfg.dims_per_head, bs,
+                                      device) for _ in range(cfg.num_layers)]
+        cache["kmax"] = tuple(p[0] for p in pairs)
+        cache["kmin"] = tuple(p[1] for p in pairs)
+    return cache
 
 
 _FREQ_CACHE: dict = {}
@@ -293,9 +320,10 @@ class Attention(nn.Module):
         self.v_quantizer = TensorQuantizer()
 
     def forward(self, x, positions, mask=None, cache_kv=None):
-        """cache_kv: None, (k_cache, v_cache, positions) or, paged,
-        (k_pool, v_pool, positions, page_table) — caches written in place.
-        Returns (out, (k_cache, v_cache) or None)."""
+        """cache_kv: None, (k_cache, v_cache, positions), paged
+        (k_pool, v_pool, positions, page_table) or skip-softmax
+        (k_cache, v_cache, positions, kmax, kmin) — caches and summaries
+        written in place. Returns (out, the cache tensors or None)."""
         cfg = self.cfg
         H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         G = H // KH
@@ -317,6 +345,7 @@ class Attention(nn.Module):
         if cache_kv is not None:
             ck, cv, positions_kv = cache_kv[:3]
             page_table = cache_kv[3] if len(cache_kv) == 4 else None
+            summaries = cache_kv[3:] if len(cache_kv) == 5 else None
             if ck.dtype == torch.int8:
                 k_codes, k_scale = self.k_quantizer(k, with_scale=True)
                 v_codes, v_scale = self.v_quantizer(v, with_scale=True)
@@ -336,6 +365,9 @@ class Attention(nn.Module):
                 return self._paged(q, k_rows, v_rows, ck, cv, positions, positions_kv,
                                    page_table, k_scale, v_scale, mask)
             start = positions_kv[:, 0].to(torch.int32).contiguous()
+            if summaries is not None:
+                return self._skip_softmax(q, k_codes, k_rows, v_rows, ck, cv, start,
+                                          k_scale, v_scale, mask, *summaries)
             if T == 1:
                 out, ck, cv = fused_decode_attention(
                     q[:, 0].reshape(B, KH, G, D).contiguous(), k_rows, v_rows,
@@ -349,8 +381,12 @@ class Attention(nn.Module):
                     k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
             return self.o_proj(out.reshape(B, T, H * D)), (ck, cv)
 
-        # uncached: einsum attention with an additive mask [B, T, S]
-        return self._einsum(q, self.k_quantizer(k), self.v_quantizer(v), mask), None
+        k, v = self.k_quantizer(k), self.v_quantizer(v)
+        if T >= 256 and flash_attention_ok(T, T, D):
+            out = flash_attention(q.reshape(B, T, KH, G, D), k, v, causal=True)
+            return self.o_proj(out.reshape(B, T, H * D)), None
+        # einsum attention with an additive mask [B, T, S]
+        return self._einsum(q, k, v, mask), None
 
     def _einsum(self, q, k, v, mask):
         """The reference's einsum attention: q [B, T, H, D] against keys and
@@ -367,6 +403,44 @@ class Attention(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(cfg.dtype))
         return self.o_proj(out.reshape(B, T, H * D))
+
+    def _skip_softmax(self, q, k_codes, k_rows, v_rows, ck, cv, start, k_scale, v_scale,
+                      mask, kmax, kmin):
+        """The skip-softmax cache (the reference's :499-572): rows written
+        through ``dense_kv_write`` at every T (the fused decode step is not
+        taken), the keys' real values (codes times k_scale) folded into the
+        block summaries; a decode step attends the blocks ``select_blocks``
+        keeps (``block_sparse_decode_attention`` under ``block_sparse_ok``,
+        else the reference's gather-and-softmax form), a longer forward
+        takes the masked einsum over the dequantized cache."""
+        cfg = self.cfg
+        sscfg = cfg.skip_softmax
+        H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        G = H // KH
+        B, T = q.shape[:2]
+        dense_kv_write(ck, k_rows.contiguous(), start)
+        dense_kv_write(cv, v_rows.contiguous(), start)
+        k_real = k_codes.float()
+        if k_scale is not None:
+            k_real = k_real * k_scale.float()
+        update_block_summaries(kmax, kmin, k_real, start, sscfg.block_size)
+        new_kv = (ck, cv, kmax, kmin)
+        if T == 1:
+            qg = q[:, 0].reshape(B, KH, G, D)
+            lengths = start + 1
+            sel, nvalid = select_blocks(qg, kmax, kmin, lengths, sscfg)
+            attend = (block_sparse_decode_attention
+                      if block_sparse_ok(B, KH, G, D, sscfg.block_size)
+                      else block_sparse_decode_attention_xla)
+            out = attend(qg.contiguous(), ck, cv, sel, nvalid, lengths, k_scale=k_scale,
+                         v_scale=v_scale, block_size=sscfg.block_size, out_dtype=cfg.dtype)
+            return self.o_proj(out.reshape(B, 1, H * D)), new_kv
+        k = ck.view(B, -1, KH, D)
+        v = cv.view(B, -1, KH, D)
+        if k_scale is not None:
+            k = k.to(cfg.dtype) * k_scale.to(cfg.dtype)
+            v = v.to(cfg.dtype) * v_scale.to(cfg.dtype)
+        return self._einsum(q, k, v, mask), new_kv
 
     def _paged(self, q, k_rows, v_rows, k_pool, v_pool, positions, positions_kv, page_table,
                k_scale, v_scale, mask):
@@ -561,14 +635,17 @@ class Decoder(nn.Module):
                     else torch.zeros(B, 1, dtype=torch.int32, device=dev))
             positions = base + torch.arange(T, dtype=torch.int32, device=dev)[None]
         paged = cache is not None and "page_table" in cache
+        # paged wins over skip-softmax, as in the reference
+        skip = cache is not None and not paged and "kmax" in cache
         mask = None
         if cache is None:
             causal = positions[:, None, :] <= positions[:, :, None]
             mask = torch.where(causal, 0.0, -1e9).float()
-        elif paged or self.cfg.attention_type == "mla":
+        elif paged or skip or self.cfg.attention_type == "mla":
             # the cached einsum paths (MLA prefill and bf16-cache decode, the
-            # paged gather path): keys at cache rows <= the query's position,
-            # [B, T, S]; paged, S is the table's capacity PMAX * page_size
+            # paged gather path, skip-softmax prefill): keys at cache rows <=
+            # the query's position, [B, T, S]; paged, S is the table's
+            # capacity PMAX * page_size
             S = (cache["page_table"].shape[1] * cache["k"][0].shape[1] if paged
                  else cache["k"][0].shape[1])
             key_pos = torch.arange(S, device=dev)
@@ -581,6 +658,8 @@ class Decoder(nn.Module):
                 cache_kv = (cache["k"][i], cache["v"][i], positions)
                 if paged:
                     cache_kv = cache_kv + (cache["page_table"],)
+                elif skip:
+                    cache_kv = cache_kv + (cache["kmax"][i], cache["kmin"][i])
             x, new_kv = layer(x, positions, mask, cache_kv)
             if new_kv is not None:
                 ks.append(new_kv[0])
@@ -590,6 +669,9 @@ class Decoder(nn.Module):
             new_cache = {"k": tuple(ks), "v": tuple(vs), "lengths": cache["lengths"] + T}
             if paged:
                 new_cache["page_table"] = cache["page_table"]
+            if skip:
+                new_cache["kmax"] = cache["kmax"]
+                new_cache["kmin"] = cache["kmin"]
         x = self.final_norm(x)
         if logits_index is not None:
             x = x[torch.arange(B, device=dev), logits_index.long()]

@@ -5,7 +5,10 @@ quantizer knows its path (``layers_0/attn/k_quantizer``, the reference's
 naming, set by ``assign_paths``) and resolves its specs from the active
 QuantizeConfig at call time; its calibrated ``amax`` is a buffer (None until
 calibrated). Behaviour follows the phase (core.bundle): CALIB passes x
-through and max-updates amax, QUANT quantizes, OFF is identity.
+through and max-updates amax, QUANT quantizes, OFF is identity, CAPTURE
+records x (``capture_records``) and then quantizes as QUANT does, except
+that the KV cache's real codes and a GEMM's skipped fake-quant are QUANT's
+alone (the reference's rule).
 
 Ported specs: per-tensor static int8 (calibrated amax, also the real-codes
 path for the KV cache), per-token dynamic int8, per-tensor static fp (the
@@ -19,17 +22,25 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+from fnmatch import fnmatch
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ..core.bundle import PHASE_CALIB, PHASE_OFF, PHASE_QUANT, current_phase
+from ..core.bundle import PHASE_CALIB, PHASE_CAPTURE, PHASE_OFF, PHASE_QUANT, current_phase
 from ..quant.config import QuantizeConfig
 from ..quant.fake_quant import fake_quantize
 from ..quant.qspec import QuantizerSpec
 
 _ACTIVE_CFG: contextvars.ContextVar = contextvars.ContextVar("quant_cfg", default=None)
+# {path: [recorded inputs]} while ``capture_records`` is active
+_CAPTURED: contextvars.ContextVar = contextvars.ContextVar("quant_captured", default=None)
+# fnmatch pattern limiting which quantizers record in CAPTURE phase; q / k / v
+# quantizers record only under one that matches them (skip-softmax threshold
+# calibration sets "*attn/[qk]_quantizer")
+_CAPTURE_FILTER: contextvars.ContextVar = contextvars.ContextVar(
+    "quant_capture_filter", default=None)
 
 
 @contextlib.contextmanager
@@ -44,6 +55,28 @@ def quantization_active(cfg: QuantizeConfig):
 
 def active_quant_config() -> Optional[QuantizeConfig]:
     return _ACTIVE_CFG.get()
+
+
+@contextlib.contextmanager
+def capture_records():
+    """Collect what the quantizers record in CAPTURE phase, as a dict
+    ``{path: [x.reshape(-1, x.shape[-1]), ...]}`` filled while active."""
+    records: dict = {}
+    token = _CAPTURED.set(records)
+    try:
+        yield records
+    finally:
+        _CAPTURED.reset(token)
+
+
+@contextlib.contextmanager
+def capture_filter(pattern: Optional[str]):
+    """Bind the CAPTURE-phase filter pattern (see ``_CAPTURE_FILTER``)."""
+    token = _CAPTURE_FILTER.set(pattern)
+    try:
+        yield
+    finally:
+        _CAPTURE_FILTER.reset(token)
 
 
 def _needs_static_amax(spec: QuantizerSpec) -> bool:
@@ -89,6 +122,8 @@ class TensorQuantizer(nn.Module):
         phase = current_phase()
         if phase == PHASE_OFF:
             return ret(x)
+        if phase == PHASE_CAPTURE:
+            self._record(x)
         specs = self.specs()
         if not specs:
             return ret(x)
@@ -109,6 +144,22 @@ class TensorQuantizer(nn.Module):
         if sp.enable:
             x = self._apply_one(x, sp, phase)
         return ret(x)
+
+    def _record(self, x: torch.Tensor) -> None:
+        """Record x for CAPTURE phase: an input quantizer under no filter or
+        a matching one, a q / k / v quantizer only under a matching one."""
+        records = _CAPTURED.get()
+        if records is None:
+            return
+        last = self.path.rsplit("/", 1)[-1]
+        filt = _CAPTURE_FILTER.get()
+        if last == "input_quantizer":
+            keep = filt is None or fnmatch(self.path, filt)
+        else:
+            keep = (last in ("q_quantizer", "k_quantizer", "v_quantizer")
+                    and filt is not None and fnmatch(self.path, filt))
+        if keep:
+            records.setdefault(self.path, []).append(x.detach().reshape(-1, x.shape[-1]))
 
     def _apply_one(self, x: torch.Tensor, spec: QuantizerSpec, phase: str):
         if spec.bias_mode is not None:

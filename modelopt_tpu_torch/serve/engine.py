@@ -29,7 +29,9 @@ decode):
 
 Speculative modes, a device mesh, and the top-k / top-p / min-p filters
 and penalties are not ported: the engine and ``submit`` raise
-NotImplementedError for them.
+NotImplementedError for them. So does a skip-softmax bundle, which the
+reference engine cannot serve either (its shared block summaries fail the
+donating prefill, and its prefill never writes them).
 """
 
 from __future__ import annotations
@@ -97,6 +99,14 @@ class ServingEngine:
             raise NotImplementedError("mesh-sharded serving is not ported yet")
         if multi_step < 1:
             raise ValueError("multi_step must be >= 1")
+        if getattr(bundle.module.cfg, "skip_softmax", None) is not None:
+            raise NotImplementedError(
+                "skip-softmax bundles are not served: the reference engine cannot serve "
+                "them either. Its make_cache gives every layer the same kmax / kmin "
+                "array, so its donating prefill fails ('Attempt to donate the same buffer "
+                "twice'), and its prefill builds the chunk's sub-cache without the "
+                "summaries, so prompt blocks keep their -3e38 bounds. Prefill and decode "
+                "such a bundle through bundle.apply with a make_cache cache instead")
         self.bundle = bundle
         self.cfg = bundle.module.cfg
         self.device = torch.device(device)

@@ -6,15 +6,28 @@ import contextlib
 import pytest
 from jax.experimental.pallas import tpu as pltpu
 
-from modelopt_tpu.kernels import attention, flash_attention, paged_attention
+from modelopt_tpu.kernels import attention, block_sparse_attention, flash_attention, \
+    paged_attention
 from modelopt_tpu.quant import backends
+
+
+def _block_sparse_rule(B, KH, G, D, block_size):
+    """``block_sparse_ok`` without its backend test."""
+    return D % 128 == 0 and block_size % 8 == 0 and KH * G >= 1 and block_size * KH >= 128
+
+
+def _flash_attention_rule(T, S, D):
+    """``flash_attention_ok`` without its backend test."""
+    return D % 64 == 0 and S % 128 == 0 and S <= 8192
 
 
 @contextlib.contextmanager
 def pallas_interpreted(monkeypatch, prefill_and_gemms: bool = False):
     """The gates that send CPU calls to the XLA paths return True, and the
     kernels run in interpret mode. Always the decode attention gates (dense,
-    MLA, paged); with ``prefill_and_gemms`` also cached-prefill flash
+    MLA, paged), and block-sparse decode and cache-free flash attention
+    under their own shape rules (shapes they refuse on a TPU still take the
+    XLA paths); with ``prefill_and_gemms`` also cached-prefill flash
     attention and the quantized GEMMs."""
     gates = [(attention, "fused_decode_ok"), (attention, "decode_attention_ok"),
              (paged_attention, "paged_attention_ok")]
@@ -22,6 +35,8 @@ def pallas_interpreted(monkeypatch, prefill_and_gemms: bool = False):
         gates += [(flash_attention, "flash_prefill_ok"), (backends, "_pallas_ok")]
     for mod, name in gates:
         monkeypatch.setattr(mod, name, lambda *a, **k: True)
+    monkeypatch.setattr(block_sparse_attention, "block_sparse_ok", _block_sparse_rule)
+    monkeypatch.setattr(flash_attention, "flash_attention_ok", _flash_attention_rule)
     with pltpu.force_tpu_interpret_mode():
         yield
 

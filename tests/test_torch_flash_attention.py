@@ -1,7 +1,10 @@
-"""K4 flash_prefill_attention: the port's plain version (what the CUDA
-kernel is held to on the card) against the JAX Pallas kernel in interpret
-mode, with chunks that start past 0."""
+"""K4 flash_prefill_attention and K14 flash_attention: the port's plain
+versions (what the CUDA kernels are held to on the card) against the JAX
+Pallas kernels in interpret mode: K4 with chunks that start past 0, K14
+causal, with a window and sinks, with rows not a multiple of the tile, at
+G = 1 and 4; K14's gradient against ``jax.grad`` of the reference's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,3 +58,59 @@ def test_flash_prefill_plain_matches_pallas(rng, interp, kind, tol):
                                      out_dtype=torch.float32)
     assert got.shape == (B, T, KH, G, D)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("T,G,window,sink,dtype", [
+    (128, 4, None, 0, "f32"),    # causal
+    (128, 4, 32, 4, "f32"),      # sliding window with sink tokens
+    (96, 4, None, 0, "f32"),     # T * G rows not a multiple of the 64-row tile
+    (128, 1, None, 0, "f32"),    # G = 1
+    (256, 4, 64, 2, "bf16"),     # bf16 in and out
+])
+def test_flash_attention_plain_matches_pallas(rng, interp, T, G, window, sink, dtype):
+    """The twin computes the TPU kernel's one-pass f32 softmax: within 1e-5
+    of it in f32 (summation order only), one bf16 output ulp in bf16."""
+    B, KH, D = 2, 2, 64
+    q = rng.standard_normal((B, T, KH, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, KH, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, KH, D)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16,
+                                                                      torch.bfloat16)
+    want = jf.flash_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), True, window, sink, 64)
+    got = tf.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=True,
+                             window=window, sink=sink)
+    assert got.shape == q.shape and got.dtype == tdt
+    tol = 1e-5 if dtype == "f32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("window,sink", [(None, 0), (8, 2)])
+def test_flash_attention_gradient_matches_jax(rng, interp, window, sink):
+    """The autograd function's backward recomputes through the reference's
+    einsum formulation, as its custom_vjp does: gradients of sum(out^2)
+    against ``jax.grad`` of the Pallas-backed function at 2e-3."""
+    B, T, KH, G, D = 1, 32, 1, 2, 64
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, T, KH, G, D), (B, T, KH, D), (B, T, KH, D)))
+
+    def loss(q, k, v):
+        return jnp.sum(jf.flash_attention(q, k, v, True, window, sink, 64) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (tf.flash_attention(*leaves, causal=True, window=window, sink=sink) ** 2).sum().backward()
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attention_rule_and_refusals():
+    """``flash_attention_ok`` is the reference's shape rule; the wrapper
+    refuses mismatched shapes."""
+    assert tf.flash_attention_ok(1024, 1024, 128)
+    assert not tf.flash_attention_ok(272, 272, 128)     # S % 128
+    assert not tf.flash_attention_ok(256, 256, 16)      # D % 64
+    assert not tf.flash_attention_ok(16384, 16384, 64)  # S > 8192
+    with pytest.raises(ValueError):
+        tf.flash_attention(torch.zeros(1, 4, 1, 1, 64), torch.zeros(1, 4, 2, 64),
+                           torch.zeros(1, 4, 2, 64))
