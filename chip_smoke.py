@@ -14,16 +14,20 @@ Phases, in order (any failure exits non-zero):
      take for the same work: the MoE kernels (K6 w4a16_gemm at the four
      projection shapes, K10 grouped_w4a16_gemm, K12
      grouped_w4a8_combine_gemm with routed and dense gate scales, and at
-     DeepSeek's straddle shape K=1408), the fp / int8 weight kernels (K7
+     DeepSeek's straddle shape K=1408, K11 grouped_w4a8_gemm at both expert
+     geometries, bit for bit), the fp / int8 weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, K9
      nvfp4_gemm at Qwen3-30B-A3B's, K13 grouped_nvfp4_gemm at its expert
      down projection), then K1-K4 with K2 and K4 at both
-     GQA groups the paths run (G = 4 and 8), then K5 decode_attention at
+     GQA groups the paths run (G = 4 and 8) and on e4m3 caches (K3 copying
+     e4m3 rows; the e4m3 decode of K2 and K15 on all 256 codes, bit for
+     bit), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
-     paged_decode_attention at path E's decode shape (int8 pools, and bf16
-     off the paths) and path F's (one int8 latent pool as K and V), K16
-     paged_kv_write at a prefill chunk and at E's and F's decode steps, K17
+     paged_decode_attention at path E's decode shape (int8 pools, e4m3
+     pools as on path L, and bf16 off the paths) and path F's (one int8
+     latent pool as K and V), K16 paged_kv_write at a prefill chunk and at
+     E's, F's and L's decode steps, K17
      block_sparse_decode_attention at path J's decode shape (int8 and bf16
      caches, fewer live blocks than in range, lengths mid-block) and K14
      flash_attention at J's calibration forwards (and with a window and
@@ -39,16 +43,21 @@ Phases, in order (any failure exits non-zero):
      the llama and the DeepSeek-V2 again over paged caches (64-row pages
      scattered over the pool); the llama under FP8_DEFAULT_CFG (activation
      amax calibrated on the CPU) and the Qwen3-MoE under
-     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; an f32 llama with
+     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; the llama under
+     FP8_KV_CFG with an e4m3 KV cache, dense and paged; an f32 llama with
      skip-softmax (64-row blocks, int8 KV) through cached prefill and
-     greedy decode, tokens and every block selection equal;
+     greedy decode, tokens and every block selection equal; then K11's
+     entry point, the compressed gateless QuantEinsum down projection at
+     Qwen3-30B-A3B's expert geometry: K11 once a call and no other kernel,
+     the card's result the CPU twin's bit for bit;
   4. serving paths, one after the other (each model freed before the next
      is built), each on random weights from a seed, served by ServingEngine
      (max_batch 8, max_seq_len 2176, prefill buckets (32, 544), multi_step
      16, max_admit 1): one warm-up request, then 8 requests x 1024 random
      prompt tokens -> 64 new tokens each, greedy. Launch counters are zeroed
      just before each measured run and read just after: every kernel of the
-     path must have launched, and no kernel of another path;
+     path must have launched, and no kernel of another path (K11 on none);
+     every cache tensor must be of the path's KV dtype;
        B: Qwen3-30B-A3B (full width, 24 of its 48 layers, so that the
           script keeps within about 600 s) under W4A8_INT8KV_CFG, KV scales
           calibrated by one 64-token forward;
@@ -68,6 +77,10 @@ Phases, in order (any failure exits non-zero):
        H: A's model under INT8_WEIGHT_ONLY_CFG, bf16 KV cache;
        I: B's model (24 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
           cache;
+       K: A's model under FP8_KV_CFG (G's static e4m3 activations, and the
+          k / v quantizers calibrated by the same 64-token forward) with an
+          e4m3 KV cache;
+       L: K over paged e4m3 pools of 145 pages;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request;
        J: A's model and KV calibration, then at the Decoder level (no
@@ -77,8 +90,8 @@ Phases, in order (any failure exits non-zero):
           K17, with launch asserts and a profile window of 16 decode steps.
 Then one JSON line of per-kernel numbers, and last the device line.
 To iterate on one phase, import this module and call its phase function
-(``kernel_phase``, ``parity_phase``, ``serve_path``) directly after
-``_build.build_all()``; they print no contract line.
+(``kernel_phase``, ``parity_phase``, ``gateless_phase``, ``serve_path``)
+directly after ``_build.build_all()``; they print no contract line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -109,7 +122,8 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "B=1 T=544 row=1024 int8",
            "M=8 K=4096 N=28672 bf16 out",
            "B=8 S=2176 KH=8 G=4 D=128 block=128 NSEL=17 int8 lengths mid-block",
-           "B=2 T=S=1024 KH=8 G=4 D=128 bf16 causal")
+           "B=2 T=S=1024 KH=8 G=4 D=128 bf16 causal",
+           "E=128 M=8 K=768 N=2048 no gates")
 
 SOURCES = {
     "w4a8_gemm": ("modelopt_tpu_torch/csrc/w4a8_gemm.cu",
@@ -144,6 +158,8 @@ SOURCES = {
                                       "modelopt_tpu/kernels/block_sparse_attention.py:61"),
     "flash_attention": ("modelopt_tpu_torch/csrc/flash_attention.cu",
                         "modelopt_tpu/kernels/flash_attention.py:108"),
+    "grouped_w4a8_gemm": ("modelopt_tpu_torch/csrc/grouped_w4a8_gemm.cu",
+                          "modelopt_tpu/kernels/quant_gemm.py:710"),
 }
 # kernels each serving path must launch
 PATH_KERNELS = {
@@ -162,6 +178,11 @@ PATH_KERNELS = {
     "I": ("nvfp4_gemm", "grouped_nvfp4_gemm", "dense_kv_write", "fused_decode_attention",
           "flash_prefill_attention"),
     "J": ("w4a8_gemm", "dense_kv_write", "flash_attention", "block_sparse_decode_attention"),
+    "K": ("wfp8_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    "L": ("wfp8_gemm", "paged_kv_write", "paged_decode_attention"),
+    # the gateless-einsum phase: no served path reaches K11 (the MoE block
+    # always passes gates, in the reference too)
+    "gateless": ("grouped_w4a8_gemm",),
 }
 
 
@@ -296,6 +317,25 @@ def kernel_phase(torch, results: dict) -> None:
     lib_ms = timer(lambda: c2[:, st:st + T].copy_(vals))
     record("dense_kv_write", f"B={B} T={T} S={S} row={KHD} int8 start={st}",
            err, 0.0, ms, plain_ms, lib_ms, 2 * B * T * KHD, 0, INT8_OPS)
+    # the same copy of e4m3 rows (path K), byte for byte
+    cache, vals = e4m3_codes(torch, gen, (B, S, KHD)), e4m3_codes(torch, gen, (B, T, KHD))
+    got = ka.dense_kv_write(cache.clone(), vals, start)
+    ref = ka.dense_kv_write_plain(cache.clone(), vals, start)
+    c2 = cache.clone()
+    ms = timer(lambda: ka.dense_kv_write(c2, vals, start))
+    plain_ms = timer(lambda: ka.dense_kv_write_plain(c2, vals, start))
+    lib_ms = timer(lambda: c2[:, st:st + T].copy_(vals))
+    record("dense_kv_write", f"B={B} T={T} S={S} row={KHD} e4m3 start={st}",
+           byte_diff(torch, got, ref), 0.0, ms, plain_ms, lib_ms, 2 * B * T * KHD, 0, INT8_OPS)
+
+    # the e4m3 decode that K2 and K15 read caches through (csrc/e4m3.cuh),
+    # on every code: the reference's bit assembly, 0x7f / 0xff -> +-480
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    got, want = ka.e4m3_decode(codes), ka.e4m3_decode_plain(codes)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("e4m3 decode: the card's decode differs from the twin's")
+    log(f"e4m3 decode: all 256 codes bit for bit against the twin (0x7f -> "
+        f"{got[0x7F].item():g}, 0xff -> {got[0xFF].item():g}, 0x80 -> {got[0x80].item():g})")
 
     # K2 — int8: integer dots are exact, so kernel and plain version differ
     # only where exp() rounds a probability code e8 across .5. One flipped
@@ -306,15 +346,26 @@ def kernel_phase(torch, results: dict) -> None:
     # a few probabilities whose bf16 rounding goes the other way after a
     # different exp() move an output by ~1e-4; then the output rounds to
     # bf16, one ulp = 2^-9 below |out| 0.25. The bar 0.003 allows both
-    # (0.000488 measured on an H100); larger outputs must round alike.
+    # (0.000488 measured on an H100); larger outputs must round alike. e4m3
+    # (path K, G = 4): the bf16 arithmetic on exactly decoded codes, so the
+    # same two effects, held to 1e-3 plus one bf16 ulp of the largest output.
     log("K2 fused_decode_attention")
     B, S, D = 8, 2176, 128
     pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0],
                        dtype=torch.int32, device=dev)
     for KH, G in ((8, 4), (4, 8)):  # Llama-3-8B, Qwen3-30B-A3B
         q = torch.randn(B, KH, G, D, generator=gen, device=dev).to(torch.bfloat16)
-        for kind in ("int8", "bf16"):
-            if kind == "int8":
+        for kind in ("int8", "bf16", "e4m3") if G == 4 else ("int8", "bf16"):
+            if kind == "e4m3":
+                kc, vc = (e4m3_codes(torch, gen, (B, S, KH * D)) for _ in range(2))
+                kn, vn = (e4m3_codes(torch, gen, (B, 1, KH * D)) for _ in range(2))
+                ks = torch.tensor(0.02, device=dev)
+                vs = torch.tensor(0.02, device=dev)
+                tol = None  # set from the plain output below
+                kd = (kc.float() * ks).to(torch.bfloat16)
+                vd = (vc.float() * vs).to(torch.bfloat16)
+                rate = BF16_FLOPS
+            elif kind == "int8":
                 kc = torch.randint(-127, 128, (B, S, KH * D), generator=gen,
                                    device=dev, dtype=torch.int8)
                 vc = torch.randint(-127, 128, (B, S, KH * D), generator=gen,
@@ -343,7 +394,9 @@ def kernel_phase(torch, results: dict) -> None:
             ref, kc2, vc2 = ka.fused_decode_attention_plain(q, kn, vn, kc.clone(),
                                                             vc.clone(), pos, ks, vs)
             err = (out.float() - ref.float()).abs().max().item()
-            if not (torch.equal(kc1, kc2) and torch.equal(vc1, vc2)):
+            if tol is None:
+                tol = 1e-3 + _ulp_bf16(ref.float().abs().max().item())
+            if byte_diff(torch, kc1, kc2) or byte_diff(torch, vc1, vc2):
                 raise AssertionError(f"fused_decode_attention {kind}: caches differ")
             kt, vt = kc.clone(), vc.clone()
             ms = timer(lambda: ka.fused_decode_attention(q, kn, vn, kt, vt, pos, ks, vs))
@@ -372,11 +425,19 @@ def kernel_phase(torch, results: dict) -> None:
     # of independent roundings per row leave far less, so the bar takes half
     # of that, 2^-8 * max|v|. Rounding the outputs to bf16 adds one ulp,
     # <= 2^-7 * max|ref| (0.0078 measured on an H100).
+    # e4m3 codes (path K) dequantize to bf16 as int8 codes do: the same bar.
     log("K4 flash_prefill_attention")
     B, T, S, D, st = 1, 544, 2176, 128, 544
-    for KH, G, kind in ((8, 4, "int8"), (4, 8, "int8"), (4, 8, "bf16")):
+    for KH, G, kind in ((8, 4, "int8"), (4, 8, "int8"), (4, 8, "bf16"), (8, 4, "e4m3")):
         q = torch.randn(B, T, KH, G, D, generator=gen, device=dev).to(torch.bfloat16)
-        if kind == "int8":
+        if kind == "e4m3":
+            ck, cv = (e4m3_codes(torch, gen, (B, S, KH * D)) for _ in range(2))
+            ks = torch.tensor(0.02, device=dev)
+            vs = torch.tensor(0.02, device=dev)
+            kd = (ck.float() * ks).to(torch.bfloat16)
+            vd = (cv.float() * vs).to(torch.bfloat16)
+            vmax = vd.float().abs().max().item()
+        elif kind == "int8":
             ck = torch.randint(-127, 128, (B, S, KH * D), generator=gen, device=dev,
                                dtype=torch.int8)
             cv = torch.randint(-127, 128, (B, S, KH * D), generator=gen, device=dev,
@@ -416,6 +477,24 @@ def kernel_phase(torch, results: dict) -> None:
     mla_decode_kernel(torch, gen, timer, record)
     paged_kernels(torch, gen, timer, record)
     skip_softmax_kernels(torch, gen, timer, record)
+
+    # the reference's e4m3 branches no path of the port runs (K5, K17):
+    # an e4m3 cache on the card is refused, never dequantized for bf16
+    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
+
+    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
+    c = e4m3_codes(torch, gen, (1, 256, 128))
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
+                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
+                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
+                           one))):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} took an e4m3 cache on the card")
+    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
 
 
 def mla_decode_kernel(torch, gen, timer, record) -> None:
@@ -520,19 +599,24 @@ def paged_kernels(torch, gen, timer, record) -> None:
     ps, pmax, P = PAGE_SIZE, 2176 // PAGE_SIZE, PAGED_POOL
     # K15: as K5 (the same kernel body), kernel and plain version differ only
     # where expf and torch.exp round a 7-bit code across .5: an int8 bar of
-    # vs plus one bf16 ulp of the largest output; bf16 pools, f32 sums in
-    # another order, 1e-3 plus one output ulp.
+    # vs plus one bf16 ulp of the largest output; bf16 and e4m3 pools (path
+    # L), f32 sums in another order, 1e-3 plus one output ulp.
     log("K15 paged_decode_attention")
     lengths_e = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32,
                              device=dev)
     lengths_f = torch.linspace(1, 1088, 8, device=dev).round().to(torch.int32)
     cases = (("E", 8, 4, 128, "int8", lengths_e), ("E", 8, 4, 128, "bf16", lengths_e),
-             ("F", 1, 16, 640, "int8", lengths_f))
+             ("F", 1, 16, 640, "int8", lengths_f), ("L", 8, 4, 128, "e4m3", lengths_e))
     for path, KH, G, D, kind, lengths in cases:
         B = lengths.shape[0]
         pt = page_table(torch, lengths.tolist(), pmax, P)
         q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
-        if kind == "int8":
+        if kind == "e4m3":
+            pools = [e4m3_codes(torch, gen, (P, ps, KH * D)) for _ in range(2)]
+            ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.02, device=dev)
+            deq = [(p.float() * s).to(torch.bfloat16) for p, s in zip(pools, (ks, vs))]
+            rate = BF16_FLOPS
+        elif kind == "int8":
             pools = [torch.randint(-127, 128, (P, ps, KH * D), generator=gen, device=dev,
                                    dtype=torch.int8) for _ in range(2 if KH > 1 else 1)]
             ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
@@ -570,18 +654,23 @@ def paged_kernels(torch, gen, timer, record) -> None:
         nbytes = (len(pools) * live * KH * D * item + 4 * sum(-(-int(L) // ps) for L in
                   lengths.tolist()) + 4 * B + 2 * 2 * B * KH * G * D)
         shape = (f"B={B} PMAX={pmax} ps={ps} KH={KH} G={G} D={D} {kind} "
-                 + ("ragged lengths" if path == "E" else "K=V lengths 1..1088"))
+                 + ("K=V lengths 1..1088" if path == "F" else "ragged lengths"))
         record("paged_decode_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * live * KH * G * D, rate)
         del pools, deq, kpool, vpool
 
     # K16: a copy, bit-exact; the decode cases aim every slot at its own row
     log("K16 paged_kv_write")
-    for B, T, row, start in ((1, 544, 1024, 544), (8, 1, 1024, None), (8, 1, 640, None)):
-        pool = torch.randint(-127, 128, (P, ps, row), generator=gen, device=dev,
-                             dtype=torch.int8)
-        vals = torch.randint(-127, 128, (B, T, row), generator=gen, device=dev,
-                             dtype=torch.int8)
+    for B, T, row, start, kind in ((1, 544, 1024, 544, "int8"), (8, 1, 1024, None, "int8"),
+                                   (8, 1, 640, None, "int8"), (8, 1, 1024, None, "e4m3")):
+        if kind == "e4m3":  # path L's decode step
+            pool = e4m3_codes(torch, gen, (P, ps, row))
+            vals = e4m3_codes(torch, gen, (B, T, row))
+        else:
+            pool = torch.randint(-127, 128, (P, ps, row), generator=gen, device=dev,
+                                 dtype=torch.int8)
+            vals = torch.randint(-127, 128, (B, T, row), generator=gen, device=dev,
+                                 dtype=torch.int8)
         if T > 1:  # a prefill chunk at rows [start, start + T) of one slot
             pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)[None]
             pt = page_table(torch, [start + T], pmax, P)
@@ -594,16 +683,29 @@ def paged_kernels(torch, gen, timer, record) -> None:
         pids, offs = pids.contiguous(), offs.contiguous()
         got = kp.paged_kv_write(pool.clone(), vals, pids, offs)
         ref = kp.paged_kv_write_plain(pool.clone(), vals, pids, offs)
-        err = (got.float() - ref.float()).abs().max().item()
+        err = byte_diff(torch, got, ref)
         p2 = pool.clone()
         ms = timer(lambda: kp.paged_kv_write(p2, vals, pids, offs))
         plain_ms = timer(lambda: kp.paged_kv_write_plain(p2, vals, pids, offs))
         li, lo = pids.long(), offs.long()
         lib_ms = timer(lambda: p2.index_put_((li, lo), vals))
         # rows read and written once, pids and offs read once
-        record("paged_kv_write", f"B={B} T={T} row={row} int8", err, 0.0, ms, plain_ms,
+        record("paged_kv_write", f"B={B} T={T} row={row} {kind}", err, 0.0, ms, plain_ms,
                lib_ms, 2 * B * T * row + 8 * B * T, 0, INT8_OPS)
         del pool, p2
+
+
+def e4m3_codes(torch, gen, shape):
+    """e4m3 cache codes on the card: N(0, 48^2) values clipped to +-448 and
+    rounded, so no 0x7f / 0xff code (NaN under a float8 cast, +-480 under
+    the reference's decode) is among them."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 48.0
+    return x.clamp(-448.0, 448.0).to(torch.float8_e4m3fn)
+
+
+def byte_diff(torch, a, b) -> float:
+    """The largest difference of two tensors' bytes (0: bit for bit)."""
+    return (a.view(torch.uint8).int() - b.view(torch.uint8).int()).abs().max().item()
 
 
 def _ulp_bf16(x: float) -> float:
@@ -880,6 +982,8 @@ def moe_kernels(torch, gen, timer, record) -> None:
 
     log("K12 grouped_w4a8_combine_gemm")
     combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 8, ("routed", "dense"))
+    log("K11 grouped_w4a8_gemm")
+    gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8, 32))
     del qt, wdq
     # DeepSeek-V2-Lite's decode down projection: 64 experts of [1408, 2048],
     # K/2 = 704 = 5 * 128 + 64, so one scale block straddles the halves
@@ -889,7 +993,36 @@ def moe_kernels(torch, gen, timer, record) -> None:
     del w
     wdq = dequantize_int4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1).contiguous()
     combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 6, ("routed",))
+    gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8,))
     del qt, wdq
+
+
+def gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, Ms) -> None:
+    """K11 rows at one expert geometry: each expert's exact integer dots
+    and f32 block updates rounded as the plain version rounds them, written
+    as they stand: bit-exact (tolerance 0), and the same bits on a second
+    launch. Every expert's weights are read (no gates skip any). The
+    library call multiplies the bf16 codes by the dequantized bf16
+    weights."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+
+    dev = "cuda"
+    per_expert = K * N // 2 + (K // 128) * N * 4  # packed bytes + scale bytes
+    straddle = " (straddle)" if (K // 2) % 128 else ""
+    for M in Ms:
+        xq = torch.randint(-127, 128, (E, M, K), generator=gen, device=dev, dtype=torch.int8)
+        y = kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N)
+        ref = kq.grouped_w4a8_gemm_plain(xq, qt["data"], qt["scale"], N)
+        err = (y - ref).abs().max().item()
+        if not torch.equal(y, kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N)):
+            raise AssertionError("grouped_w4a8_gemm: two launches differ")
+        ms = timer(lambda: kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N))
+        plain_ms = timer(lambda: kq.grouped_w4a8_gemm_plain(xq, qt["data"], qt["scale"], N), 5)
+        xb = xq.to(torch.bfloat16)
+        lib_ms = timer(lambda: torch.bmm(xb, wdq))
+        record("grouped_w4a8_gemm", f"E={E} M={M} K={K} N={N} no gates{straddle}", err, 0.0,
+               ms, plain_ms, lib_ms, E * (M * K + per_expert + M * N * 4), 2 * E * M * K * N,
+               INT8_OPS)
 
 
 def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, kinds) -> None:
@@ -1010,13 +1143,19 @@ def _router_trace(bundle) -> list:
 
 def _fake_quant_trace(bundle) -> list:
     """Hook every TensorQuantizer of ``bundle`` to record each call that
-    fake-quantizes: (path, input, keyword arguments, output), on the CPU."""
+    fake-quantizes or returns cache codes (an int8 or e4m3 KV cache's
+    ``with_scale`` call): (path, input, keyword arguments, output or
+    codes), on the CPU."""
     from modelopt_tpu_torch.nn.quantizer import TensorQuantizer
 
     trace = []
 
     def hook(mod, args, kwargs, out):
-        if out is not args[0] and not isinstance(out, tuple):
+        if isinstance(out, tuple):
+            if out[1] is None:
+                return
+            out = out[0]
+        if out is not args[0]:
             trace.append((mod.path, args[0].detach().cpu().clone(), kwargs,
                           out.detach().cpu().clone()))
     for mod in bundle.module.modules():
@@ -1026,25 +1165,27 @@ def _fake_quant_trace(bundle) -> list:
 
 
 def _replay_fake_quant(torch, name, trace, gpu) -> None:
-    """Run each recorded fake-quant call again through the card model's
-    quantizer of the same path, on the same input: the output must be the
-    CPU's bit for bit (amax, true divisions, the e4m3 cast and the bf16
-    rounding are all correctly rounded on both devices)."""
+    """Run each recorded fake-quant or cache-code call again through the
+    card model's quantizer of the same path, on the same input: the output
+    must be the CPU's bit for bit (amax, true divisions, the e4m3 cast and
+    the bf16 rounding are all correctly rounded on both devices)."""
     from modelopt_tpu_torch.nn.quantizer import TensorQuantizer
 
     quantizers = {m.path: m for m in gpu.module.modules() if isinstance(m, TensorQuantizer)}
     if not trace:
         raise AssertionError(f"parity {name}: no fake-quant call recorded")
-    ints = {2: torch.int16, 4: torch.int32}
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
     with gpu.contexts(), torch.no_grad():
         for path, x, kwargs, want in trace:
-            got = quantizers[path](x.to("cuda"), **kwargs).cpu()
+            got = quantizers[path](x.to("cuda"), **kwargs)
+            got = (got[0] if isinstance(got, tuple) else got).cpu()
             if not (got.dtype == want.dtype and torch.equal(
                     got.view(ints[got.element_size()]), want.view(ints[want.element_size()]))):
                 raise AssertionError(f"parity {name}: {path} fake-quantizes another way on "
                                      f"the card")
-    log(f"  {name}: {len(trace)} fake-quant calls of {len({t[0] for t in trace})} quantizers "
-        f"repeated on the card on the CPU's inputs: bit-identical")
+    log(f"  {name}: {len(trace)} fake-quant and cache-code calls of "
+        f"{len({t[0] for t in trace})} quantizers repeated on the card on the CPU's inputs: "
+        "bit-identical")
 
 
 def _forward_rows(torch, bundle, cfg, ids, T, steps, kv_dtype, dev, paged=False):
@@ -1434,8 +1575,92 @@ def parity_phase(torch) -> None:
             noise_floor=True)
     _parity(torch, "Qwen3-MoE NVFP4 + bf16 KV", moe, "NVFP4_WEIGHT_ONLY_CFG", torch.bfloat16,
             MOE_NVFP4_IDS_SEED, 2, 16)
+    # paths K and L: FP8_KV_CFG's e4m3 caches through K2 / K4 and K15 (the
+    # twins on the CPU), e4m3 codes as jumpy as the e4m3 activations, so the
+    # same noise floor and replay, the k / v codes replayed too
+    _parity(torch, "llama FP8 + e4m3 KV", llama, "FP8_KV_CFG", torch.float8_e4m3fn, 1, 2, 64,
+            noise_floor=True)
+    _parity(torch, "llama FP8 + e4m3 KV pages", llama, "FP8_KV_CFG", torch.float8_e4m3fn, 1,
+            2, 64, paged=True, noise_floor=True)
     # path J: K17 (its twin on the CPU) over the selected blocks
     skip_parity(torch)
+
+
+GATELESS = (128, 768, 2048)  # E, fin, fout: Qwen3-30B-A3B's expert down projection
+GATELESS_CALLS = 3
+
+
+def gateless_phase(torch) -> dict:
+    """K11's entry point: the public compressed ``QuantEinsum`` down
+    projection ``bteo,eod->bted`` called WITHOUT gates (no served MoE block
+    does that: the reference's always passes gates, and its gated path is
+    K12's). Built at Qwen3-30B-A3B's expert geometry under W4A8_INT8KV_CFG
+    from seeded random weights, on the card and (the same packed weight) on
+    the CPU; called GATELESS_CALLS times on [8, 1, 128, 768] bf16
+    activations with the launch counters zeroed just before and read just
+    after: K11 once a call, no other kernel. The result is the CPU
+    module's (K11's twin) bit for bit, and within the W4A8 bar of the f32
+    product of the activations and the dequantized weight: each output
+    moves by at most half a row scale times its column's sum of |W| (the
+    int8 rounding of the activations) plus its bf16 rounding. Returns the
+    counts."""
+    from modelopt_tpu_torch import kernels
+    from modelopt_tpu_torch.nn.layers import QuantEinsum
+    from modelopt_tpu_torch.nn.quantizer import assign_paths, quantization_active
+    from modelopt_tpu_torch.quant.config import get_config
+    from modelopt_tpu_torch.quant.qtensor import dequantize_qtensor, quantize_qtensor
+
+    E, fin, fout = GATELESS
+    cfg = get_config("W4A8_INT8KV_CFG")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = torch.randn(fin, E * fout, generator=gen, device="cuda", dtype=torch.bfloat16) * 0.02
+    spec = cfg.resolve("weight_quantizer")[0]
+    qt = quantize_qtensor(w, spec)[0]
+    del w
+    mods = {}
+    for dev in ("cuda", "cpu"):
+        mod = QuantEinsum("bteo,eod->bted", GATELESS, dtype=torch.bfloat16, device="meta")
+        assign_paths(mod)
+        mod.set_qweight({k: v.to(dev) for k, v in qt.items()})
+        mods[dev] = mod
+    x = torch.randn(8, 1, E, fin, generator=gen, device="cuda").to(torch.bfloat16)
+    with quantization_active(cfg), torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        outs = [mods["cuda"](x) for _ in range(GATELESS_CALLS)]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        want = mods["cpu"](x.cpu())
+    got = outs[0].cpu()
+    log(f"  {GATELESS_CALLS} calls of QuantEinsum('bteo,eod->bted', {GATELESS}) without gates on "
+        f"{tuple(x.shape)} bf16: {wall * 1e3 / GATELESS_CALLS:.2f} ms a call (host clock); "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    if launches["grouped_w4a8_gemm"] != GATELESS_CALLS or any(
+            v for k, v in launches.items() if k != "grouped_w4a8_gemm"):
+        raise AssertionError(f"gateless einsum: launches {launches}, want K11 "
+                             f"{GATELESS_CALLS} times and nothing else")
+    if not (got.shape == (8, 1, E, fout) and got.dtype == torch.bfloat16
+            and all(torch.equal(o, outs[0]) for o in outs)
+            and torch.equal(got.view(torch.int16), want.view(torch.int16))):
+        raise AssertionError("gateless einsum: the card's result is not the CPU twin's bit "
+                             "for bit (or not the same on every call)")
+    wf = dequantize_qtensor(qt, spec, (fin, E * fout)).float().reshape(fin, E, fout)
+    xf = x[:, 0].float()                                               # [8, E, fin]
+    ref = torch.einsum("mek,ken->men", xf, wf)
+    xs = xf.abs().amax(-1, keepdim=True) / 127.0                       # [8, E, 1]
+    bar = 0.5 * xs * wf.abs().sum(0)[None] + 2.0**-8 * ref.abs() + 1e-6
+    err = (outs[0][:, 0].float() - ref).abs()
+    log(f"  card = CPU twin bit for bit; against the f32 product of the dequantized weight: "
+        f"max |diff| {err.max().item():.4g}, at most {(err / bar).max().item():.3f} of the "
+        f"W4A8 bar (max bar {bar.max().item():.4g})")
+    if not (err <= bar).all():
+        raise AssertionError("gateless einsum: outside the W4A8 bar")
+    del mods, outs, wf, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1456,11 +1681,13 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
           "bfloat16"),
     "I": ("Qwen3-30B-A3B NVFP4 weight-only + bf16 KV", "qwen3_moe", "NVFP4_WEIGHT_ONLY_CFG",
           "bfloat16"),
+    "K": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
+    "L": ("Llama-3-8B FP8 W8A8 + e4m3 KV pages", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
 }
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
-PAGED = ("E", "F")
+PAGED = ("E", "F", "L")
 TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
@@ -1529,7 +1756,8 @@ def serve_path(torch, name) -> dict:
               else {})
     eng = ServingEngine(bundle, max_batch=8, max_seq_len=2176, prefill_buckets=(32, 544),
                         kv_dtype=kv_dtype, multi_step=16, max_admit=1, device="cuda", **paging)
-    kv_bytes = sum(t.numel() * t.element_size() for t in eng.cache["k"] + eng.cache["v"])
+    caches = eng.cache["k"] + eng.cache["v"]
+    kv_bytes = sum(t.numel() * t.element_size() for t in caches)
     if paging:
         dense = sum(t[0].numel() * t.element_size() * 8 * 2176 // PAGE_SIZE
                     for t in eng.cache["k"] + eng.cache["v"])
@@ -1542,6 +1770,11 @@ def serve_path(torch, name) -> dict:
                           vocab=cfg.vocab_size)
     log(f"  warm-up request {time.time() - t0:.1f} s")
     launches = measured_run(torch, eng, name)
+    # the cache tensors the kernels wrote are the path's dtype (K and L:
+    # e4m3, so the kernels' e4m3 branches ran, not the bf16 ones)
+    if not all(t.dtype == kv_dtype for t in eng.cache["k"] + eng.cache["v"] + caches):
+        raise AssertionError(f"path {name}: a cache is not {kv_dtype}")
+    log(f"  every cache tensor is {kv_dtype}")
     profile_window(torch, eng, 8, 32, 24, cfg.vocab_size)
     check_output(torch, eng, cfg.vocab_size)
     if paging and eng.allocator.free_pages != PAGED_POOL - 1:
@@ -1752,7 +1985,7 @@ def report_profile(torch, prof, wall: float, what: str) -> None:
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
         "nvfp4_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
-        "flash_attention_kernel")}
+        "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms in {n_launch} kernels"
         + (f", idle share <= {1 - busy / (wall * 1e3):.3f}" if busy else
@@ -1792,7 +2025,8 @@ def main() -> int:
     kernel_phase(torch, results)
     log(f"parity: small models, card against CPU ({time.time() - t_start:.0f} s)")
     parity_phase(torch)
-    by_path = {}
+    log(f"gateless QuantEinsum: K11's entry point ({time.time() - t_start:.0f} s)")
+    by_path = {"gateless": gateless_phase(torch)}
     for name in PATHS:
         log(f"path {name}: {PATHS[name][0]}, ServingEngine ({time.time() - t_start:.0f} s)")
         by_path[name] = serve_path(torch, name)

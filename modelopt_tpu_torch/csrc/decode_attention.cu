@@ -38,7 +38,12 @@
 //    plain version's order;
 //  * bf16 caches: bf16 q x k with f32 sums, exp in f32, PV with the
 //    probabilities rounded to bf16, the denominator from the f32 values
-//    (sums in another order than the plain version);
+//    (sums in another order than the plain version); e4m3 pools (K15 only)
+//    the same, the codes decoded exactly by the reference's bit assembly
+//    (e4m3.cuh), k_scale in the score scale and v_scale on the output, as
+//    for int8. K5's and K17's entries refuse e4m3 caches: no path of the
+//    port runs the reference's e4m3 branch of those kernels yet, so their
+//    e4m3 instances are not compiled;
 //  * keys at or past lengths[b] carry -1e30 in the reference (exp gives 0):
 //    dense and paged, they are not visited (a length past the cache is
 //    clamped to S); block-sparse, they score -1e30 here too;
@@ -47,7 +52,8 @@
 // on int8 caches the two differ only where expf rounds a code e8 across .5.
 //
 // What bounds it on an H100: bytes, the live cache rows (lengths[b] * KH * D
-// codes; K and V once each, or once when they are one tensor) over the
+// codes, one byte each for int8 and e4m3; K and V once each, or once when
+// they are one tensor) over the
 // 3.35 TB/s of HBM; paged, the same rows wherever their pages lie;
 // block-sparse, the rows of the selected blocks only.
 //
@@ -67,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "e4m3.cuh"
 
 namespace {
 
@@ -116,6 +124,21 @@ __device__ __forceinline__ void block_sum(V (&v)[GB], V (*red)[NW]) {
 
 // byte c of a word, sign-extended
 __device__ __forceinline__ int sbyte(int w, int c) { return (w << (24 - 8 * c)) >> 24; }
+
+// columns 4 * idx .. 4 * idx + 3 of a bf16 or e4m3 cache row, as f32
+template <typename CT>
+__device__ __forceinline__ void load4(const CT* row, int idx, float (&f)[4]) {
+  if constexpr (std::is_same<CT, e4m3_t>::value) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(row)[idx];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[c] = e4m3_to_f32((w >> (8 * c)) & 0xFFu);
+  } else {
+    const uint2 u = reinterpret_cast<const uint2*>(row)[idx];
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[c] = __bfloat162float(e[c]);
+  }
+}
 
 // The body of the three kernels; page_table and sel null: dense cache rows.
 template <typename CT, int GB, int DJ>
@@ -246,19 +269,17 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
           for (int g = 0; g < GB; ++g) sc[g * chunk + kk] = __fmul_rn((float)d[g], fs[g]);
         }
       } else {
-        const uint2* kw = reinterpret_cast<const uint2*>(krow);
         float d[GB];
 #pragma unroll
         for (int g = 0; g < GB; ++g) d[g] = 0.f;
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          const uint2 u = kw[lane + 32 * j];
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+          float kf[4];
+          load4(krow, lane + 32 * j, kf);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float kf = __bfloat162float(e[c]);
 #pragma unroll
-            for (int g = 0; g < GB; ++g) d[g] = fmaf(qf[g][j][c], kf, d[g]);
+            for (int g = 0; g < GB; ++g) d[g] = fmaf(qf[g][j][c], kf[c], d[g]);
           }
         }
 #pragma unroll
@@ -364,20 +385,19 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
           for (int c = 0; c < 4; ++c) a[g][j][c] = 0.f;
 #pragma unroll 2
       for (int kk = warp; kk < nk; kk += NW) {
-        const uint2* vw = reinterpret_cast<const uint2*>(vbase + (size_t)kk * KHD);
+        const CT* vrow = vbase + (size_t)kk * KHD;
         float ev[GB];
 #pragma unroll
         for (int g = 0; g < GB; ++g)
           ev[g] = __bfloat162float(__float2bfloat16(sc[g * chunk + kk]));
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          const uint2 u = vw[lane + 32 * j];
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+          float vf[4];
+          load4(vrow, lane + 32 * j, vf);
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float vf = __bfloat162float(e[c]);
 #pragma unroll
-            for (int g = 0; g < GB; ++g) a[g][j][c] = fmaf(ev[g], vf, a[g][j][c]);
+            for (int g = 0; g < GB; ++g) a[g][j][c] = fmaf(ev[g], vf[c], a[g][j][c]);
           }
         }
       }
@@ -477,9 +497,16 @@ int launch(const Args& a, cudaStream_t s) {
                        GB * D / 4);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const bool paged = a.page_table != nullptr, sparse = a.sel != nullptr;
-  cudaError_t e = paged    ? allow_smem(paged_attention_kernel<CT, GB, DJ>, smem)
-                  : sparse ? allow_smem(block_sparse_attention_kernel<CT, GB, DJ>, smem)
-                           : allow_smem(decode_attention_kernel<CT, GB, DJ>, smem);
+  // e4m3 caches: the paged kernel only (K5's and K17's e4m3 branches wait)
+  constexpr bool kPagedOnly = std::is_same<CT, e4m3_t>::value;
+  if (kPagedOnly && !paged) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if constexpr (kPagedOnly)
+    e = allow_smem(paged_attention_kernel<CT, GB, DJ>, smem);
+  else
+    e = paged    ? allow_smem(paged_attention_kernel<CT, GB, DJ>, smem)
+        : sparse ? allow_smem(block_sparse_attention_kernel<CT, GB, DJ>, smem)
+                 : allow_smem(decode_attention_kernel<CT, GB, DJ>, smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = a.B * a.KH * (a.G / GB);
   const auto* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -490,17 +517,19 @@ int launch(const Args& a, cudaStream_t s) {
   const auto* vs = static_cast<const float*>(a.vscale);
   auto* of = static_cast<float*>(a.out_f32);
   auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
-  if (paged)
+  if (paged) {
     paged_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
         q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.page_table), a.S, a.KH,
         a.G, a.chunk);
-  else if (sparse)
-    block_sparse_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
-        q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.sel),
-        static_cast<const int*>(a.nvalid), a.nsel, a.S, a.KH, a.G, a.chunk);
-  else
-    decode_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(q, kc, vc, lengths, ks, vs, of,
-                                                               ob, a.S, a.KH, a.G, a.chunk);
+  } else if constexpr (!kPagedOnly) {
+    if (sparse)
+      block_sparse_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
+          q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.sel),
+          static_cast<const int*>(a.nvalid), a.nsel, a.S, a.KH, a.G, a.chunk);
+    else
+      decode_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
+          q, kc, vc, lengths, ks, vs, of, ob, a.S, a.KH, a.G, a.chunk);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -516,43 +545,51 @@ int dispatch_d(int D, const Args& a, cudaStream_t s) {
   }
 }
 
-int dispatch(int D, int int8_cache, const Args& a, cudaStream_t s) {
+template <typename CT>
+int dispatch_g(int D, const Args& a, cudaStream_t s) {
+  return a.G % 2 == 0 ? dispatch_d<CT, 2>(D, a, s) : dispatch_d<CT, 1>(D, a, s);
+}
+
+// cache_kind: 0 bf16, 1 int8, 2 e4m3 (paged only)
+int dispatch(int D, int cache_kind, const Args& a, cudaStream_t s) {
   if (a.B * a.KH * a.G == 0) return 0;
-  if (int8_cache)
-    return a.G % 2 == 0 ? dispatch_d<int8_t, 2>(D, a, s) : dispatch_d<int8_t, 1>(D, a, s);
-  return a.G % 2 == 0 ? dispatch_d<__nv_bfloat16, 2>(D, a, s)
-                      : dispatch_d<__nv_bfloat16, 1>(D, a, s);
+  switch (cache_kind) {
+    case 0: return dispatch_g<__nv_bfloat16>(D, a, s);
+    case 1: return dispatch_g<int8_t>(D, a, s);
+    case 2: return dispatch_g<e4m3_t>(D, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q bf16 [B, KH, G, D]; caches [B, S, KH*D] of int8 (int8_cache=1) or bf16,
-// 16-byte aligned (K and V may be the same buffer); lengths int32 [B];
+// q bf16 [B, KH, G, D]; caches [B, S, KH*D] of bf16 (cache_kind 0) or int8
+// (1), 16-byte aligned (K and V may be the same buffer); lengths int32 [B];
 // kscale/vscale f32 scalars on the device or null (scale 1); exactly one of
 // out_f32 / out_bf16 non-null, [B, KH, G, D]. D a multiple of 128 up to 640,
 // G >= 1 (checked by the Python wrapper).
 extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 const void* lengths, const void* kscale, const void* vscale,
                                 void* out_f32, void* out_bf16, int B, int S, int KH, int G,
-                                int D, int chunk, int int8_cache, void* stream) {
+                                int D, int chunk, int cache_kind, void* stream) {
   const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, nullptr, nullptr, out_f32, out_bf16,
                B, S, KH, G, chunk, 0};
-  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
+  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
 }
 
 // K15, paged decode attention: the same kernel with chunk = page. Pools
-// [n_pages, page_size, KH*D] (int8 or bf16, 16-byte aligned; K and V may be
-// one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
+// [n_pages, page_size, KH*D] (bf16, int8 or e4m3: cache_kind 0, 1, 2;
+// 16-byte aligned; K and V may be one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
 // valid page (unused ones 0); keys [0, min(lengths[b], pmax * page_size)).
 // Other operands as decode_attention's.
 extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
                                       const void* page_table, const void* lengths,
                                       const void* kscale, const void* vscale, void* out_f32,
                                       void* out_bf16, int B, int pmax, int page_size, int KH,
-                                      int G, int D, int int8_cache, void* stream) {
+                                      int G, int D, int cache_kind, void* stream) {
   const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, nullptr, nullptr,
                out_f32, out_bf16, B, pmax * page_size, KH, G, page_size, 0};
-  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
+  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
 }
 
 // K17, block-sparse decode attention: the same kernel over selected blocks.
@@ -564,8 +601,8 @@ extern "C" int block_sparse_decode_attention(const void* q, const void* kc, cons
                                              const void* lengths, const void* kscale,
                                              const void* vscale, void* out_f32, void* out_bf16,
                                              int B, int S, int nsel, int block_size, int KH,
-                                             int G, int D, int int8_cache, void* stream) {
+                                             int G, int D, int cache_kind, void* stream) {
   const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, sel, nvalid,
                out_f32, out_bf16, B, S, KH, G, block_size, nsel};
-  return dispatch(D, int8_cache, a, static_cast<cudaStream_t>(stream));
+  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,10 @@
 // Replaces: modelopt_tpu/kernels/flash_attention.py::flash_prefill_attention
 // (Pallas body _flash_prefill_kernel).
 //
-// Numerics follow the Pallas kernel: q rounds to bf16; int8 cache codes
-// dequantize as (code * scale in f32) rounded to bf16; score products of
+// Numerics follow the Pallas kernel: q rounds to bf16; int8 and e4m3 cache
+// codes dequantize as (code * scale in f32) rounded to bf16, once per element
+// of a tile (an e4m3 code converts as the reference's astype(float32) does,
+// by the hardware cvt of cuda_fp8.h); score products of
 // bf16 values summed in f32 and scaled by 1/sqrt(D); keys past the query's
 // absolute position start + t get -1e9; softmax in f32; PV with bf16
 // probabilities and f32 sums. The Pallas kernel holds the whole cache row
@@ -27,6 +29,7 @@
 // score tile and a 4 x 8 output tile in registers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -45,6 +48,8 @@ template <typename CT>
 __device__ __forceinline__ float load_kv(const CT* p, float scale) {
   if constexpr (std::is_same<CT, int8_t>::value)
     return __bfloat162float(__float2bfloat16((float)*p * scale));
+  else if constexpr (std::is_same<CT, __nv_fp8_e4m3>::value)
+    return __bfloat162float(__float2bfloat16(static_cast<float>(*p) * scale));
   else
     return __bfloat162float(*p);
 }
@@ -234,19 +239,28 @@ int launch(const void* q, const void* ck, const void* cv, const void* start,
 
 }  // namespace
 
-// q bf16 [B, T, KH, G, 128]; caches [B, S, KH*128] of int8 (int8_cache=1,
-// with device scalar scales) or bf16 (null scales); start int32 [B]; the
-// output has q's layout, f32 or bf16 (exactly one pointer non-null).
+// q bf16 [B, T, KH, G, 128]; caches [B, S, KH*128] of bf16 (cache_kind 0,
+// null scales), int8 (1) or e4m3 (2) codes with device scalar scales; start
+// int32 [B]; the output has q's layout, f32 or bf16 (exactly one pointer
+// non-null).
 extern "C" int flash_prefill_attention(const void* q, const void* ck, const void* cv,
                                        const void* start, const void* kscale,
                                        const void* vscale, void* out_f32,
                                        void* out_bf16, int B, int T, int S, int KH,
-                                       int G, float sm_scale, int int8_cache,
+                                       int G, float sm_scale, int cache_kind,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8_cache)
-    return launch<int8_t>(q, ck, cv, start, kscale, vscale, out_f32, out_bf16, B, T,
-                          S, KH, G, sm_scale, s);
-  return launch<__nv_bfloat16>(q, ck, cv, start, kscale, vscale, out_f32, out_bf16, B,
-                               T, S, KH, G, sm_scale, s);
+  switch (cache_kind) {
+    case 0:
+      return launch<__nv_bfloat16>(q, ck, cv, start, kscale, vscale, out_f32, out_bf16, B,
+                                   T, S, KH, G, sm_scale, s);
+    case 1:
+      return launch<int8_t>(q, ck, cv, start, kscale, vscale, out_f32, out_bf16, B, T,
+                            S, KH, G, sm_scale, s);
+    case 2:
+      return launch<__nv_fp8_e4m3>(q, ck, cv, start, kscale, vscale, out_f32, out_bf16, B,
+                                   T, S, KH, G, sm_scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

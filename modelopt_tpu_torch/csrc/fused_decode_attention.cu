@@ -14,20 +14,27 @@
 //    probabilities become 7-bit codes e8 = round(exp(s - m) * 127) and the
 //    PV product is e8 x v8 -> s32 (both integer sums are exact, so their
 //    order does not matter);
-//  * bf16 caches: bf16 q x k with f32 sums, exp in f32, PV with the
-//    probabilities rounded to bf16, the denominator from the f32 values;
+//  * bf16 and e4m3 caches: bf16 q x k with f32 sums, exp in f32, PV with
+//    the probabilities rounded to bf16, the denominator from the f32
+//    values; e4m3 codes are decoded exactly by the reference's bit assembly
+//    (e4m3.cuh), k_scale rides in 1/sqrt(D) and v_scale on the output, as
+//    for int8 (the reference's non-int8 branch of _attend_chunk; the 7-bit
+//    probability codes are the int8 branch's alone);
 //  * masked keys carry -1e30 (here they are simply not visited: their
 //    exponentials are exactly 0);
-//  * the new token scores in f32 against its unquantized codes.
+//  * the new token scores in f32 against its unquantized codes (an e4m3
+//    row through the same decode).
 // A position past the cache (an idle slot at S) is clamped to S - 1, as the
 // reference's CPU cache write clamps its start.
 //
 // What bounds it on an H100: bytes, the live K and V rows of every slot
-// (2 * pos[b] * KH * D codes) over the 3.35 TB/s of HBM.
+// (2 * pos[b] * KH * D codes; one byte each for int8 and e4m3) over the
+// 3.35 TB/s of HBM.
 //
 // Design: one CTA of 128 threads per (slot, KV head) holds that head's G
 // query rows. For each live chunk it scores 16 keys at a time (8 lanes a
-// key, 16-byte loads: one coalesced 128-byte int8 row per key), keeps the
+// key, 16-byte loads: one coalesced 128-byte int8 or e4m3 row per key, 256
+// bytes of bf16), keeps the
 // chunk's scores in shared memory (G * 2176 f32 = 34 KB at the serving
 // length), takes the row max over the whole chunk, then one thread per
 // head-dim column accumulates the PV product over the chunk's keys.
@@ -37,6 +44,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "e4m3.cuh"
+
 namespace {
 
 constexpr int D = 128;
@@ -45,6 +54,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(e4m3_t v) { return e4m3_to_f32(v.bits); }
 
 template <int G>
 __device__ __forceinline__ void block_max(float (&v)[G], float (*red)[NT / 32]) {
@@ -166,13 +176,17 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int g = 0; g < G; ++g) d[g] = 0.f;
         if (valid) {
+          // a lane's 16 elements: two 16-byte loads of bf16, one of e4m3
+          constexpr int NU = sizeof(CT);
           const uint4* p = reinterpret_cast<const uint4*>(
               kbase + (size_t)(base + kk) * KHD + sub * 16);
-          const uint4 u[2] = {p[0], p[1]};
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(u);
+          uint4 u[NU];
+#pragma unroll
+          for (int i = 0; i < NU; ++i) u[i] = p[i];
+          const CT* e = reinterpret_cast<const CT*>(u);
 #pragma unroll
           for (int c = 0; c < 16; ++c) {
-            const float kf = __bfloat162float(e[c]);
+            const float kf = to_f(e[c]);
 #pragma unroll
             for (int g = 0; g < G; ++g) d[g] = fmaf(sq[g][sub * 16 + c], kf, d[g]);
           }
@@ -333,21 +347,45 @@ int dispatch_g(int G, const void* q, const void* knew, const void* vnew, void* k
   }
 }
 
+__global__ void e4m3_decode_kernel(const uint8_t* __restrict__ codes,
+                                   float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = e4m3_to_f32(codes[i]);
+}
+
 }  // namespace
 
 // q bf16 [B, KH, G, 128]; knew/vnew [B, KH*128] and caches [B, S, KH*128] of
-// int8 (int8_cache=1) or bf16; pos int32 [B]; kscale/vscale f32 scalars on the
-// device or null (scale 1); exactly one of out_f32 / out_bf16 non-null.
+// bf16 (cache_kind 0), int8 (1) or e4m3 (2) codes; pos int32 [B];
+// kscale/vscale f32 scalars on the device or null (scale 1); exactly one of
+// out_f32 / out_bf16 non-null.
 extern "C" int fused_decode_attention(const void* q, const void* knew,
                                       const void* vnew, void* kc, void* vc,
                                       const void* pos, const void* kscale,
                                       const void* vscale, void* out_f32,
                                       void* out_bf16, int B, int S, int KH, int G,
-                                      int chunk, int int8_cache, void* stream) {
+                                      int chunk, int cache_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8_cache)
-    return dispatch_g<int8_t>(G, q, knew, vnew, kc, vc, pos, kscale, vscale,
-                              out_f32, out_bf16, B, S, KH, chunk, s);
-  return dispatch_g<__nv_bfloat16>(G, q, knew, vnew, kc, vc, pos, kscale, vscale,
-                                   out_f32, out_bf16, B, S, KH, chunk, s);
+  switch (cache_kind) {
+    case 0:
+      return dispatch_g<__nv_bfloat16>(G, q, knew, vnew, kc, vc, pos, kscale, vscale,
+                                       out_f32, out_bf16, B, S, KH, chunk, s);
+    case 1:
+      return dispatch_g<int8_t>(G, q, knew, vnew, kc, vc, pos, kscale, vscale,
+                                out_f32, out_bf16, B, S, KH, chunk, s);
+    case 2:
+      return dispatch_g<e4m3_t>(G, q, knew, vnew, kc, vc, pos, kscale, vscale,
+                                out_f32, out_bf16, B, S, KH, chunk, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The e4m3 decode the kernels read caches through (e4m3.cuh), applied to n
+// codes: f32 out. A probe of the device function for the card check.
+extern "C" int e4m3_decode(const void* codes, void* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  e4m3_decode_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<float*>(out), n);
+  return (int)cudaGetLastError();
 }

@@ -1,10 +1,14 @@
-// Grouped W4A8 GEMM fused with the routed MoE combine, for Hopper (sm_90a):
-//   out[m, n] = sum_e gscale[e, m] * (xq[e, m, :] @ W_e)[:, n]
+// Grouped W4A8 GEMMs for Hopper (sm_90a), two entry points:
+//   K12 grouped_w4a8_combine_gemm, fused with the routed MoE combine:
+//     out[m, n] = sum_e gscale[e, m] * (xq[e, m, :] @ W_e)[:, n]
+//   K11 grouped_w4a8_gemm, one product per expert with no gates:
+//     out[e, m, n] = (xq[e, m, :] @ W_e)[:, n]
 // with int8 activations, int4 block-quantized expert weights, exact int32
 // dots on the int8 tensor cores (mma.sync m16n8k32) and f32 block scales.
 //
 // Replaces: modelopt_tpu/kernels/quant_gemm.py::grouped_w4a8_combine_gemm
-// (Pallas body _grouped_w4a8_combine_kernel over _w4a8_body).
+// (Pallas body _grouped_w4a8_combine_kernel over _w4a8_body) and
+// ::grouped_w4a8_gemm (Pallas body _grouped_w4a8_kernel over _w4a8_body).
 //
 // Layout: xq int8 [E, M, K]; gscale f32 [E, M] (routing gate x the row's
 // activation scale); packed uint8 [K/2, E*N] and scale f32 [K/128, E*N] in
@@ -47,6 +51,15 @@
 // splitting E across CTAs would change the order of the sum. Each warp
 // still waits on its own loads before its MMAs: a pipeline that stages the
 // next block while the current one computes is the next redesign target.
+//
+// K11 has no sum over experts, so, as the Pallas grid (E, N/TN) does, its
+// work splits by (expert, column tile): each warp runs the same per-expert
+// body (expert_product) for one pair and writes its f32 fragment to
+// out[e, m, n] directly, bit-identical to the plain version. What bounds it
+// is the same packed expert bytes, now for every expert (nothing is
+// skipped), plus the f32 output E*M*N*4: at Qwen3-30B-A3B's down projection
+// (E=128, K=768, N=2048, M=8) about 116 MB, 35 us. 16384 warps in 4096
+// CTAs of four fill the card's 132 SMs many times over.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -125,6 +138,131 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Expert e's exact W4A8 product for output rows m0..m0+15 and columns
+// n0..n0+BN-1, computed by one warp in its own shared memory ``my``: per
+// stage, exact int32 fragments on the int8 tensor cores, then the f32
+// update acc + q*s with explicit rounding in _w4a8_body's order. The
+// fragment layout of acc is mma.sync's: acc[j][c] is row g + 8 * (c >= 2),
+// column j * 8 + 2 * t + (c & 1) (g = lane / 4, t = lane % 4).
+template <bool kStraddle>
+__device__ __forceinline__ void expert_product(const int8_t* __restrict__ xq,
+                                               const uint8_t* __restrict__ w,
+                                               const float* __restrict__ scale, int e, int m0,
+                                               int n0, int M, int N, int K2, int EN,
+                                               WarpSmem& my, float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int K = 2 * K2;
+  const int nfull = K2 / KB;
+  const int rem = K2 % KB;
+  const int nstage = kStraddle ? 2 * nfull + 1 : nfull;
+
+  const int8_t* xe = xq + (size_t)e * M * K;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  for (int st = 0; st < nstage; ++st) {
+    const Stage sg = stage_of<kStraddle>(st, K2, nfull, rem);
+    // x rows m0..m0+15 (zero past M and where a segment has no columns
+    // of that half), both halves: 16 x 2 x 8 uint4
+#pragma unroll
+    for (int i = lane; i < 2 * BM * (KB / 16); i += 32) {
+      const int half = i / (BM * (KB / 16));
+      const int r = (i / (KB / 16)) % BM;
+      const int c = i % (KB / 16);
+      const int j = c / 4;  // 64-row segment
+      const int col = half ? sg.xh[j] : sg.xl[j];
+      const int m = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M && (!kStraddle || col >= 0))
+        v = *reinterpret_cast<const uint4*>(xe + (size_t)m * K + col + (c % 4) * 16);
+      *reinterpret_cast<uint4*>(&my.xs[half][r][c * 16]) = v;
+    }
+    // packed [KB, BN] tile of expert e, transposed 4 rows x 4 columns at a time
+#pragma unroll 4
+    for (int i = lane; i < (KB / 4) * (BN / 4); i += 32) {
+      const int kr = (i / (BN / 4)) * 4;
+      const int nc = (i % (BN / 4)) * 4;
+      const int prow = sg.ps[kr / 64] + kr % 64;
+      const uint8_t* src = w + (size_t)prow * EN + (size_t)e * N + n0 + nc;
+      const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
+      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + EN);
+      const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)EN);
+      const uint32_t r3 = *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)EN);
+      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+      const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
+      const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
+      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+      *reinterpret_cast<uint32_t*>(&my.wt[nc + 0][kr]) = __byte_perm(t0, t1, 0x5410);
+      *reinterpret_cast<uint32_t*>(&my.wt[nc + 1][kr]) = __byte_perm(t0, t1, 0x7632);
+      *reinterpret_cast<uint32_t*>(&my.wt[nc + 2][kr]) = __byte_perm(t2, t3, 0x5410);
+      *reinterpret_cast<uint32_t*>(&my.wt[nc + 3][kr]) = __byte_perm(t2, t3, 0x7632);
+    }
+    __syncwarp();
+    if (lane < BM) {
+      int s = 0;
+#pragma unroll 8
+      for (int k4 = 0; k4 < KB / 4; ++k4)
+        s = __dp4a(*reinterpret_cast<const int*>(&my.xs[0][lane][k4 * 4]), 0x01010101, s);
+      my.sx[lane] = s;
+    }
+    __syncwarp();
+
+    int lo[NT][4], hi[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lo[j][c] = hi[j][c] = 0;
+#pragma unroll
+    for (int ks = 0; ks < KB / 32; ++ks) {
+      const int k = ks * 32 + 4 * t;
+      uint32_t al[4], ah[4];
+      al[0] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k]);
+      al[1] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k]);
+      al[2] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k + 16]);
+      al[3] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k + 16]);
+      ah[0] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k]);
+      ah[1] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k]);
+      ah[2] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k + 16]);
+      ah[3] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k + 16]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k]);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k + 16]);
+        mma_s8(lo[j], al, b0 & 0x0F0F0F0Fu, b1 & 0x0F0F0F0Fu);  // q_lo + 8
+        mma_s8(hi[j], ah, b0 & 0xF0F0F0F0u, b1 & 0xF0F0F0F0u);  // 16 * q_hi
+      }
+    }
+    const int sx0 = my.sx[g];
+    const int sx1 = my.sx[g + 8];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const size_t col = (size_t)e * N + n0 + j * 8 + 2 * t;
+      const float2 s0 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s0 * EN + col);
+      if (!kStraddle) {
+        const float2 s1 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s1 * EN + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qlo = lo[j][c] - 8 * ((c & 2) ? sx1 : sx0);
+          const int qhi = hi[j][c] >> 4;
+          acc[j][c] = __fadd_rn(
+              __fadd_rn(acc[j][c], __fmul_rn((float)qlo, (c & 1) ? s0.y : s0.x)),
+              __fmul_rn((float)qhi, (c & 1) ? s1.y : s1.x));
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int q = (lo[j][c] - 8 * ((c & 2) ? sx1 : sx0)) + (hi[j][c] >> 4);
+          acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn((float)q, (c & 1) ? s0.y : s0.x));
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
 // kStraddle: K2 % 128 == 64 (the stage walk above); false compiles the
 // aligned walk with the straddle bookkeeping folded away.
 template <bool kStraddle>
@@ -143,11 +281,7 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
   const int t = lane & 3;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int K = 2 * K2;
   const int EN = E * N;
-  const int nfull = K2 / KB;
-  const int rem = K2 % KB;
-  const int nstage = kStraddle ? 2 * nfull + 1 : nfull;
   WarpSmem& my = ws[warp];
   float* myp = ps + warp * BM * PP;
 
@@ -159,111 +293,8 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
   for (int e0 = 0; e0 < E; e0 += NW) {
     const int e = e0 + warp;
     if (e < E) {
-      const int8_t* xe = xq + (size_t)e * M * K;
       float acc[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-      for (int st = 0; st < nstage; ++st) {
-        const Stage sg = stage_of<kStraddle>(st, K2, nfull, rem);
-        // x rows m0..m0+15 (zero past M and where a segment has no columns
-        // of that half), both halves: 16 x 2 x 8 uint4
-#pragma unroll
-        for (int i = lane; i < 2 * BM * (KB / 16); i += 32) {
-          const int half = i / (BM * (KB / 16));
-          const int r = (i / (KB / 16)) % BM;
-          const int c = i % (KB / 16);
-          const int j = c / 4;  // 64-row segment
-          const int col = half ? sg.xh[j] : sg.xl[j];
-          const int m = m0 + r;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (m < M && (!kStraddle || col >= 0))
-            v = *reinterpret_cast<const uint4*>(xe + (size_t)m * K + col + (c % 4) * 16);
-          *reinterpret_cast<uint4*>(&my.xs[half][r][c * 16]) = v;
-        }
-        // packed [KB, BN] tile of expert e, transposed 4 rows x 4 columns at a time
-#pragma unroll 4
-        for (int i = lane; i < (KB / 4) * (BN / 4); i += 32) {
-          const int kr = (i / (BN / 4)) * 4;
-          const int nc = (i % (BN / 4)) * 4;
-          const int prow = sg.ps[kr / 64] + kr % 64;
-          const uint8_t* src = w + (size_t)prow * EN + (size_t)e * N + n0 + nc;
-          const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-          const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + EN);
-          const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)EN);
-          const uint32_t r3 = *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)EN);
-          const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-          const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-          const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-          const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-          *reinterpret_cast<uint32_t*>(&my.wt[nc + 0][kr]) = __byte_perm(t0, t1, 0x5410);
-          *reinterpret_cast<uint32_t*>(&my.wt[nc + 1][kr]) = __byte_perm(t0, t1, 0x7632);
-          *reinterpret_cast<uint32_t*>(&my.wt[nc + 2][kr]) = __byte_perm(t2, t3, 0x5410);
-          *reinterpret_cast<uint32_t*>(&my.wt[nc + 3][kr]) = __byte_perm(t2, t3, 0x7632);
-        }
-        __syncwarp();
-        if (lane < BM) {
-          int s = 0;
-#pragma unroll 8
-          for (int k4 = 0; k4 < KB / 4; ++k4)
-            s = __dp4a(*reinterpret_cast<const int*>(&my.xs[0][lane][k4 * 4]), 0x01010101, s);
-          my.sx[lane] = s;
-        }
-        __syncwarp();
-
-        int lo[NT][4], hi[NT][4];
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) lo[j][c] = hi[j][c] = 0;
-#pragma unroll
-        for (int ks = 0; ks < KB / 32; ++ks) {
-          const int k = ks * 32 + 4 * t;
-          uint32_t al[4], ah[4];
-          al[0] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k]);
-          al[1] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k]);
-          al[2] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k + 16]);
-          al[3] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k + 16]);
-          ah[0] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k]);
-          ah[1] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k]);
-          ah[2] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k + 16]);
-          ah[3] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k + 16]);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k]);
-            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k + 16]);
-            mma_s8(lo[j], al, b0 & 0x0F0F0F0Fu, b1 & 0x0F0F0F0Fu);  // q_lo + 8
-            mma_s8(hi[j], ah, b0 & 0xF0F0F0F0u, b1 & 0xF0F0F0F0u);  // 16 * q_hi
-          }
-        }
-        const int sx0 = my.sx[g];
-        const int sx1 = my.sx[g + 8];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const size_t col = (size_t)e * N + n0 + j * 8 + 2 * t;
-          const float2 s0 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s0 * EN + col);
-          if (!kStraddle) {
-            const float2 s1 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s1 * EN + col);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int qlo = lo[j][c] - 8 * ((c & 2) ? sx1 : sx0);
-              const int qhi = hi[j][c] >> 4;
-              acc[j][c] = __fadd_rn(
-                  __fadd_rn(acc[j][c], __fmul_rn((float)qlo, (c & 1) ? s0.y : s0.x)),
-                  __fmul_rn((float)qhi, (c & 1) ? s1.y : s1.x));
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int q = (lo[j][c] - 8 * ((c & 2) ? sx1 : sx0)) + (hi[j][c] >> 4);
-              acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn((float)q, (c & 1) ? s0.y : s0.x));
-            }
-          }
-        }
-        __syncwarp();
-      }
+      expert_product<kStraddle>(xq, w, scale, e, m0, n0, M, N, K2, EN, my, acc);
       // this expert's gated term p_e = acc_e * gscale[e, m]
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -298,6 +329,40 @@ grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restri
 
 constexpr size_t SMEM_BYTES = NW * sizeof(WarpSmem) + NW * BM * PP * sizeof(float);
 
+// K11: every (expert, 16-column tile) pair is one warp's task, GW tasks to a
+// CTA (neighbouring tiles of one expert), the CTA's row tile in blockIdx.y;
+// each warp writes its expert's f32 product to out[e, m, n] as it stands.
+constexpr int GW = 4;
+
+template <bool kStraddle>
+__global__ void __launch_bounds__(32 * GW)
+grouped_w4a8_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ w,
+                    const float* __restrict__ scale, float* __restrict__ out, int E, int M,
+                    int N, int K2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  WarpSmem* ws = reinterpret_cast<WarpSmem*>(smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ntiles = N / BN;
+  const int task = blockIdx.x * GW + warp;
+  if (task >= E * ntiles) return;  // the body syncs only within a warp
+  const int e = task / ntiles;
+  const int n0 = (task % ntiles) * BN;
+  const int m0 = blockIdx.y * BM;
+  float acc[NT][4];
+  expert_product<kStraddle>(xq, w, scale, e, m0, n0, M, N, K2, E * N, ws[warp], acc);
+  float* oe = out + (size_t)e * M * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = m0 + g + ((c & 2) ? 8 : 0);
+      if (m < M) oe[(size_t)m * N + n0 + j * 8 + 2 * t + (c & 1)] = acc[j][c];
+    }
+}
+
 }  // namespace
 
 // xq int8 [E, M, 2*K2]; gscale f32 [E, M]; packed uint8 [K2, E*N]; scale f32
@@ -317,5 +382,25 @@ extern "C" int grouped_w4a8_combine_gemm(const void* xq, const void* gscale, con
       static_cast<const int8_t*>(xq), static_cast<const float*>(gscale),
       static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
       static_cast<float*>(out), E, M, N, K2);
+  return (int)cudaGetLastError();
+}
+
+// K11: xq int8 [E, M, 2*K2]; packed uint8 [K2, E*N]; scale f32 [2*K2/128, E*N];
+// out f32 [E, M, N], out[e] = xq[e] @ W_e with no gates and no activation
+// scale. The same requirements as grouped_w4a8_combine_gemm.
+extern "C" int grouped_w4a8_gemm(const void* xq, const void* packed, const void* scale,
+                                 void* out, int E, int M, int N, int K2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E * M * N == 0) return 0;
+  auto kernel = (K2 % KB) ? grouped_w4a8_kernel<true> : grouped_w4a8_kernel<false>;
+  const size_t smem = GW * sizeof(WarpSmem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((E * (N / BN) + GW - 1) / GW, (M + BM - 1) / BM);
+  kernel<<<grid, 32 * GW, smem, s>>>(static_cast<const int8_t*>(xq),
+                                     static_cast<const uint8_t*>(packed),
+                                     static_cast<const float*>(scale), static_cast<float*>(out),
+                                     E, M, N, K2);
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,9 @@ from .block_sparse_attention import block_sparse_decode_attention
 from . import flash_attention as _flash
 from .flash_attention import flash_prefill_attention
 from .paged_attention import paged_decode_attention, paged_kv_write
-from .quant_gemm import (grouped_nvfp4_gemm, grouped_w4a8_combine_gemm, grouped_w4a16_gemm,
-                         nvfp4_gemm, w4a8_gemm, w4a16_gemm, w8a16_gemm, wfp8_gemm)
+from .quant_gemm import (grouped_nvfp4_gemm, grouped_w4a8_combine_gemm, grouped_w4a8_gemm,
+                         grouped_w4a16_gemm, nvfp4_gemm, w4a8_gemm, w4a16_gemm, w8a16_gemm,
+                         wfp8_gemm)
 
 KERNELS = {
     "w4a8_gemm": w4a8_gemm,
@@ -28,6 +29,7 @@ KERNELS = {
     "grouped_nvfp4_gemm": grouped_nvfp4_gemm,
     "block_sparse_decode_attention": block_sparse_decode_attention,
     "flash_attention": _flash.flash_attention,
+    "grouped_w4a8_gemm": grouped_w4a8_gemm,
 }
 
 

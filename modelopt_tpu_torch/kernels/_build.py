@@ -4,7 +4,8 @@ ctypes.
 Every source under ``csrc/`` exposes a plain C function (no PyTorch
 headers), so one nvcc call per file takes seconds. The shared libraries go
 to ``_build/`` beside the package (listed in .gitignore), named by a hash of
-their source, so an edited kernel is rebuilt and a stale one never loads.
+their source and the shared headers (``csrc/*.cuh``), so an edited kernel
+is rebuilt and a stale one never loads.
 ``build_all()`` starts one nvcc per source at once and waits for all of
 them. Nothing here runs when a module is imported.
 """
@@ -47,10 +48,15 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
+    """The source and its library, named by a hash of the source and of
+    every shared header under ``csrc/``."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=SOURCES) -> None:

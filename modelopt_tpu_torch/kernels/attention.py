@@ -11,7 +11,10 @@ hand the same tensors back. K5 only reads.
 On CUDA tensors the wrappers launch ``csrc/kv_write.cu``,
 ``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu``; on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as
-the card's oracles).
+the card's oracles). Caches hold bf16 values or int8 or e4m3 codes with
+f32 scalar scales; e4m3 codes are read as the reference reads them
+(``e4m3_decode_plain``). K5 keeps the reference's e4m3 branch unported: no
+path of the port runs it yet.
 """
 
 from __future__ import annotations
@@ -67,6 +70,54 @@ def dense_kv_write(cache: torch.Tensor, vals: torch.Tensor,
 dense_kv_write.launches = 0
 
 
+def e4m3_decode_plain(codes: torch.Tensor) -> torch.Tensor:
+    """e4m3 codes -> f32 by the reference's bit assembly
+    (``_e4m3_to_bf16``): exponent field e + 120 and mantissa m << 20 for
+    e > 0, m * 2^-9 for e == 0, the sign bit on top. Every code decodes to
+    a number: 0x7f and 0xff give +-480, where a float8_e4m3fn cast gives
+    NaN (no NaN code is ever written to a cache). Exact in bf16."""
+    b = codes.view(torch.uint8).to(torch.int32)
+    e = (b >> 3) & 0xF
+    m = b & 0x7
+    norm = ((e + 120) << 23) | (m << 20)
+    sub = (m.float() * 2.0**-9).view(torch.int32)
+    bits = ((b & 0x80) << 24) | torch.where(e > 0, norm, sub)
+    return bits.view(torch.float32)
+
+
+def e4m3_decode(codes: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernels' e4m3 decode (``csrc/e4m3.cuh``, which K2 and K15
+    read their caches through) applied to every code of ``codes`` on the
+    card, f32 out; on a CPU tensor ``e4m3_decode_plain``. A probe of the
+    device function, not a kernel of the port: no path calls it."""
+    if codes.device.type == "cpu":
+        return e4m3_decode_plain(codes)
+    if codes.dtype not in (torch.float8_e4m3fn, torch.uint8):
+        raise ValueError(f"e4m3_decode: wants e4m3 codes, got {codes.dtype}")
+    codes = codes.contiguous()
+    _build.check_cuda("e4m3_decode", codes)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    fn = _build.function("e4m3_decode", [_build.c_ptr] * 2 + [_build.c_int, _build.c_ptr],
+                         source="fused_decode_attention")
+    with torch.cuda.device(codes.device):
+        err = fn(codes.data_ptr(), out.data_ptr(), codes.numel(), _build.stream(codes))
+    _build.raise_on_error("e4m3_decode", err)
+    return out
+
+
+def _kv_values(c: torch.Tensor) -> torch.Tensor:
+    """Cache codes as the reference's non-int8 attention reads them
+    (``_load_kv_block``): e4m3 through ``e4m3_decode_plain``, others rounded
+    to bf16; f32 out."""
+    if c.dtype == torch.float8_e4m3fn:
+        return e4m3_decode_plain(c)
+    return c.to(torch.bfloat16).float()
+
+
+# cache dtype -> the CUDA kernels' cache kind argument
+CACHE_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
 def _scalar(t, device) -> torch.Tensor:
     """A scale as a 0-d f32 tensor on ``device`` (None = 1)."""
     if t is None:
@@ -117,8 +168,7 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int, starts=N
             # integer dots: exact in f32 (|sum| <= 127*127*640 < 2^24)
             s = torch.einsum("bhgd,bthd->bhgt", q8, kb.float()) * fs
         else:
-            s = torch.einsum("bhgd,bthd->bhgt", qf,
-                             kb.to(torch.bfloat16).float()) * inv_sqrt_d
+            s = torch.einsum("bhgd,bthd->bhgt", qf, _kv_values(kb)) * inv_sqrt_d
         col = starts[:, c, None] + torch.arange(kb.shape[1], device=dev)    # [B, chunk]
         s = torch.where(col[:, None, None, :] < L[:, None, None, None], s,
                         torch.tensor(-1e30, device=dev))
@@ -134,7 +184,7 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int, starts=N
         else:
             esum = e.sum(-1, keepdim=True)
             y = torch.einsum("bhgt,bthd->bhgd", e.to(torch.bfloat16).float(),
-                             vb.to(torch.bfloat16).float())
+                             _kv_values(vb))
         on = live[:, c, None, None, None]
         l = torch.where(on, l * alpha + esum, l)
         acc = torch.where(on, acc * alpha + y, acc)
@@ -179,8 +229,9 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
     the caches at row ``pos[b]`` IN PLACE and return the attention of
     q [B, KH, G, D] over the pos[b]+1 keys, with the caches:
     ``(out [B, KH, G, D], k_cache, v_cache)``. A pos at or past the cache
-    end is clamped to S-1. ``k_scale``/``v_scale``: f32 scalars for int8
-    codes (None = 1)."""
+    end is clamped to S-1. Caches of int8 or e4m3 codes (``k_scale`` /
+    ``v_scale`` f32 scalars, None = 1) or bf16. On the card an e4m3 cache
+    runs the kernel's e4m3 branch: nothing dequantizes it first."""
     if sinks is not None or softcap is not None:
         raise NotImplementedError(
             "fused_decode_attention: attention sinks and logit softcap are not "
@@ -194,10 +245,10 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
         return fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                             pos, k_scale, v_scale, out_dtype,
                                             chunk)
-    if k_cache.dtype not in (torch.int8, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+    if k_cache.dtype not in CACHE_KIND or v_cache.dtype != k_cache.dtype:
         raise NotImplementedError(
             f"fused_decode_attention: {k_cache.dtype} caches are not ported "
-            "to the card (int8 and bf16 are)")
+            "to the card (int8, e4m3 and bf16 are)")
     if D != 128 or G not in (1, 2, 4, 8):
         raise NotImplementedError(
             f"fused_decode_attention: the CUDA kernel takes D=128 and G in "
@@ -227,8 +278,7 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
                  k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
                  _build.ptr(scales[0]), _build.ptr(scales[1]),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 B, S, KH, G, chunk, int(k_cache.dtype == torch.int8),
-                 _build.stream(q))
+                 B, S, KH, G, chunk, CACHE_KIND[k_cache.dtype], _build.stream(q))
     fused_decode_attention.launches += 1
     _build.raise_on_error("fused_decode_attention", err)
     return out, k_cache, v_cache

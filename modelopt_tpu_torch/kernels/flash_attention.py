@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import _scalar
+from .attention import CACHE_KIND, _scalar
 
 
 # ---------------------------------------------------------------------------
@@ -137,8 +137,9 @@ flash_attention.launches = 0
 def flash_prefill_attention_plain(q, ck, cv, start, k_scale=None, v_scale=None,
                                   out_dtype=torch.bfloat16):
     """The reference kernel's math in one pass: bf16 q, (code * scale) -> bf16
-    keys/values, f32 scores scaled by 1/sqrt(D), -1e9 past each query's
-    absolute position, f32 softmax, bf16 probabilities into the PV product."""
+    keys/values (int8 or e4m3 codes cast to f32 as the reference casts
+    them), f32 scores scaled by 1/sqrt(D), -1e9 past each query's absolute
+    position, f32 softmax, bf16 probabilities into the PV product."""
     B, T, KH, G, D = q.shape
     S = ck.shape[1]
     dev = q.device
@@ -167,9 +168,10 @@ def flash_prefill_attention_plain(q, ck, cv, start, k_scale=None, v_scale=None,
 def flash_prefill_attention(q, ck, cv, start, k_scale=None, v_scale=None,
                             out_dtype=torch.bfloat16):
     """q [B, T, KH, G, D] chunk queries; ck/cv [B, S, KH*D] caches (bf16, or
-    int8 codes with scalar k_scale/v_scale) that ALREADY hold the chunk's
-    keys at rows [start, start+T); start int32 [B] the chunk's first
-    absolute position. Returns [B, T, KH, G, D]."""
+    int8 or e4m3 codes with scalar k_scale/v_scale) that ALREADY hold the
+    chunk's keys at rows [start, start+T); start int32 [B] the chunk's first
+    absolute position. Returns [B, T, KH, G, D]. On the card an e4m3 cache
+    runs the kernel's e4m3 branch: nothing dequantizes it first."""
     B, T, KH, G, D = q.shape
     S = ck.shape[1]
     if ck.shape != (B, S, KH * D) or cv.shape != ck.shape:
@@ -181,20 +183,20 @@ def flash_prefill_attention(q, ck, cv, start, k_scale=None, v_scale=None,
     if D != 128:
         raise NotImplementedError(
             f"flash_prefill_attention: the CUDA kernel takes D=128, got {D}")
-    if ck.dtype not in (torch.int8, torch.bfloat16) or cv.dtype != ck.dtype:
+    if ck.dtype not in CACHE_KIND or cv.dtype != ck.dtype:
         raise NotImplementedError(
             f"flash_prefill_attention: {ck.dtype} caches are not ported to the "
-            "card (int8 and bf16 are)")
+            "card (int8, e4m3 and bf16 are)")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_prefill_attention: out_dtype {out_dtype}")
     if start.dtype != torch.int32 or start.shape != (B,):
         raise ValueError("flash_prefill_attention: start must be int32 [B]")
-    int8 = ck.dtype == torch.int8
+    codes = ck.dtype != torch.bfloat16
     scales = [None, None]
-    if not int8 and (k_scale is not None or v_scale is not None):
+    if not codes and (k_scale is not None or v_scale is not None):
         raise NotImplementedError(
             "flash_prefill_attention: scaled bf16 caches are not ported")
-    if int8:
+    if codes:
         scales = [_scalar(k_scale, q.device), _scalar(v_scale, q.device)]
     q = q.to(torch.bfloat16).contiguous()
     _build.check_cuda("flash_prefill_attention", q, ck, cv, start, *scales)
@@ -207,7 +209,8 @@ def flash_prefill_attention(q, ck, cv, start, k_scale=None, v_scale=None,
         err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), start.data_ptr(),
                  _build.ptr(scales[0]), _build.ptr(scales[1]),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 B, T, S, KH, G, 1.0 / (D ** 0.5), int(int8), _build.stream(q))
+                 B, T, S, KH, G, 1.0 / (D ** 0.5), CACHE_KIND[ck.dtype],
+                 _build.stream(q))
     flash_prefill_attention.launches += 1
     _build.raise_on_error("flash_prefill_attention", err)
     return out

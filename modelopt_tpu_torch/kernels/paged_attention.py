@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import DECODE_MAX_D, DECODE_MAX_G, _attend_chunks, _scalar
+from .attention import CACHE_KIND, DECODE_MAX_D, DECODE_MAX_G, _attend_chunks, _scalar
 
 
 def paged_gather_dense(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -48,8 +48,8 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, k_sca
     pages gathered dense and ``_attend_chunks`` (K5's twin) with one page
     per chunk, keys [0, lengths[b]) bounded by the table's width. int8
     pools: q requantized per (head, group) row, 7-bit probability codes
-    against each page's running max; bf16 pools: f32 scores, bf16 PV
-    operands."""
+    against each page's running max; bf16 and e4m3 pools: f32 scores, bf16
+    PV operands, e4m3 codes decoded as the reference decodes them."""
     B, PMAX = page_table.shape
     ps = k_pages.shape[1]
     dev = q.device
@@ -65,17 +65,16 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths, k_sca
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, k_scale=None,
                            v_scale=None, out_dtype=torch.bfloat16, sinks=None, softcap=None):
     """Attention of q [B, KH, G, D] over the first ``lengths[b]`` keys of
-    slot b, whose rows lie in pools [n_pages, page_size, KH*D] (int8 codes
-    with f32 scalar scales, or bf16) at the pages ``page_table [B, PMAX]``
-    names; the pools are only read, and K and V may be one tensor (MLA
-    passes its latent pool twice). A length past the table's capacity is
-    clamped to ``PMAX * page_size``. Returns [B, KH, G, D] in
-    ``out_dtype``."""
+    slot b, whose rows lie in pools [n_pages, page_size, KH*D] (int8 or
+    e4m3 codes with f32 scalar scales, or bf16) at the pages
+    ``page_table [B, PMAX]`` names; the pools are only read, and K and V may
+    be one tensor (MLA passes its latent pool twice). A length past the
+    table's capacity is clamped to ``PMAX * page_size``. Returns
+    [B, KH, G, D] in ``out_dtype``. On the card an e4m3 pool runs the
+    kernel's e4m3 branch: nothing dequantizes it first."""
     if sinks is not None or softcap is not None:
         raise NotImplementedError(
             "paged_decode_attention: attention sinks and logit softcap are not ported yet")
-    if torch.float8_e4m3fn in (k_pages.dtype, v_pages.dtype):
-        raise NotImplementedError("paged_decode_attention: e4m3 pools are not ported yet")
     B, KH, G, D = q.shape
     P, ps, KHD = k_pages.shape
     if KH * D != KHD or v_pages.shape != k_pages.shape:
@@ -87,10 +86,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, k_scale=Non
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
                                             k_scale, v_scale, out_dtype)
-    if k_pages.dtype not in (torch.int8, torch.bfloat16) or v_pages.dtype != k_pages.dtype:
+    if k_pages.dtype not in CACHE_KIND or v_pages.dtype != k_pages.dtype:
         raise NotImplementedError(
             f"paged_decode_attention: {k_pages.dtype} pools are not ported to the card "
-            "(int8 and bf16 are)")
+            "(int8, e4m3 and bf16 are)")
     if not paged_attention_ok(B, KH, G, D, ps):
         raise NotImplementedError(
             f"paged_decode_attention: the CUDA kernel takes D a multiple of 128 up to "
@@ -114,7 +113,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, k_scale=Non
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
                  lengths.data_ptr(), _build.ptr(scales[0]), _build.ptr(scales[1]),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 B, page_table.shape[1], ps, KH, G, D, int(k_pages.dtype == torch.int8),
+                 B, page_table.shape[1], ps, KH, G, D, CACHE_KIND[k_pages.dtype],
                  _build.stream(q))
     paged_decode_attention.launches += 1
     _build.raise_on_error("paged_decode_attention", err)

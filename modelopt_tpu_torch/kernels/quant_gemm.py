@@ -3,8 +3,9 @@ int8, e4m3 and NVFP4.
 
 Counterparts of ``modelopt_tpu/kernels/quant_gemm.py``: ``w4a8_gemm`` (K1),
 ``w4a16_gemm`` (K6), ``w8a16_gemm`` (K7), ``wfp8_gemm`` (K8),
-``nvfp4_gemm`` (K9), ``grouped_w4a16_gemm`` (K10),
-``grouped_w4a8_combine_gemm`` (K12) and ``grouped_nvfp4_gemm`` (K13). On a
+``nvfp4_gemm`` (K9), ``grouped_w4a16_gemm`` (K10), ``grouped_w4a8_gemm``
+(K11), ``grouped_w4a8_combine_gemm`` (K12) and ``grouped_nvfp4_gemm``
+(K13). On a
 CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/w4a8_gemm.cu``, ``csrc/w4a16_gemm.cu``, ``csrc/grouped_w4a8_gemm.cu``,
 ``csrc/w8a16_gemm.cu``, ``csrc/nvfp4_gemm.cu``) or raises; on a CPU tensor
@@ -18,7 +19,7 @@ K/2 // block covers the low half's tail and the high half's head, and the
 high half's blocks follow it. The grouped kernels take the folded expert
 layout [K/2, E*N] (expert e is columns e*N:(e+1)*N,
 quant/qtensor.py::fold_experts). Every twin computes straddle shapes; of
-the CUDA kernels K12 takes them, K1, K6 and K10 refuse them.
+the CUDA kernels K11 and K12 take them, K1, K6 and K10 refuse them.
 """
 
 from __future__ import annotations
@@ -225,6 +226,48 @@ def grouped_w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
 
 
 grouped_w4a16_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: grouped W4A8, one product per expert
+# ---------------------------------------------------------------------------
+def grouped_w4a8_gemm_plain(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                            n_per_expert: int, block: int = 128) -> torch.Tensor:
+    """Per-expert ``w4a8_gemm_plain``: xq int8 [E, M, K] on the folded
+    layout -> f32 [E, M, N], each expert's exact integer dots and f32 block
+    updates in the reference's order."""
+    return _block_dots(xq.float(), packed, scale, block, n_per_expert)
+
+
+def grouped_w4a8_gemm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                      n_per_expert: int, block: int = 128) -> torch.Tensor:
+    """Per-expert W4A8 GEMMs ``y[e] = xq[e] @ W_e`` in one launch: xq int8
+    [E, M, K] (the caller applies the per-row activation scales),
+    packed/scale the folded [K/2, E*N] layout (straddle widths included) ->
+    f32 [E, M, N]."""
+    E, M, K = xq.shape
+    N = n_per_expert
+    _check_packed("grouped_w4a8_gemm", packed, scale, block, K, E * N)
+    if xq.device.type == "cpu":
+        return grouped_w4a8_gemm_plain(xq, packed, scale, N, block)
+    _check_card("grouped_w4a8_gemm", packed, scale, block, N, 16, straddle=True)
+    if xq.dtype != torch.int8:
+        raise ValueError("grouped_w4a8_gemm: wants int8 x")
+    _build.check_cuda("grouped_w4a8_gemm", xq, packed, scale)
+    if xq.data_ptr() % 16:
+        raise ValueError("grouped_w4a8_gemm: x must be 16-byte aligned")
+    fn = _build.function("grouped_w4a8_gemm", [_build.c_ptr] * 4 + [_build.c_int] * 4
+                         + [_build.c_ptr])
+    out = torch.empty(E, M, N, dtype=torch.float32, device=xq.device)
+    with torch.cuda.device(xq.device):
+        err = fn(xq.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), E, M, N,
+                 packed.shape[0], _build.stream(xq))
+    grouped_w4a8_gemm.launches += 1
+    _build.raise_on_error("grouped_w4a8_gemm", err)
+    return out
+
+
+grouped_w4a8_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,10 @@ paged cache (``serve/paged_cache.py``: per-layer page pools and a
 ``page_table``) writes through ``paged_kv_write`` at every T; T == 1
 attends with ``paged_decode_attention`` under the reference's rule, other
 forwards gather the pages dense and take the reference's masked einsum.
-Caches are updated IN PLACE (the reference donates them through jitted
-steps instead).
+Caches hold bf16 values or int8 or e4m3 codes with the k / v quantizers'
+f32 scales (FP8_KV_CFG's e4m3 codes go to every kernel above but K17's,
+which raises on them). Caches are updated IN PLACE (the reference donates
+them through jitted steps instead).
 """
 
 from __future__ import annotations
@@ -346,14 +348,20 @@ class Attention(nn.Module):
             ck, cv, positions_kv = cache_kv[:3]
             page_table = cache_kv[3] if len(cache_kv) == 4 else None
             summaries = cache_kv[3:] if len(cache_kv) == 5 else None
-            if ck.dtype == torch.int8:
+            if ck.dtype in (torch.int8, torch.float8_e4m3fn):
                 k_codes, k_scale = self.k_quantizer(k, with_scale=True)
                 v_codes, v_scale = self.v_quantizer(v, with_scale=True)
-                if k_scale is None or v_scale is None:
+                if ck.dtype == torch.int8 and (k_scale is None or v_scale is None):
                     raise ValueError(
                         "an int8 KV cache needs CALIBRATED per-tensor int8 "
                         "k/v quantizers (INT8_KV_CFG) — a scale-1 cast "
                         "would round O(1) keys to {-1, 0, 1}")
+                # an e4m3 cache with no calibrated quantizer (or in CALIB
+                # phase) stores a direct cast with scale 1, as the reference
+                if k_scale is None:
+                    k_codes, k_scale = k_codes.to(ck.dtype), torch.ones((), device=k.device)
+                if v_scale is None:
+                    v_codes, v_scale = v_codes.to(cv.dtype), torch.ones((), device=v.device)
             elif ck.dtype.is_floating_point and ck.element_size() >= 2:
                 k_codes, k_scale = self.k_quantizer(k).to(ck.dtype), None
                 v_codes, v_scale = self.v_quantizer(v).to(cv.dtype), None

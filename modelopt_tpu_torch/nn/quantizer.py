@@ -10,12 +10,11 @@ records x (``capture_records``) and then quantizes as QUANT does, except
 that the KV cache's real codes and a GEMM's skipped fake-quant are QUANT's
 alone (the reference's rule).
 
-Ported specs: per-tensor static int8 (calibrated amax, also the real-codes
-path for the KV cache), per-token dynamic int8, per-tensor static fp (the
-FP8 presets' e4m3 activations) and NVFP4's two-level blocks (a calibrated
-per-tensor amax over dynamic block scales). Sequential chains, pre-quant
-scales, rotation, affine specs and e4m3 KV-cache codes raise
-NotImplementedError.
+Ported specs: per-tensor static int8 and e4m3 (calibrated amax, also the
+real-codes path for the KV cache), per-token dynamic int8, the FP8
+presets' static e4m3 activations and NVFP4's two-level blocks (a
+calibrated per-tensor amax over dynamic block scales). Sequential chains,
+pre-quant scales, rotation and affine specs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from torch import nn
 from ..core.bundle import PHASE_CALIB, PHASE_CAPTURE, PHASE_OFF, PHASE_QUANT, current_phase
 from ..quant.config import QuantizeConfig
 from ..quant.fake_quant import fake_quantize
+from ..quant.formats import cast_to_fp, true_divide
 from ..quant.qspec import QuantizerSpec
 
 _ACTIVE_CFG: contextvars.ContextVar = contextvars.ContextVar("quant_cfg", default=None)
@@ -110,10 +110,12 @@ class TensorQuantizer(nn.Module):
 
     def forward(self, x: torch.Tensor, with_scale: bool = False,
                 skip_fake: bool = False):
-        """``with_scale=True``: for a calibrated per-tensor static int8 spec in
-        QUANT phase return ``(int8 codes, f32 scale)`` — the KV cache's real
-        codes, scale = max(amax, 1e-12)/127, codes = clip(round(x/scale),
-        -127, 127); otherwise ``(x', None)``. ``skip_fake=True``: the caller's
+        """``with_scale=True``: for a calibrated per-tensor static int8 or
+        e4m3 spec in QUANT phase return ``(codes, f32 scale)`` — the KV
+        cache's real codes: int8 scale = max(amax, 1e-12)/127, codes =
+        clip(round(x/scale), -127, 127); e4m3 scale = max(amax, 1e-12)/448,
+        codes = clip(x/scale, -448, 448) rounded to e4m3 (half to even);
+        otherwise ``(x', None)``. ``skip_fake=True``: the caller's
         GEMM quantizes the activations itself (per-token int8)."""
 
         def ret(y, scale=None):
@@ -133,10 +135,14 @@ class TensorQuantizer(nn.Module):
         if (with_scale and phase == PHASE_QUANT and len(specs) == 1
                 and sp.enable and sp.block is None and sp.axis is None
                 and not sp.dynamic and not sp.rotate and self.amax is not None):
-            if sp.is_fp:
-                raise NotImplementedError("fp8 KV-cache codes are not ported")
-            if sp.num_bits == 8:
-                scale = self.amax.float().clamp_min(1e-12) / 127.0
+            amax = self.amax.float().clamp_min(1e-12)
+            if sp.is_fp and (sp.fp_format.exp_bits, sp.fp_format.man_bits) == (4, 3):
+                scale = true_divide(amax, 448.0)
+                codes = cast_to_fp(torch.clamp(x.float() / scale, -448.0, 448.0),
+                                   sp.fp_format)
+                return codes.to(torch.float8_e4m3fn), scale
+            if not sp.is_fp and sp.num_bits == 8:
+                scale = true_divide(amax, 127.0)
                 codes = torch.clamp(torch.round(x.float() / scale), -127.0, 127.0)
                 return codes.to(torch.int8), scale
         if len(specs) > 1:

@@ -11,17 +11,18 @@ kernel on the card, its plain twin on the CPU):
     shape the CUDA kernel cannot take raises on the card);
   * MoE down-projections at M <= 256: int4 with int8 activations and gates
     the fused ``grouped_w4a8_combine_gemm`` (straddle widths such as
-    DeepSeek's K=1408 included), int4 weight-only ``grouped_w4a16_gemm``,
-    NVFP4 ``grouped_nvfp4_gemm``;
+    DeepSeek's K=1408 included), without gates ``grouped_w4a8_gemm`` (the
+    same widths), int4 weight-only ``grouped_w4a16_gemm``, NVFP4
+    ``grouped_nvfp4_gemm``;
   * everything else, above 256 rows in particular, the reference's
     dequantize + ``torch.matmul`` / ``torch.einsum``, which the JAX package
     also computes outside any Pallas kernel, on both devices.
-Two cases belong to kernels not yet ported and raise on a CUDA tensor
-(the CPU keeps the dequantize path): int8 weights with int8 activations
-above 256 rows (``int8_dynamic_gemm``) and int4 experts with int8
-activations but no gates (``grouped_w4a8_gemm``). (The reference routes
-its CPU calls to the dequantize path; this port keeps the kernels'
-arithmetic on both devices, so a CPU run checks the card's.)
+One case belongs to a function of the reference that is no Pallas kernel
+and is not ported, and raises on a CUDA tensor (the CPU keeps the
+dequantize path): int8 weights with int8 activations above 256 rows
+(``int8_dynamic_gemm``). (The reference routes its CPU calls to the
+dequantize path; this port keeps the kernels' arithmetic on both devices,
+so a CPU run checks the card's.)
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ from __future__ import annotations
 import torch
 
 from ..kernels.quant_gemm import (PREFILL_MIN_M, grouped_nvfp4_gemm,
-                                  grouped_w4a8_combine_gemm, grouped_w4a16_gemm, nvfp4_gemm,
-                                  w4a8_gemm, w4a16_gemm, w8a16_gemm, wfp8_gemm)
+                                  grouped_w4a8_combine_gemm, grouped_w4a8_gemm,
+                                  grouped_w4a16_gemm, nvfp4_gemm, w4a8_gemm, w4a16_gemm,
+                                  w8a16_gemm, wfp8_gemm)
+from .formats import true_divide
 from .qspec import QuantizerSpec
 from .qtensor import block_of, compressible_format, dequantize_qtensor
 
@@ -50,9 +53,10 @@ def act_backend_quantizes(aspecs) -> bool:
 
 
 def _int8_rows(xf: torch.Tensor):
-    """Per-row dynamic int8 codes: scale = max(|x|, 1e-12)/127 in f32, codes
-    round-half-even(x/scale) clipped to +-127. Returns (codes, scale [..., 1])."""
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
+    """Per-row dynamic int8 codes: scale = max(|x|, 1e-12)/127 in f32 (the
+    same quotient on both devices), codes round-half-even(x/scale) clipped
+    to +-127. Returns (codes, scale [..., 1])."""
+    xs = true_divide(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12), 127.0)
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
 
 
@@ -109,12 +113,14 @@ def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtyp
                   act_int8: bool = False, act_raw: bool = False) -> torch.Tensor:
     """Per-expert GEMMs for MoE down-projections: x3 [M, E, K] (token-major)
     against the FOLDED packed weight [K, E*N] -> [M, E, N]. At M <= 256,
-    int4 weight-only rides ``grouped_w4a16_gemm`` and NVFP4
-    ``grouped_nvfp4_gemm``; int4 with int8 activations belongs to the
-    unported ``grouped_w4a8_gemm`` (CPU only). Every other case runs the
-    reference's XLA steps (per-(token, expert) int8 fake-quant when the
-    layer skipped its own, dequantized weight in ``out_dtype``, one batched
-    product) with ``torch.einsum`` on either device."""
+    int4 with int8 activations rides ``grouped_w4a8_gemm`` (per-(expert,
+    row) scale xs = max(|x|, 1e-12)/127 in f32, xq = round-half-even(x/xs)
+    clipped to +-127, the kernel's f32 product times xs, then ``out_dtype``),
+    int4 weight-only ``grouped_w4a16_gemm`` and NVFP4 ``grouped_nvfp4_gemm``.
+    Every other case runs the reference's XLA steps (per-(token, expert)
+    int8 fake-quant when the layer skipped its own, dequantized weight in
+    ``out_dtype``, one batched product) with ``torch.einsum`` on either
+    device."""
     E, K, N = efn
     M = x3.shape[0]
     out_dtype = out_dtype or x3.dtype
@@ -122,10 +128,11 @@ def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtyp
     if fmt is None:
         raise ValueError(f"no compressed format for spec {spec}")
     small = M <= PREFILL_MIN_M
-    if fmt == "int4" and small and act_int8 and x3.device.type != "cpu":
-        raise NotImplementedError(
-            f"grouped_qgemm: int4 experts with int8 activations at M={M} have no CUDA "
-            "kernel yet (grouped_w4a8_gemm is not ported)")
+    if fmt == "int4" and small and act_int8:
+        xq, xs = _int8_rows(x3.transpose(0, 1).float())  # [E, M, K], [E, M, 1]
+        y = grouped_w4a8_gemm(xq.contiguous(), qt["data"], qt["scale"], N,
+                              block=block_of(spec))
+        return (y * xs).to(out_dtype).transpose(0, 1)
     if act_int8 and act_raw:
         # the 16-bit product still serves A8: one per-(token, expert) rounding
         x3 = _fq_int8_per_token(x3)

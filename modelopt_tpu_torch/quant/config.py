@@ -7,7 +7,8 @@ earlier ones attribute by attribute) and, of the presets, those the
 serving paths run: ``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG``,
 ``INT8_KV_CFG``, ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16),
 ``INT8_WEIGHT_ONLY_CFG``, ``FP8_DEFAULT_CFG`` (e4m3 weights and static
-e4m3 activations), ``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG`` and
+e4m3 activations), ``FP8_KV_CFG`` (the same with an e4m3 KV cache),
+``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG`` and
 its equal ``W4A16_NVFP4_CFG``.
 
 Layout convention (kept from the reference): weight kernels are
@@ -158,6 +159,12 @@ KV_CACHE_INT8 = {
     "*k_quantizer": {"num_bits": 8, "axis": None},
     "*v_quantizer": {"num_bits": 8, "axis": None},
 }
+# per-tensor static e4m3 KV-cache codes + f32 scale (a direct cast when
+# uncalibrated)
+KV_CACHE_FP8 = {
+    "*k_quantizer": {"num_bits": (4, 3), "axis": None},
+    "*v_quantizer": {"num_bits": (4, 3), "axis": None},
+}
 
 W4A8_INT8_DYNAMIC_CFG = _cfg(_W_INT4_BLOCK, _A_INT8_PER_TOKEN,
                              algorithm={"method": "awq_lite"})
@@ -168,6 +175,7 @@ W4A8_INT8KV_CFG = _cfg(_W_INT4_BLOCK, _A_INT8_PER_TOKEN, extra=KV_CACHE_INT8,
 INT4_BLOCKWISE_WEIGHT_ONLY_CFG = _cfg(_W_INT4_BLOCK, None)
 INT8_WEIGHT_ONLY_CFG = _cfg(_W_INT8_PC, None)
 FP8_DEFAULT_CFG = _cfg(_W_FP8, _A_FP8)
+FP8_KV_CFG = _cfg(_W_FP8, _A_FP8, extra=KV_CACHE_FP8)
 FP8_WEIGHT_ONLY_CFG = _cfg(_W_FP8, None)
 NVFP4_WEIGHT_ONLY_CFG = _cfg(_W_NVFP4, None)
 W4A16_NVFP4_CFG = _cfg(_W_NVFP4, None)
@@ -179,6 +187,7 @@ choices = {
     "INT4_BLOCKWISE_WEIGHT_ONLY_CFG": INT4_BLOCKWISE_WEIGHT_ONLY_CFG,
     "INT8_WEIGHT_ONLY_CFG": INT8_WEIGHT_ONLY_CFG,
     "FP8_DEFAULT_CFG": FP8_DEFAULT_CFG,
+    "FP8_KV_CFG": FP8_KV_CFG,
     "FP8_WEIGHT_ONLY_CFG": FP8_WEIGHT_ONLY_CFG,
     "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
     "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,

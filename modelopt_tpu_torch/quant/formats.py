@@ -77,6 +77,21 @@ def parse_format(name_or_tuple) -> FPFormat:
     raise ValueError(f"Unrecognized FP format spec: {name_or_tuple!r}")
 
 
+_DIVISORS: dict = {}
+
+
+def true_divide(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` rounded once, on every device. PyTorch computes a CUDA
+    tensor over a Python float as x times the float's reciprocal, at times
+    an ulp from the CPU's quotient; a 0-d divisor on x's device gives the
+    true quotient on both (cached: no launch fills it again)."""
+    key = (x.device, float(value))
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = _DIVISORS[key] = torch.tensor(float(value), device=x.device)
+    return x / d
+
+
 def exp2_int(e: torch.Tensor) -> torch.Tensor:
     """Exact 2^e in f32 for integer e in [-126, 127], by assembling the
     exponent field."""

@@ -132,10 +132,10 @@ def test_moe_down_qgemm_matches_reference(rng, M, act_int8):
 
 @pytest.mark.parametrize("M,act_int8", [(8, False), (300, False), (300, True), (8, True)])
 def test_grouped_qgemm_matches_reference(rng, M, act_int8):
-    """Per-expert products without gates, [M, E, N]: weight-only rides K10
-    at M <= 256; above 256 rows (and, on the CPU only, int8 activations at
-    M <= 256, whose kernel K11 is not ported) the reference's dequantize +
-    product steps. bf16 tolerance as above."""
+    """Per-expert products without gates, [M, E, N]: at M <= 256
+    weight-only rides K10 and int8 activations K11; above 256 rows the
+    reference's dequantize + product steps, which the reference's CPU path
+    takes at every M. bf16 tolerance as above."""
     p, pt, x3, _, efn = _reference_args(rng, M)
     yj = np.asarray(jb.grouped_qgemm(jnp.asarray(x3, jnp.bfloat16), p, SPEC, efn,
                                      act_int8=act_int8, act_raw=act_int8)
@@ -163,15 +163,15 @@ def test_dispatch_sends_decode_shapes_to_the_kernels(rng, monkeypatch):
 
 
 def test_routes_without_a_kernel_raise_off_cpu():
-    """On a tensor off the CPU, the grouped product without a ported kernel
-    raises: int8 activations without gates at M <= 256 (K11). Formats for
-    which the reference has no grouped kernel at all (int8 experts) take
-    its XLA steps, dequantize + einsum, on either device, as int4 above 256
-    rows does."""
+    """On a tensor off the CPU, int8 activations without gates at M <= 256
+    go to K11's kernel, never to a dequantize path: here (no card) its
+    checks refuse the meta tensors. Formats for which the reference has no
+    grouped kernel at all (int8 experts) take its XLA steps, dequantize +
+    einsum, on either device, as int4 above 256 rows does."""
     E, K, N = 2, 256, 128
-    pt = tq.quantize_int4(torch.randn(K, E * N))
+    pt = {k: v.to("meta") for k, v in tq.quantize_int4(torch.randn(K, E * N)).items()}
     x3 = torch.empty(8, E, K, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+    with pytest.raises(ValueError, match="grouped_w4a8_gemm: all tensors must be on the card"):
         tb.grouped_qgemm(x3, pt, TSPEC, (E, K, N), act_int8=True, act_raw=True)
     p8 = {k: v.to("meta") for k, v in tq.quantize_int8(torch.randn(K, E * N)).items()}
     assert tb.grouped_qgemm(x3, p8, TSpec(num_bits=8, axis=(-1,)), (E, K, N)).shape == (8, E, N)

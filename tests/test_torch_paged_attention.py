@@ -205,20 +205,22 @@ def test_dispatch_rule(B, KH, G, D, ps, ok):
 
 
 def test_paged_wrapper_refusals():
-    """Sinks, softcap and e4m3 pools are not ported: refused on every
-    device. Off the CPU a tensor never reaches a twin: here (no card) the
-    kernels' checks refuse meta tensors, and shapes the CUDA kernels were
-    not written for raise before them."""
+    """Sinks and softcap are not ported: refused on every device. Off the
+    CPU a tensor never reaches a twin: here (no card) the kernels' checks
+    refuse meta tensors, e4m3 pools too (they have a CUDA branch, so they
+    are never dequantized for the bf16 one), and shapes the CUDA kernels
+    were not written for raise before them."""
     q = torch.zeros(1, 1, 2, 128)
     p = torch.zeros(4, 8, 128, dtype=torch.int8)
     pt = torch.zeros(1, 2, dtype=torch.int32)
     n = torch.ones(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="sinks"):
         tpa.paged_decode_attention(q, p, p, pt, n, softcap=5.0)
-    e4 = p.to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="e4m3"):
-        tpa.paged_decode_attention(q, e4, e4, pt, n)
     meta = dict(device="meta")
+    e4 = torch.zeros(4, 8, 128, dtype=torch.float8_e4m3fn, **meta)
+    with pytest.raises(ValueError, match="on the card"):
+        tpa.paged_decode_attention(torch.zeros(1, 1, 2, 128, **meta), e4, e4,
+                                   pt.to("meta"), n.to("meta"))
     mp = torch.zeros(4, 8, 128, dtype=torch.int8, **meta)
     mpt = torch.zeros(1, 2, dtype=torch.int32, **meta)
     mn = torch.ones(1, dtype=torch.int32, **meta)
