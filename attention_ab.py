@@ -1,0 +1,132 @@
+"""Time the port's attention kernels of one source tree on the card, to
+compare two commits on one card.
+
+    python3 attention_ab.py TREE [--prefill]   # TREE: a checkout holding modelopt_tpu_torch/
+
+Builds the tree's ``decode_attention``, ``fused_decode_attention``,
+``flash_attention`` and ``flash_prefill_attention`` sources, then times K2
+fused_decode_attention, K5 decode_attention, K15 paged_decode_attention and
+K17 block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
+(int8 and bf16 caches), and K4 flash_prefill_attention and K14
+flash_attention at every case of ``chip_smoke.py``'s ``flash_prefill_kernels``
+and ``flash_kernels`` (each held to the tree's plain twin at the bar stated
+there), with its timer: CUDA events, median of 25 launches, the 50 MB L2
+flushed and the stream spun before each. Inputs are seeded, the same in
+every tree. ``--prefill`` also builds path A's model (Llama-3-8B W4A8 +
+int8 KV, random weights, seed 0, KV scales from one 64-token forward) in
+the tree and runs ``chip_smoke.py``'s prefill window: one 1024-token prompt
+prefilled in the engine's chunks to its first token's logits, wall and
+device busy time by kernel. Prints one line per tree. Run it for each tree in
+turns (parent, change, change, parent) in one call, one process a tree:
+the package names collide. The functions of ``chip_smoke.py`` come from
+this file's directory, the package from TREE."""
+import importlib.util
+import os
+import sys
+
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+import torch  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke_ab", os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+from modelopt_tpu_torch.kernels import _build  # noqa: E402
+from modelopt_tpu_torch.kernels import attention as ka  # noqa: E402
+from modelopt_tpu_torch.kernels import block_sparse_attention as kb  # noqa: E402
+from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
+
+prefill = "--prefill" in sys.argv[2:]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
+                  "flash_prefill_attention")
+                 + (("w4a8_gemm", "kv_write") if prefill else ()))
+timer = cs.Timer(torch)
+dev = "cuda"
+gen = torch.Generator(device=dev).manual_seed(0)
+out = {}
+B, D = 8, 640
+for S, top in ((2176, 1088), (512, 512)):
+    q = (torch.randn(B, 1, 16, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
+    lat = torch.randint(-127, 128, (B, S, D), generator=gen, device=dev, dtype=torch.int8)
+    lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+    sc = torch.tensor(0.03, device=dev)
+    out[f"K5 int8 S={S}"] = timer(lambda: ka.decode_attention(q, lat, lat, lengths, sc, sc))
+lat = torch.randn(B, 2176, D, generator=gen, device=dev).to(torch.bfloat16)
+lengths = torch.linspace(1, 1088, B, device=dev).round().to(torch.int32)
+out["K5 bf16"] = timer(lambda: ka.decode_attention(q, lat, lat, lengths))
+ps, pmax, P = 64, 34, 145
+lens = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32, device=dev)
+perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0)) + 1
+pt = torch.zeros(8, pmax, dtype=torch.int32)
+used = 0
+for b, L in enumerate(lens.tolist()):
+    n = -(-L // ps)
+    pt[b, :n] = perm[used:used + n]
+    used += n
+pt = pt.to(dev)
+q = (torch.randn(8, 8, 4, 128, generator=gen, device=dev) * 2).to(torch.bfloat16)
+for kind in ("int8", "bf16"):
+    if kind == "int8":
+        kpool, vpool = (torch.randint(-127, 128, (P, ps, 1024), generator=gen, device=dev,
+                                      dtype=torch.int8) for _ in range(2))
+        ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
+    else:
+        kpool, vpool = (torch.randn(P, ps, 1024, generator=gen, device=dev).to(torch.bfloat16)
+                        for _ in range(2))
+        ks = vs = None
+    out[f"K15 {kind}"] = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lens, ks,
+                                                                  vs))
+pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
+q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
+for kind in ("int8", "bf16"):
+    shapes = [(8, 2176, 1024)] * 2 + [(8, 1, 1024)] * 2
+    if kind == "int8":
+        kc, vc, kn, vn = (torch.randint(-127, 128, sh, generator=gen, device=dev,
+                                        dtype=torch.int8) for sh in shapes)
+        ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
+    else:
+        kc, vc, kn, vn = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                          for sh in shapes)
+        ks = vs = None
+    out[f"K2 {kind}"] = timer(lambda: ka.fused_decode_attention(q, kn, vn, kc, vc, pos, ks, vs))
+lengths = torch.tensor([1025, 1041, 1057, 1073, 1088, 1029, 1064, 1087], dtype=torch.int32,
+                       device=dev)
+nvalid = torch.tensor([9, 5, 7, 4, 9, 6, 8, 3], dtype=torch.int32, device=dev)
+sel = torch.zeros(8, 17, dtype=torch.int32)
+for b, n in enumerate(nvalid.tolist()):
+    sel[b, :n] = torch.tensor([0, 7, 8, 1, 2, 3, 4, 5, 6][:n], dtype=torch.int32)
+sel = sel.to(dev)
+kc, vc = (torch.randint(-127, 128, (8, 2176, 1024), generator=gen, device=dev,
+                        dtype=torch.int8) for _ in range(2))
+ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
+out["K17 int8"] = timer(lambda: kb.block_sparse_decode_attention(q, kc, vc, sel, nvalid, lengths,
+                                                                  ks, vs, block_size=128))
+del kc, vc, kpool, vpool, lat
+
+# K4 and K14 at chip_smoke's cases, each against the tree's twin
+rows: dict = {}
+cs.flash_prefill_kernels(torch, torch.Generator(device=dev).manual_seed(0), timer,
+                         cs.recorder(rows))
+cs.flash_kernels(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
+for name, tag in (("flash_prefill_attention", "K4"), ("flash_attention", "K14")):
+    for r in rows[name]:
+        out[f"{tag} {r['shape']}"] = r["ms"]
+print(f"{os.path.basename(tree) or tree}: " + " | ".join(f"{k} {v:.4f}" for k, v in out.items()),
+      flush=True)
+
+if prefill:
+    from modelopt_tpu_torch.models import make_cache
+    from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
+    from modelopt_tpu_torch.quant.api import calibrate
+
+    cfg = cs.path_config(torch, "llama3_8b")
+    bundle = build_compressed_bundle(cfg, "W4A8_INT8KV_CFG", seed=0, device=dev)
+    ids = torch.randint(1, cfg.vocab_size, (1, 64), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    calibrate(bundle, "max", lambda f: f(ids, make_cache(cfg, 1, 64, device=dev)))
+    print(f"{os.path.basename(tree) or tree}: path A prefill window", flush=True)
+    cs.prefill_window(torch, bundle, cfg, torch.int8)

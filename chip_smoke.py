@@ -5,8 +5,10 @@
 
 Phases, in order (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), versions, kernel build time
-     (one nvcc per source, all started together); TF32 is switched off for
-     matmuls and cuDNN, so the MoE router's f32 product runs in full f32;
+     (one nvcc per source, all started together), ptxas registers and
+     spills (for the two flash sources per template instance); TF32 is
+     switched off for matmuls and cuDNN, so the MoE router's f32 product
+     runs in full f32;
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card at the serving paths' shapes — max abs error against a stated
      tolerance, kernel / plain / library-call times (CUDA events, median of
@@ -21,7 +23,8 @@ Phases, in order (any failure exits non-zero):
      down projection), then K1-K4 with K2 and K4 at both
      GQA groups the paths run (G = 4 and 8) and on e4m3 caches (K3 copying
      e4m3 rows; the e4m3 decode of K2 and K15 on all 256 codes, bit for
-     bit), then K5 decode_attention at
+     bit; K4 also at a prompt's first chunk, an unpadded second chunk, a
+     ragged row count and with f32 output), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
      paged_decode_attention at path E's decode shape (int8 pools, e4m3
@@ -30,8 +33,9 @@ Phases, in order (any failure exits non-zero):
      E's, F's and L's decode steps, K17
      block_sparse_decode_attention at path J's decode shape (int8 and bf16
      caches, fewer live blocks than in range, lengths mid-block) and K14
-     flash_attention at J's calibration forwards (and with a window and
-     sinks, and with rows not a multiple of its tile);
+     flash_attention at J's calibration forwards (and with windows and
+     sinks, one long enough that whole key tiles are skipped, and with
+     rows not a multiple of its tile, in f32 and bf16);
   3. parity: small models built from the same numpy weights on the CPU
      (plain versions) and on the card (kernels), prefill and 4 decode steps
      compared: a 2-layer Qwen3-MoE at the real per-expert geometry (hidden
@@ -82,7 +86,9 @@ Phases, in order (any failure exits non-zero):
           e4m3 KV cache;
        L: K over paged e4m3 pools of 145 pages;
      after each measured run, a torch.profiler window over decode ticks
-     (device time by kernel, idle share) and one checked request;
+     (device time by kernel, idle share) and one checked request; after
+     A's, a prefill window (one 1024-token prompt in the engine's chunks
+     to its first token: wall, device time of K1, K3, K4 and the rest);
        J: A's model and KV calibration, then at the Decoder level (no
           engine serves skip-softmax): calibrate_skip_softmax on RULER
           needle batches (K14 in its capture forwards), 8 prompts of 1024
@@ -90,7 +96,8 @@ Phases, in order (any failure exits non-zero):
           K17, with launch asserts and a profile window of 16 decode steps.
 Then one JSON line of per-kernel numbers, and last the device line.
 To iterate on one phase, import this module and call its phase function
-(``kernel_phase``, ``parity_phase``, ``gateless_phase``, ``serve_path``)
+(``kernel_phase``, ``flash_prefill_kernels``, ``flash_kernels``,
+``parity_phase``, ``gateless_phase``, ``serve_path``, ``prefill_window``)
 directly after ``_build.build_all()``; they print no contract line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -101,6 +108,8 @@ import contextlib
 import gc
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -417,6 +426,41 @@ def kernel_phase(torch, results: dict) -> None:
                    err, tol, ms, plain_ms, lib_ms, nbytes, 4 * live * KH * G * D, rate)
             del kc, vc, kd, vd, kt, vt
 
+    flash_prefill_kernels(torch, gen, timer, record)
+    mla_decode_kernel(torch, gen, timer, record)
+    paged_kernels(torch, gen, timer, record)
+    skip_softmax_kernels(torch, gen, timer, record)
+
+    # the reference's e4m3 branches no path of the port runs (K5, K17):
+    # an e4m3 cache on the card is refused, never dequantized for bf16
+    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
+
+    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
+    c = e4m3_codes(torch, gen, (1, 256, 128))
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
+                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
+                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
+                           one))):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} took an e4m3 cache on the card")
+    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
+
+
+def flash_prefill_kernels(torch, gen, timer, record) -> None:
+    """K4 at the served paths' chunks: the second of a 1024-token prompt
+    (T = 544 padded to its bucket, start 544) at both GQA groups on int8,
+    bf16 and e4m3 caches; the first (start 0) and the unpadded second (T =
+    480, start 544) on int8; a ragged row count (T = 481, G = 8: 3848 rows,
+    not a multiple of the 64-row tile) on bf16."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import flash_attention as kf
+
+    dev = "cuda"
     # K4 — online softmax vs one pass: the kernel rounds unnormalised
     # probabilities to bf16, the plain version normalised ones, each within
     # 2^-8 relative. Were every rounding maximal and of one sign on both
@@ -427,8 +471,19 @@ def kernel_phase(torch, results: dict) -> None:
     # <= 2^-7 * max|ref| (0.0078 measured on an H100).
     # e4m3 codes (path K) dequantize to bf16 as int8 codes do: the same bar.
     log("K4 flash_prefill_attention")
-    B, T, S, D, st = 1, 544, 2176, 128, 544
-    for KH, G, kind in ((8, 4, "int8"), (4, 8, "int8"), (4, 8, "bf16"), (8, 4, "e4m3")):
+    B, S, D = 1, 2176, 128
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = ((8, 4, "int8", 544, 544, bf16), (4, 8, "int8", 544, 544, bf16),
+             (4, 8, "bf16", 544, 544, bf16), (8, 4, "e4m3", 544, 544, bf16),
+             (8, 4, "int8", 544, 0, bf16), (8, 4, "int8", 480, 544, bf16),
+             (4, 8, "bf16", 481, 544, bf16), (8, 4, "int8", 480, 544, f32))
+    # the cases from the fifth on draw from a generator of their own, so the
+    # first four (and every later phase) keep the inputs they had before
+    # those cases were added
+    gen_new = torch.Generator(device=dev).manual_seed(9)
+    for i, (KH, G, kind, T, st, odt) in enumerate(cases):
+        if i == 4:
+            gen = gen_new
         q = torch.randn(B, T, KH, G, D, generator=gen, device=dev).to(torch.bfloat16)
         if kind == "e4m3":
             ck, cv = (e4m3_codes(torch, gen, (B, S, KH * D)) for _ in range(2))
@@ -454,13 +509,13 @@ def kernel_phase(torch, results: dict) -> None:
             vmax = cv.float().abs().max().item()
             kd, vd = ck, cv
         start = torch.full((B,), st, dtype=torch.int32, device=dev)
-        out = kf.flash_prefill_attention(q, ck, cv, start, ks, vs)
-        ref = kf.flash_prefill_attention_plain(q, ck, cv, start, ks, vs)
+        out = kf.flash_prefill_attention(q, ck, cv, start, ks, vs, odt)
+        ref = kf.flash_prefill_attention_plain(q, ck, cv, start, ks, vs, odt)
         err = (out.float() - ref.float()).abs().max().item()
-        tol = 2**-8 * vmax + 2**-7 * ref.float().abs().max().item()
-        ms = timer(lambda: kf.flash_prefill_attention(q, ck, cv, start, ks, vs))
+        tol = 2**-8 * vmax + (2**-7 * ref.float().abs().max().item() if odt == bf16 else 0.0)
+        ms = timer(lambda: kf.flash_prefill_attention(q, ck, cv, start, ks, vs, odt))
         plain_ms = timer(lambda: kf.flash_prefill_attention_plain(
-            q, ck, cv, start, ks, vs), 5)
+            q, ck, cv, start, ks, vs, odt), 5)
         qs = q.reshape(B, T, KH * G, D).transpose(1, 2)
         k4 = kd.reshape(B, S, KH, D).transpose(1, 2)
         v4 = vd.reshape(B, S, KH, D).transpose(1, 2)
@@ -468,33 +523,13 @@ def kernel_phase(torch, results: dict) -> None:
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qs, k4, v4, attn_mask=mask, enable_gqa=True))
         keys = sum(st + t + 1 for t in range(T))
-        nbytes = q.numel() * 2 * 2 + 2 * B * (st + T) * KH * D * ck.element_size()
+        nbytes = q.numel() * 2 + out.numel() * out.element_size() + \
+            2 * B * (st + T) * KH * D * ck.element_size()
         record("flash_prefill_attention",
-               f"B={B} T={T} S={S} KH={KH} G={G} D={D} {kind} start={st}",
+               f"B={B} T={T} S={S} KH={KH} G={G} D={D} {kind} start={st}"
+               + (" f32 out" if odt == f32 else ""),
                err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * B * keys * KH * G * D, BF16_FLOPS)
-
-    mla_decode_kernel(torch, gen, timer, record)
-    paged_kernels(torch, gen, timer, record)
-    skip_softmax_kernels(torch, gen, timer, record)
-
-    # the reference's e4m3 branches no path of the port runs (K5, K17):
-    # an e4m3 cache on the card is refused, never dequantized for bf16
-    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
-
-    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
-    c = e4m3_codes(torch, gen, (1, 256, 128))
-    one = torch.ones(1, dtype=torch.int32, device=dev)
-    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
-                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
-                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
-                           one))):
-        try:
-            call()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{name} took an e4m3 cache on the card")
-    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
 
 
 def mla_decode_kernel(torch, gen, timer, record) -> None:
@@ -718,13 +753,10 @@ def skip_softmax_kernels(torch, gen, timer, record) -> None:
     128-row blocks, NSEL=17 table entries) on int8 and bf16 caches, lengths
     in the middle of the 9th block, fewer live entries than in-range blocks
     in shuffled order (forced blocks first, as ``select_blocks`` orders
-    them); K14 at J's calibration forwards (B=2, T=S=1024, KH=8, G=4,
-    D=128, bf16), with a sliding window and sink tokens (D=64), and with a
-    row count that is not a multiple of the 64-row tile (f32)."""
+    them); then K14 (``flash_kernels``)."""
     import torch.nn.functional as F
 
     from modelopt_tpu_torch.kernels import block_sparse_attention as kb
-    from modelopt_tpu_torch.kernels import flash_attention as kf
 
     dev = "cuda"
     # K17: as K5 and K15 (the same kernel body), kernel and plain version
@@ -785,6 +817,20 @@ def skip_softmax_kernels(torch, gen, timer, record) -> None:
                "mid-block", err, tol, ms, plain_ms, lib_ms, nbytes, 4 * keys * KH * G * D, rate)
         del kc, vc, kd, vd
 
+    flash_kernels(torch, gen, timer, record)
+
+
+def flash_kernels(torch, gen, timer, record) -> None:
+    """K14 at J's calibration forwards (B=2, T=S=1024, KH=8, G=4, D=128,
+    bf16: the tensor-core tile, f32 probabilities split hi + lo), with a
+    sliding window and sink tokens (D=64; at T = 1024 whole key tiles lie
+    outside every row's window and are skipped), and with a row count that
+    is not a multiple of the 64-row tile (f32: the CUDA-core tile; bf16)."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import flash_attention as kf
+
+    dev = "cuda"
     # K14: online softmax over 64-key tiles against the one-pass plain
     # version, both in f32: the rescaled sums differ in rounding, at most
     # S * 2^-24 * max|v| for S keys; then the output rounds to q's dtype,
@@ -792,8 +838,14 @@ def skip_softmax_kernels(torch, gen, timer, record) -> None:
     log("K14 flash_attention")
     cases = ((2, 1024, 8, 4, 128, None, 0, torch.bfloat16, "causal"),
              (1, 512, 2, 4, 64, 64, 4, torch.bfloat16, "window=64 sink=4"),
-             (1, 200, 2, 1, 128, None, 0, torch.float32, "200 rows causal"))
-    for B, T, KH, G, D, window, sink, dt, label in cases:
+             (1, 200, 2, 1, 128, None, 0, torch.float32, "200 rows causal"),
+             (1, 1024, 2, 4, 64, 128, 4, torch.bfloat16, "window=128 sink=4"),
+             (1, 200, 2, 1, 128, None, 0, torch.bfloat16, "200 rows causal"))
+    # the cases from the fourth on draw from a generator of their own (see K4)
+    gen_new = torch.Generator(device=dev).manual_seed(14)
+    for i, (B, T, KH, G, D, window, sink, dt, label) in enumerate(cases):
+        if i == 3:
+            gen = gen_new
         q = torch.randn(B, T, KH, G, D, generator=gen, device=dev).to(dt)
         k, v = (torch.randn(B, T, KH, D, generator=gen, device=dev).to(dt) for _ in range(2))
         fa = dict(causal=True, window=window, sink=sink)
@@ -1770,6 +1822,8 @@ def serve_path(torch, name) -> dict:
                           vocab=cfg.vocab_size)
     log(f"  warm-up request {time.time() - t0:.1f} s")
     launches = measured_run(torch, eng, name)
+    if name == "A":
+        prefill_window(torch, bundle, cfg, kv_dtype)
     # the cache tensors the kernels wrote are the path's dtype (K and L:
     # e4m3, so the kernels' e4m3 branches ran, not the bf16 ones)
     if not all(t.dtype == kv_dtype for t in eng.cache["k"] + eng.cache["v"] + caches):
@@ -1959,10 +2013,61 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
                    f"{eng.stats['prefill_chunks'] - forwards[1]} prefill chunks")
 
 
-def report_profile(torch, prof, wall: float, what: str) -> None:
+def prefill_window(torch, bundle, cfg, kv_dtype) -> None:
+    """One prompt of TRAFFIC's length prefilled alone into a one-slot cache
+    of the engine's width, as the engine streams it (544-row chunks, the
+    last padded with zeros, logits at its last true token; no decode tick),
+    once unprofiled and once under torch.profiler: the wall time to the
+    first token's logits and the device busy time by kernel, K1, K3, K4 and
+    the rest (path A's prefill row)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modelopt_tpu_torch.models import make_cache
+
+    n, bucket, dev = TRAFFIC[1], 544, "cuda"
+    rng = torch.Generator().manual_seed(11)
+    cache = make_cache(cfg, 1, 2176, kv_dtype, device=dev)
+
+    def prefill():
+        prompt = torch.randint(1, cfg.vocab_size, (n,), dtype=torch.int32, generator=rng)
+        for lo in range(0, n, bucket):
+            chunk = prompt[lo:lo + bucket]
+            ids = torch.zeros(1, bucket, dtype=torch.int32)
+            ids[0, :len(chunk)] = chunk
+            sub = {"k": cache["k"], "v": cache["v"],
+                   "lengths": torch.full((1,), lo, dtype=torch.int32, device=dev)}
+            logits, _ = bundle.apply(ids.to(dev), sub,
+                                     logits_index=torch.full((1,), len(chunk) - 1, device=dev))
+        torch.cuda.synchronize()
+        return logits
+
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        logits = prefill()
+        walls.append(time.time() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        logits = prefill()
+        wall = time.time() - t0
+    if not torch.isfinite(logits).all():
+        raise AssertionError("prefill window: logits not finite")
+    by_name = report_profile(torch, prof, wall, f"one {n}-token prompt to its first token's "
+                             f"logits, {-(-n // bucket)} chunks of {bucket}")
+    split = {k: sum(v for name, v in by_name.items() if key in name) for k, key in (
+        ("K1", "w4a8_kernel"), ("K3", "kv_write_kernel"), ("K4", "flash_prefill_kernel"))}
+    busy = sum(by_name.values())
+    log(f"  prefill row: wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms unprofiled, "
+        f"{wall * 1e3:.1f} ms profiled; device busy {busy:.2f} ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f", rest {busy - sum(split.values()):.2f}")
+
+
+def report_profile(torch, prof, wall: float, what: str) -> dict:
     """Log a profile window: device time by kernel, kernel launches, device
     busy time against the wall clock (the idle share is an upper bound: the
-    profiler's own host cost lengthens the wall)."""
+    profiler's own host cost lengthens the wall). Returns the device ms by
+    kernel name."""
     from torch.autograd import DeviceType
 
     by_name = {}
@@ -1993,6 +2098,40 @@ def report_profile(torch, prof, wall: float, what: str) -> None:
     for name, ms in top:
         log(f"    {ms:9.2f} ms  {name[:90]}")
     log(f"    port kernels (ms): {json.dumps({k: round(v, 3) for k, v in ours.items()})}")
+    return by_name
+
+
+FLASH_SOURCES = ("flash_attention", "flash_prefill_attention")
+
+
+def ptxas_by_function(text: str) -> dict:
+    """nvcc -Xptxas -v output as {kernel: [its register, spill and static
+    shared-memory lines]}, each kernel named by its template instance where
+    c++filt can demangle it."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out.setdefault(fn, [])
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+            out.setdefault(fn, [])
+        elif fn is not None and ("registers" in line or "spill" in line or "smem" in line):
+            out[fn].append(line.strip().removeprefix("ptxas info    : "))
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for tool in ("c++filt", os.path.join(CUDA_HOME or "", "bin", "cu++filt")):
+        try:
+            plain = subprocess.run([tool], input="\n".join(out), capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        if len(plain) == len(out):
+            break
+    else:
+        return out
+    short = [(re.search(r"\w+<[^>]*>", p) or re.search(r"\w+", p)).group(0) for p in plain]
+    return dict(zip(short, out.values()))
 
 
 # --------------------------------------------------------------------------
@@ -2017,9 +2156,15 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build {time.time() - t0:.1f} s")
     for name, text in _build.BUILD_LOG.items():
+        if name in FLASH_SOURCES:  # the tensor-core tiles: each template instance
+            for fn, lines in ptxas_by_function(text).items():
+                log(f"  ptxas {name} {fn}: {' | '.join(lines)}")
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log("  flash tiles' dynamic shared memory (csrc/flash_tile.cuh smem_bytes): "
+        + ", ".join(f"D={d} {(64 * d + 4 * 64 * d) * 2} bytes" for d in (64, 128)))
 
     results: dict = {}
     kernel_phase(torch, results)

@@ -109,6 +109,12 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its data starts on a 16-byte boundary (the 16-byte copies of
+    the flash tiles need it), else a fresh copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_cuda(name: str, *tensors) -> None:
     """Every tensor on one CUDA device and contiguous (None entries skip)."""
     dev = None

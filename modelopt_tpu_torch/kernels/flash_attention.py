@@ -90,6 +90,7 @@ def _flash_forward(q, k, v, causal, window, sink):
             f"{q.dtype}, {k.dtype}, {v.dtype}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.check_cuda("flash_attention", q, k, v)
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _build.function("flash_attention", [_build.c_ptr] * 4 + [_build.c_int] * 9
                          + [_build.c_float, _build.c_int, _build.c_ptr])
@@ -200,6 +201,7 @@ def flash_prefill_attention(q, ck, cv, start, k_scale=None, v_scale=None,
         scales = [_scalar(k_scale, q.device), _scalar(v_scale, q.device)]
     q = q.to(torch.bfloat16).contiguous()
     _build.check_cuda("flash_prefill_attention", q, ck, cv, start, *scales)
+    q, ck, cv = (_build.aligned16(t) for t in (q, ck, cv))
     out = torch.empty(B, T, KH, G, D, dtype=out_dtype, device=q.device)
     f32 = out_dtype == torch.float32
     fn = _build.function("flash_prefill_attention", [_build.c_ptr] * 8

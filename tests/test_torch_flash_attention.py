@@ -1,8 +1,11 @@
 """K4 flash_prefill_attention and K14 flash_attention: the port's plain
 versions (what the CUDA kernels are held to on the card) against the JAX
-Pallas kernels in interpret mode: K4 with chunks that start past 0, K14
-causal, with a window and sinks, with rows not a multiple of the tile, at
-G = 1 and 4; K14's gradient against ``jax.grad`` of the reference's."""
+Pallas kernels in interpret mode: K4 with chunks that start past 0, and at
+the served head geometry (D = 128, G = 4 and 8) with a chunk at start 0, one
+that ends at the cache's last row and a ragged row count; K14 causal, with
+a window and sinks, with rows not a multiple of the tile, at G = 1 and 4,
+and at D = 128, G = 4 in bf16; K14's gradient against ``jax.grad`` of the
+reference's."""
 
 import jax
 import jax.numpy as jnp
@@ -32,13 +35,31 @@ def interp():
         yield
 
 
-@pytest.mark.parametrize("kind,tol", [("bf16", 2e-2), ("int8", 3e-2)])
-def test_flash_prefill_plain_matches_pallas(rng, interp, kind, tol):
+# (T, KH, G, D, S, starts): a small chunk past 0, then the served head geometry
+# (D = 128, Llama-3-8B's G = 4 and Qwen3-30B-A3B's G = 8) with a chunk at
+# start 0, a chunk that ends at row S - 1, and a ragged T * G (not a multiple
+# of the card's 64-row tile)
+PREFILL_SMALL = (64, 2, 2, 64, 256, (32, 100))
+PREFILL_SERVED = {
+    "G4-start0": (64, 2, 4, 128, 256, (0, 0)),
+    "G8-ends-at-S": (64, 1, 8, 128, 256, (192, 100)),
+    "G4-ragged": (41, 2, 4, 128, 256, (0, 215)),
+    "G8-ragged": (33, 1, 8, 128, 256, (64, 223)),
+}
+
+
+@pytest.mark.parametrize("kind,tol,geom", [
+    pytest.param("bf16", 2e-2, PREFILL_SMALL, id="bf16-0.02"),
+    pytest.param("int8", 3e-2, PREFILL_SMALL, id="int8-0.03"),
+] + [pytest.param(kind, tol, geom, id=f"{kind}-{name}")
+     for kind, tol in (("bf16", 2e-2), ("int8", 3e-2)) for name, geom in PREFILL_SERVED.items()])
+def test_flash_prefill_plain_matches_pallas(rng, interp, kind, tol, geom):
     """Same math on both sides (bf16 operands, f32 sums, -1e9 mask); the
     bars are the reference suite's (test_flash_attention.py:91,110)."""
-    B, T, KH, G, D, S = 2, 64, 2, 2, 64, 256
+    T, KH, G, D, S, starts = geom
+    B = 2
     q = rng.standard_normal((B, T, KH, G, D)).astype(np.float32)
-    start = np.asarray([32, 100], np.int32)
+    start = np.asarray(starts, np.int32)
     if kind == "int8":
         ck = rng.integers(-127, 128, (B, S, KH * D)).astype(np.int8)
         cv = rng.integers(-127, 128, (B, S, KH * D)).astype(np.int8)
@@ -60,22 +81,29 @@ def test_flash_prefill_plain_matches_pallas(rng, interp, kind, tol):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("T,G,window,sink,dtype", [
-    (128, 4, None, 0, "f32"),    # causal
-    (128, 4, 32, 4, "f32"),      # sliding window with sink tokens
-    (96, 4, None, 0, "f32"),     # T * G rows not a multiple of the 64-row tile
-    (128, 1, None, 0, "f32"),    # G = 1
-    (256, 4, 64, 2, "bf16"),     # bf16 in and out
+@pytest.mark.parametrize("T,G,window,sink,dtype,D", [
+    pytest.param(128, 4, None, 0, "f32", 64, id="128-4-None-0-f32"),  # causal
+    # sliding window with sink tokens
+    pytest.param(128, 4, 32, 4, "f32", 64, id="128-4-32-4-f32"),
+    # T * G rows not a multiple of the 64-row tile
+    pytest.param(96, 4, None, 0, "f32", 64, id="96-4-None-0-f32"),
+    pytest.param(128, 1, None, 0, "f32", 64, id="128-1-None-0-f32"),  # G = 1
+    pytest.param(256, 4, 64, 2, "bf16", 64, id="256-4-64-2-bf16"),  # bf16 in and out
+    # the served geometry (J's calibration: D = 128, G = 4, bf16) with T * G
+    # = 400 and 1000 rows, not multiples of the card's 64-row tile
+    pytest.param(100, 4, None, 0, "bf16", 128, id="100-4-None-0-bf16-D128"),
+    pytest.param(250, 4, None, 0, "bf16", 128, id="250-4-None-0-bf16-D128"),
 ])
-def test_flash_attention_plain_matches_pallas(rng, interp, T, G, window, sink, dtype):
+def test_flash_attention_plain_matches_pallas(rng, interp, T, G, window, sink, dtype, D):
     """The twin computes the TPU kernel's one-pass f32 softmax: within 1e-5
     of it in f32 (summation order only), one bf16 output ulp in bf16."""
-    B, KH, D = 2, 2, 64
+    B, KH = 2, 2
     q = rng.standard_normal((B, T, KH, G, D)).astype(np.float32)
     k = rng.standard_normal((B, T, KH, D)).astype(np.float32)
     v = rng.standard_normal((B, T, KH, D)).astype(np.float32)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16,
                                                                       torch.bfloat16)
+    # the reference's q tile: 64 rows (and at T * G = 1000, a padded last tile)
     want = jf.flash_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), True, window, sink, 64)
     got = tf.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=True,
                              window=window, sink=sink)

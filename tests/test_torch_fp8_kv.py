@@ -1,10 +1,10 @@
 """FP8_KV_CFG on the CPU: e4m3 KV caches in the port against the JAX
 package. The e4m3 decode on every code, the k / v quantizers' e4m3 codes,
-the twins of K2 fused_decode_attention, K4 flash_prefill_attention and K15
-paged_decode_attention on e4m3 caches against the interpreted Pallas
-kernels, K3 / K16 writing e4m3 rows, and both serving engines (dense and
-paged e4m3 caches) token for token, the reference decoding through its
-interpret-mode kernels. The e4m3 branches no path runs yet (K5, K17, the
+the twins of K2 fused_decode_attention, K4 flash_prefill_attention (also at
+the served head geometry) and K15 paged_decode_attention on e4m3 caches
+against the interpreted Pallas kernels, K3 / K16 writing e4m3 rows, and
+both serving engines (dense and paged e4m3 caches) token for token, the
+reference decoding through its interpret-mode kernels. The e4m3 branches no path runs yet (K5, K17, the
 MLA latent cache) stay refused."""
 
 import dataclasses
@@ -38,6 +38,7 @@ from modelopt_tpu_torch.nn.quantizer import TensorQuantizer, quantization_active
 from modelopt_tpu_torch.quant.config import get_config
 from modelopt_tpu_torch.serve import ServingEngine
 from tests._test_utils.pallas_interpret import pallas_interpreted
+from tests.test_torch_flash_attention import PREFILL_SERVED
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -143,6 +144,25 @@ def test_flash_prefill_e4m3_plain_matches_pallas(rng, interp):
     B, T, KH, G, D, S = 2, 64, 2, 2, 64, 256
     q = rng.standard_normal((B, T, KH, G, D)).astype(np.float32)
     start = np.asarray([32, 100], np.int32)
+    (ckj, ckt), (cvj, cvt) = (_codes(rng, (B, S, KH * D)) for _ in range(2))
+    ks, vs = 0.011, 0.017
+    want = jf.flash_prefill_attention(jnp.asarray(q), ckj, cvj, jnp.asarray(start),
+                                      k_scale=ks, v_scale=vs, out_dtype=jnp.float32)
+    got = tf.flash_prefill_attention(torch.from_numpy(q), ckt, cvt, torch.from_numpy(start),
+                                     k_scale=ks, v_scale=vs, out_dtype=torch.float32)
+    assert got.shape == (B, T, KH, G, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("geom", list(PREFILL_SERVED.values()), ids=list(PREFILL_SERVED))
+def test_flash_prefill_e4m3_served_geometry(rng, interp, geom):
+    """K4 on e4m3 caches at the served head geometry (D = 128, G = 4 and 8):
+    a chunk at start 0, one that ends at the cache's last row, ragged row
+    counts; the same 1e-2 of the Pallas kernel."""
+    T, KH, G, D, S, starts = geom
+    B = 2
+    q = rng.standard_normal((B, T, KH, G, D)).astype(np.float32)
+    start = np.asarray(starts, np.int32)
     (ckj, ckt), (cvj, cvt) = (_codes(rng, (B, S, KH * D)) for _ in range(2))
     ks, vs = 0.011, 0.017
     want = jf.flash_prefill_attention(jnp.asarray(q), ckj, cvj, jnp.asarray(start),
