@@ -1,28 +1,33 @@
-"""Time the port's attention kernels of one source tree on the card, to
-compare two commits on one card.
+"""Time the port's attention kernels and K1 of one source tree on the card,
+to compare two commits on one card.
 
     python3 attention_ab.py TREE [--prefill]   # TREE: a checkout holding modelopt_tpu_torch/
 
 Builds the tree's ``decode_attention``, ``fused_decode_attention``,
-``flash_attention`` and ``flash_prefill_attention`` sources, then times K2
-fused_decode_attention, K5 decode_attention, K15 paged_decode_attention and
-K17 block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
-(int8 and bf16 caches), and K4 flash_prefill_attention and K14
-flash_attention at every case of ``chip_smoke.py``'s ``flash_prefill_kernels``
-and ``flash_kernels`` (each held to the tree's plain twin at the bar stated
-there), with its timer: CUDA events, median of 25 launches, the 50 MB L2
-flushed and the stream spun before each. Inputs are seeded, the same in
-every tree. ``--prefill`` also builds path A's model (Llama-3-8B W4A8 +
-int8 KV, random weights, seed 0, KV scales from one 64-token forward) in
-the tree and runs ``chip_smoke.py``'s prefill window: one 1024-token prompt
-prefilled in the engine's chunks to its first token's logits, wall and
-device busy time by kernel. Prints one line per tree. Run it for each tree in
-turns (parent, change, change, parent) in one call, one process a tree:
-the package names collide. The functions of ``chip_smoke.py`` come from
-this file's directory, the package from TREE."""
+``flash_attention``, ``flash_prefill_attention`` and ``w4a8_gemm`` sources,
+then times K5 decode_attention, K15 paged_decode_attention and K17
+block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
+(int8 and bf16 caches), and K2 fused_decode_attention, K1 w4a8_gemm, K4
+flash_prefill_attention and K14 flash_attention at every case of
+``chip_smoke.py``'s ``fused_decode_kernels``, ``w4a8_kernels``,
+``flash_prefill_kernels`` and ``flash_kernels`` (each held to the tree's
+plain twin at the bar stated there), with its timer: CUDA events, median of
+25 launches, the 50 MB L2 flushed and the stream spun before each; and the host time
+of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
+M = 8 and 544; calls enqueued behind a spin of the stream). Inputs
+are seeded, the same in every tree. ``--prefill`` also builds path A's
+model (Llama-3-8B W4A8 + int8 KV, random weights, seed 0, KV scales from one
+64-token forward) in the tree and runs ``chip_smoke.py``'s prefill window:
+one 1024-token prompt prefilled in the engine's chunks to its first token's
+logits, wall and device busy time by kernel. Prints the card's name and
+power limit, then one line per tree. Run
+it for each tree in turns (parent, change, change, parent) in one call, one
+process a tree: the package names collide. The functions of
+``chip_smoke.py`` come from this file's directory, the package from TREE."""
 import importlib.util
 import os
 import sys
+import time
 
 tree = os.path.abspath(sys.argv[1])
 sys.path.insert(0, tree)
@@ -42,9 +47,9 @@ prefill = "--prefill" in sys.argv[2:]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
-                  "flash_prefill_attention")
-                 + (("w4a8_gemm", "kv_write") if prefill else ()))
+                  "flash_prefill_attention", "w4a8_gemm") + (("kv_write",) if prefill else ()))
 timer = cs.Timer(torch)
+print(f"{os.path.basename(tree) or tree}: card {cs.card_line()}", flush=True)
 dev = "cuda"
 gen = torch.Generator(device=dev).manual_seed(0)
 out = {}
@@ -80,19 +85,7 @@ for kind in ("int8", "bf16"):
         ks = vs = None
     out[f"K15 {kind}"] = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lens, ks,
                                                                   vs))
-pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
 q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
-for kind in ("int8", "bf16"):
-    shapes = [(8, 2176, 1024)] * 2 + [(8, 1, 1024)] * 2
-    if kind == "int8":
-        kc, vc, kn, vn = (torch.randint(-127, 128, sh, generator=gen, device=dev,
-                                        dtype=torch.int8) for sh in shapes)
-        ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
-    else:
-        kc, vc, kn, vn = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
-                          for sh in shapes)
-        ks = vs = None
-    out[f"K2 {kind}"] = timer(lambda: ka.fused_decode_attention(q, kn, vn, kc, vc, pos, ks, vs))
 lengths = torch.tensor([1025, 1041, 1057, 1073, 1088, 1029, 1064, 1087], dtype=torch.int32,
                        device=dev)
 nvalid = torch.tensor([9, 5, 7, 4, 9, 6, 8, 3], dtype=torch.int32, device=dev)
@@ -107,14 +100,46 @@ out["K17 int8"] = timer(lambda: kb.block_sparse_decode_attention(q, kc, vc, sel,
                                                                   ks, vs, block_size=128))
 del kc, vc, kpool, vpool, lat
 
-# K4 and K14 at chip_smoke's cases, each against the tree's twin
+# K2, K4, K14 and K1 at chip_smoke's cases, each against the tree's twin
 rows: dict = {}
-cs.flash_prefill_kernels(torch, torch.Generator(device=dev).manual_seed(0), timer,
-                         cs.recorder(rows))
-cs.flash_kernels(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
-for name, tag in (("flash_prefill_attention", "K4"), ("flash_attention", "K14")):
+for phase in (cs.fused_decode_kernels, cs.flash_prefill_kernels, cs.flash_kernels,
+              cs.w4a8_kernels):
+    phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
+for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
+                  ("flash_attention", "K14"), ("w4a8_gemm", "K1")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host time of one wrapper call (us): n calls enqueued behind a ~20 ms
+    spin of the stream, so that no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+from modelopt_tpu_torch.kernels import quant_gemm as kq  # noqa: E402
+
+pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
+q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
+kc, vc = (torch.randint(-127, 128, (8, 2176, 1024), generator=gen, device=dev,
+                        dtype=torch.int8) for _ in range(2))
+kn, vn = (torch.randint(-127, 128, (8, 1, 1024), generator=gen, device=dev,
+                        dtype=torch.int8) for _ in range(2))
+out["K2 host us"] = host_us(lambda: ka.fused_decode_attention(q, kn, vn, kc, vc, pos, ks, vs))
+packed = torch.randint(0, 256, (2048, 4096), generator=gen, device=dev, dtype=torch.uint8)
+scale = torch.rand(32, 4096, generator=gen, device=dev) * 0.01
+for M in (8, 544):
+    xq = torch.randint(-127, 128, (M, 4096), generator=gen, device=dev, dtype=torch.int8)
+    out[f"K1 M={M} host us"] = host_us(lambda: kq.w4a8_gemm(xq, packed, scale))
+del kc, vc
 print(f"{os.path.basename(tree) or tree}: " + " | ".join(f"{k} {v:.4f}" for k, v in out.items()),
       flush=True)
 

@@ -6,9 +6,9 @@
 Phases, in order (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), versions, kernel build time
      (one nvcc per source, all started together), ptxas registers and
-     spills (for the two flash sources per template instance); TF32 is
-     switched off for matmuls and cuDNN, so the MoE router's f32 product
-     runs in full f32;
+     spills (per template instance for the two flash sources, K1's
+     w4a8_gemm and K2's cluster kernel); TF32 is switched off for matmuls
+     and cuDNN, so the MoE router's f32 product runs in full f32;
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card at the serving paths' shapes — max abs error against a stated
      tolerance, kernel / plain / library-call times (CUDA events, median of
@@ -20,11 +20,15 @@ Phases, in order (any failure exits non-zero):
      geometries, bit for bit), the fp / int8 weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, K9
      nvfp4_gemm at Qwen3-30B-A3B's, K13 grouped_nvfp4_gemm at its expert
-     down projection), then K1-K4 with K2 and K4 at both
-     GQA groups the paths run (G = 4 and 8) and on e4m3 caches (K3 copying
-     e4m3 rows; the e4m3 decode of K2 and K15 on all 256 codes, bit for
-     bit; K4 also at a prompt's first chunk, an unpadded second chunk, a
-     ragged row count and with f32 output), then K5 decode_attention at
+     down projection), then K1-K4: K1 at Llama-3-8B's four projections at
+     M = 8 and 544 and at its prefill tile's edges (M = 9, 32, 64, 65, 130,
+     300 at N = 576, and M = 32 at 4096 x 28672), K2 and K4 at both GQA
+     groups the paths run (G = 4 and 8) and on e4m3 caches (K2 also at the
+     decode windows' short contexts and at ~512 keys, at S = 2048, eight
+     256-key chunks, with positions at chunk and cluster-range edges, and
+     on long caches, S = 4096 to 32768; K3 copying e4m3 rows; the e4m3 decode of K2 and K15 on all 256
+     codes, bit for bit; K4 also at a prompt's first chunk, an unpadded
+     second chunk, a ragged row count and with f32 output), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
      paged_decode_attention at path E's decode shape (int8 pools, e4m3
@@ -264,12 +268,7 @@ def recorder(results: dict):
 
 
 def kernel_phase(torch, results: dict) -> None:
-    import torch.nn.functional as F
-
     from modelopt_tpu_torch.kernels import attention as ka
-    from modelopt_tpu_torch.kernels import flash_attention as kf
-    from modelopt_tpu_torch.kernels import quant_gemm as kq
-    from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
 
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -279,35 +278,7 @@ def kernel_phase(torch, results: dict) -> None:
     moe_kernels(torch, gen, timer, record)
     fp_kernels(torch, gen, timer, record)
 
-    # K1 — exact integer dots; the f32 block update repeats the plain
-    # version's rounding, so the tolerance only absorbs the bf16 output
-    log("K1 w4a8_gemm")
-    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
-        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
-        qt = quantize_int4(w)
-        wdq = dequantize_int4(qt).to(torch.bfloat16)
-        del w
-        for M in (8, 544):
-            xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
-                               dtype=torch.int8)
-            out_dtype = torch.float32 if M <= 256 else torch.bfloat16
-            y = kq.w4a8_gemm(xq, qt["data"], qt["scale"], out_dtype=out_dtype)
-            ref = kq.w4a8_gemm_plain(xq, qt["data"], qt["scale"], 128,
-                                     out_dtype)
-            err = (y.float() - ref.float()).abs().max().item()
-            tol = 0.0 if out_dtype == torch.float32 else \
-                ref.float().abs().max().item() * 2**-8
-            xb = xq.to(torch.bfloat16)
-            ms = timer(lambda: kq.w4a8_gemm(xq, qt["data"], qt["scale"],
-                                            out_dtype=out_dtype))
-            plain_ms = timer(lambda: kq.w4a8_gemm_plain(
-                xq, qt["data"], qt["scale"], 128, out_dtype), 5)
-            lib_ms = timer(lambda: torch.matmul(xb, wdq))
-            nbytes = M * K + K * N // 2 + (K // 128) * N * 4 + \
-                M * N * (4 if out_dtype == torch.float32 else 2)
-            record("w4a8_gemm", f"M={M} K={K} N={N}", err, tol, ms, plain_ms,
-                   lib_ms, nbytes, 2 * M * K * N, INT8_OPS)
-        del qt, wdq
+    w4a8_kernels(torch, gen, timer, record)
 
     # K3 — a copy: bit-exact
     log("K3 dense_kv_write")
@@ -346,86 +317,7 @@ def kernel_phase(torch, results: dict) -> None:
     log(f"e4m3 decode: all 256 codes bit for bit against the twin (0x7f -> "
         f"{got[0x7F].item():g}, 0xff -> {got[0xFF].item():g}, 0x80 -> {got[0x80].item():g})")
 
-    # K2 — int8: integer dots are exact, so kernel and plain version differ
-    # only where exp() rounds a probability code e8 across .5. One flipped
-    # code moves an output by <= 254 * vs / sum(e8), and sum(e8) >= 127 on
-    # every live row; on these inputs the flips land on rows with large
-    # sums (0.0156 measured on an H100), so the bar is vs = 0.03, half the
-    # one-flip bound of the smallest sum. bf16: f32 sums in another order and
-    # a few probabilities whose bf16 rounding goes the other way after a
-    # different exp() move an output by ~1e-4; then the output rounds to
-    # bf16, one ulp = 2^-9 below |out| 0.25. The bar 0.003 allows both
-    # (0.000488 measured on an H100); larger outputs must round alike. e4m3
-    # (path K, G = 4): the bf16 arithmetic on exactly decoded codes, so the
-    # same two effects, held to 1e-3 plus one bf16 ulp of the largest output.
-    log("K2 fused_decode_attention")
-    B, S, D = 8, 2176, 128
-    pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0],
-                       dtype=torch.int32, device=dev)
-    for KH, G in ((8, 4), (4, 8)):  # Llama-3-8B, Qwen3-30B-A3B
-        q = torch.randn(B, KH, G, D, generator=gen, device=dev).to(torch.bfloat16)
-        for kind in ("int8", "bf16", "e4m3") if G == 4 else ("int8", "bf16"):
-            if kind == "e4m3":
-                kc, vc = (e4m3_codes(torch, gen, (B, S, KH * D)) for _ in range(2))
-                kn, vn = (e4m3_codes(torch, gen, (B, 1, KH * D)) for _ in range(2))
-                ks = torch.tensor(0.02, device=dev)
-                vs = torch.tensor(0.02, device=dev)
-                tol = None  # set from the plain output below
-                kd = (kc.float() * ks).to(torch.bfloat16)
-                vd = (vc.float() * vs).to(torch.bfloat16)
-                rate = BF16_FLOPS
-            elif kind == "int8":
-                kc = torch.randint(-127, 128, (B, S, KH * D), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                vc = torch.randint(-127, 128, (B, S, KH * D), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                kn = torch.randint(-127, 128, (B, 1, KH * D), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                vn = torch.randint(-127, 128, (B, 1, KH * D), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                ks = torch.tensor(0.02, device=dev)
-                vs = torch.tensor(0.03, device=dev)
-                tol = 0.03
-                kd = (kc.float() * ks).to(torch.bfloat16)
-                vd = (vc.float() * vs).to(torch.bfloat16)
-                rate = INT8_OPS
-            else:
-                kc = torch.randn(B, S, KH * D, generator=gen, device=dev).to(torch.bfloat16)
-                vc = torch.randn(B, S, KH * D, generator=gen, device=dev).to(torch.bfloat16)
-                kn = torch.randn(B, 1, KH * D, generator=gen, device=dev).to(torch.bfloat16)
-                vn = torch.randn(B, 1, KH * D, generator=gen, device=dev).to(torch.bfloat16)
-                ks = vs = None
-                tol = 0.003
-                kd, vd = kc, vc
-                rate = BF16_FLOPS
-            out, kc1, vc1 = ka.fused_decode_attention(q, kn, vn, kc.clone(), vc.clone(),
-                                                      pos, ks, vs)
-            ref, kc2, vc2 = ka.fused_decode_attention_plain(q, kn, vn, kc.clone(),
-                                                            vc.clone(), pos, ks, vs)
-            err = (out.float() - ref.float()).abs().max().item()
-            if tol is None:
-                tol = 1e-3 + _ulp_bf16(ref.float().abs().max().item())
-            if byte_diff(torch, kc1, kc2) or byte_diff(torch, vc1, vc2):
-                raise AssertionError(f"fused_decode_attention {kind}: caches differ")
-            kt, vt = kc.clone(), vc.clone()
-            ms = timer(lambda: ka.fused_decode_attention(q, kn, vn, kt, vt, pos, ks, vs))
-            plain_ms = timer(lambda: ka.fused_decode_attention_plain(
-                q, kn, vn, kt, vt, pos, ks, vs), 5)
-            qs = q.reshape(B, KH * G, 1, D)
-            k4 = kd.reshape(B, S, KH, D).transpose(1, 2)
-            v4 = vd.reshape(B, S, KH, D).transpose(1, 2)
-            mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())
-            mask = mask[:, None, None, :]
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qs, k4, v4, attn_mask=mask, enable_gqa=True))
-            live = int((pos.long() + 1).sum())
-            item = kc.element_size()
-            nbytes = 2 * live * KH * D * item + q.numel() * 2 + B * KH * G * D * 2
-            record("fused_decode_attention",
-                   f"B={B} S={S} KH={KH} G={G} D={D} {kind} ragged pos",
-                   err, tol, ms, plain_ms, lib_ms, nbytes, 4 * live * KH * G * D, rate)
-            del kc, vc, kd, vd, kt, vt
-
+    fused_decode_kernels(torch, gen, timer, record)
     flash_prefill_kernels(torch, gen, timer, record)
     mla_decode_kernel(torch, gen, timer, record)
     paged_kernels(torch, gen, timer, record)
@@ -448,6 +340,180 @@ def kernel_phase(torch, results: dict) -> None:
             continue
         raise AssertionError(f"{name} took an e4m3 cache on the card")
     log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
+
+
+def w4a8_kernels(torch, gen, timer, record) -> None:
+    """K1 at Llama-3-8B's four projections, at a decode step (M = 8, the
+    CUDA-core tile) and a prefill chunk (M = 544, the tensor-core tile),
+    then at the prefill tile's edges with inputs of their own seed: M = 9,
+    32, 64, 65, 130 and 300 (both tile heights, row tails) at DeepSeek-V2-Lite's
+    kv_a_proj (K = 2048, N = 576: a 64-column tail of the 128-column tile),
+    and the 32-row prefill bucket at 4096 x 28672. Exact integer dots; the
+    f32 block update repeats the plain version's rounding, so f32 output is
+    held bit for bit and the bf16 bar (M > 256) only absorbs the output's
+    rounding."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+    from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
+
+    dev = "cuda"
+
+    def row(xq, qt, wdq, K, N):
+        M = xq.shape[0]
+        out_dtype = torch.float32 if M <= 256 else torch.bfloat16
+        y = kq.w4a8_gemm(xq, qt["data"], qt["scale"], out_dtype=out_dtype)
+        ref = kq.w4a8_gemm_plain(xq, qt["data"], qt["scale"], 128, out_dtype)
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = 0.0 if out_dtype == torch.float32 else ref.float().abs().max().item() * 2**-8
+        xb = xq.to(torch.bfloat16)
+        ms = timer(lambda: kq.w4a8_gemm(xq, qt["data"], qt["scale"], out_dtype=out_dtype))
+        plain_ms = timer(lambda: kq.w4a8_gemm_plain(
+            xq, qt["data"], qt["scale"], 128, out_dtype), 5)
+        lib_ms = timer(lambda: torch.matmul(xb, wdq))
+        nbytes = M * K + K * N // 2 + (K // 128) * N * 4 + \
+            M * N * (4 if out_dtype == torch.float32 else 2)
+        record("w4a8_gemm", f"M={M} K={K} N={N}", err, tol, ms, plain_ms,
+               lib_ms, nbytes, 2 * M * K * N, INT8_OPS)
+
+    def weights(g, K, N):
+        qt = quantize_int4(torch.randn(K, N, generator=g, device=dev) * 0.02)
+        return qt, dequantize_int4(qt).to(torch.bfloat16)
+
+    def codes(g, M, K):
+        return torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+
+    log("K1 w4a8_gemm")
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        qt, wdq = weights(gen, K, N)
+        for M in (8, 544):
+            row(codes(gen, M, K), qt, wdq, K, N)
+        del qt, wdq
+    edge = torch.Generator(device=dev).manual_seed(1)
+    qt, wdq = weights(edge, 2048, 576)
+    for M in (9, 32, 64, 65, 130, 300):
+        row(codes(edge, M, 2048), qt, wdq, 2048, 576)
+    qt, wdq = weights(edge, 4096, 28672)
+    row(codes(edge, 32, 4096), qt, wdq, 4096, 28672)
+    del qt, wdq
+
+
+def fused_decode_kernels(torch, gen, timer, record) -> None:
+    """K2 at the dense paths' decode step: B = 8 slots at the engine's S =
+    2176 (one chunk of keys) with ragged positions, Llama-3-8B's KH = 8, G =
+    4 (int8, bf16 and e4m3 caches) and Qwen3-30B-A3B's KH = 4, G = 8 (int8,
+    bf16); the same two geometries at the contexts the served paths' decode
+    windows run (33-64 keys) and at ~512 keys. Then, with inputs of their
+    own seed: S = 2048 (eight 256-key chunks, one round of the cluster) on
+    int8 and bf16 caches with positions at chunk edges (255, 256), below the
+    cluster size (0, 1, 7) and past the cache (clamped to S - 1); S = 4096
+    bf16 at G = 8 (two rounds); long caches, where a CTA's shared memory
+    must not grow with S: S = 16384 bf16 G = 8 (path C's geometry under a
+    16k context, eight rounds) and S = 32768 int8 G = 8 (sixteen rounds);
+    and S = 8320, one chunk of S, int8 G = 4, where a CTA's share of up to
+    1040 keys passes the 512 keys it holds scores of and is scored twice.
+    The caches must come out byte for byte as the plain version's.
+
+    int8: integer dots are exact, so kernel and plain version differ only
+    where exp() rounds a probability code e8 across .5. One flipped code
+    moves an output by <= 254 * vs / sum(e8), and sum(e8) >= 127 on every
+    live row; on these inputs the flips land on rows with large sums (0.0156
+    measured on an H100), so the bar is vs = 0.03, half the one-flip bound
+    of the smallest sum. bf16: f32 sums in another order and a few
+    probabilities whose bf16 rounding goes the other way after a different
+    exp() move an output by ~1e-4; then the output rounds to bf16, one ulp
+    = 2^-9 below |out| 0.25. The bar 0.003 allows both (0.000488 measured
+    on an H100); larger outputs must round alike. e4m3 (path K, G = 4): the
+    bf16 arithmetic on exactly decoded codes, so the same two effects, held
+    to 1e-3 plus one bf16 ulp of the largest output."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    dev, B, D = "cuda", 8, 128
+
+    def case(g, S, KH, G, kind, pos, q, tag):
+        if kind == "e4m3":
+            kc, vc = (e4m3_codes(torch, g, (B, S, KH * D)) for _ in range(2))
+            kn, vn = (e4m3_codes(torch, g, (B, 1, KH * D)) for _ in range(2))
+            ks = torch.tensor(0.02, device=dev)
+            vs = torch.tensor(0.02, device=dev)
+            tol = None  # set from the plain output below
+            kd = (kc.float() * ks).to(torch.bfloat16)
+            vd = (vc.float() * vs).to(torch.bfloat16)
+            rate = BF16_FLOPS
+        elif kind == "int8":
+            kc, vc = (torch.randint(-127, 128, (B, S, KH * D), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            kn, vn = (torch.randint(-127, 128, (B, 1, KH * D), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            ks = torch.tensor(0.02, device=dev)
+            vs = torch.tensor(0.03, device=dev)
+            tol = 0.03
+            kd = (kc.float() * ks).to(torch.bfloat16)
+            vd = (vc.float() * vs).to(torch.bfloat16)
+            rate = INT8_OPS
+        else:
+            kc, vc = (torch.randn(B, S, KH * D, generator=g, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            kn, vn = (torch.randn(B, 1, KH * D, generator=g, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+            ks = vs = None
+            tol = 0.003
+            kd, vd = kc, vc
+            rate = BF16_FLOPS
+        out, kc1, vc1 = ka.fused_decode_attention(q, kn, vn, kc.clone(), vc.clone(), pos, ks, vs)
+        ref, kc2, vc2 = ka.fused_decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), pos,
+                                                        ks, vs)
+        err = (out.float() - ref.float()).abs().max().item()
+        if tol is None:
+            tol = 1e-3 + _ulp_bf16(ref.float().abs().max().item())
+        if byte_diff(torch, kc1, kc2) or byte_diff(torch, vc1, vc2):
+            raise AssertionError(f"fused_decode_attention {kind} S={S}: caches differ")
+        kt, vt = kc.clone(), vc.clone()
+        ms = timer(lambda: ka.fused_decode_attention(q, kn, vn, kt, vt, pos, ks, vs))
+        plain_ms = timer(lambda: ka.fused_decode_attention_plain(
+            q, kn, vn, kt, vt, pos, ks, vs), 5)
+        L = pos.long().clamp(max=S - 1)
+        qs = q.reshape(B, KH * G, 1, D)
+        k4 = kd.reshape(B, S, KH, D).transpose(1, 2)
+        v4 = vd.reshape(B, S, KH, D).transpose(1, 2)
+        mask = (torch.arange(S, device=dev)[None, :] <= L[:, None])[:, None, None, :]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, k4, v4, attn_mask=mask, enable_gqa=True))
+        live = int((L + 1).sum())
+        nbytes = 2 * live * KH * D * kc.element_size() + q.numel() * 2 + B * KH * G * D * 2
+        record("fused_decode_attention", f"B={B} S={S} KH={KH} G={G} D={D} {kind} {tag}",
+               err, tol, ms, plain_ms, lib_ms, nbytes, 4 * live * KH * G * D, rate)
+
+    log("K2 fused_decode_attention")
+    pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
+    for KH, G in ((8, 4), (4, 8)):  # Llama-3-8B, Qwen3-30B-A3B
+        q = torch.randn(B, KH, G, D, generator=gen, device=dev).to(torch.bfloat16)
+        for kind in ("int8", "bf16", "e4m3") if G == 4 else ("int8", "bf16"):
+            case(gen, 2176, KH, G, kind, pos, q, "ragged pos")
+    # the contexts of the served paths' decode windows, and a mid context
+    ctx = torch.Generator(device=dev).manual_seed(3)
+    for tag, pos in (("short context", [40, 64, 33, 56, 48, 60, 36, 52]),
+                     ("mid context", [512, 480, 400, 505, 450, 500, 420, 470])):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for KH, G, kind in ((8, 4, "int8"), (4, 8, "bf16")):
+            q = torch.randn(B, KH, G, D, generator=ctx, device=dev).to(torch.bfloat16)
+            case(ctx, 2176, KH, G, kind, pos, q, tag)
+    edge = torch.Generator(device=dev).manual_seed(2)
+    pos = torch.tensor([0, 1, 7, 255, 256, 1023, 2040, 3000], dtype=torch.int32, device=dev)
+    q = torch.randn(B, 8, 4, D, generator=edge, device=dev).to(torch.bfloat16)
+    for kind in ("int8", "bf16"):
+        case(edge, 2048, 8, 4, kind, pos, q, "256-key chunks, edge pos")
+    for S, KH, G, kind, pos, tag in (
+            (4096, 4, 8, "bf16", [4095, 3000, 2048, 1024, 511, 100, 5, 0], "two rounds"),
+            (16384, 4, 8, "bf16", [16383, 12000, 9000, 4096, 2048, 300, 5, 16500],
+             "long cache, eight rounds"),
+            (32768, 4, 8, "int8", [32767, 30000, 20000, 16384, 8191, 1000, 7, 0],
+             "long cache, sixteen rounds"),
+            (8320, 8, 4, "int8", [8319, 8000, 5000, 4100, 2049, 600, 1, 0],
+             "one chunk of S, shares scored twice")):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = torch.randn(B, KH, G, D, generator=edge, device=dev).to(torch.bfloat16)
+        case(edge, S, KH, G, kind, pos, q, tag)
 
 
 def flash_prefill_kernels(torch, gen, timer, record) -> None:
@@ -2054,8 +2120,9 @@ def prefill_window(torch, bundle, cfg, kv_dtype) -> None:
         raise AssertionError("prefill window: logits not finite")
     by_name = report_profile(torch, prof, wall, f"one {n}-token prompt to its first token's "
                              f"logits, {-(-n // bucket)} chunks of {bucket}")
-    split = {k: sum(v for name, v in by_name.items() if key in name) for k, key in (
-        ("K1", "w4a8_kernel"), ("K3", "kv_write_kernel"), ("K4", "flash_prefill_kernel"))}
+    split = {k: sum(v for name, v in by_name.items() if any(key in name for key in keys))
+             for k, keys in (("K1", ("w4a8_kernel", "w4a8_wg_kernel")),
+                             ("K3", ("kv_write_kernel",)), ("K4", ("flash_prefill_kernel",)))}
     busy = sum(by_name.values())
     log(f"  prefill row: wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms unprofiled, "
         f"{wall * 1e3:.1f} ms profiled; device busy {busy:.2f} ms: "
@@ -2086,7 +2153,8 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
-        "w4a8_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel", "fused_decode_kernel",
+        "w4a8_kernel", "w4a8_wg_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel",
+        "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
         "nvfp4_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
@@ -2101,7 +2169,10 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
     return by_name
 
 
-FLASH_SOURCES = ("flash_attention", "flash_prefill_attention")
+# sources whose ptxas lines are reported per template instance: the
+# tensor-core tiles (flash, K1's prefill tile) and K2's cluster kernel
+PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode_attention",
+                     "w4a8_gemm")
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -2156,7 +2227,7 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build {time.time() - t0:.1f} s")
     for name, text in _build.BUILD_LOG.items():
-        if name in FLASH_SOURCES:  # the tensor-core tiles: each template instance
+        if name in PTXAS_BY_INSTANCE:
             for fn, lines in ptxas_by_function(text).items():
                 log(f"  ptxas {name} {fn}: {' | '.join(lines)}")
             continue

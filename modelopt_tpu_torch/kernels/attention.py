@@ -256,11 +256,7 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_decode_attention: out_dtype {out_dtype}")
     chunk = _decode_chunk(S, chunk)
-    if 4 * G * chunk > 200 * 1024:
-        raise NotImplementedError(
-            f"fused_decode_attention: a {chunk}-key chunk of scores does not "
-            "fit shared memory")
-    q = q.to(torch.bfloat16).contiguous()
+    q = _build.aligned16(q.to(torch.bfloat16).contiguous())
     k_new = k_new.to(k_cache.dtype).contiguous()
     v_new = v_new.to(v_cache.dtype).contiguous()
     if pos.dtype != torch.int32 or pos.shape != (B,):
@@ -269,6 +265,8 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, pos,
               for t in (k_scale, v_scale)]
     _build.check_cuda("fused_decode_attention", q, k_new, v_new, k_cache,
                       v_cache, pos, *scales)
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("fused_decode_attention: caches must be 16-byte aligned")
     out = torch.empty(B, KH, G, D, dtype=out_dtype, device=q.device)
     f32 = out_dtype == torch.float32
     fn = _build.function("fused_decode_attention", [_build.c_ptr] * 10

@@ -129,8 +129,8 @@ def w4a8_gemm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if acc_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"w4a8_gemm: out_dtype {out_dtype} not supported")
     _build.check_cuda("w4a8_gemm", xq, packed, scale)
-    if xq.data_ptr() % 16:
-        raise ValueError("w4a8_gemm: x must be 16-byte aligned")
+    if xq.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("w4a8_gemm: x, packed and scale must be 16-byte aligned")
     fn = _build.function("w4a8_gemm", [_build.c_ptr] * 5 + [_build.c_int] * 3
                          + [_build.c_ptr])
     out = torch.empty(M, N, dtype=acc_dtype, device=xq.device)

@@ -1,0 +1,161 @@
+"""K2 fused_decode_attention split over keys, as the CUDA kernel's thread-
+block cluster splits them: a torch model of the kernel's rounds held to the
+JAX package's Pallas kernel (interpret mode) and to the port's plain
+version. It pins the claim that splitting a slot's keys over C CTAs changes
+no int8 probability code: the codes depend only on each chunk's running
+max, which the ranks agree on before any code is rounded, and the integer
+partials sum exactly in any order."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from modelopt_tpu.kernels import attention as ja
+from modelopt_tpu_torch.kernels import attention as ta
+
+C = 8  # CTAs a cluster
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tensors are tiny: torch's intra-op thread pool costs far more
+    than it saves on them (50x on the engine tests), and the suite runs
+    several workers side by side."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def pieces(L: int, S: int, chunk: int):
+    """The kernel's rounds: per round, the keys [lo, hi) of each rank. One
+    chunk of S: one round, rank r takes [L r/C, L (r+1)/C). Chunks of
+    `chunk`: round k gives rank r chunk kC + r."""
+    if chunk >= S:
+        return [[(L * r // C, L * (r + 1) // C) for r in range(C)]] if L else []
+    n_chunks = -(-L // chunk)
+    return [[(min((k * C + r) * chunk, L), min((k * C + r + 1) * chunk, L)) for r in range(C)]
+            for k in range(-(-n_chunks // C))]
+
+
+def cluster_decode(q, k_new, v_new, k_cache, v_cache, pos, k_scale, v_scale,
+                   chunk: int = 256):
+    """The kernel's steps for every (slot, KV head), round by round: each
+    rank's max; the running max at each rank's chunk; each rank's codes
+    and integer (int8) or f32 (bf16) partials; the partials of one chunk
+    summed over the ranks that hold it and the f32 recurrence over the
+    round's chunks in order; then the new token. f32 out; the caches are
+    not written."""
+    B, S, KHD = k_cache.shape
+    KH, G, D = q.shape[1:]
+    chunk = ta._decode_chunk(S, chunk)
+    int8 = k_cache.dtype == torch.int8
+    ks, vs = (ta._scalar(t, "cpu") for t in (k_scale, v_scale))
+    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D)))
+    qf = q.to(torch.bfloat16).float()
+    k4, v4 = k_cache.view(B, S, KH, D), v_cache.view(B, S, KH, D)
+    if int8:
+        qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        q8 = torch.round(qf * (torch.tensor(127.0) / qmax))
+        scores = torch.einsum("bhgd,bthd->bhgt", q8, k4.float()) * (qmax * (inv_sqrt_d / 127.0))
+    else:
+        scores = torch.einsum("bhgd,bthd->bhgt", qf, ta._kv_values(k4)) * inv_sqrt_d
+    out = torch.empty(B, KH, G, D)
+    for b in range(B):
+        L = min(int(pos[b]), S - 1)
+        for h in range(KH):
+            s, vb = scores[b, h], v4[b, :, h]
+            m_prev = torch.full((G,), -1e30)
+            m, l, acc = torch.full((G, 1), -1e30), torch.zeros(G, 1), torch.zeros(G, D)
+            for rnd in pieces(L, S, chunk):
+                mr = []
+                for lo, hi in rnd:
+                    if hi > lo:
+                        m_prev = torch.maximum(m_prev, s[:, lo:hi].amax(-1))
+                    mr.append(m_prev)
+                if chunk >= S:
+                    mr = [m_prev] * C
+                held = None
+                for r, (lo, hi) in enumerate(rnd):
+                    if hi > lo:
+                        e = torch.exp(s[:, lo:hi] - mr[r][:, None])
+                        if int8:
+                            e8 = torch.round(e * 127.0).to(torch.int64)
+                            es, y = e8.sum(-1), e8 @ vb[lo:hi].to(torch.int64)
+                        else:
+                            es = e.sum(-1)
+                            y = e.to(torch.bfloat16).float() @ ta._kv_values(vb[lo:hi])
+                        held = (es, y) if held is None else (held[0] + es, held[1] + y)
+                    if held is not None and (chunk < S or r == C - 1):
+                        es, y = held
+                        if int8:
+                            es, y = es.float() * (1.0 / 127.0), y.float() * (1.0 / 127.0)
+                        m_cur = mr[r][:, None]
+                        alpha = torch.exp(m - m_cur)
+                        l = l * alpha + es[:, None]
+                        acc = acc * alpha + y
+                        m, held = m_cur, None
+            kn = k_new.reshape(B, KH, D)[b, h].float()
+            vn = v_new.reshape(B, KH, D)[b, h].float()
+            s_n = (qf[b, h] * kn).sum(-1, keepdim=True) * inv_sqrt_d
+            m_fin = torch.maximum(m, s_n)
+            alpha = torch.exp(m - m_fin)
+            e_n = torch.exp(s_n - m_fin)
+            l_fin = l * alpha + e_n
+            out[b, h] = (acc * alpha + e_n * vn) * (vs / l_fin.clamp_min(1e-30))
+    return out
+
+
+# positions: empty slots (0), one key, fewer keys than ranks, chunk edges
+# (255, 256 keys), ragged, and past the cache (clamped to S - 1). 2176: one
+# chunk of S, a rank's share up to 272 keys; 2048: eight 256-key chunks, one
+# round; 4352: seventeen chunks, three rounds.
+POS = {2176: [0, 1, 5, 255, 256, 1100, 2175, 2300],
+       2048: [0, 1, 7, 255, 256, 257, 1023, 2047, 3000],
+       4352: [0, 9, 256, 2047, 2048, 2049, 4100, 4351]}
+
+
+@pytest.mark.parametrize("S", [2176, 2048, 4352])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_split_over_keys_matches_reference(rng, kind, G, S):
+    """Against the Pallas kernel (interpret mode): within 1e-2, the bar of
+    test_torch_attention.py (exp and the summation order differ in the last
+    bits there, which can move one 7-bit code). Against the port's plain
+    version: int8 bit for bit (the same codes, exact integer partials, the
+    same f32 recurrence); bf16 to f32 rounding, 1e-5 of the largest output
+    (only the order of the f32 PV and exp sums moves)."""
+    KH, D = 2, 128
+    pos = np.asarray(POS[S], np.int32)
+    B = len(pos)
+    q = rng.standard_normal((B, KH, G, D)).astype(np.float32)
+    if kind == "int8":
+        k, v = (rng.integers(-127, 128, (B, S, KH * D)).astype(np.int8) for _ in range(2))
+        kn, vn = (rng.integers(-127, 128, (B, 1, KH * D)).astype(np.int8) for _ in range(2))
+        ks, vs = 0.02, 0.03
+        jd, td = jnp.int8, torch.int8
+    else:
+        k, v, kn, vn = (rng.standard_normal(sh).astype(np.float32)
+                        for sh in [(B, S, KH * D)] * 2 + [(B, 1, KH * D)] * 2)
+        ks = vs = None
+        jd, td = jnp.bfloat16, torch.bfloat16
+    tq = torch.from_numpy(q)
+    tkn, tvn, tk, tv = (torch.from_numpy(a).to(td) for a in (kn, vn, k, v))
+    got = cluster_decode(tq, tkn, tvn, tk, tv, pos, ks, vs)
+    # the Pallas kernel's writes are bounds-checked in interpret mode: it gets
+    # the position the port clamps a past-the-cache one to
+    with pltpu.force_tpu_interpret_mode():
+        ref, *_ = ja.fused_decode_attention(
+            jnp.asarray(q), jnp.asarray(kn).astype(jd), jnp.asarray(vn).astype(jd),
+            jnp.asarray(k).astype(jd), jnp.asarray(v).astype(jd),
+            jnp.asarray(np.minimum(pos, S - 1)), k_scale=ks, v_scale=vs, out_dtype=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-2, atol=1e-2)
+    want, *_ = ta.fused_decode_attention_plain(tq, tkn, tvn, tk.clone(), tv.clone(),
+                                               torch.from_numpy(pos), ks, vs,
+                                               out_dtype=torch.float32)
+    if kind == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))

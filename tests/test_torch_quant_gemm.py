@@ -141,3 +141,27 @@ def test_qgemm_dequantize_path_is_cpu_only(rng):
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         tb.qgemm(torch.empty(300, K, dtype=torch.bfloat16, device="meta"), pt, spec, (K, N),
                  act_int8=True)
+
+
+def test_packed_byte_operands_exhaustive():
+    """The operand identities K1's CUDA tiles rest on, over every packed
+    byte: each (q_lo, q_hi) pair in [-8, 7]^2 packed by the port's pack_int4
+    (byte for byte the JAX package's) gives one of the 256 byte values b,
+    and (b & 0x0F) == q_lo + 8 (the decode tile's dp4a operand, corrected
+    by 8 * sum(x)), int8(b & 0xF0) == 16 * q_hi (the high half's operand in
+    both tiles), int8(((b << 4) & 0xF0) ^ 0x80) == 16 * q_lo (the low half's
+    operand in the tensor-core tile)."""
+    qlo, qhi = (g.reshape(1, 256) for g in torch.meshgrid(
+        torch.arange(-8, 8), torch.arange(-8, 8), indexing="ij"))
+    q = torch.cat([qlo, qhi])                                # K = 2, N = 256
+    b = tq.pack_int4(q)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jq.pack_int4(jnp.asarray(q.numpy()))))
+    b = b[0].to(torch.int32)
+    assert sorted(b.tolist()) == list(range(256))
+
+    def as_int8(x):
+        return x.to(torch.uint8).view(torch.int8).to(torch.int32)
+
+    assert torch.equal(b & 0x0F, qlo[0] + 8)
+    assert torch.equal(as_int8(b & 0xF0), 16 * qhi[0])
+    assert torch.equal(as_int8(((b << 4) & 0xF0) ^ 0x80), 16 * qlo[0])
