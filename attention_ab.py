@@ -4,20 +4,25 @@ to compare two commits on one card.
     python3 attention_ab.py TREE [--prefill]   # TREE: a checkout holding modelopt_tpu_torch/
 
 Builds the tree's ``decode_attention``, ``fused_decode_attention``,
-``flash_attention``, ``flash_prefill_attention`` and ``w4a8_gemm`` sources,
-then times K5 decode_attention, K15 paged_decode_attention and K17
+``flash_attention``, ``flash_prefill_attention``, ``w4a8_gemm``,
+``w4a16_gemm``, ``grouped_w4a8_gemm`` and ``paged_kv_write`` sources, then
+times K5 decode_attention, K15 paged_decode_attention and K17
 block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
 (int8 and bf16 caches), and K2 fused_decode_attention, K1 w4a8_gemm, K4
-flash_prefill_attention and K14 flash_attention at every case of
-``chip_smoke.py``'s ``fused_decode_kernels``, ``w4a8_kernels``,
-``flash_prefill_kernels`` and ``flash_kernels`` (each held to the tree's
-plain twin at the bar stated there), with its timer: CUDA events, median of
+flash_prefill_attention, K14 flash_attention, K6 w4a16_gemm, K10
+grouped_w4a16_gemm and K15 at every case of ``chip_smoke.py``'s
+``fused_decode_kernels``, ``w4a8_kernels``, ``flash_prefill_kernels``,
+``flash_kernels``, ``moe_kernels`` (K6 at M = 8, 32 and 544, K10 at
+M = 1, 8 and 32; its K11 and K12 rows ride along) and ``paged_kernels``
+(each held to the tree's plain twin at the bar stated there), with its
+timer: CUDA events, median of
 25 launches, the 50 MB L2 flushed and the stream spun before each; and the host time
 of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
 M = 8 and 544; calls enqueued behind a spin of the stream). Inputs
 are seeded, the same in every tree. ``--prefill`` also builds path A's
 model (Llama-3-8B W4A8 + int8 KV, random weights, seed 0, KV scales from one
-64-token forward) in the tree and runs ``chip_smoke.py``'s prefill window:
+64-token forward), then path C's (Qwen3-30B-A3B, 24 of 48 layers, W4A16 +
+bf16 KV) in the tree and runs ``chip_smoke.py``'s prefill window on each:
 one 1024-token prompt prefilled in the engine's chunks to its first token's
 logits, wall and device busy time by kernel. Prints the card's name and
 power limit, then one line per tree. Run
@@ -47,7 +52,8 @@ prefill = "--prefill" in sys.argv[2:]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
-                  "flash_prefill_attention", "w4a8_gemm") + (("kv_write",) if prefill else ()))
+                  "flash_prefill_attention", "w4a8_gemm", "w4a16_gemm", "grouped_w4a8_gemm",
+                  "paged_kv_write") + (("kv_write",) if prefill else ()))
 timer = cs.Timer(torch)
 print(f"{os.path.basename(tree) or tree}: card {cs.card_line()}", flush=True)
 dev = "cuda"
@@ -103,10 +109,11 @@ del kc, vc, kpool, vpool, lat
 # K2, K4, K14 and K1 at chip_smoke's cases, each against the tree's twin
 rows: dict = {}
 for phase in (cs.fused_decode_kernels, cs.flash_prefill_kernels, cs.flash_kernels,
-              cs.w4a8_kernels):
+              cs.w4a8_kernels, cs.moe_kernels, cs.paged_kernels):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
 for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
-                  ("flash_attention", "K14"), ("w4a8_gemm", "K1")):
+                  ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),
+                  ("grouped_w4a16_gemm", "K10"), ("paged_decode_attention", "K15")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]
 
@@ -154,4 +161,11 @@ if prefill:
                         generator=torch.Generator(device=dev).manual_seed(0))
     calibrate(bundle, "max", lambda f: f(ids, make_cache(cfg, 1, 64, device=dev)))
     print(f"{os.path.basename(tree) or tree}: path A prefill window", flush=True)
-    cs.prefill_window(torch, bundle, cfg, torch.int8)
+    cs.prefill_window(torch, bundle, cfg, torch.int8, "A")
+    del bundle
+    torch.cuda.empty_cache()
+    # path C: Qwen3-30B-A3B (24 of 48 layers) under W4A16, bf16 KV (K6, K10)
+    cfg = cs.path_config(torch, "qwen3_moe")
+    bundle = build_compressed_bundle(cfg, "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", seed=0, device=dev)
+    print(f"{os.path.basename(tree) or tree}: path C prefill window", flush=True)
+    cs.prefill_window(torch, bundle, cfg, torch.bfloat16, "C")

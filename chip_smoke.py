@@ -5,16 +5,19 @@
 
 Phases, in order (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), versions, kernel build time
-     (one nvcc per source, all started together), ptxas registers and
-     spills (per template instance for the two flash sources, K1's
-     w4a8_gemm and K2's cluster kernel); TF32 is switched off for matmuls
-     and cuDNN, so the MoE router's f32 product runs in full f32;
+     (one nvcc per source, all started together), ptxas warnings,
+     registers and spills (per template instance for the two flash
+     sources, K1's w4a8_gemm, K6's w4a16_gemm, K2's cluster kernel and
+     decode_attention.cu's K5 / K15 / K17 instances); TF32 is switched off
+     for matmuls and cuDNN, so the MoE router's f32 product runs in full
+     f32;
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card at the serving paths' shapes — max abs error against a stated
      tolerance, kernel / plain / library-call times (CUDA events, median of
      25 launches, L2 flushed before each) and the least time the card could
      take for the same work: the MoE kernels (K6 w4a16_gemm at the four
-     projection shapes, K10 grouped_w4a16_gemm, K12
+     projection shapes, M = 8 and 544 and at M = 32 for N = 4096 and
+     98304, K10 grouped_w4a16_gemm at M = 1, 8 and 32, K12
      grouped_w4a8_combine_gemm with routed and dense gate scales, and at
      DeepSeek's straddle shape K=1408, K11 grouped_w4a8_gemm at both expert
      geometries, bit for bit), the fp / int8 weight kernels (K7
@@ -32,8 +35,9 @@ Phases, in order (any failure exits non-zero):
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
      with one chunk and with two, and on a bf16 cache; then K15
      paged_decode_attention at path E's decode shape (int8 pools, e4m3
-     pools as on path L, and bf16 off the paths) and path F's (one int8
-     latent pool as K and V), K16 paged_kv_write at a prefill chunk and at
+     pools as on path L, and bf16 off the paths; int8 also at one page a
+     slot and over a 128-page table) and path F's (one int8 latent pool
+     as K and V), K16 paged_kv_write at a prefill chunk and at
      E's, F's and L's decode steps, K17
      block_sparse_decode_attention at path J's decode shape (int8 and bf16
      caches, fewer live blocks than in range, lengths mid-block) and K14
@@ -54,7 +58,10 @@ Phases, in order (any failure exits non-zero):
      NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; the llama under
      FP8_KV_CFG with an e4m3 KV cache, dense and paged; an f32 llama with
      skip-softmax (64-row blocks, int8 KV) through cached prefill and
-     greedy decode, tokens and every block selection equal; then K11's
+     greedy decode, tokens and every block selection equal; and
+     tiny_test_config() (D = 16) over a bf16 dense cache, a prefill and
+     one decode step, which the dense-cache gates send to K3 and the
+     einsum on both devices; then K11's
      entry point, the compressed gateless QuantEinsum down projection at
      Qwen3-30B-A3B's expert geometry: K11 once a call and no other kernel,
      the card's result the CPU twin's bit for bit;
@@ -91,8 +98,9 @@ Phases, in order (any failure exits non-zero):
        L: K over paged e4m3 pools of 145 pages;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request; after
-     A's, a prefill window (one 1024-token prompt in the engine's chunks
-     to its first token: wall, device time of K1, K3, K4 and the rest);
+     A's and C's, a prefill window (one 1024-token prompt in the engine's
+     chunks to its first token: wall, device time of K1 or K6, K3, K4 and
+     the rest);
        J: A's model and KV calibration, then at the Decoder level (no
           engine serves skip-softmax): calibrate_skip_softmax on RULER
           needle batches (K14 in its capture forwards), 8 prompts of 1024
@@ -706,19 +714,28 @@ def paged_kernels(torch, gen, timer, record) -> None:
     lengths_e = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32,
                              device=dev)
     lengths_f = torch.linspace(1, 1088, 8, device=dev).round().to(torch.int32)
-    cases = (("E", 8, 4, 128, "int8", lengths_e), ("E", 8, 4, 128, "bf16", lengths_e),
-             ("F", 1, 16, 640, "int8", lengths_f), ("L", 8, 4, 128, "e4m3", lengths_e))
-    for path, KH, G, D, kind, lengths in cases:
+    # E's geometry also at one page a slot (33-64 keys) and over a 128-page
+    # table (8192 keys a slot: the cluster kernel's rounds of 64 pages)
+    lengths_1 = torch.tensor([33, 40, 64, 50, 47, 63, 45, 64], dtype=torch.int32, device=dev)
+    lengths_128 = torch.tensor([8192, 8000, 7000, 8192, 100, 4097, 8191, 6000],
+                               dtype=torch.int32, device=dev)
+    cases = (("E", 8, 4, 128, "int8", lengths_e, pmax, P),
+             ("E", 8, 4, 128, "bf16", lengths_e, pmax, P),
+             ("F", 1, 16, 640, "int8", lengths_f, pmax, P),
+             ("L", 8, 4, 128, "e4m3", lengths_e, pmax, P),
+             ("E1", 8, 4, 128, "int8", lengths_1, pmax, P),
+             ("E128", 8, 4, 128, "int8", lengths_128, 128, 8 * 128 + 1))
+    for path, KH, G, D, kind, lengths, tmax, pool in cases:
         B = lengths.shape[0]
-        pt = page_table(torch, lengths.tolist(), pmax, P)
+        pt = page_table(torch, lengths.tolist(), tmax, pool)
         q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
         if kind == "e4m3":
-            pools = [e4m3_codes(torch, gen, (P, ps, KH * D)) for _ in range(2)]
+            pools = [e4m3_codes(torch, gen, (pool, ps, KH * D)) for _ in range(2)]
             ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.02, device=dev)
             deq = [(p.float() * s).to(torch.bfloat16) for p, s in zip(pools, (ks, vs))]
             rate = BF16_FLOPS
         elif kind == "int8":
-            pools = [torch.randint(-127, 128, (P, ps, KH * D), generator=gen, device=dev,
+            pools = [torch.randint(-127, 128, (pool, ps, KH * D), generator=gen, device=dev,
                                    dtype=torch.int8) for _ in range(2 if KH > 1 else 1)]
             ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
             if KH == 1:  # MLA: one latent tensor and scale as K and V
@@ -726,7 +743,7 @@ def paged_kernels(torch, gen, timer, record) -> None:
             deq = [(p.float() * s).to(torch.bfloat16) for p, s in zip(pools, (ks, vs))]
             rate = INT8_OPS
         else:
-            pools = [torch.randn(P, ps, KH * D, generator=gen, device=dev).to(torch.bfloat16)
+            pools = [torch.randn(pool, ps, KH * D, generator=gen, device=dev).to(torch.bfloat16)
                      for _ in range(2)]
             ks = vs = None
             deq = pools
@@ -740,7 +757,7 @@ def paged_kernels(torch, gen, timer, record) -> None:
         ms = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
         plain_ms = timer(lambda: kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths,
                                                                  ks, vs), 5)
-        S = pmax * ps
+        S = tmax * ps
         k4 = kp.paged_gather_dense(deq[0], pt).reshape(B, S, KH, D).transpose(1, 2)
         v4 = kp.paged_gather_dense(deq[-1], pt).reshape(B, S, KH, D).transpose(1, 2)
         mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())
@@ -754,8 +771,9 @@ def paged_kernels(torch, gen, timer, record) -> None:
         # table entries, lengths, q in and out back in bf16
         nbytes = (len(pools) * live * KH * D * item + 4 * sum(-(-int(L) // ps) for L in
                   lengths.tolist()) + 4 * B + 2 * 2 * B * KH * G * D)
-        shape = (f"B={B} PMAX={pmax} ps={ps} KH={KH} G={G} D={D} {kind} "
-                 + ("K=V lengths 1..1088" if path == "F" else "ragged lengths"))
+        shape = (f"B={B} PMAX={tmax} ps={ps} KH={KH} G={G} D={D} {kind} "
+                 + {"F": "K=V lengths 1..1088", "E1": "one page a slot"}.get(
+                     path, "ragged lengths"))
         record("paged_decode_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * live * KH * G * D, rate)
         del pools, deq, kpool, vpool
@@ -1058,7 +1076,9 @@ def moe_kernels(torch, gen, timer, record) -> None:
         qt = quantize_int4(w)
         wdq = dequantize_int4(qt).to(torch.bfloat16)
         del w
-        for M in (8, 544):
+        # M = 32: the 32-row bucket of the profile windows (the wgmma tile's
+        # one-token-tile instance), at one small N and at the folded experts
+        for M in (8, 32, 544) if N in (4096, 98304) else (8, 544):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             y = kq.w4a16_gemm(x, qt["data"], qt["scale"])
             ref = kq.w4a16_gemm_plain(x, qt["data"], qt["scale"])
@@ -1081,7 +1101,9 @@ def moe_kernels(torch, gen, timer, record) -> None:
     wdq = dequantize_int4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1).contiguous()
     per_expert = K * N // 2 + (K // 128) * N * 4  # packed bytes + scale bytes
     log("K10 grouped_w4a16_gemm")
-    for M in (1, 8):  # K6's arithmetic per expert: the same bar, expert by expert
+    # K6's arithmetic per expert: the same bar, expert by expert; M = 32 the
+    # wgmma tile the 32-row bucket reaches through grouped_qgemm
+    for M in (1, 8, 32):
         x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
         y = kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N)
         ref = kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N)
@@ -1665,8 +1687,15 @@ def skip_parity(torch) -> None:
         raise AssertionError(f"skip parity: card logits off by {err} / {pre_err} > {tol}")
 
 
+# every quantizer off: a bf16 model (the dense-cache gate parity)
+NO_QUANT = {"quant_cfg": {"*weight_quantizer": {"enable": False},
+                          "*input_quantizer": {"enable": False},
+                          "*output_quantizer": {"enable": False}},
+            "algorithm": "max"}
+
+
 def parity_phase(torch) -> None:
-    from modelopt_tpu_torch.models import llama_config
+    from modelopt_tpu_torch.models import llama_config, tiny_test_config
 
     moe = small_moe_config()
     _parity(torch, "Qwen3-MoE W4A8 + int8 KV", moe, "W4A8_INT8KV_CFG", torch.int8,
@@ -1702,6 +1731,11 @@ def parity_phase(torch) -> None:
             2, 64, paged=True, noise_floor=True)
     # path J: K17 (its twin on the CPU) over the selected blocks
     skip_parity(torch)
+    # the reference's dense-cache gates: at D = 16 neither K2 nor K4 takes
+    # the forward, the card writes by K3 and takes the einsum, as the CPU
+    _parity(torch, "tiny llama (D = 16) + bf16 KV, gated to the einsum",
+            tiny_test_config(dtype=torch.bfloat16), NO_QUANT, torch.bfloat16, 1, 2, 16,
+            steps=1)
 
 
 GATELESS = (128, 768, 2048)  # E, fin, fout: Qwen3-30B-A3B's expert down projection
@@ -1888,8 +1922,8 @@ def serve_path(torch, name) -> dict:
                           vocab=cfg.vocab_size)
     log(f"  warm-up request {time.time() - t0:.1f} s")
     launches = measured_run(torch, eng, name)
-    if name == "A":
-        prefill_window(torch, bundle, cfg, kv_dtype)
+    if name in PREFILL_SPLIT:
+        prefill_window(torch, bundle, cfg, kv_dtype, name)
     # the cache tensors the kernels wrote are the path's dtype (K and L:
     # e4m3, so the kernels' e4m3 branches ran, not the bf16 ones)
     if not all(t.dtype == kv_dtype for t in eng.cache["k"] + eng.cache["v"] + caches):
@@ -2079,13 +2113,25 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
                    f"{eng.stats['prefill_chunks'] - forwards[1]} prefill chunks")
 
 
-def prefill_window(torch, bundle, cfg, kv_dtype) -> None:
+# the kernels a prefill window reports apart, by path: (label, kernel names)
+PREFILL_SPLIT = {
+    "A": (("K1", ("w4a8_kernel", "w4a8_wg_kernel")), ("K3", ("kv_write_kernel",)),
+          ("K4", ("flash_prefill_kernel",))),
+    # K6 and K10 share their kernels: "K6" is both (K10 takes the MoE's down
+    # projection in the 32-row bucket only)
+    "C": (("K6", ("w4a16_kernel", "w4a16_wg_kernel")), ("K3", ("kv_write_kernel",)),
+          ("K4", ("flash_prefill_kernel",))),
+}
+
+
+def prefill_window(torch, bundle, cfg, kv_dtype, path: str = "A") -> None:
     """One prompt of TRAFFIC's length prefilled alone into a one-slot cache
     of the engine's width, as the engine streams it (544-row chunks, the
     last padded with zeros, logits at its last true token; no decode tick),
     once unprofiled and once under torch.profiler: the wall time to the
-    first token's logits and the device busy time by kernel, K1, K3, K4 and
-    the rest (path A's prefill row)."""
+    first token's logits and the device busy time by kernel, the path's
+    kernels of ``PREFILL_SPLIT`` and the rest (paths A's and C's prefill
+    rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from modelopt_tpu_torch.models import make_cache
@@ -2121,10 +2167,9 @@ def prefill_window(torch, bundle, cfg, kv_dtype) -> None:
     by_name = report_profile(torch, prof, wall, f"one {n}-token prompt to its first token's "
                              f"logits, {-(-n // bucket)} chunks of {bucket}")
     split = {k: sum(v for name, v in by_name.items() if any(key in name for key in keys))
-             for k, keys in (("K1", ("w4a8_kernel", "w4a8_wg_kernel")),
-                             ("K3", ("kv_write_kernel",)), ("K4", ("flash_prefill_kernel",)))}
+             for k, keys in PREFILL_SPLIT[path]}
     busy = sum(by_name.values())
-    log(f"  prefill row: wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms unprofiled, "
+    log(f"  prefill row (path {path}): wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms unprofiled, "
         f"{wall * 1e3:.1f} ms profiled; device busy {busy:.2f} ms: "
         + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f", rest {busy - sum(split.values()):.2f}")
@@ -2153,10 +2198,10 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
-        "w4a8_kernel", "w4a8_wg_kernel", "w4a16_kernel", "grouped_w4a8_combine_kernel",
-        "fused_decode_kernel",
+        "w4a8_kernel", "w4a8_wg_kernel", "w4a16_kernel", "w4a16_wg_kernel",
+        "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
-        "paged_attention_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
+        "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
         "nvfp4_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
         "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
@@ -2170,9 +2215,10 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
 
 
 # sources whose ptxas lines are reported per template instance: the
-# tensor-core tiles (flash, K1's prefill tile) and K2's cluster kernel
+# tensor-core tiles (flash, K1's and K6's prefill tiles), K2's cluster
+# kernel and K15's (decode_attention.cu, beside K5's and K17's instances)
 PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode_attention",
-                     "w4a8_gemm")
+                     "w4a8_gemm", "w4a16_gemm", "decode_attention")
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -2201,7 +2247,10 @@ def ptxas_by_function(text: str) -> dict:
             break
     else:
         return out
-    short = [(re.search(r"\w+<[^>]*>", p) or re.search(r"\w+", p)).group(0) for p in plain]
+    # the kernel's name (with its template arguments) just before its
+    # parameter list, else its first word
+    short = [m.group(1) if (m := re.search(r"(\w+(?:<[^>]*>)?)\(", p))
+             else re.search(r"\w+", p).group(0) for p in plain]
     return dict(zip(short, out.values()))
 
 
@@ -2227,6 +2276,9 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build {time.time() - t0:.1f} s")
     for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():  # e.g. C7518, a wgmma ptxas serialized
+            if "warning" in line.lower():
+                log(f"  ptxas {name} warning: {line.strip()}")
         if name in PTXAS_BY_INSTANCE:
             for fn, lines in ptxas_by_function(text).items():
                 log(f"  ptxas {name} {fn}: {' | '.join(lines)}")

@@ -57,23 +57,35 @@
 // 3.35 TB/s of HBM; paged, the same rows wherever their pages lie;
 // block-sparse, the rows of the selected blocks only.
 //
-// Design: the reference's arithmetic is independent per (head, group) row,
-// so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256
-// threads (64 at the MLA decode shape B=8, G=16), each reading the slot's
-// live rows; the CTAs of one slot meet the same rows in L2. A split over
-// keys would change the running max at which e8 is rounded, so each CTA
-// walks all keys of its slot. Per chunk: each warp scores one key at a
-// time (a lane takes 4 columns of each 128, the row is one coalesced read,
-// a warp shuffle sums it) into shared memory; a block reduction gives the
-// chunk max; threads turn scores into codes; then each warp accumulates
-// e8 x v over its share of the keys for all D columns in registers and the
-// eight warps' integer partials are summed in shared memory into the
-// running f32 output.
+// Design (K5, K17, and K15 at MLA's geometry): the reference's arithmetic is
+// independent per (head, group) row, so the grid is (slot, KV head, pair
+// of rows): B * KH * G/2 CTAs of 256 threads (64 at the MLA decode shape
+// B=8, G=16), each reading the slot's live rows; the CTAs of one slot meet
+// the same rows in L2. Each CTA walks all keys of its slot. Per chunk: each
+// warp scores one key at a time (a lane takes 4 columns of each 128, the
+// row is one coalesced read, a warp shuffle sums it) into shared memory; a
+// block reduction gives the chunk max; threads turn scores into codes;
+// then each warp accumulates e8 x v over its share of the keys for all D
+// columns in registers and the eight warps' integer partials are summed in
+// shared memory into the running f32 output.
+//
+// K15 at paths E's and L's geometry (D = 128, G in {1, 2, 4, 8}, pages of
+// 8 to 512 rows) runs the cluster kernel of cluster_decode.cuh instead:
+// one cluster of 8 CTAs per (slot, KV head) splits the slot's pages. A
+// code depends only on its score and its page's running max
+// m_p = max(m_{p-1}, max_p), and a max is the same in any order: each CTA
+// scores a contiguous run of pages and takes each page's max, the cluster
+// exchanges the page maxima over distributed shared memory, each CTA
+// rounds its codes against its pages' running maxima and forms each page's
+// partials (int8: s32, exact), and each rank replays the f32 recurrence
+// over all pages in order for its 16 columns. So an int8 output is the
+// same arithmetic on the same integers as one CTA that walks every page.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <type_traits>
 
+#include "cluster_decode.cuh"
 #include "e4m3.cuh"
 
 namespace {
@@ -561,6 +573,40 @@ int dispatch(int D, int cache_kind, const Args& a, cudaStream_t s) {
   }
 }
 
+// K15 at D = 128, G in {1, 2, 4, 8} and pages of at most SB rows: the
+// cluster kernel of cluster_decode.cuh, one cluster of C CTAs per (slot,
+// KV head)
+template <typename CT, int G>
+int launch_cluster(const Args& a, int pmax, int ps, cudaStream_t s) {
+  namespace cd = cluster_decode;
+  static unsigned done = 0;
+  const int e = cd::allow_smem(cd::paged_cluster_kernel<CT, G>, cd::paged_smem_bytes(G), done);
+  if (e != 0) return e;
+  cd::paged_cluster_kernel<CT, G><<<a.B * a.KH * cd::C, cd::NT, cd::paged_smem_bytes(G), s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const CT*>(a.kc),
+      static_cast<const CT*>(a.vc), static_cast<const int*>(a.page_table),
+      static_cast<const int*>(a.lengths), static_cast<const float*>(a.kscale),
+      static_cast<const float*>(a.vscale), static_cast<float*>(a.out_f32),
+      static_cast<__nv_bfloat16*>(a.out_bf16), pmax, ps, a.KH);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT>
+int cluster_g(const Args& a, int pmax, int ps, cudaStream_t s) {
+  switch (a.G) {
+    case 1: return launch_cluster<CT, 1>(a, pmax, ps, s);
+    case 2: return launch_cluster<CT, 2>(a, pmax, ps, s);
+    case 4: return launch_cluster<CT, 4>(a, pmax, ps, s);
+    default: return launch_cluster<CT, 8>(a, pmax, ps, s);
+  }
+}
+
+// whether K15's cluster kernel takes the geometry (else the one-CTA body)
+bool cluster_paged(int D, int G, int ps) {
+  return D == cluster_decode::D && (G == 1 || G == 2 || G == 4 || G == 8) && ps % 8 == 0 &&
+         ps <= cluster_decode::SB;
+}
+
 }  // namespace
 
 // q bf16 [B, KH, G, D]; caches [B, S, KH*D] of bf16 (cache_kind 0) or int8
@@ -577,7 +623,9 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
   return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
 }
 
-// K15, paged decode attention: the same kernel with chunk = page. Pools
+// K15, paged decode attention: at D = 128, G in {1, 2, 4, 8} and pages of
+// 8 to 512 rows (paths E and L) the cluster kernel, else (MLA's D = 640) the
+// same kernel as K5 with chunk = page. Pools
 // [n_pages, page_size, KH*D] (bf16, int8 or e4m3: cache_kind 0, 1, 2;
 // 16-byte aligned; K and V may be one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
 // valid page (unused ones 0); keys [0, min(lengths[b], pmax * page_size)).
@@ -589,7 +637,14 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
                                       int G, int D, int cache_kind, void* stream) {
   const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, nullptr, nullptr,
                out_f32, out_bf16, B, pmax * page_size, KH, G, page_size, 0};
-  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * KH * G == 0 || !cluster_paged(D, G, page_size)) return dispatch(D, cache_kind, a, s);
+  switch (cache_kind) {
+    case 0: return cluster_g<__nv_bfloat16>(a, pmax, page_size, s);
+    case 1: return cluster_g<int8_t>(a, pmax, page_size, s);
+    case 2: return cluster_g<e4m3_t>(a, pmax, page_size, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K17, block-sparse decode attention: the same kernel over selected blocks.

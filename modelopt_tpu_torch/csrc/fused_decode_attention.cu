@@ -80,54 +80,21 @@
 // one with no keys (a max of -1e30 and zero sums). Between rounds nothing
 // is overwritten early: a round's maxima are read before its second
 // barrier and its partials before the next round's first.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <type_traits>
-
-#include "e4m3.cuh"
-
-namespace cg = cooperative_groups;
+#include "cluster_decode.cuh"
 
 namespace {
 
-constexpr int D = 128;
-constexpr int C = 8;                // CTAs a cluster (the portable cluster size)
-constexpr int NT = 128;             // threads a CTA: one per column of the new token
-constexpr int NW = NT / 32;
-constexpr int SB = 512;             // keys a CTA holds scores of
-constexpr int VBYTES = 16 * 1024;   // bytes of one of the two V buffers
-constexpr unsigned FULL = 0xffffffffu;
-
-// dynamic shared memory of one CTA: scores [G][SB], V buffers [2][VBYTES],
-// one chunk's PV partials [G][D]
-constexpr int smem_bytes(int G) { return 4 * G * SB + 2 * VBYTES + 4 * G * D; }
+// the cluster's constants (C, NT, SB, VBYTES, ...) and its primitives (the
+// MMAs, cp.async, the V swizzle, the K load order), shared with K15
+using namespace cluster_decode;
 
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(e4m3_t v) { return e4m3_to_f32(v.bits); }
 
-// 16-byte chunk `ch` of staged V row `r`, XOR-swizzled so that the PV
-// loop's 4 consecutive rows a warp reads (int8 / e4m3: 32 bytes each; bf16:
-// 2 rows of 64 bytes a half-warp) fall in distinct banks
-template <int ELEM>
-__device__ __forceinline__ int vswz(int r, int ch) {
-  return ELEM == 1 ? (ch ^ ((r & 3) << 1)) : (ch ^ ((r & 1) << 2));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// dynamic shared memory of one CTA: scores [G][SB], V buffers [2][VBYTES],
+// one chunk's PV partials [G][D]
+constexpr int smem_bytes(int G) { return 4 * G * SB + 2 * VBYTES + 4 * G * D; }
 
 // block-wide sum of one value per query row; every thread gets the
 // result, in the order ((w0 + w1) + (w2 + w3)) after a butterfly in each
@@ -146,37 +113,6 @@ __device__ __forceinline__ void block_sum(float (&v)[G], float (*red)[NW]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) v[g] = (red[g][0] + red[g][1]) + (red[g][2] + red[g][3]);
   __syncthreads();
-}
-
-// 16-byte load i (of 2 for 1-byte codes, 4 for bf16) a lane takes of a K
-// row in the score product: bytes [64 i + 16 tig, +16). The same element
-// order is used for q, so that k-index j of the MMA pairs the same d on
-// both sides.
-template <int ELEM>
-__device__ __forceinline__ int kcol(int i, int tig) { return (64 * i + 16 * tig) / ELEM; }
-
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a2, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-// c += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 sums
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a2, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
 template <typename CT, int G>
@@ -246,7 +182,10 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   // A fragments of q: int8 codes (requantized per row with qmax = max|q|,
-  // the row's four lanes agreeing by shuffles) or bf16 pairs
+  // the row's four lanes agreeing by shuffles) or bf16 pairs. The code of
+  // cluster_decode.cuh's q_load / q_fragments, kept inline here: called
+  // through them, ptxas spills more in the bf16 instances (G = 4: 168
+  // bytes against 16) and the bf16 G = 4 row runs 12% slower.
   const float inv_sqrt_d = ks / sqrtf((float)D);
   uint32_t qa[16];
   float fs = 0.f;
@@ -572,19 +511,6 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   // no CTA leaves while another may read its shared memory
   cluster.sync();
-}
-
-// the dynamic shared memory limit, raised once per kernel and device
-template <typename F>
-int allow_smem(F* kernel, int bytes, unsigned& done_devices) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 32 && (done_devices >> dev & 1u)) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 32) done_devices |= 1u << dev;
-  return 0;
 }
 
 template <typename CT, int G>

@@ -192,6 +192,19 @@ def _attend_chunks(qf, k_cache, v_cache, L, ks, int8: bool, chunk: int, starts=N
     return m, l, acc
 
 
+def fused_decode_ok(q_shape, S: int, cache_dtype) -> bool:
+    """Whether a dense-cache decode step takes K2. The reference's rule for
+    its TPU kernel (``fused_decode_ok``): S <= 8192, D % 128 == 0 and
+    S % 8 == 0 (whole 8-row slabs); its backend test is not followed (on a
+    CPU tensor the wrapper computes the kernel's twin). Then what the CUDA
+    kernel takes: D = 128, G in (1, 2, 4, 8) and an int8, e4m3 or bf16
+    cache. Other steps write the cache by K3 and attend by K5 or the
+    einsum, as the reference's do where its gate says no."""
+    B, KH, G, D = q_shape
+    return (S <= 8192 and D % 128 == 0 and S % 8 == 0
+            and D == 128 and G in (1, 2, 4, 8) and cache_dtype in CACHE_KIND)
+
+
 def fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos,
                                  k_scale=None, v_scale=None,
                                  out_dtype=torch.bfloat16, chunk: int = 256):

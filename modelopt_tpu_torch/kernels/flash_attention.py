@@ -135,6 +135,17 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 # K4: cached-prefill flash attention
 # ---------------------------------------------------------------------------
+def flash_prefill_ok(T: int, S: int, D: int, cache_dtype) -> bool:
+    """Whether a cached forward of T > 1 rows takes K4. The reference's rule
+    for its TPU kernel (``flash_prefill_ok``): D % 64 == 0, S % 128 == 0,
+    S <= 8192 and T >= 64 (below, its einsum is cheaper than a launch); its
+    backend test is not followed (on a CPU tensor the wrapper computes the
+    kernel's twin). Then what the CUDA kernel takes: D = 128 and an int8,
+    e4m3 or bf16 cache. Other forwards take the einsum over the cache."""
+    return (D % 64 == 0 and S % 128 == 0 and S <= 8192 and T >= 64
+            and D == 128 and cache_dtype in CACHE_KIND)
+
+
 def flash_prefill_attention_plain(q, ck, cv, start, k_scale=None, v_scale=None,
                                   out_dtype=torch.bfloat16):
     """The reference kernel's math in one pass: bf16 q, (code * scale) -> bf16

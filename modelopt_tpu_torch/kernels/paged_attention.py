@@ -6,10 +6,13 @@ last dim); a per-slot ``page_table [B, PMAX]`` int32 maps a slot-local page
 index to a pool page id, unused entries pointing at the null page 0.
 
 On CUDA tensors the wrappers launch ``csrc/decode_attention.cu``'s
-``paged_decode_attention`` entry (K5's kernel walking one page per chunk)
-and ``csrc/paged_kv_write.cu``; on CPU tensors the ``*_plain`` versions
-compute the same functions (and serve as the card's oracles). K16 writes
-the pool IN PLACE and hands it back, where the reference aliases it.
+``paged_decode_attention`` entry (at D = 128 and G in {1, 2, 4, 8} a
+thread-block cluster of 8 CTAs per slot and KV head that splits the
+slot's pages, ``csrc/cluster_decode.cuh``; at MLA's geometry K5's kernel
+walking one page per chunk) and ``csrc/paged_kv_write.cu``; on CPU
+tensors the ``*_plain`` versions compute the same functions (and serve as
+the card's oracles). K16 writes the pool IN PLACE and hands it back,
+where the reference aliases it.
 """
 
 from __future__ import annotations

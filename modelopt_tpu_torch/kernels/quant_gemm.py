@@ -175,8 +175,8 @@ def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
         raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
     x3 = x3.to(torch.bfloat16).contiguous()
     _build.check_cuda(name, x3, packed, scale)
-    if x3.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
+    if x3.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(f"{name}: x, packed and scale must be 16-byte aligned")
     out = torch.empty(E, M, n, dtype=out_dtype, device=x3.device)
     f32 = out_dtype == torch.float32
     args = [x3.data_ptr(), packed.data_ptr(), scale.data_ptr(),
@@ -192,7 +192,8 @@ def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
 def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                block: int = 128, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ int4-packed W -> [M, N] in ``out_dtype``
-    (f32 or bf16), every M: 16-row tiles up to M = 16, 64-row tiles above."""
+    (f32 or bf16), every M: 16-row mma.sync tiles up to M = 16, the wgmma
+    tile (128 weight columns x 64 tokens) above."""
     M, K = x.shape
     N = packed.shape[1]
     _check_packed("w4a16_gemm", packed, scale, block, K, N)

@@ -14,9 +14,13 @@ experts, as the reference does. Module names follow the reference
 ``lm_head``...), so quantize configs and reference variables address the
 same paths.
 
-Cached forwards go through the kernels: T > 1 writes the chunk's K/V with
-``dense_kv_write`` then attends with ``flash_prefill_attention``; T == 1 is
-one ``fused_decode_attention`` step. Uncached forwards of T >= 256 rows
+Cached forwards take the reference's kernel gates: T == 1 is one
+``fused_decode_attention`` step under ``fused_decode_ok``; otherwise the
+chunk's K/V go in by ``dense_kv_write``, then T > 1 attends with
+``flash_prefill_attention`` under ``flash_prefill_ok``, T == 1 with
+``decode_attention`` under ``decode_attention_ok``, and anything else with
+the einsum over the cache, dequantized as the reference dequantizes it.
+Uncached forwards of T >= 256 rows
 attend with ``flash_attention`` where its rule holds, others with an
 einsum. With ``cfg.skip_softmax`` (``sparsity/skip_softmax.py``) the cache
 also carries per-layer block summaries: every forward writes through
@@ -43,10 +47,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.attention import dense_kv_write, fused_decode_attention
+from ..kernels.attention import (decode_attention, decode_attention_ok, dense_kv_write,
+                                 fused_decode_attention, fused_decode_ok)
 from ..kernels.block_sparse_attention import (block_sparse_decode_attention,
                                               block_sparse_decode_attention_xla, block_sparse_ok)
-from ..kernels.flash_attention import flash_attention, flash_attention_ok, flash_prefill_attention
+from ..kernels.flash_attention import (flash_attention, flash_attention_ok,
+                                       flash_prefill_attention, flash_prefill_ok)
 from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
                                        paged_gather_dense, paged_kv_write)
 from ..nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
@@ -376,18 +382,8 @@ class Attention(nn.Module):
             if summaries is not None:
                 return self._skip_softmax(q, k_codes, k_rows, v_rows, ck, cv, start,
                                           k_scale, v_scale, mask, *summaries)
-            if T == 1:
-                out, ck, cv = fused_decode_attention(
-                    q[:, 0].reshape(B, KH, G, D).contiguous(), k_rows, v_rows,
-                    ck, cv, start, k_scale=k_scale, v_scale=v_scale,
-                    out_dtype=cfg.dtype)
-            else:
-                dense_kv_write(ck, k_rows.contiguous(), start)
-                dense_kv_write(cv, v_rows.contiguous(), start)
-                out = flash_prefill_attention(
-                    q.reshape(B, T, KH, G, D).contiguous(), ck, cv, start,
-                    k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
-            return self.o_proj(out.reshape(B, T, H * D)), (ck, cv)
+            return self._dense(q, k_rows, v_rows, ck, cv, positions, start, k_scale,
+                               v_scale, mask), (ck, cv)
 
         k, v = self.k_quantizer(k), self.v_quantizer(v)
         if T >= 256 and flash_attention_ok(T, T, D):
@@ -411,6 +407,50 @@ class Attention(nn.Module):
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(cfg.dtype))
         return self.o_proj(out.reshape(B, T, H * D))
+
+    def _dense(self, q, k_rows, v_rows, ck, cv, positions, start, k_scale, v_scale, mask):
+        """The dense cache under the reference's gates (its :495-529 write,
+        :578-593 prefill, :636-669 decode, then the einsum): a decode step
+        under ``fused_decode_ok`` writes and attends in one kernel; any
+        other forward writes its rows by ``dense_kv_write``, then attends
+        by ``flash_prefill_attention`` (T > 1, ``flash_prefill_ok``),
+        ``decode_attention`` (T == 1, ``decode_attention_ok``) or the
+        masked einsum over the cache, codes times their scale in the model
+        dtype. K5 takes the cache's scales for int8 codes too (the
+        reference passes them for e4m3 only). Through o_proj."""
+        cfg = self.cfg
+        H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+        G = H // KH
+        B, T = q.shape[:2]
+        S = ck.shape[1]
+        if T == 1 and fused_decode_ok((B, KH, G, D), S, ck.dtype):
+            out, _, _ = fused_decode_attention(
+                q[:, 0].reshape(B, KH, G, D).contiguous(), k_rows, v_rows, ck, cv, start,
+                k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
+            return self.o_proj(out.reshape(B, 1, H * D))
+        dense_kv_write(ck, k_rows.contiguous(), start)
+        dense_kv_write(cv, v_rows.contiguous(), start)
+        if T > 1 and flash_prefill_ok(T, S, D, ck.dtype):
+            out = flash_prefill_attention(
+                q.reshape(B, T, KH, G, D).contiguous(), ck, cv, start,
+                k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
+            return self.o_proj(out.reshape(B, T, H * D))
+        if T == 1 and decode_attention_ok((B, KH, G, D), S, ck.dtype):
+            lengths = (positions[:, 0] + 1).to(torch.int32).contiguous()
+            out = decode_attention(q[:, 0].reshape(B, KH, G, D).contiguous(), ck, cv,
+                                   lengths, k_scale=k_scale, v_scale=v_scale,
+                                   out_dtype=cfg.dtype)
+            return self.o_proj(out.reshape(B, 1, H * D))
+        k = ck.view(B, S, KH, D)
+        v = cv.view(B, S, KH, D)
+        if k_scale is not None:
+            k = k.to(cfg.dtype) * k_scale.to(cfg.dtype)
+            v = v.to(cfg.dtype) * v_scale.to(cfg.dtype)
+        if mask is None:  # the Decoder builds none for the dense cache's kernels
+            key_pos = torch.arange(S, device=q.device)
+            mask = torch.where(key_pos[None, None, :] <= positions[:, :, None], 0.0,
+                               -1e9).float()
+        return self._einsum(q, k, v, mask)
 
     def _skip_softmax(self, q, k_codes, k_rows, v_rows, ck, cv, start, k_scale, v_scale,
                       mask, kmax, kmin):

@@ -159,3 +159,131 @@ def test_split_over_keys_matches_reference(rng, kind, G, S):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K15 paged_decode_attention split over pages
+# ---------------------------------------------------------------------------
+SB, PP = 512, 8  # keys a CTA holds scores of; pages a CTA holds a round
+
+
+def page_runs(npages: int, P: int):
+    """The kernel's rounds of C * P pages: per round, the pages [p0, p1) of
+    each rank, the round's pages split in C contiguous runs."""
+    rounds = []
+    for base in range(0, npages, C * P):
+        n = min(C * P, npages - base)
+        rounds.append([(base + n * r // C, base + n * (r + 1) // C) for r in range(C)])
+    return rounds
+
+
+def cluster_paged_decode(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
+    """K15's cluster kernel for every (slot, KV head), round by round: each
+    rank's pages scored and their maxima taken; the running max at every
+    page of the round from all ranks' maxima, in page order; each page's
+    codes against its running max and its integer (int8) or f32 (bf16)
+    partials; the f32 recurrence over the round's pages in order. f32
+    out."""
+    B, KH, G, D = q.shape
+    _, ps, KHD = k_pages.shape
+    PMAX = page_table.shape[1]
+    P = min(PP, SB // ps)
+    int8 = k_pages.dtype == torch.int8
+    ks, vs = (ta._scalar(t, "cpu") for t in (k_scale, v_scale))
+    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D)))
+    qf = q.to(torch.bfloat16).float()
+    idx = page_table.reshape(-1).long()
+    k4 = k_pages[idx].reshape(B, PMAX * ps, KH, D)
+    v4 = v_pages[idx].reshape(B, PMAX * ps, KH, D)
+    if int8:
+        qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        q8 = torch.round(qf * (torch.tensor(127.0) / qmax))
+        scores = torch.einsum("bhgd,bthd->bhgt", q8, k4.float()) * (qmax * (inv_sqrt_d / 127.0))
+    else:
+        scores = torch.einsum("bhgd,bthd->bhgt", qf, ta._kv_values(k4)) * inv_sqrt_d
+    out = torch.empty(B, KH, G, D)
+    for b in range(B):
+        L = min(int(lengths[b]), PMAX * ps)
+        for h in range(KH):
+            s, vb = scores[b, h], v4[b, :, h]
+            m_prev = torch.full((G,), -1e30)
+            m, l, acc = torch.full((G, 1), -1e30), torch.zeros(G, 1), torch.zeros(G, D)
+            for rnd in page_runs(-(-L // ps), P):
+                mr = {}
+                for p0, p1 in rnd:
+                    for p in range(p0, p1):
+                        m_prev = torch.maximum(m_prev, s[:, p * ps:min(L, (p + 1) * ps)].amax(-1))
+                        mr[p] = m_prev
+                parts = {}
+                for p, mp in mr.items():
+                    lo, hi = p * ps, min(L, (p + 1) * ps)
+                    e = torch.exp(s[:, lo:hi] - mp[:, None])
+                    if int8:
+                        e8 = torch.round(e * 127.0).to(torch.int64)
+                        es, y = e8.sum(-1), e8 @ vb[lo:hi].to(torch.int64)
+                        es, y = es.float() * (1.0 / 127.0), y.float() * (1.0 / 127.0)
+                    else:
+                        es = e.sum(-1)
+                        y = e.to(torch.bfloat16).float() @ ta._kv_values(vb[lo:hi])
+                    parts[p] = (es, y)
+                for p in sorted(mr):
+                    es, y = parts[p]
+                    m_cur = mr[p][:, None]
+                    alpha = torch.exp(m - m_cur)
+                    l = l * alpha + es[:, None]
+                    acc = acc * alpha + y
+                    m = m_cur
+            out[b, h] = acc * (vs / l.clamp_min(1e-30))
+    return out
+
+
+# a shuffled pool of 12 pages of 8 rows, tables of 72 entries drawn from it
+# (a page may recur); lengths: an empty slot, one key, a page edge (9),
+# 25 pages over 8 ranks, and two rounds (64 pages a round: 513 keys, and
+# the whole table, 576)
+PAGED_LENGTHS = [0, 1, 9, 200, 513, 576]
+
+
+@pytest.mark.parametrize("kind,G", [("int8", 1), ("int8", 4), ("int8", 8), ("bf16", 4)])
+def test_split_over_pages_matches_reference(rng, kind, G):
+    """Against the port's plain version: int8 bit for bit (the same codes,
+    exact integer partials, the same f32 recurrence in page order); bf16 to
+    f32 rounding, 1e-5 of the largest output. Against the Pallas kernel
+    (interpret mode): int8 within 1e-5 of the largest output (the same
+    codes; XLA's CPU code rounds the f32 recurrence's products and sums with
+    fused multiply-adds, an ulp or two away, so not bit for bit); bf16
+    within 1e-2, K15's bar in test_torch_paged_attention.py."""
+    from modelopt_tpu.kernels import paged_attention as jpa
+    from modelopt_tpu_torch.kernels import paged_attention as tpa
+
+    KH, D, ps, n_pages, pmax = 2, 128, 8, 12, 72
+    lengths = np.asarray(PAGED_LENGTHS, np.int32)
+    B = len(lengths)
+    q = rng.standard_normal((B, KH, G, D)).astype(np.float32)
+    pt = rng.integers(0, n_pages, (B, pmax)).astype(np.int32)
+    if kind == "int8":
+        kp, vp = (rng.integers(-127, 128, (n_pages, ps, KH * D)).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = 0.02, 0.03
+        jd, td = jnp.int8, torch.int8
+    else:
+        kp, vp = (rng.standard_normal((n_pages, ps, KH * D)).astype(np.float32)
+                  for _ in range(2))
+        ks = vs = None
+        jd, td = jnp.bfloat16, torch.bfloat16
+    tq, tpt, tl = torch.from_numpy(q), torch.from_numpy(pt), torch.from_numpy(lengths)
+    tk, tv = (torch.from_numpy(a).to(td) for a in (kp, vp))
+    got = cluster_paged_decode(tq, tk, tv, tpt, tl, ks, vs)
+    want = tpa.paged_decode_attention_plain(tq, tk, tv, tpt, tl, ks, vs, out_dtype=torch.float32)
+    if kind == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jpa.paged_decode_attention(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp).astype(jd), jnp.asarray(vp).astype(jd),
+            jnp.asarray(pt), jnp.asarray(lengths), k_scale=ks, v_scale=vs,
+            out_dtype=jnp.float32)
+    bar = 1e-5 * float(np.abs(ref).max()) if kind == "int8" else 1e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0 if kind == "int8" else 1e-2,
+                               atol=bar)

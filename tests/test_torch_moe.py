@@ -363,24 +363,32 @@ def test_decode_to_cache_end_matches_reference(engine_bundles, monkeypatch):
     """A request served until its slot reaches ``max_seq_len`` (burst decode,
     multi_step 4): both engines stop it for length with the same tokens and
     leave the same per-slot ``lengths``, and a request that reuses the slot
-    matches too. The decode writes seen by the attention kernel show where
+    matches too. The decode writes seen by the cache's writer show where
     the cache end is met: an active slot's last burst tick writes row S-1
     and leaves lengths == S, so the retired slot's next (idle) tick writes at
     pos S, which kernel and twin clamp to S-1 like the reference's
     ``dynamic_update_slice``; that row is dead until a new request
-    overwrites it."""
+    overwrites it. The writer is K2 where ``fused_decode_ok`` admits the
+    step, else K3 (this f32 cache: K2's CUDA kernel takes int8, e4m3 and
+    bf16 caches, so the gate sends the step to K3 and the einsum)."""
     jb, tb = engine_bundles[W4A8]
     S_ = 32
     kw = dict(max_batch=2, max_seq_len=S_, prefill_buckets=(8, 16), max_admit=1,
               multi_step=4)
     seen = []
-    real = tt.fused_decode_attention
+    real, real_write = tt.fused_decode_attention, tt.dense_kv_write
 
     def spy(q, k, v, kc, vc, pos, *a, **k2):
         seen.append(pos.clone())
         return real(q, k, v, kc, vc, pos, *a, **k2)
 
+    def spy_write(cache, vals, start):
+        if vals.shape[1] == 1:
+            seen.append(start.clone())
+        return real_write(cache, vals, start)
+
     monkeypatch.setattr(tt, "fused_decode_attention", spy)
+    monkeypatch.setattr(tt, "dense_kv_write", spy_write)
 
     def serve(engine):
         r1 = engine.submit(PROMPTS[1], max_new_tokens=100)
