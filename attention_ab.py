@@ -1,20 +1,24 @@
-"""Time the port's attention kernels and K1 of one source tree on the card,
-to compare two commits on one card.
+"""Time the port's attention kernels and quantized GEMMs of one source tree on
+the card, to compare two commits on one card.
 
     python3 attention_ab.py TREE [--prefill]   # TREE: a checkout holding modelopt_tpu_torch/
 
 Builds the tree's ``decode_attention``, ``fused_decode_attention``,
 ``flash_attention``, ``flash_prefill_attention``, ``w4a8_gemm``,
-``w4a16_gemm``, ``grouped_w4a8_gemm`` and ``paged_kv_write`` sources, then
+``w4a16_gemm``, ``grouped_w4a8_gemm``, ``w8a16_gemm``, ``nvfp4_gemm`` and
+``paged_kv_write`` sources, then
 times K5 decode_attention, K15 paged_decode_attention and K17
 block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
 (int8 and bf16 caches), and K2 fused_decode_attention, K1 w4a8_gemm, K4
 flash_prefill_attention, K14 flash_attention, K6 w4a16_gemm, K10
-grouped_w4a16_gemm and K15 at every case of ``chip_smoke.py``'s
+grouped_w4a16_gemm, K7 w8a16_gemm, K8 wfp8_gemm, K9 nvfp4_gemm, K13
+grouped_nvfp4_gemm and K15 at every case of ``chip_smoke.py``'s
 ``fused_decode_kernels``, ``w4a8_kernels``, ``flash_prefill_kernels``,
-``flash_kernels``, ``moe_kernels`` (K6 at M = 8, 32 and 544, K10 at
-M = 1, 8 and 32; its K11 and K12 rows ride along) and ``paged_kernels``
-(each held to the tree's plain twin at the bar stated there), with its
+``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
+at M = 1, 8 and 32; its K11 and K12 rows ride along), ``fp_kernels``
+and ``paged_kernels`` (each held to the tree's plain twin at the bar
+stated there; ``chip_smoke.py``'s one-launch checks are left to it, since
+a parent tree may sum K splits in a second launch), with its
 timer: CUDA events, median of
 25 launches, the 50 MB L2 flushed and the stream spun before each; and the host time
 of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
@@ -53,7 +57,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
                   "flash_prefill_attention", "w4a8_gemm", "w4a16_gemm", "grouped_w4a8_gemm",
-                  "paged_kv_write") + (("kv_write",) if prefill else ()))
+                  "w8a16_gemm", "nvfp4_gemm", "paged_kv_write")
+                 + (("kv_write",) if prefill else ()))
+cs.one_launch = lambda *args: None  # the tree's own chip_smoke.py checks its launch counts
 timer = cs.Timer(torch)
 print(f"{os.path.basename(tree) or tree}: card {cs.card_line()}", flush=True)
 dev = "cuda"
@@ -109,11 +115,13 @@ del kc, vc, kpool, vpool, lat
 # K2, K4, K14 and K1 at chip_smoke's cases, each against the tree's twin
 rows: dict = {}
 for phase in (cs.fused_decode_kernels, cs.flash_prefill_kernels, cs.flash_kernels,
-              cs.w4a8_kernels, cs.moe_kernels, cs.paged_kernels):
+              cs.w4a8_kernels, cs.moe_kernels, cs.fp_kernels, cs.paged_kernels):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
 for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
                   ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),
-                  ("grouped_w4a16_gemm", "K10"), ("paged_decode_attention", "K15")):
+                  ("grouped_w4a16_gemm", "K10"), ("w8a16_gemm", "K7"), ("wfp8_gemm", "K8"),
+                  ("nvfp4_gemm", "K9"), ("grouped_nvfp4_gemm", "K13"),
+                  ("paged_decode_attention", "K15")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]
 

@@ -7,8 +7,9 @@ Phases, in order (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), versions, kernel build time
      (one nvcc per source, all started together), ptxas warnings,
      registers and spills (per template instance for the two flash
-     sources, K1's w4a8_gemm, K6's w4a16_gemm, K2's cluster kernel and
-     decode_attention.cu's K5 / K15 / K17 instances); TF32 is switched off
+     sources, K1's w4a8_gemm, K6's w4a16_gemm, K9's nvfp4_gemm, K2's
+     cluster kernel and decode_attention.cu's K5 / K15 / K17 instances; no
+     instance of w4a16_gemm.cu or nvfp4_gemm.cu may spill); TF32 is switched off
      for matmuls and cuDNN, so the MoE router's f32 product runs in full
      f32;
   2. kernels: each hand-written kernel against its plain PyTorch version on
@@ -16,14 +17,17 @@ Phases, in order (any failure exits non-zero):
      tolerance, kernel / plain / library-call times (CUDA events, median of
      25 launches, L2 flushed before each) and the least time the card could
      take for the same work: the MoE kernels (K6 w4a16_gemm at the four
-     projection shapes, M = 8 and 544 and at M = 32 for N = 4096 and
-     98304, K10 grouped_w4a16_gemm at M = 1, 8 and 32, K12
+     projection shapes, M = 8 and 544, at M = 32 for N = 4096 and 98304
+     and at M = 1 and 16 for N = 512 and K = 4096, N = 2048 (the decode
+     tile's cluster split), K10 grouped_w4a16_gemm at M = 1, 8 and 32, K12
      grouped_w4a8_combine_gemm with routed and dense gate scales, and at
      DeepSeek's straddle shape K=1408, K11 grouped_w4a8_gemm at both expert
      geometries, bit for bit), the fp / int8 weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, K9
-     nvfp4_gemm at Qwen3-30B-A3B's, K13 grouped_nvfp4_gemm at its expert
-     down projection), then K1-K4: K1 at Llama-3-8B's four projections at
+     nvfp4_gemm at Qwen3-30B-A3B's and at the wgmma tile's token-tile edges
+     (M = 17, 64, 65, 200, 256 at N = 4096), K13 grouped_nvfp4_gemm at its
+     expert down projection; one device kernel a call for K6 / K10 at
+     M <= 16 and K9 / K13 above), then K1-K4: K1 at Llama-3-8B's four projections at
      M = 8 and 544 and at its prefill tile's edges (M = 9, 32, 64, 65, 130,
      300 at N = 576, and M = 32 at 4096 x 28672), K2 and K4 at both GQA
      groups the paths run (G = 4 and 8) and on e4m3 caches (K2 also at the
@@ -962,14 +966,34 @@ def flash_kernels(torch, gen, timer, record) -> None:
 def w4a16_bar(torch, ref, x, wdq) -> float:
     """How far a W4A16 kernel may sit from its plain version: both multiply
     the same bf16 x by the same exact weights in f32 and differ only in the
-    order of the f32 sums inside a block (tensor-core MMA against the plain
-    matmul), at most K * 2^-24 * max(|x| @ |w|); a sum that differs in its
-    last f32 bits may then round to the neighbouring bf16, one bf16 ulp of
-    the largest output."""
+    order of the f32 sums (tensor-core MMA against the plain matmul inside
+    a block, and where a cluster splits the blocks, partials from zero
+    summed in rank order), at most K * 2^-24 * max(|x| @ |w|) for any
+    order; a sum that differs in its last f32 bits may then round to the
+    neighbouring bf16, one bf16 ulp of the largest output."""
     K = x.shape[-1]
     order = K * 2.0**-24 * torch.matmul(x.abs().float(), wdq.abs().float()).max().item()
     top = ref.float().abs().max().item()
     return order + 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def one_launch(torch, what: str, fn) -> None:
+    """``fn`` (one wrapper call on inputs already in place and in the
+    kernel's dtype) runs as exactly one device kernel: its partial sums,
+    where it splits K, are added inside that launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+             for _ in range(ev.count)]
+    if len(names) != 1:
+        raise AssertionError(f"{what}: {len(names)} device kernels, want 1: {names}")
+    log(f"  {what}: one device kernel ({names[0][:60]})")
 
 
 def fp_kernels(torch, gen, timer, record) -> None:
@@ -979,8 +1003,11 @@ def fp_kernels(torch, gen, timer, record) -> None:
     up), K13 grouped_nvfp4_gemm at I's expert down projection. Rows M hold
     both tilings of each kernel: M = 8 a decode step (the 16 x 64 tile),
     M = 32 the 32-token prefill bucket of the profile windows and the small
-    NVFP4 parity, M = 128 the small FP8 parity's prefill (the 64 x 64 tile,
-    one and two tiles down M; K13 at 8 and 32). Each kernel
+    NVFP4 parity, M = 128 the small FP8 parity's prefill (K7 / K8's 64 x 64
+    tile, one and two tiles down M; K9's wgmma tile, split over a cluster
+    where its tiles are few); K9 also at M = 17, 64, 65, 200 and 256 for
+    N = 4096 (its 64- and 128-token tiles and their tails), K13 at 8, 17
+    and 32. Each kernel
     and its plain version multiply the same bf16 x by the same weights,
     exact in bf16 (int8, e4m3, e2m1 times its e4m3 block scale), in f32, and
     apply the f32 scale once: they differ only in the order of the f32 sums,
@@ -1020,7 +1047,10 @@ def fp_kernels(torch, gen, timer, record) -> None:
         wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16)
         del w
         args = (qt["data"], qt["scale"], qt["scale2"])
-        for M in (8, 32, 128):
+        if N == 512:  # the wgmma tile's cluster split, in one launch
+            x = torch.randn(128, K, generator=gen, device=dev).to(torch.bfloat16)
+            one_launch(torch, "nvfp4_gemm M=128 N=512", lambda: kq.nvfp4_gemm(x, *args))
+        for M in (8, 17, 32, 64, 65, 128, 200, 256) if N == 4096 else (8, 32, 128):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             y = kq.nvfp4_gemm(x, *args)
             ref = kq.nvfp4_gemm_plain(x, *args)
@@ -1043,8 +1073,10 @@ def fp_kernels(torch, gen, timer, record) -> None:
     wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1) \
         .contiguous()
     args = (qt["data"], qt["scale"], qt["scale2"], N)
-    for M in (8, 32):
+    for M in (8, 17, 32):
         x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        if M == 32:
+            one_launch(torch, "grouped_nvfp4_gemm M=32", lambda: kq.grouped_nvfp4_gemm(x, *args))
         y = kq.grouped_nvfp4_gemm(x, *args)
         ref = kq.grouped_nvfp4_gemm_plain(x, *args)
         errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
@@ -1077,9 +1109,14 @@ def moe_kernels(torch, gen, timer, record) -> None:
         wdq = dequantize_int4(qt).to(torch.bfloat16)
         del w
         # M = 32: the 32-row bucket of the profile windows (the wgmma tile's
-        # one-token-tile instance), at one small N and at the folded experts
-        for M in (8, 32, 544) if N in (4096, 98304) else (8, 544):
+        # one-token-tile instance), at one small N and at the folded experts;
+        # M = 1 and 16: the decode tile's edges where it splits the blocks
+        # over a cluster of 8 (k / v, o)
+        for M in (8, 32, 544) if N in (4096, 98304) else (1, 8, 16, 544):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            if M == 8 and N == 512:
+                one_launch(torch, "w4a16_gemm M=8 N=512",
+                           lambda: kq.w4a16_gemm(x, qt["data"], qt["scale"]))
             y = kq.w4a16_gemm(x, qt["data"], qt["scale"])
             ref = kq.w4a16_gemm_plain(x, qt["data"], qt["scale"])
             err = (y.float() - ref.float()).abs().max().item()
@@ -1105,6 +1142,9 @@ def moe_kernels(torch, gen, timer, record) -> None:
     # wgmma tile the 32-row bucket reaches through grouped_qgemm
     for M in (1, 8, 32):
         x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+        if M == 8:
+            one_launch(torch, "grouped_w4a16_gemm M=8",
+                       lambda: kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N))
         y = kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N)
         ref = kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N)
         errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
@@ -2119,7 +2159,7 @@ PREFILL_SPLIT = {
           ("K4", ("flash_prefill_kernel",))),
     # K6 and K10 share their kernels: "K6" is both (K10 takes the MoE's down
     # projection in the 32-row bucket only)
-    "C": (("K6", ("w4a16_kernel", "w4a16_wg_kernel")), ("K3", ("kv_write_kernel",)),
+    "C": (("K6", ("w4a16_dec_kernel", "w4a16_wg_kernel")), ("K3", ("kv_write_kernel",)),
           ("K4", ("flash_prefill_kernel",))),
 }
 
@@ -2198,11 +2238,11 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
-        "w4a8_kernel", "w4a8_wg_kernel", "w4a16_kernel", "w4a16_wg_kernel",
+        "w4a8_kernel", "w4a8_wg_kernel", "w4a16_dec_kernel", "w4a16_wg_kernel",
         "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
-        "nvfp4_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
+        "nvfp4_kernel", "nvfp4_wg_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
         "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms in {n_launch} kernels"
@@ -2215,10 +2255,13 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
 
 
 # sources whose ptxas lines are reported per template instance: the
-# tensor-core tiles (flash, K1's and K6's prefill tiles), K2's cluster
-# kernel and K15's (decode_attention.cu, beside K5's and K17's instances)
+# tensor-core tiles (flash, K1's, K6's and K9's wgmma tiles, K6's cluster
+# decode tile), K2's cluster kernel and K15's (decode_attention.cu, beside
+# K5's and K17's instances)
 PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode_attention",
-                     "w4a8_gemm", "w4a16_gemm", "decode_attention")
+                     "w4a8_gemm", "w4a16_gemm", "decode_attention", "nvfp4_gemm")
+# sources none of whose instances may spill registers
+NO_SPILL = ("w4a16_gemm", "nvfp4_gemm")
 
 
 def ptxas_by_function(text: str) -> dict:
@@ -2282,6 +2325,9 @@ def main() -> int:
         if name in PTXAS_BY_INSTANCE:
             for fn, lines in ptxas_by_function(text).items():
                 log(f"  ptxas {name} {fn}: {' | '.join(lines)}")
+                if name in NO_SPILL and any(re.search(r"[1-9]\d* bytes spill", ln)
+                                            for ln in lines):
+                    raise AssertionError(f"ptxas: {name} {fn} spills registers")
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:

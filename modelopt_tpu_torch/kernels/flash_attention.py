@@ -23,12 +23,14 @@ from .attention import CACHE_KIND, _scalar
 # K14: cache-free causal flash attention
 # ---------------------------------------------------------------------------
 def flash_attention_ok(T: int, S: int, D: int) -> bool:
-    """The reference's rule for its TPU kernel: D % 64 == 0, S % 128 == 0
-    and S <= 8192; other uncached forwards take the einsum path. The
-    reference's CPU branch (always the einsum path) is not followed: on a
-    CPU tensor the wrapper computes the kernel's twin. On the card the
-    kernel takes D = 64 and 128 (the wrapper raises on other widths)."""
-    return D % 64 == 0 and S % 128 == 0 and S <= 8192
+    """Whether an uncached forward takes K14. The reference's rule for its
+    TPU kernel: D % 64 == 0, S % 128 == 0 and S <= 8192; its backend test
+    is not followed (on a CPU tensor the wrapper computes the kernel's
+    twin). Then what the CUDA kernel takes: D = 64 or 128. Other uncached
+    forwards take the einsum path, the next step of the reference's chain
+    (the wrapper itself still raises on other widths, for direct
+    callers)."""
+    return D % 64 == 0 and S % 128 == 0 and S <= 8192 and D in (64, 128)
 
 
 def _valid_keys(T: int, S: int, causal: bool, window, sink: int, device):

@@ -168,6 +168,32 @@ def grouped_w4a16_gemm_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch
                        n_per_expert).to(out_dtype)
 
 
+# CTAs a cluster split of K aims for: one on each of the H100's 132 SMs. A
+# rank costs a fixed prologue and the cluster's barriers and partial sums,
+# which pay only while SMs would otherwise idle (on the card both the
+# W4A16 decode tile and the NVFP4 wgmma tile ran N = 4096 faster at ~128
+# CTAs than at 256-512; PERF.md)
+CLUSTER_TARGET_CTAS = 132
+
+
+def _cluster_ranks(tiles: int, blocks: int) -> int:
+    """CTAs of one thread-block cluster that share an output tile, each
+    walking a contiguous run of the ``blocks`` 128-row blocks, their
+    partials summed in the same launch: the largest of 1, 2, 4, 8 that
+    keeps ``tiles`` x R within CLUSTER_TARGET_CTAS and R at most
+    ``blocks``."""
+    r = 1
+    while r < 8 and 2 * r <= blocks and 2 * r * tiles <= CLUSTER_TARGET_CTAS:
+        r *= 2
+    return r
+
+
+def _w4a16_ranks(E, M, N, K2) -> int:
+    """Cluster size of a W4A16 product: up to M = 16 the decode tile's
+    (one 64-column tile per cluster, E * N / 64 tiles); 1 above."""
+    return _cluster_ranks(E * (N // 64), K2 // 128) if M <= 16 else 1
+
+
 def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
     E, M, K = x3.shape
     _check_card(name, packed, scale, block, n, 64)
@@ -181,7 +207,8 @@ def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
     f32 = out_dtype == torch.float32
     args = [x3.data_ptr(), packed.data_ptr(), scale.data_ptr(),
             out.data_ptr() if f32 else None, None if f32 else out.data_ptr()]
-    ints = [E, M, n, packed.shape[0]] if grouped else [M, n, packed.shape[0]]
+    K2 = packed.shape[0]
+    ints = ([E, M, n, K2] if grouped else [M, n, K2]) + [_w4a16_ranks(E, M, n, K2)]
     fn = _build.function(name, [_build.c_ptr] * 5 + [_build.c_int] * len(ints)
                          + [_build.c_ptr], source="w4a16_gemm")
     with torch.cuda.device(x3.device):
@@ -192,8 +219,10 @@ def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
 def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                block: int = 128, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ int4-packed W -> [M, N] in ``out_dtype``
-    (f32 or bf16), every M: 16-row mma.sync tiles up to M = 16, the wgmma
-    tile (128 weight columns x 64 tokens) above."""
+    (f32 or bf16), every M: up to M = 16 the mma.sync decode tile (64
+    weight columns, the 128-row blocks split over a cluster of
+    ``_w4a16_ranks`` CTAs), above it the wgmma tile (128 weight columns x
+    64 or 128 tokens). One launch either way."""
     M, K = x.shape
     N = packed.shape[1]
     _check_packed("w4a16_gemm", packed, scale, block, K, N)
@@ -355,8 +384,8 @@ def _k_splits(tiles: int, steps: int) -> int:
 
 
 def _tiles(E, M, N) -> int:
-    """Output tiles of the CUDA tilings (16 x 64 up to M = 16, 64 x 64
-    above) over E experts."""
+    """Output tiles of the byte GEMMs' CUDA tilings (16 x 64 up to M = 16,
+    64 x 64 above) over E experts; the NVFP4 decode tile's at M <= 16."""
     return E * (N // 64) * (1 if M <= 16 else -(-M // 64))
 
 
@@ -478,6 +507,17 @@ def _check_nvfp4(name, packed, scale, scale2, block, K, EN):
                          f"scale {tuple(scale.shape)}, scale2 {tuple(scale2.shape)}")
 
 
+def _nvfp4_splits(E, M, N, K2):
+    """(splits, ranks) of an NVFP4 product. M <= 16: K splits of the decode
+    tile, whose partials a second launch sums. Above: the K blocks split
+    over a cluster of ``ranks`` CTAs of the wgmma tile (128 columns x 64
+    tokens), summed in the same launch."""
+    if M <= 16:
+        return _k_splits(_tiles(E, M, N), K2 // 128), 1
+    tiles = E * -(-N // 128) * -(-M // 64)
+    return 1, _cluster_ranks(tiles, K2 // 128)
+
+
 def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped):
     E, M, K = x3.shape
     K2 = packed.shape[0]
@@ -491,13 +531,13 @@ def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped)
         raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
     x3 = x3.to(torch.bfloat16).contiguous()
     _build.check_cuda(name, x3, packed, scale, scale2)
-    if x3.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
+    if x3.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(f"{name}: x, packed and scale must be 16-byte aligned")
     out = torch.empty(E, M, n, dtype=out_dtype, device=x3.device)
     f32 = out_dtype == torch.float32
-    splits = _k_splits(_tiles(E, M, n), K2 // 128)
+    splits, ranks = _nvfp4_splits(E, M, n, K2)
     part = torch.empty(E, splits, M, n, device=x3.device) if splits > 1 else None
-    ints = [E, M, n, K2, splits] if grouped else [M, n, K2, splits]
+    ints = ([E, M, n, K2] if grouped else [M, n, K2]) + [splits, ranks]
     fn = _build.function(name, [_build.c_ptr] * 7 + [_build.c_int] * len(ints) + [_build.c_ptr],
                          source="nvfp4_gemm")
     with torch.cuda.device(x3.device):
@@ -510,7 +550,9 @@ def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped)
 def nvfp4_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                scale2: torch.Tensor, block: int = 16, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ NVFP4 W (packed uint8 [K/2, N], e4m3
-    scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``."""
+    scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``: up to
+    M = 16 the mma.sync decode tile (its K splits summed by a second
+    launch), above it the wgmma tile in one launch (``_nvfp4_splits``)."""
     M, K = x.shape
     N = packed.shape[1]
     _check_nvfp4("nvfp4_gemm", packed, scale, scale2, block, K, N)

@@ -133,7 +133,8 @@ def test_flash_attention_gradient_matches_jax(rng, interp, window, sink):
 
 
 def test_flash_attention_rule_and_refusals():
-    """``flash_attention_ok`` is the reference's shape rule; the wrapper
+    """``flash_attention_ok`` is the reference's shape rule plus the card
+    kernel's widths (``tests/test_torch_kernel_gates.py``); the wrapper
     refuses mismatched shapes."""
     assert tf.flash_attention_ok(1024, 1024, 128)
     assert not tf.flash_attention_ok(272, 272, 128)     # S % 128

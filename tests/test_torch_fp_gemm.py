@@ -100,7 +100,8 @@ def test_byte_gemm_plain_matches_pallas(rng, interp, fmt, M, out):
 
 
 @pytest.mark.parametrize("K", [512, 1024])  # one 256-row chunk a half; two
-@pytest.mark.parametrize("M", [1, 8])
+# M = 40: the card's wgmma tile (above M = 16), one ragged 64-token tile
+@pytest.mark.parametrize("M", [1, 8, 40])
 @pytest.mark.parametrize("out", ["f32", "bf16"])
 def test_nvfp4_plain_matches_pallas(rng, interp, K, M, out):
     """K9: each e2m1 value times its e4m3 block scale, exact in bf16, then
@@ -210,6 +211,19 @@ def test_dispatch_takes_the_kernels_at_decode(rng, monkeypatch):
         tb.moe_down_qgemm(torch.randn(M, E, K).bfloat16(), pt, TSpec(**SPECS["nvfp4"]),
                           (E, K, N), torch.rand(M, E).bfloat16())
     assert calls == ["w8a16_gemm", "wfp8_gemm", "nvfp4_gemm", "grouped_nvfp4_gemm"]
+
+
+@pytest.mark.parametrize("E,M,N,K2,want", [
+    (1, 8, 512, 1024, (8, 1)),       # decode: K splits summed by a second launch
+    (1, 128, 512, 1024, (1, 8)),     # 8 wgmma tiles: a cluster of 8 in one launch
+    (1, 128, 98304, 1024, (1, 1)),   # 1,536 tiles: no split
+    (128, 32, 2048, 384, (1, 1)),    # K13, the expert down projection
+])
+def test_nvfp4_splits_and_cluster_ranks(E, M, N, K2, want):
+    """(K splits, cluster ranks) of an NVFP4 product at path I's shapes: a
+    second reduce launch only at M <= 16; above, the blocks split over a
+    cluster only where the wgmma tiles are few, and never K splits."""
+    assert tk._nvfp4_splits(E, M, N, K2) == want
 
 
 def test_cuda_wrappers_refuse_shapes_they_cannot_take():

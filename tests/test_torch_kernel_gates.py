@@ -1,6 +1,7 @@
 """The dense MHA cache under the reference's kernel gates: the port takes K2
 ``fused_decode_attention`` only under ``fused_decode_ok`` and K4
-``flash_prefill_attention`` only under ``flash_prefill_ok`` (the
+``flash_prefill_attention`` only under ``flash_prefill_ok``, and an uncached
+forward K14 ``flash_attention`` only under ``flash_attention_ok`` (the
 reference's shape rules plus the CUDA kernels' limits); other forwards
 write the cache by K3 and attend by K5 or the einsum over the cache, as
 the reference does. The JAX side runs under the reference's shape rules
@@ -21,7 +22,7 @@ from modelopt_tpu.models import transformer as jt
 from modelopt_tpu.quant import qtensor as jq
 from modelopt_tpu.quant.config import get_config as jget_config
 from modelopt_tpu_torch.kernels.attention import fused_decode_ok
-from modelopt_tpu_torch.kernels.flash_attention import flash_prefill_ok
+from modelopt_tpu_torch.kernels.flash_attention import flash_attention_ok, flash_prefill_ok
 from modelopt_tpu_torch.models import transformer as tt
 from modelopt_tpu_torch.models.convert import from_jax_variables
 from tests._test_utils.pallas_interpret import reference_shape_rules
@@ -232,7 +233,39 @@ def test_32_row_bucket_takes_the_einsum(int8_layer, reference_rules, no_dense_ke
     ("fused", ((8, 8, 4, 256), 2176, torch.int8), False),
     ("fused", ((8, 2, 16, 128), 2176, torch.int8), False),
     ("prefill", (544, 2176, 64, torch.bfloat16), False),
+    # K14 (uncached forwards): the card kernel's widths, and two the
+    # reference admits that it does not
+    ("flash", (1024, 1024, 64), True),
+    ("flash", (1024, 1024, 128), True),
+    ("flash", (1024, 1024, 192), False),
+    ("flash", (1024, 1024, 256), False),
 ])
 def test_gates_at_served_and_refused_shapes(gate, args, want):
-    fn = fused_decode_ok if gate == "fused" else flash_prefill_ok
+    fn = {"fused": fused_decode_ok, "prefill": flash_prefill_ok,
+          "flash": flash_attention_ok}[gate]
     assert fn(*args) is want
+
+
+def test_uncached_forward_at_d256_takes_the_einsum(reference_rules, monkeypatch):
+    """An uncached 256-token forward at D = 256 (hidden 512, 2 query heads
+    over 1 KV head, 1 layer). The reference's ``flash_attention_ok`` admits
+    it, so the JAX side runs its flash kernel (interpreted); the port's gate
+    refuses the width its card kernel lacks, so the port takes the einsum.
+    Before the repair the port sent this forward to K14, whose CUDA wrapper
+    raises at D = 256. Logits at the einsum's two-ulp bar."""
+    wide = dict(hidden_size=512, intermediate_size=256, num_layers=1, num_heads=2,
+                num_kv_heads=1, max_position_embeddings=512)
+
+    def refuse(*a, **k):
+        raise AssertionError("flash_attention called at a width its card kernel lacks")
+
+    monkeypatch.setattr(tt, "flash_attention", refuse)
+    jb = reference_bundle(None, **wide)
+    ids = np.random.default_rng(6).integers(1, 256, (1, 256)).astype(np.int32)
+    want, _ = jax.jit(jb.make_fn())(jb.variables, jnp.asarray(ids))
+    want = np.asarray(want, np.float32)
+    cfg = tt.tiny_test_config(dtype=torch.bfloat16, **wide)
+    assert cfg.dims_per_head == 256
+    tb = from_jax_variables(to_numpy(jb.variables), cfg, device="cpu")
+    got, _ = tb.apply(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_two_ulps(want))

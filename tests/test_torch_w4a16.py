@@ -142,6 +142,25 @@ def test_w4a16_straddle_refused():
         tk.grouped_w4a16_gemm(x.reshape(2, 1, 384), data, scale, 128)
 
 
+@pytest.mark.parametrize("E,M,N,K,want", [
+    (1, 8, 4096, 2048, 2),     # Qwen3-30B-A3B q_proj: 64 column tiles
+    (1, 8, 512, 2048, 8),      # k_proj / v_proj: 8 tiles
+    (1, 16, 2048, 4096, 4),    # o_proj: 32 tiles, 16 blocks
+    (1, 1, 98304, 2048, 1),    # the folded gate / up experts: 1,536 tiles
+    (128, 8, 2048, 768, 1),    # K10, the expert down projection: 4,096 tiles
+    (1, 8, 64, 768, 2),        # one tile, K = 768: never more ranks than its 3 blocks
+])
+def test_w4a16_decode_cluster_ranks(E, M, N, K, want):
+    """The decode tile's cluster size (CTAs that split one output tile's
+    128-row blocks, summed in one launch) at path C's shapes: the few-tile
+    projections split, the many-tile ones do not, and no rank is left
+    without a block."""
+    R = tk._w4a16_ranks(E, M, N, K // 2)
+    assert R == want
+    assert R <= K // 256 and R in (1, 2, 4, 8)
+    assert tk._w4a16_ranks(E, 17, N, K // 2) == 1  # the wgmma tile: no split
+
+
 def test_w4a16_off_cpu_never_computes_the_twin():
     """A tensor that is not on the CPU goes to the kernel's checks, never
     to the plain twin: here (no card) they refuse it."""
