@@ -16,7 +16,9 @@ grouped_nvfp4_gemm and K15 at every case of ``chip_smoke.py``'s
 ``fused_decode_kernels``, ``w4a8_kernels``, ``flash_prefill_kernels``,
 ``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
 at M = 1, 8 and 32; its K11 and K12 rows ride along), ``fp_kernels``
-and ``paged_kernels`` (each held to the tree's plain twin at the bar
+(K7 / K8 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17, 64, 65,
+200 and 256, every byte code read back through both tiles) and
+``paged_kernels`` (each held to the tree's plain twin at the bar
 stated there; ``chip_smoke.py``'s one-launch checks are left to it, since
 a parent tree may sum K splits in a second launch), with its
 timer: CUDA events, median of

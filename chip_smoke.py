@@ -7,9 +7,10 @@ Phases, in order (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), versions, kernel build time
      (one nvcc per source, all started together), ptxas warnings,
      registers and spills (per template instance for the two flash
-     sources, K1's w4a8_gemm, K6's w4a16_gemm, K9's nvfp4_gemm, K2's
-     cluster kernel and decode_attention.cu's K5 / K15 / K17 instances; no
-     instance of w4a16_gemm.cu or nvfp4_gemm.cu may spill); TF32 is switched off
+     sources, K1's w4a8_gemm, K6's w4a16_gemm, K7 / K8's w8a16_gemm, K9's
+     nvfp4_gemm, K2's cluster kernel and decode_attention.cu's K5 / K15 /
+     K17 instances; no instance of w4a16_gemm.cu, nvfp4_gemm.cu or
+     w8a16_gemm.cu may spill); TF32 is switched off
      for matmuls and cuDNN, so the MoE router's f32 product runs in full
      f32;
   2. kernels: each hand-written kernel against its plain PyTorch version on
@@ -23,11 +24,13 @@ Phases, in order (any failure exits non-zero):
      grouped_w4a8_combine_gemm with routed and dense gate scales, and at
      DeepSeek's straddle shape K=1408, K11 grouped_w4a8_gemm at both expert
      geometries, bit for bit), the fp / int8 weight kernels (K7
-     w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, K9
-     nvfp4_gemm at Qwen3-30B-A3B's and at the wgmma tile's token-tile edges
-     (M = 17, 64, 65, 200, 256 at N = 4096), K13 grouped_nvfp4_gemm at its
-     expert down projection; one device kernel a call for K6 / K10 at
-     M <= 16 and K9 / K13 above), then K1-K4: K1 at Llama-3-8B's four projections at
+     w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, also at
+     M = 1 and 16 for N = 4096, every byte code read back through both
+     tiles bit for bit, K9 nvfp4_gemm at Qwen3-30B-A3B's, K7 / K8 / K9 at
+     the wgmma tile's token-tile edges (M = 17, 64, 65, 200, 256 at
+     N = 4096), K13 grouped_nvfp4_gemm at its expert down projection; one
+     device kernel a call for K6 / K10 at M <= 16, K9 / K13 above and K7 /
+     K8 at M = 8, 32 and 128), then K1-K4: K1 at Llama-3-8B's four projections at
      M = 8 and 544 and at its prefill tile's edges (M = 9, 32, 64, 65, 130,
      300 at N = 576, and M = 32 at 4096 x 28672), K2 and K4 at both GQA
      groups the paths run (G = 4 and 8) and on e4m3 caches (K2 also at the
@@ -980,20 +983,52 @@ def w4a16_bar(torch, ref, x, wdq) -> float:
 def one_launch(torch, what: str, fn) -> None:
     """``fn`` (one wrapper call on inputs already in place and in the
     kernel's dtype) runs as exactly one device kernel: its partial sums,
-    where it splits K, are added inside that launch."""
+    where it splits K, are added inside that launch. A profile that holds
+    no device event at all recorded nothing (the wrapper launched: a
+    call's output is held to its twin elsewhere), and on the card one such
+    window in a few dozen did: it is taken again, up to three times; two or
+    more kernels fail at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
-             for _ in range(ev.count)]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+                 for _ in range(ev.count)]
+        if names:
+            break
     if len(names) != 1:
         raise AssertionError(f"{what}: {len(names)} device kernels, want 1: {names}")
-    log(f"  {what}: one device kernel ({names[0][:60]})")
+    log(f"  {what}: one device kernel ({names[0][:60]})"
+        + (f" (profile taken {attempt + 1} times: the earlier recorded no event)" if attempt else ""))
+
+
+def byte_codes_exact(torch, name: str, fn) -> None:
+    """Every byte code of K7's int8 / K8's e4m3 weights (e4m3 without its
+    NaN codes 0x7f / 0xff) read back through the decode tile (M = 16) and
+    the wgmma tile (M = 128) of the wrapper: x holds one-hot rows, the scale
+    is 1, so each output is one weight exactly; f32 out, bit for bit."""
+    dev = "cuda"
+    K, N = 512, 128
+    codes = torch.arange(K * N, device=dev) % 256
+    if name == "wfp8_gemm":
+        codes = torch.where((codes & 0x7F) == 0x7F, 0, codes)
+        data = codes.to(torch.uint8).view(torch.float8_e4m3fn).reshape(K, N)
+        scale = torch.ones(1, 1, device=dev)
+    else:
+        data = codes.to(torch.uint8).view(torch.int8).reshape(K, N)
+        scale = torch.ones(1, N, device=dev)
+    for M in (16, 128):
+        got = torch.cat([fn(torch.eye(K, device=dev, dtype=torch.bfloat16)[r0:r0 + M], data, scale,
+                            out_dtype=torch.float32) for r0 in range(0, K, M)])
+        if not torch.equal(got, data.float()):
+            raise AssertionError(f"{name} M={M}: {(got != data.float()).sum().item()} byte codes "
+                                 "decode wrong")
+    log(f"  {name}: all {len(codes.unique())} byte codes exact through both tiles")
 
 
 def fp_kernels(torch, gen, timer, record) -> None:
@@ -1001,18 +1036,20 @@ def fp_kernels(torch, gen, timer, record) -> None:
     shapes (Llama-3-8B's fused qkv, o, fused gate_up and down), K9
     nvfp4_gemm at path I's (Qwen3-30B-A3B's q, k / v, o and folded gate /
     up), K13 grouped_nvfp4_gemm at I's expert down projection. Rows M hold
-    both tilings of each kernel: M = 8 a decode step (the 16 x 64 tile),
-    M = 32 the 32-token prefill bucket of the profile windows and the small
-    NVFP4 parity, M = 128 the small FP8 parity's prefill (K7 / K8's 64 x 64
-    tile, one and two tiles down M; K9's wgmma tile, split over a cluster
-    where its tiles are few); K9 also at M = 17, 64, 65, 200 and 256 for
-    N = 4096 (its 64- and 128-token tiles and their tails), K13 at 8, 17
-    and 32. Each kernel
+    both tiles of each kernel: M = 8 a decode step (the mma.sync decode
+    tile), M = 32 the 32-token prefill bucket of the profile windows and the
+    small NVFP4 parity, M = 128 the small FP8 parity's prefill (the wgmma
+    tile, split over a cluster where its tiles are few); K7 / K8 also at
+    M = 1 and 16 (the decode tile's edges) for N = 4096, and K7 / K8 and K9
+    at M = 17, 64, 65, 200 and 256 for N = 4096 (the wgmma tile's 64- and
+    128-token tiles and their tails), K13 at 8, 17 and 32. Each kernel
     and its plain version multiply the same bf16 x by the same weights,
     exact in bf16 (int8, e4m3, e2m1 times its e4m3 block scale), in f32, and
     apply the f32 scale once: they differ only in the order of the f32 sums,
     the W4A16 bar of the dequantized weight. The library call multiplies x
-    by the dequantized bf16 weight."""
+    by the dequantized bf16 weight. K7 and K8 also read every byte code
+    back through both tiles (x one-hot rows, scale 1), bit for bit, and run
+    as one device kernel a call at M = 8, 32 and 128."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
     from modelopt_tpu_torch.quant import qtensor as qt_
 
@@ -1021,12 +1058,20 @@ def fp_kernels(torch, gen, timer, record) -> None:
                                  ("wfp8_gemm", qt_.quantize_fp8, qt_.dequantize_fp8)):
         log(f"{'K7' if name == 'w8a16_gemm' else 'K8'} {name}")
         fn, plain = getattr(kq, name), getattr(kq, name + "_plain")
+        byte_codes_exact(torch, name, fn)
         for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
             w = torch.randn(K, N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
             qt = quant(w)
             wdq = dequant(qt).to(torch.bfloat16)
             del w
-            for M in (8, 32, 128):
+            if N == 4096:  # one launch a call: the decode tile's cluster sum, the wgmma tile's
+                for M in (8, 32, 128) if K == 4096 else (8,):
+                    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                    one_launch(torch, f"{name} M={M} K={K} N={N}",
+                               lambda: fn(x, qt["data"], qt["scale"]))
+            rows = ((1, 8, 16, 17, 32, 64, 65, 128, 200, 256) if (K, N) == (4096, 4096) else
+                    (1, 8, 16, 32, 128) if N == 4096 else (8, 32, 128))
+            for M in rows:
                 x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
                 y = fn(x, qt["data"], qt["scale"])
                 ref = plain(x, qt["data"], qt["scale"])
@@ -2241,7 +2286,7 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
         "w4a8_kernel", "w4a8_wg_kernel", "w4a16_dec_kernel", "w4a16_wg_kernel",
         "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
-        "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_kernel", "w8_reduce_splits",
+        "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_dec_kernel", "w8_wg_kernel",
         "nvfp4_kernel", "nvfp4_wg_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
         "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
@@ -2255,13 +2300,13 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
 
 
 # sources whose ptxas lines are reported per template instance: the
-# tensor-core tiles (flash, K1's, K6's and K9's wgmma tiles, K6's cluster
-# decode tile), K2's cluster kernel and K15's (decode_attention.cu, beside
-# K5's and K17's instances)
+# tensor-core tiles (flash, K1's, K6's, K7 / K8's and K9's wgmma tiles,
+# K6's and K7 / K8's cluster decode tiles), K2's cluster kernel and K15's
+# (decode_attention.cu, beside K5's and K17's instances)
 PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode_attention",
-                     "w4a8_gemm", "w4a16_gemm", "decode_attention", "nvfp4_gemm")
+                     "w4a8_gemm", "w4a16_gemm", "decode_attention", "nvfp4_gemm", "w8a16_gemm")
 # sources none of whose instances may spill registers
-NO_SPILL = ("w4a16_gemm", "nvfp4_gemm")
+NO_SPILL = ("w4a16_gemm", "nvfp4_gemm", "w8a16_gemm")
 
 
 def ptxas_by_function(text: str) -> dict:

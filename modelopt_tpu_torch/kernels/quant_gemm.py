@@ -176,14 +176,13 @@ def grouped_w4a16_gemm_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch
 CLUSTER_TARGET_CTAS = 132
 
 
-def _cluster_ranks(tiles: int, blocks: int) -> int:
+def _cluster_ranks(tiles: int, blocks: int, target: int = CLUSTER_TARGET_CTAS) -> int:
     """CTAs of one thread-block cluster that share an output tile, each
     walking a contiguous run of the ``blocks`` 128-row blocks, their
     partials summed in the same launch: the largest of 1, 2, 4, 8 that
-    keeps ``tiles`` x R within CLUSTER_TARGET_CTAS and R at most
-    ``blocks``."""
+    keeps ``tiles`` x R within ``target`` CTAs and R at most ``blocks``."""
     r = 1
-    while r < 8 and 2 * r <= blocks and 2 * r * tiles <= CLUSTER_TARGET_CTAS:
+    while r < 8 and 2 * r <= blocks and 2 * r * tiles <= target:
         r *= 2
     return r
 
@@ -372,21 +371,39 @@ def wfp8_gemm_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     return (acc * scale.float().reshape(1, 1)).to(out_dtype)
 
 
-# CTAs a byte / NVFP4 product aims for at decode: about four resident on
+# CTAs the NVFP4 decode tile's K split aims for: about four resident on
 # each of the H100's 132 SMs, enough weight bytes in flight to draw HBM
 SPLIT_TARGET_CTAS = 512
 
 
 def _k_splits(tiles: int, steps: int) -> int:
-    """K splits per output tile that bring ``tiles`` output tiles to about
-    SPLIT_TARGET_CTAS CTAs, at least one 128-row step per split."""
+    """K splits per output tile of the NVFP4 decode tile that bring
+    ``tiles`` output tiles to about SPLIT_TARGET_CTAS CTAs, at least one
+    128-row step per split."""
     return max(1, min(steps, -(-SPLIT_TARGET_CTAS // tiles)))
 
 
-def _tiles(E, M, N) -> int:
-    """Output tiles of the byte GEMMs' CUDA tilings (16 x 64 up to M = 16,
-    64 x 64 above) over E experts; the NVFP4 decode tile's at M <= 16."""
-    return E * (N // 64) * (1 if M <= 16 else -(-M // 64))
+def _tiles(E, N) -> int:
+    """Output tiles of the NVFP4 decode tile (16 x 64, M <= 16) over E
+    experts."""
+    return E * (N // 64)
+
+
+# CTAs a K7 / K8 cluster split aims for while one token tile covers M (at
+# most 64 tokens): two on each of the H100's 132 SMs. Such a product only
+# draws its weight bytes, and on the card the Llama decode shapes ran 19-28%
+# faster at two CTAs an SM than at one (PERF.md); above 64 tokens the wgmma
+# tile keeps CLUSTER_TARGET_CTAS
+BYTE_TARGET_CTAS = 264
+
+
+def _byte_ranks(M, N, K) -> int:
+    """Cluster size of a K7 / K8 product (CTAs that split one output tile's
+    128-row blocks, their partials summed in the same launch), over the
+    output's 128-column tiles: one a tile up to M = 16 (the decode tile),
+    one a tile and 64 tokens above (the wgmma tile)."""
+    tiles = -(-N // 128) * (1 if M <= 16 else -(-M // 64))
+    return _cluster_ranks(tiles, K // 128, BYTE_TARGET_CTAS if M <= 64 else CLUSTER_TARGET_CTAS)
 
 
 def _check_byte(name, x, data, scale, scale_shape):
@@ -406,26 +423,27 @@ def _byte_launch(name, x, data, scale, out_dtype, want_dtype):
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
     x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16 or data.data_ptr() % 16:
+        raise ValueError(f"{name}: x and W must be 16-byte aligned")
     _build.check_cuda(name, x, data, scale)
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned")
-    fn = _build.function(name, [_build.c_ptr] * 6 + [_build.c_int] * 4 + [_build.c_ptr],
+    fn = _build.function(name, [_build.c_ptr] * 5 + [_build.c_int] * 4 + [_build.c_ptr],
                          source="w8a16_gemm")
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
     f32 = out_dtype == torch.float32
-    splits = _k_splits(_tiles(1, M, N), K // 128)
-    part = torch.empty(splits, M, N, device=x.device) if splits > 1 else None
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), data.data_ptr(), scale.data_ptr(),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 _build.ptr(part), M, N, K, splits, _build.stream(x))
+                 M, N, K, _byte_ranks(M, N, K), _build.stream(x))
     return out, err
 
 
 def w8a16_gemm(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
                out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ int8 W [K, N] * scale [1, N] -> [M, N]
-    in ``out_dtype`` (f32 or bf16)."""
+    in ``out_dtype`` (f32 or bf16), every M in one launch: up to M = 16
+    the mma.sync decode tile, above it the wgmma tile, each splitting the
+    128-row blocks over a cluster of ``_byte_ranks`` CTAs where tiles are
+    few."""
     _check_byte("w8a16_gemm", x, data, scale, (1, data.shape[1]))
     if x.device.type == "cpu":
         return w8a16_gemm_plain(x, data, scale, out_dtype=out_dtype)
@@ -441,7 +459,7 @@ w8a16_gemm.launches = 0
 def wfp8_gemm(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
               out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ e4m3 W [K, N] * scale [1, 1] -> [M, N]
-    in ``out_dtype`` (f32 or bf16)."""
+    in ``out_dtype`` (f32 or bf16), as ``w8a16_gemm``."""
     _check_byte("wfp8_gemm", x, data, scale, (1, 1))
     if x.device.type == "cpu":
         return wfp8_gemm_plain(x, data, scale, out_dtype=out_dtype)
@@ -513,7 +531,7 @@ def _nvfp4_splits(E, M, N, K2):
     over a cluster of ``ranks`` CTAs of the wgmma tile (128 columns x 64
     tokens), summed in the same launch."""
     if M <= 16:
-        return _k_splits(_tiles(E, M, N), K2 // 128), 1
+        return _k_splits(_tiles(E, N), K2 // 128), 1
     tiles = E * -(-N // 128) * -(-M // 64)
     return 1, _cluster_ranks(tiles, K2 // 128)
 

@@ -239,6 +239,15 @@ def test_cuda_wrappers_refuse_shapes_they_cannot_take():
     with pytest.raises(ValueError, match="wants"):
         tk.wfp8_gemm(x, torch.empty(256, 128, dtype=torch.int8, **meta),
                      torch.empty(1, 1, **meta))
+    # the wgmma tile's TMA maps and the decode tile's 16-byte copies need x
+    # and W on 16-byte boundaries
+    w8 = torch.empty(256 * 128 + 8, dtype=torch.int8, **meta)[8:].view(256, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.w8a16_gemm(x, w8, torch.empty(1, 128, **meta))
+    xo = torch.empty(8 * 256 + 4, dtype=torch.bfloat16, **meta)[4:].view(8, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.wfp8_gemm(xo, torch.empty(256, 128, dtype=torch.float8_e4m3fn, **meta),
+                     torch.empty(1, 1, **meta))
     with pytest.raises(NotImplementedError, match="K/2 % 128"):
         tk.nvfp4_gemm(torch.empty(8, 192, dtype=torch.bfloat16, **meta),
                       torch.empty(96, 128, dtype=torch.uint8, **meta),
@@ -249,3 +258,116 @@ def test_cuda_wrappers_refuse_shapes_they_cannot_take():
                               torch.empty(256, 2 * 96, dtype=torch.uint8, **meta),
                               torch.empty(32, 2 * 96, dtype=torch.float8_e4m3fn, **meta),
                               torch.empty(1, 1, **meta), 96)
+
+
+def _bf16_bits(v):
+    """f32 values, each exact in bf16, as their bf16 bits."""
+    return (np.asarray(v, np.float32).view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _bf16_value(bits):
+    """bf16 bits as f64 values."""
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_byte_operands_exhaustive(fmt):
+    """The exact byte -> bf16 identities K7's and K8's CUDA fragments rest
+    on (csrc/w8a16_gemm.cu), over every code, bit for bit against the
+    reference's ``astype(bfloat16)`` of the same bytes. int8: the byte b
+    under 0x43 is the bf16 v = 2^s (128 + (b & 0x7F)), s its sign bit, and
+    one bf16 fma v * (s ? .5 : 1) + (s ? -256 : -128), factor and addend
+    built from s by bit operations, gives b (an integer of at most 8 bits:
+    the fma rounds nothing). e4m3 (its 254 codes without NaN): the card's
+    e4m3x2 -> f16x2 conversion (exact; modelled by the reference's f16
+    cast), then the f16 bits shifted right by 3 under 0x0FFF, with the sign
+    kept, are the bf16 of 2^-112 times the value, a normal bf16 (or zero),
+    and one bf16 multiply by 2^112 gives the value."""
+    u8 = np.arange(256, dtype=np.uint8)
+    if fmt == "int8":
+        want = _bf16_bits(np.asarray(jnp.asarray(u8.view(np.int8)).astype(jnp.bfloat16)
+                                     .astype(jnp.float32)))
+        v = 0x4300 | u8.astype(np.uint16)
+        s = v & 0x0080
+        got = _bf16_value(v) * _bf16_value(s ^ 0x3F80) + _bf16_value(s | 0xC300)
+        np.testing.assert_array_equal(got, u8.view(np.int8).astype(np.float64))
+    else:
+        u8 = u8[(u8 & 0x7F) != 0x7F]
+        assert u8.size == 254
+        codes = jnp.asarray(u8.view(jnp.float8_e4m3fn))
+        want = _bf16_bits(np.asarray(codes.astype(jnp.bfloat16).astype(jnp.float32)))
+        h = np.asarray(codes.astype(jnp.float16)).view(np.uint16).astype(np.uint32)
+        t = ((h >> 3) & 0x0FFF) | (h & 0x8000)
+        assert np.all(((t & 0x7F80) != 0) | ((t & 0x7FFF) == 0))  # no bf16 subnormal
+        got = _bf16_value(t) * _bf16_value(0x7780)
+        assert _bf16_value(0x7780) == 2.0**112
+    # every result is exact in bf16: its bits are the reference's
+    assert np.all(_bf16_value(_bf16_bits(got)) == got)
+    np.testing.assert_array_equal(_bf16_bits(got), want)
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    (8, 6144, 4096, 4),      # Llama-3-8B fused qkv: 48 decode tiles of 128 columns
+    (8, 4096, 4096, 8),      # o: 32 tiles
+    (8, 28672, 4096, 1),     # fused gate_up: 224 tiles
+    (8, 4096, 14336, 8),     # down: 32 tiles, 112 blocks
+    (32, 6144, 4096, 4),     # the 32-row prefill bucket: one token tile of the wgmma tile
+    (32, 4096, 4096, 8),
+    (32, 28672, 4096, 1),
+    (32, 4096, 14336, 8),
+    (128, 6144, 4096, 1),    # the FP8 parity's prefill: 96 tiles of 64 tokens, one CTA an SM
+    (128, 4096, 4096, 2),
+    (128, 28672, 4096, 1),
+    (128, 4096, 14336, 2),
+    (1, 64, 256, 2),         # one tile, two blocks: never more ranks than blocks
+])
+def test_byte_gemm_cluster_ranks(M, N, K, want):
+    """K7 / K8's cluster size (CTAs that split one output tile's 128-row
+    blocks, summed in one launch) at paths G's and H's shapes: up to two
+    CTAs an SM while one token tile covers M, one above; the few-tile
+    projections split, the many-tile ones do not, and no rank is left
+    without a block."""
+    R = tk._byte_ranks(M, N, K)
+    assert R == want
+    assert R <= K // 128 and R in (1, 2, 4, 8)
+
+
+def _rank_split(x, data, scale, R, out_dtype):
+    """K7 / K8's arithmetic on a cluster of R CTAs, in f32 on the CPU: rank r
+    multiplies bf16 x by the exact bf16 weights over its contiguous run of
+    the 128-row blocks [r nblk / R, (r + 1) nblk / R), the ranks' partials
+    are summed in rank order, and the scale multiplies the sum once."""
+    xb = x.to(torch.bfloat16).float()
+    w = data.float()
+    nblk = data.shape[0] // 128
+    acc = None
+    for r in range(R):
+        rows = slice(r * nblk // R * 128, (r + 1) * nblk // R * 128)
+        part = xb[:, rows] @ w[rows]
+        acc = part if acc is None else acc + part
+    return (acc * scale.float().reshape(1, -1)).to(out_dtype)
+
+
+@pytest.mark.parametrize("R", [1, 2, 8])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_byte_gemm_rank_split_matches_twin_and_pallas(rng, interp, fmt, R):
+    """The cluster split's order of sums (partials over contiguous runs of
+    blocks, summed in rank order, the scale once after the sum) stays within
+    the order bar of the twin, and of the Pallas kernel in interpret mode at
+    ``test_byte_gemm_plain_matches_pallas``'s tolerance."""
+    K, N, M = 1024, 128, 8
+    p, pt, wd = _packed(rng, fmt, K, N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    for out in ("f32", "bf16"):
+        jdt, tdt = _dtypes(out)
+        ys = _rank_split(xt, pt["data"], pt["scale"], R, tdt)
+        plain = tk.w8a16_gemm_plain if fmt == "int8" else tk.wfp8_gemm_plain
+        yp = plain(xt, pt["data"], pt["scale"], out_dtype=tdt)
+        jfn = jk.w8a16_gemm if fmt == "int8" else jk.wfp8_gemm
+        yj = np.asarray(jfn(jnp.asarray(x, jnp.bfloat16), p["data"], p["scale"],
+                            out_dtype=jdt).astype(jnp.float32))
+        bar = order_bar(yj, _bf16(x), wd, out)
+        assert ys.dtype == tdt and ys.shape == (M, N)
+        np.testing.assert_allclose(ys.float().numpy(), yp.float().numpy(), rtol=0, atol=bar)
+        np.testing.assert_allclose(ys.float().numpy(), yj, rtol=0, atol=bar)
