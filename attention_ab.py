@@ -7,18 +7,22 @@ Builds the tree's ``decode_attention``, ``fused_decode_attention``,
 ``flash_attention``, ``flash_prefill_attention``, ``w4a8_gemm``,
 ``w4a16_gemm``, ``grouped_w4a8_gemm``, ``w8a16_gemm``, ``nvfp4_gemm`` and
 ``paged_kv_write`` sources, then
-times K5 decode_attention, K15 paged_decode_attention and K17
-block_sparse_decode_attention at ``chip_smoke.py``'s kernel-phase shapes
-(int8 and bf16 caches), and K2 fused_decode_attention, K1 w4a8_gemm, K4
-flash_prefill_attention, K14 flash_attention, K6 w4a16_gemm, K10
-grouped_w4a16_gemm, K7 w8a16_gemm, K8 wfp8_gemm, K9 nvfp4_gemm, K13
-grouped_nvfp4_gemm and K15 at every case of ``chip_smoke.py``'s
-``fused_decode_kernels``, ``w4a8_kernels``, ``flash_prefill_kernels``,
+times K5 decode_attention and K15 paged_decode_attention at
+``chip_smoke.py``'s kernel-phase shapes (int8 and bf16 caches), and K2
+fused_decode_attention, K1 w4a8_gemm, K4 flash_prefill_attention, K14
+flash_attention, K6 w4a16_gemm, K10 grouped_w4a16_gemm, K7 w8a16_gemm, K8
+wfp8_gemm, K9 nvfp4_gemm, K13 grouped_nvfp4_gemm, K15 and K17
+block_sparse_decode_attention at every case of ``chip_smoke.py``'s
+``fused_decode_kernels``, ``w4a8_kernels`` (K1 at M = 8 and 544 and the
+prefill tile's edges, the decode tile also on Qwen3-30B-A3B's and
+DeepSeek's decode shapes and at M = 1 and 5), ``flash_prefill_kernels``,
 ``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
 at M = 1, 8 and 32; its K11 and K12 rows ride along), ``fp_kernels``
 (K7 / K8 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17, 64, 65,
-200 and 256, every byte code read back through both tiles) and
-``paged_kernels`` (each held to the tree's plain twin at the bar
+200 and 256, every byte code read back through both tiles),
+``paged_kernels`` and ``block_sparse_kernels`` (K17 at path J's shape,
+short selections and blocks past the length, int8 and bf16) (each held to
+the tree's plain twin at the bar
 stated there; ``chip_smoke.py``'s one-launch checks are left to it, since
 a parent tree may sum K splits in a second launch), with its
 timer: CUDA events, median of
@@ -51,7 +55,6 @@ _spec.loader.exec_module(cs)
 
 from modelopt_tpu_torch.kernels import _build  # noqa: E402
 from modelopt_tpu_torch.kernels import attention as ka  # noqa: E402
-from modelopt_tpu_torch.kernels import block_sparse_attention as kb  # noqa: E402
 from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 
 prefill = "--prefill" in sys.argv[2:]
@@ -62,6 +65,9 @@ _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention
                   "w8a16_gemm", "nvfp4_gemm", "paged_kv_write")
                  + (("kv_write",) if prefill else ()))
 cs.one_launch = lambda *args: None  # the tree's own chip_smoke.py checks its launch counts
+# a tree before K1's decode-tile redesign names that tile w4a8_kernel
+cs.PREFILL_SPLIT["A"] = (("K1", ("w4a8_dec_kernel", "w4a8_wg_kernel", "::w4a8_kernel<")),
+                         *cs.PREFILL_SPLIT["A"][1:])
 timer = cs.Timer(torch)
 print(f"{os.path.basename(tree) or tree}: card {cs.card_line()}", flush=True)
 dev = "cuda"
@@ -99,31 +105,21 @@ for kind in ("int8", "bf16"):
         ks = vs = None
     out[f"K15 {kind}"] = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lens, ks,
                                                                   vs))
-q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
-lengths = torch.tensor([1025, 1041, 1057, 1073, 1088, 1029, 1064, 1087], dtype=torch.int32,
-                       device=dev)
-nvalid = torch.tensor([9, 5, 7, 4, 9, 6, 8, 3], dtype=torch.int32, device=dev)
-sel = torch.zeros(8, 17, dtype=torch.int32)
-for b, n in enumerate(nvalid.tolist()):
-    sel[b, :n] = torch.tensor([0, 7, 8, 1, 2, 3, 4, 5, 6][:n], dtype=torch.int32)
-sel = sel.to(dev)
-kc, vc = (torch.randint(-127, 128, (8, 2176, 1024), generator=gen, device=dev,
-                        dtype=torch.int8) for _ in range(2))
 ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
-out["K17 int8"] = timer(lambda: kb.block_sparse_decode_attention(q, kc, vc, sel, nvalid, lengths,
-                                                                  ks, vs, block_size=128))
-del kc, vc, kpool, vpool, lat
+del kpool, vpool, lat
 
-# K2, K4, K14 and K1 at chip_smoke's cases, each against the tree's twin
+# K2, K4, K14, K1, K6-K10, K13, K15 and K17 at chip_smoke's cases, each
+# against the tree's twin
 rows: dict = {}
 for phase in (cs.fused_decode_kernels, cs.flash_prefill_kernels, cs.flash_kernels,
-              cs.w4a8_kernels, cs.moe_kernels, cs.fp_kernels, cs.paged_kernels):
+              cs.w4a8_kernels, cs.moe_kernels, cs.fp_kernels, cs.paged_kernels,
+              cs.block_sparse_kernels):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
 for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
                   ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),
                   ("grouped_w4a16_gemm", "K10"), ("w8a16_gemm", "K7"), ("wfp8_gemm", "K8"),
                   ("nvfp4_gemm", "K9"), ("grouped_nvfp4_gemm", "K13"),
-                  ("paged_decode_attention", "K15")):
+                  ("paged_decode_attention", "K15"), ("block_sparse_decode_attention", "K17")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]
 

@@ -1,8 +1,9 @@
 // Decode attention split over keys by a thread-block cluster (sm_90a): the
-// pieces K2 (fused_decode_attention.cu) and K15's cluster kernel
-// (decode_attention.cu) share, and K15's kernel itself.
+// pieces K2 (fused_decode_attention.cu) and the cluster kernels of K15 and
+// K17 (decode_attention.cu) share, and those two kernels themselves (one
+// body over a slot's pages; K17's pages are its selected blocks).
 //
-// Both kernels run one cluster of C = 8 CTAs of 128 threads per (slot, KV
+// The kernels run one cluster of C = 8 CTAs of 128 threads per (slot, KV
 // head) at D = 128 and G in {1, 2, 4, 8}. A CTA scores its keys on the
 // tensor cores (a warp takes 8 keys at a time, each lane loads 16-byte
 // pieces of one key row straight into B fragments, and q's A fragment holds
@@ -147,7 +148,8 @@ __device__ __forceinline__ void q_fragments(const uint4 (&qraw)[4], float inv_sq
 }
 
 // ---------------------------------------------------------------------------
-// K15: paged decode attention, one cluster per (slot, KV head)
+// K15 and K17: decode attention over a slot's pages, one cluster per (slot,
+// KV head)
 // ---------------------------------------------------------------------------
 constexpr int PP = 8;  // pages a CTA holds a round (at most; SB / page_size if fewer)
 
@@ -155,18 +157,68 @@ constexpr int PP = 8;  // pages a CTA holds a round (at most; SB / page_size if 
 // each held page's PV partials [PP][G][D]
 constexpr int paged_smem_bytes(int G) { return 4 * G * SB + 2 * VBYTES + 4 * PP * G * D; }
 
-// Replaces (with decode_attention.cu's entry paged_decode_attention)
-// modelopt_tpu/kernels/paged_attention.py::paged_decode_attention, Pallas
-// body _paged_attn_kernel; bound by bytes, the live rows of every slot's
-// pages over the 3.35 TB/s of HBM.
+// Where a slot's pages lie, the one thing K15 and K17 do differently. A
+// Slot gives the slot's page count, the first cache row of page p and (K17)
+// the keys of page p below the slot's length; kWhole says whether a page is held
+// whole, its keys at or past the length scored -1e30 (K17, as the
+// reference's block-sparse kernel masks them), or cut at the length, keys
+// past it never visited (K15).
 //
-// Attention of the slot's G query rows over keys [0, L) with
-// L = min(lengths[b], pmax * ps), the rows of slot-local page p in pool page
-// page_table[b, p]; one chunk per page, as the reference's page-per-step
-// grid takes them. Rounds of C * P pages (P = min(PP, SB / ps) a CTA):
+// K15: page p of slot b is pool page page_table[b, p]; keys [0, L) with
+// L = min(lengths[b], pmax * ps), so only the last page is cut.
+struct PoolPages {
+  const int* page_table;
+  const int* lengths;
+  int pmax, ps;
+  struct Slot {
+    const int* pt;
+    int L, ps;
+    static constexpr bool kWhole = false;
+    __device__ int pages() const { return (L + ps - 1) / ps; }
+    __device__ int row0(int p) const { return pt[p] * ps; }
+  };
+  __device__ Slot slot(int b) const {
+    return {page_table + (size_t)b * pmax, max(min(lengths[b], pmax * ps), 0), ps};
+  }
+};
+
+// K17: page p of slot b is block sel[b, p] of the slot's dense cache rows
+// [b S, b S + S), for p < min(nvalid[b], nsel), each block_size rows held
+// whole; keys at or past lengths[b] (not clamped to S) are masked, so a
+// block that holds no live key still rounds its codes as the reference's
+// does (exp(0) -> 127 while the running max is -1e30).
+struct SelectedBlocks {
+  const int* sel;
+  const int* nvalid;
+  const int* lengths;
+  int nsel, S, bs;
+  struct Slot {
+    const int* sel;
+    int base, n, L, ps;
+    static constexpr bool kWhole = true;
+    __device__ int pages() const { return n; }
+    __device__ int row0(int p) const { return base + sel[p] * ps; }
+    __device__ int live(int p) const { return min(max(L - sel[p] * ps, 0), ps); }
+  };
+  __device__ Slot slot(int b) const {
+    return {sel + (size_t)b * nsel, b * S, max(min(nvalid[b], nsel), 0), lengths[b], bs};
+  }
+};
+
+// Replaces (through decode_attention.cu's entries paged_decode_attention
+// and block_sparse_decode_attention)
+// modelopt_tpu/kernels/paged_attention.py::paged_decode_attention (Pallas
+// body _paged_attn_kernel) and
+// modelopt_tpu/kernels/block_sparse_attention.py::block_sparse_decode_attention
+// (_bs_attn_kernel); bound by bytes, the rows of every slot's pages (K17:
+// its selected blocks) over the 3.35 TB/s of HBM.
+//
+// Attention of the slot's G query rows over its pages in page order, one
+// chunk per page, as the reference's page-per-step grid takes them. Rounds
+// of C * P pages (P = min(PP, SB / ps) a CTA):
 //  1. each CTA takes a contiguous run of the round's pages (balanced over
-//     the ranks), scores their keys into its shared memory and takes the
-//     max of each page per query row;
+//     the ranks), scores their keys into its shared memory (K17: keys past
+//     the length -1e30) and takes the max of each page per query row;
 //  2. cluster barrier; every CTA copies all ranks' page maxima over
 //     distributed shared memory and forms the running max at every page of
 //     the round, m_p = max(m_{p-1}, max_p), in page order from the running
@@ -179,14 +231,13 @@ constexpr int paged_smem_bytes(int G) { return 4 * G * SB + 2 * VBYTES + 4 * PP 
 //     all the round's pages in order, reading each page's partials from the
 //     rank that holds it, each product and sum rounded on its own.
 // A last cluster barrier: no CTA leaves while another can still read its
-// shared memory. Every CTA reaches every barrier, also one with no pages.
-template <typename CT, int G>
-__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT, 2)
-paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kp,
-                     const CT* __restrict__ vp, const int* __restrict__ page_table,
-                     const int* __restrict__ lengths, const float* __restrict__ kscale,
-                     const float* __restrict__ vscale, float* __restrict__ out_f32,
-                     __nv_bfloat16* __restrict__ out_bf16, int pmax, int ps, int KH) {
+// shared memory. Every CTA reaches every barrier, also one with no pages
+// (a slot with none writes 0: l = 0).
+template <typename CT, int G, typename Pages>
+__device__ __forceinline__ void cluster_attend(
+    const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kp, const CT* __restrict__ vp,
+    const Pages& pages, const float* __restrict__ kscale, const float* __restrict__ vscale,
+    float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16, int KH) {
   constexpr bool kInt8 = std::is_same<CT, int8_t>::value;
   constexpr int ELEM = sizeof(CT);
   constexpr int ROW = D * ELEM;          // bytes of one head's row
@@ -204,7 +255,8 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
   __shared__ Acc psum[PP][G];        // each held page's sum of e8 / e
   __shared__ float pmx[PP][G];       // each held page's max
   __shared__ float mr[C * PP][G];    // the running max at every page of the round
-  __shared__ int pid[PP];            // pool pages of the held pages
+  __shared__ int prow[PP];           // first cache rows of the held pages
+  __shared__ int plive[PP];          // keys of each held page below the length (kWhole)
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -223,11 +275,12 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
   float fs = 0.f;
   q_fragments<kInt8>(qraw, inv_sqrt_d, qa, fs);
 
-  const int L = max(min(lengths[b], pmax * ps), 0);
-  const int npages = (L + ps - 1) / ps;
+  using Slot = typename Pages::Slot;
+  const Slot slot = pages.slot(b);
+  const int ps = slot.ps;
+  const int npages = slot.pages();
   const int P = min(PP, SB / ps);    // pages a CTA a round
   const int nrounds = (npages + C * P - 1) / (C * P);
-  const int* pt = page_table + (size_t)b * pmax;
   // the pages [p0, p1) rank r holds in round k
   auto run = [&](int k, int r, int& p0, int& p1) {
     const int base = k * C * P, n = min(C * P, npages - base);
@@ -237,13 +290,17 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
   // the cache row of key j of the held run (p0 the run's first page)
   auto row = [&](const CT* pool, int j) {
     return reinterpret_cast<const unsigned char*>(
-        pool + ((size_t)pid[j / ps] * ps + j % ps) * KHD + h * D);
+        pool + ((size_t)prow[j / ps] + j % ps) * KHD + h * D);
   };
+  // whether held key j lies below the slot's length (always, where pages
+  // are cut at it)
+  auto live_key = [&](int j) { return !Slot::kWhole || j % ps < plive[j / ps]; };
 
   // scores of the held keys [0, n) into sc[g][0, n) on the tensor cores:
   // warp w takes 8-key tiles w, w + NW, ... (a tile lies in one page, as
   // ps % 8 == 0); lane (gid, tig) loads key gid's bytes [64 i + 16 tig, +16)
-  // straight into B fragments, TU tiles in flight
+  // straight into B fragments, TU tiles in flight; a masked key's row is
+  // not read and its score is -1e30
   auto score = [&](int n) {
     for (int t0 = warp; t0 * 8 < n; t0 += NW * TU) {
       uint4 kr[TU][NL];
@@ -253,8 +310,9 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
         const unsigned char* r = row(kp, min(key, n - 1));
 #pragma unroll
         for (int i = 0; i < NL; ++i)
-          kr[u][i] = key < n ? *reinterpret_cast<const uint4*>(r + 64 * i + 16 * tig)
-                             : make_uint4(0u, 0u, 0u, 0u);
+          kr[u][i] = key < n && live_key(key)
+                         ? *reinterpret_cast<const uint4*>(r + 64 * i + 16 * tig)
+                         : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int u = 0; u < TU; ++u) {
@@ -289,8 +347,8 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
         }
         const int kk = k0 + 2 * tig;  // c[0], c[1]: row gid, keys kk and kk + 1
         if (gid < G) {
-          if (kk < n) sc[gid * SB + kk] = s0;
-          if (kk + 1 < n) sc[gid * SB + kk + 1] = s1;
+          if (kk < n) sc[gid * SB + kk] = live_key(kk) ? s0 : -1e30f;
+          if (kk + 1 < n) sc[gid * SB + kk + 1] = live_key(kk + 1) ? s1 : -1e30f;
         }
       }
     }
@@ -321,9 +379,13 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
   for (int k = 0; k < nrounds; ++k) {
     int p0, p1;
     run(k, rank, p0, p1);
-    const int np = p1 - p0, nk = max(min(L, p1 * ps) - p0 * ps, 0);
-    __syncthreads();  // the last round's reads of pid, sc and the buffers are done
-    if (tid < np) pid[tid] = pt[p0 + tid];
+    const int np = p1 - p0;
+    const int nk = Slot::kWhole ? np * ps : max(min(slot.L, p1 * ps) - p0 * ps, 0);
+    __syncthreads();  // the last round's reads of prow, sc and the buffers are done
+    if (tid < np) {
+      prow[tid] = slot.row0(p0 + tid);
+      if constexpr (Slot::kWhole) plive[tid] = slot.live(p0 + tid);
+    }
     __syncthreads();
     stage_v(nk, 0);
     stage_v(nk, 1);
@@ -499,6 +561,31 @@ paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__
   }
   // no CTA leaves while another may read its shared memory
   cluster.sync();
+}
+
+// K15 (PoolPages)
+template <typename CT, int G>
+__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT, 2)
+paged_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kp,
+                     const CT* __restrict__ vp, const int* __restrict__ page_table,
+                     const int* __restrict__ lengths, const float* __restrict__ kscale,
+                     const float* __restrict__ vscale, float* __restrict__ out_f32,
+                     __nv_bfloat16* __restrict__ out_bf16, int pmax, int ps, int KH) {
+  cluster_attend<CT, G>(q, kp, vp, PoolPages{page_table, lengths, pmax, ps}, kscale, vscale,
+                        out_f32, out_bf16, KH);
+}
+
+// K17 (SelectedBlocks): dense caches [B, S, KH * D], blocks of bs rows
+template <typename CT, int G>
+__global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT, 2)
+sparse_cluster_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ kc,
+                      const CT* __restrict__ vc, const int* __restrict__ sel,
+                      const int* __restrict__ nvalid, const int* __restrict__ lengths,
+                      const float* __restrict__ kscale, const float* __restrict__ vscale,
+                      float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
+                      int nsel, int S, int bs, int KH) {
+  cluster_attend<CT, G>(q, kc, vc, SelectedBlocks{sel, nvalid, lengths, nsel, S, bs}, kscale,
+                        vscale, out_f32, out_bf16, KH);
 }
 
 }  // namespace cluster_decode

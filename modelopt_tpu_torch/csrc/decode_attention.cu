@@ -57,9 +57,9 @@
 // 3.35 TB/s of HBM; paged, the same rows wherever their pages lie;
 // block-sparse, the rows of the selected blocks only.
 //
-// Design (K5, K17, and K15 at MLA's geometry): the reference's arithmetic is
-// independent per (head, group) row, so the grid is (slot, KV head, pair
-// of rows): B * KH * G/2 CTAs of 256 threads (64 at the MLA decode shape
+// Design (K5, and K15 and K17 off the cluster geometry, e.g. MLA's
+// D = 640): the reference's arithmetic is independent per (head, group)
+// row, so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256 threads (64 at the MLA decode shape
 // B=8, G=16), each reading the slot's live rows; the CTAs of one slot meet
 // the same rows in L2. Each CTA walks all keys of its slot. Per chunk: each
 // warp scores one key at a time (a lane takes 4 columns of each 128, the
@@ -69,17 +69,20 @@
 // columns in registers and the eight warps' integer partials are summed in
 // shared memory into the running f32 output.
 //
-// K15 at paths E's and L's geometry (D = 128, G in {1, 2, 4, 8}, pages of
-// 8 to 512 rows) runs the cluster kernel of cluster_decode.cuh instead:
-// one cluster of 8 CTAs per (slot, KV head) splits the slot's pages. A
-// code depends only on its score and its page's running max
-// m_p = max(m_{p-1}, max_p), and a max is the same in any order: each CTA
-// scores a contiguous run of pages and takes each page's max, the cluster
-// exchanges the page maxima over distributed shared memory, each CTA
-// rounds its codes against its pages' running maxima and forms each page's
-// partials (int8: s32, exact), and each rank replays the f32 recurrence
-// over all pages in order for its 16 columns. So an int8 output is the
-// same arithmetic on the same integers as one CTA that walks every page.
+// K15 at paths E's and L's geometry and K17 at path J's (D = 128, G in
+// {1, 2, 4, 8}, pages or blocks of 8 to 512 rows) run the cluster kernels
+// of cluster_decode.cuh instead, one body with two maps from page to cache
+// rows: one cluster of 8 CTAs per (slot, KV head) splits the slot's pages
+// (K17: its selected blocks, in sel order, each whole with its keys past
+// the length at -1e30). A code depends only on its score and its page's
+// running max m_p = max(m_{p-1}, max_p), and a max is the same in any
+// order: each CTA scores a contiguous run of pages and takes each page's
+// max, the cluster exchanges the page maxima over distributed shared
+// memory, each CTA rounds its codes against its pages' running maxima and
+// forms each page's partials (int8: s32, exact), and each rank replays the
+// f32 recurrence over all pages in order for its 16 columns. So an int8
+// output is the same arithmetic on the same integers as one CTA that walks
+// every page.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -573,36 +576,56 @@ int dispatch(int D, int cache_kind, const Args& a, cudaStream_t s) {
   }
 }
 
-// K15 at D = 128, G in {1, 2, 4, 8} and pages of at most SB rows: the
-// cluster kernel of cluster_decode.cuh, one cluster of C CTAs per (slot,
-// KV head)
+// K15 and K17 at D = 128, G in {1, 2, 4, 8} and pages (blocks) of at most SB
+// rows: the cluster kernels of cluster_decode.cuh, one cluster of C CTAs per
+// (slot, KV head); a.sel non-null: K17's
 template <typename CT, int G>
-int launch_cluster(const Args& a, int pmax, int ps, cudaStream_t s) {
+int launch_cluster(const Args& a, int pmax, cudaStream_t s) {
   namespace cd = cluster_decode;
-  static unsigned done = 0;
-  const int e = cd::allow_smem(cd::paged_cluster_kernel<CT, G>, cd::paged_smem_bytes(G), done);
-  if (e != 0) return e;
-  cd::paged_cluster_kernel<CT, G><<<a.B * a.KH * cd::C, cd::NT, cd::paged_smem_bytes(G), s>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const CT*>(a.kc),
-      static_cast<const CT*>(a.vc), static_cast<const int*>(a.page_table),
-      static_cast<const int*>(a.lengths), static_cast<const float*>(a.kscale),
-      static_cast<const float*>(a.vscale), static_cast<float*>(a.out_f32),
-      static_cast<__nv_bfloat16*>(a.out_bf16), pmax, ps, a.KH);
+  const int grid = a.B * a.KH * cd::C, smem = cd::paged_smem_bytes(G);
+  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+  const auto* kc = static_cast<const CT*>(a.kc);
+  const auto* vc = static_cast<const CT*>(a.vc);
+  const auto* lengths = static_cast<const int*>(a.lengths);
+  const auto* ks = static_cast<const float*>(a.kscale);
+  const auto* vs = static_cast<const float*>(a.vscale);
+  auto* of = static_cast<float*>(a.out_f32);
+  auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
+  if (a.sel != nullptr) {
+    // K17's e4m3 branch waits (as the one-CTA body's)
+    if constexpr (std::is_same<CT, e4m3_t>::value) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      static unsigned done = 0;
+      const int e = cd::allow_smem(cd::sparse_cluster_kernel<CT, G>, smem, done);
+      if (e != 0) return e;
+      cd::sparse_cluster_kernel<CT, G><<<grid, cd::NT, smem, s>>>(
+          q, kc, vc, static_cast<const int*>(a.sel), static_cast<const int*>(a.nvalid), lengths,
+          ks, vs, of, ob, a.nsel, a.S, a.chunk, a.KH);
+    }
+  } else {
+    static unsigned done = 0;
+    const int e = cd::allow_smem(cd::paged_cluster_kernel<CT, G>, smem, done);
+    if (e != 0) return e;
+    cd::paged_cluster_kernel<CT, G><<<grid, cd::NT, smem, s>>>(
+        q, kc, vc, static_cast<const int*>(a.page_table), lengths, ks, vs, of, ob, pmax, a.chunk,
+        a.KH);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename CT>
-int cluster_g(const Args& a, int pmax, int ps, cudaStream_t s) {
+int cluster_g(const Args& a, int pmax, cudaStream_t s) {
   switch (a.G) {
-    case 1: return launch_cluster<CT, 1>(a, pmax, ps, s);
-    case 2: return launch_cluster<CT, 2>(a, pmax, ps, s);
-    case 4: return launch_cluster<CT, 4>(a, pmax, ps, s);
-    default: return launch_cluster<CT, 8>(a, pmax, ps, s);
+    case 1: return launch_cluster<CT, 1>(a, pmax, s);
+    case 2: return launch_cluster<CT, 2>(a, pmax, s);
+    case 4: return launch_cluster<CT, 4>(a, pmax, s);
+    default: return launch_cluster<CT, 8>(a, pmax, s);
   }
 }
 
-// whether K15's cluster kernel takes the geometry (else the one-CTA body)
-bool cluster_paged(int D, int G, int ps) {
+// whether the cluster kernels take the geometry (else the one-CTA body)
+bool cluster_ok(int D, int G, int ps) {
   return D == cluster_decode::D && (G == 1 || G == 2 || G == 4 || G == 8) && ps % 8 == 0 &&
          ps <= cluster_decode::SB;
 }
@@ -638,16 +661,18 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
   const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, nullptr, nullptr,
                out_f32, out_bf16, B, pmax * page_size, KH, G, page_size, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B * KH * G == 0 || !cluster_paged(D, G, page_size)) return dispatch(D, cache_kind, a, s);
+  if (B * KH * G == 0 || !cluster_ok(D, G, page_size)) return dispatch(D, cache_kind, a, s);
   switch (cache_kind) {
-    case 0: return cluster_g<__nv_bfloat16>(a, pmax, page_size, s);
-    case 1: return cluster_g<int8_t>(a, pmax, page_size, s);
-    case 2: return cluster_g<e4m3_t>(a, pmax, page_size, s);
+    case 0: return cluster_g<__nv_bfloat16>(a, pmax, s);
+    case 1: return cluster_g<int8_t>(a, pmax, s);
+    case 2: return cluster_g<e4m3_t>(a, pmax, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K17, block-sparse decode attention: the same kernel over selected blocks.
+// K17, block-sparse decode attention: at D = 128, G in {1, 2, 4, 8} and
+// blocks of 8 to 512 rows (path J) K15's cluster kernel body over the
+// selected blocks, else (D up to 640, G up to 16) the one-CTA body over them.
 // Caches [B, S, KH*D] as decode_attention's, S a multiple of block_size;
 // sel int32 [B, nsel] block indices, each in [0, S / block_size); nvalid
 // int32 [B] (entries p >= nvalid[b] are never read); keys [0, lengths[b]).
@@ -659,5 +684,11 @@ extern "C" int block_sparse_decode_attention(const void* q, const void* kc, cons
                                              int G, int D, int cache_kind, void* stream) {
   const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, sel, nvalid,
                out_f32, out_bf16, B, S, KH, G, block_size, nsel};
-  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * KH * G == 0 || !cluster_ok(D, G, block_size)) return dispatch(D, cache_kind, a, s);
+  switch (cache_kind) {
+    case 0: return cluster_g<__nv_bfloat16>(a, 0, s);
+    case 1: return cluster_g<int8_t>(a, 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -14,24 +14,36 @@
 // multiply-adds over the int8 tensor cores' 1979 TOPS.
 //
 // The nibbles are never widened to a wider type. For one packed byte b:
-// (b & 0x0F) is q_lo + 8 and (b & 0xF0) read as int8 is exactly 16 * q_hi;
-// ((b << 4) & 0xF0) ^ 0x80 read as int8 is exactly 16 * q_lo. So one 32-bit
-// word of four packed bytes gives four int8 operands of either half after
-// one or two logic ops.
+// (b & 0xF0) read as int8 is exactly 16 * q_hi and ((b << 4) & 0xF0) ^ 0x80
+// read as int8 is exactly 16 * q_lo. So one 32-bit word of four packed
+// bytes gives four int8 operands of either half after one or two logic ops,
+// and both tiles take c * (s / 16) for q * s (c the s32 sum of 16 q x).
 //
 // Why every tile is bit for bit the plain version (w4a8_gemm_plain): the
 // dots of one 128-row scale block are integer sums (exact in any order and
 // on any unit, CUDA cores or tensor cores); each block's f32 update is
 // acc = (acc + q_lo * s_lo) + q_hi * s_hi with every product and sum
 // rounded on its own (__fmul_rn / __fadd_rn, no fused multiply-add), block
-// by block in the plain version's order. No tile splits K.
+// by block in the plain version's order. No tile splits an f32 sum (the
+// decode tile's cluster splits only the integer dots).
 //
-// Decode tile (M <= 8): one CTA per 8 x 32 output tile, a loop over the
-// 128-row scale blocks on the CUDA cores (__dp4a): per block it stages the x
-// rows of both halves and the packed [128, 32] weight tile in shared memory,
-// the weight tile transposed on the way in (4x4 byte transpose in
-// registers) so that one 32-bit word holds four consecutive k of one column;
-// (w & 0x0F) feeds dp4a and the sum is corrected by 8 * sum(x).
+// Decode tile (M <= 8): int8 tensor cores (mma.sync m16n8k32 s8 x s8 ->
+// s32) on the transposed product out^T = W^T x^T, the weights the A
+// operand: one CTA of 4 warps per 128 weight columns, the 8 tokens one n8
+// tile (tokens past M zero). Each CTA streams half-blocks (the raw packed
+// [64, 128] tile, each k-row one 128-byte line of W, and their x columns of
+// both halves) through a ring of 4 cp.async stages, so the next half-blocks'
+// bytes are in flight while one's products run. A lane turns the raw tile
+// into A fragments in registers (a 4 x 4 byte transpose: four consecutive
+// k of one column in a register) and takes 16 q_lo and 16 q_hi from each
+// byte by two logic ops; no transposed tile is written. Where the output
+// has few tiles, a thread-block cluster of R in {1, 2, 4, 8} CTAs shares
+// one tile: each rank takes the exact s32 dots of its contiguous run of
+// blocks and keeps their rounded f32 products (dot times block scale) in
+// shared memory, and after a cluster barrier the rank owning each column
+// slice replays the f32 block recurrence's sums over all blocks in order
+// over distributed shared memory. One launch, no scratch tensor; f32 sums
+// are never split across ranks. The Python wrapper picks R (_w4a8_ranks).
 //
 // Prefill tile (M > 8): int8 tensor cores through wgmma
 // (m64n128k32.s32.s8.s8, both operands K-major in shared memory with the
@@ -62,137 +74,379 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <map>
 #include <mutex>
 #include <tuple>
 
+#include "cluster_decode.cuh"  // cp.async, the shared memory limit
+
 namespace {
 
-constexpr int KB = 128;      // rows of one scale block
-constexpr int XP = KB + 16;  // decode tile: x row pitch in bytes (rows stay 16-byte aligned)
-constexpr int WP = KB + 4;   // decode tile: transposed weight pitch (33 words: no bank conflicts)
+constexpr int KB = 128;  // rows of one scale block
 
 // ---------------------------------------------------------------------------
-// decode tile
+// decode tile (M <= 8): int8 mma.sync on a cp.async ring, the blocks split
+// over a cluster that replays the f32 block recurrence in order
 // ---------------------------------------------------------------------------
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-            const float* __restrict__ scale, float* __restrict__ out_f32,
-            __nv_bfloat16* __restrict__ out_bf16, int M, int N, int K2) {
-  constexpr int TX = BN / TN;
-  constexpr int TY = BM / TM;
-  constexpr int NT = TX * TY;
-  __shared__ __align__(16) int8_t xs[2][BM][XP];
-  __shared__ __align__(16) uint8_t wt[BN][WP];
+namespace dec {
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int K = 2 * K2;
-  const int nblk = K2 / KB;
+namespace cg = cooperative_groups;
 
-  float acc[TM][TN];
+constexpr int BN = 128;            // weight columns a CTA: 4 warps of 32
+constexpr int SK = KB / 2;         // packed rows of a stage: half a block
+constexpr int NS = 4;              // cp.async stages
+constexpr int NT = 128;            // threads a CTA
+constexpr int TOK = 8;             // tokens: the n8 of the transposed product
+constexpr int WB = SK * BN;        // a stage's raw packed [64, 128] tile
+constexpr int XB = 2 * TOK * SK;   // its x rows, both halves: [2][8][64]
+constexpr int SCB = 2 * BN * 4;    // a block's two scale rows [2][128] f32
+constexpr int STAGE = WB + XB + SCB;
+constexpr int HELD = 2 * TOK * BN * 4;  // one held block (R > 1): its f32 products, both halves
+constexpr int KREG = 4;  // a rank's last blocks, kept aside until the ring is free
+constexpr int MAX_SMEM = 227 * 1024;
+static_assert(KREG * HELD <= NS * STAGE, "the ring takes the last blocks' products");
+
+// dynamic shared memory of a CTA when a cluster of R splits nblk blocks
+// (a rank holds at most nbmax = ceil(nblk / R)): the ring and, at R > 1,
+// the products of all but a rank's last KREG blocks (those go into the
+// ring once the main loop is done), then the replay's table of every
+// block's shared::cluster address
+__host__ __device__ constexpr int held_bytes(int nbmax) {
+  return nbmax > KREG ? (nbmax - KREG) * HELD : 0;
+}
+constexpr int smem_bytes(int nblk, int R) {
+  return NS * STAGE + (R > 1 ? held_bytes((nblk + R - 1) / R) + 4 * nblk : 0);
+}
+
+// the shared::cluster address of local shared memory `p` in CTA `rank` of
+// the cluster, and a load from it
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// d (16 x 8 s32) += a (16 x 32 s8, row) * b (32 x 8 s8, col)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w[j]: the packed bytes of columns c .. c + 3 of k-row k + j -> col[i]:
+// those of column c + i at k-rows k .. k + 3 (a 4 x 4 byte transpose)
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+// four packed bytes -> int8 16 q_lo, 16 q_hi
+__device__ __forceinline__ uint32_t lo16(uint32_t w) {
+  return ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
+
+// A CTA of 4 warps owns 128 weight columns (tile n0 = blockIdx.x / R) and
+// rank r = blockIdx.x % R of its cluster walks the contiguous run of blocks
+// [r nblk / R, (r + 1) nblk / R), both halves of each: out^T = W^T x^T on
+// mma.sync m16n8k32 s8 x s8 -> s32, the weights the A operand.
+//
+// Stage u of the ring: packed rows [64 u', 64 u' + 64) of the run (u' its
+// index in W), their x columns of both halves and, on a block's second
+// stage, its two scale rows. Shared memory of a stage: the raw
+// tile [64][128 B], 16-byte chunk c of k-row r at chunk c ^ (2 ((r >> 2) &
+// 3)); x [2][8][64 B], chunk c of token m at chunk c ^ ((m >> 1) & 3); the
+// scale rows [2][128] f32. Every load a warp issues falls in 32 banks.
+//
+// Lane (g, t) of warp w loads the 32-bit words of columns c0 = 32 w + 4 g
+// .. c0 + 3 at k-rows 4 t + j and 16 + 4 t + j (j < 4) of each 32-row step
+// and transposes them in registers (transpose4): one word then holds four
+// consecutive k of one column, an A register. A tile 0 takes columns c0
+// (fragment row g) and c0 + 1 (row g + 8), tile 1 columns c0 + 2 and
+// c0 + 3; the lane's x word of token g at k 4 t (and 16 + 4 t) is its B
+// register. d[i][h][e] is then column c0 + 2 i + e / 2, token 2 t + e % 2
+// of half h (0: 16 q_lo, 1: 16 q_hi).
+//
+// The s32 dots restart every block. R = 1: after each block the f32 update
+// acc = (acc + c_lo (s_lo / 16)) + c_hi (s_hi / 16) in registers. R > 1:
+// the rank that holds a block rounds its two products c (s / 16) (each on
+// its own, as the update would: a product is no sum) and keeps them,
+// [2][8][128] f32 a block: past the ring in shared memory, except its last
+// KREG blocks, which wait in local memory until the main loop is done and
+// then go into the ring (so that three CTAs fit an SM at K = 14336, and a
+// wave holds every cluster). After a cluster barrier rank r owns columns
+// [r 128 / R, (r + 1) 128 / R) of the tile and replays the sums
+// acc = (acc + p_lo) + p_hi over every block in block order, reading each
+// block's products from the rank that holds it over distributed shared
+// memory (ld.shared::cluster, its address from a table each CTA builds),
+// eight blocks' loads in flight. No f32 sum is ever split: the result is
+// the plain version's bit for bit.
+__global__ void __launch_bounds__(NT)
+w4a8_dec_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                const float* __restrict__ scale, float* __restrict__ out_f32,
+                __nv_bfloat16* __restrict__ out_bf16, int M, int N, int K2, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* held = smem + NS * STAGE;  // [blocks of the rank but the last KREG][HELD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x % R, n0 = (blockIdx.x / R) * BN;
+  const int nblk = K2 / KB, K = 2 * K2;
+  const int b0 = rank * nblk / R, nb = (rank + 1) * nblk / R - b0;  // this rank's blocks
+  const int nunits = 2 * nb;
+  const int nsm = max(nb - KREG, 0);  // blocks whose products go to `held` (R > 1)
+  // the replay's table: block b's products in its rank, as a shared::cluster address
+  uint32_t* baddr = reinterpret_cast<uint32_t*>(held + held_bytes((nblk + R - 1) / R));
+  const int c0 = 32 * warp + 4 * g;
+  const int live = min(BN, N - n0) / 16;  // 16-byte chunks of a k-row inside W (N % 128 == 64)
+  w += n0;
+  scale += n0;
+
+  // x rows past M stay zero: no load writes them
+  for (int i = tid; i < NS * 2 * (TOK - M) * (SK / 16); i += NT) {
+    const int st = i / (2 * (TOK - M) * (SK / 16)), r = i % (2 * (TOK - M) * (SK / 16));
+    const int h = r / ((TOK - M) * (SK / 16)), c = r % ((TOK - M) * (SK / 16));
+    *reinterpret_cast<uint4*>(smem + st * STAGE + WB + (h * TOK + M) * SK + 16 * c) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  // a block's products [2 halves][8 tokens][128 columns] f32 at pb
+  auto store_products = [&](float* pb, const float (&p)[2][2][4]) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(pb + (h * TOK + 2 * t + e) * BN + c0) =
+            make_float4(p[0][h][e], p[0][h][e + 2], p[1][h][e], p[1][h][e + 2]);
+  };
+  auto load = [&](int st, int u) {
+    unsigned char* s = smem + st * STAGE;
+    const int k0 = (2 * b0 + u) * SK;
+    for (int i = tid; i < SK * (BN / 16); i += NT) {
+      const int r = i >> 3, c = i & 7;
+      if (c < live)
+        cluster_decode::cp_async16(s + r * BN + ((c ^ (((r >> 2) & 3) << 1)) << 4),
+                                   w + (size_t)(k0 + r) * N + 16 * c);
+    }
+    for (int i = tid; i < 2 * M * (SK / 16); i += NT) {
+      const int h = i / (M * (SK / 16)), m = (i / (SK / 16)) % M, c = i % (SK / 16);
+      cluster_decode::cp_async16(s + WB + (h * TOK + m) * SK + ((c ^ ((m >> 1) & 3)) << 4),
+                                 x + (size_t)m * K + h * K2 + k0 + 16 * c);
+    }
+    if (u & 1) {
+      const int blk = b0 + (u >> 1);
+      for (int i = tid; i < 2 * (BN / 4); i += NT) {
+        const int h = i / (BN / 4), c = i % (BN / 4);
+        if (c < 4 * live)
+          cluster_decode::cp_async16(s + WB + XB + h * BN * 4 + 16 * c,
+                                     scale + (size_t)(h * nblk + blk) * N + 4 * c);
+      }
+    }
+  };
 
-  for (int blk = 0; blk < nblk; ++blk) {
-    // x rows of this block, low half (cols blk*KB) and high half (K2 + blk*KB)
-    for (int t = tid; t < 2 * BM * (KB / 16); t += NT) {
-      const int half = t / (BM * (KB / 16));
-      const int r = (t / (KB / 16)) % BM;
-      const int c = t % (KB / 16);
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + half * K2 +
-                                            blk * KB + c * 16);
-      *reinterpret_cast<uint4*>(&xs[half][r][c * 16]) = v;
-    }
-    // packed [KB, BN] tile, transposed to wt[n][k] 4 rows x 4 columns at a time
-    for (int t = tid; t < (KB / 4) * (BN / 4); t += NT) {
-      const int kr = (t / (BN / 4)) * 4;
-      const int nc = (t % (BN / 4)) * 4;
-      const uint8_t* src = w + (size_t)(blk * KB + kr) * N + n0 + nc;
-      const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + N);
-      const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)N);
-      const uint32_t r3 = *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)N);
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-      const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t2 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 0][kr]) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 1][kr]) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 2][kr]) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 3][kr]) = __byte_perm(t2, t3, 0x7632);
-    }
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nunits) load(st, st);
+    cluster_decode::cp_async_commit();
+  }
+  int d[2][2][4];
+  float acc[2][4];
+  // the last blocks' products (R > 1): block nsm + j in pr[j]. ptxas keeps
+  // them in local memory (L1), which leaves the tile at ~66 registers; held
+  // in registers by a shift they cost ~225, and two CTAs an SM
+  float pr[KREG][2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int u = 0; u < nunits; ++u) {
+    cluster_decode::cp_async_wait<NS - 2>();
+    // unit u landed for every thread; every warp is done with stage (u - 1) % NS
     __syncthreads();
-
-    int lo[TM][TN], hi[TM][TN], sx[TM];
+    if (u + NS - 1 < nunits) load((u + NS - 1) % NS, u + NS - 1);
+    cluster_decode::cp_async_commit();
+    if ((u & 1) == 0) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      sx[i] = 0;
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) lo[i][j] = hi[i][j] = 0;
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[i][h][e] = 0;
     }
-#pragma unroll 4
-    for (int k4 = 0; k4 < KB / 4; ++k4) {
-      int xl[TM], xh[TM], wl[TN], wh[TN];
+    const unsigned char* s = smem + (u % NS) * STAGE;
+    const unsigned char* xs = s + WB;
+    const int wofs = (((c0 >> 4) ^ (t << 1)) << 4) + (c0 & 15);
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        xl[i] = *reinterpret_cast<const int*>(&xs[0][ty + TY * i][k4 * 4]);
-        xh[i] = *reinterpret_cast<const int*>(&xs[1][ty + TY * i][k4 * 4]);
-        sx[i] = __dp4a(xl[i], 0x01010101, sx[i]);
+    for (int ks = 0; ks < SK / 32; ++ks) {
+      uint32_t raw[2][4], col[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          raw[q][j] = *reinterpret_cast<const uint32_t*>(s + (32 * ks + 16 * q + 4 * t + j) * BN +
+                                                         wofs);
+      transpose4(raw[0], col[0]);  // k-rows 4 t .. 4 t + 3 of the step
+      transpose4(raw[1], col[1]);  // 16 + 4 t ..
+      uint32_t xb[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          xb[h][q] = *reinterpret_cast<const uint32_t*>(
+              xs + (h * TOK + g) * SK + (((2 * ks + q) ^ ((g >> 1) & 3)) << 4) + 4 * t);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t alo[4] = {lo16(col[0][2 * i]), lo16(col[0][2 * i + 1]),
+                                 lo16(col[1][2 * i]), lo16(col[1][2 * i + 1])};
+        const uint32_t ahi[4] = {hi16(col[0][2 * i]), hi16(col[0][2 * i + 1]),
+                                 hi16(col[1][2 * i]), hi16(col[1][2 * i + 1])};
+        mma_s8(d[i][0], alo, xb[0][0], xb[0][1]);
+        mma_s8(d[i][1], ahi, xb[1][0], xb[1][1]);
       }
+    }
+    if ((u & 1) == 0) continue;
+    // the block's products c (s / 16): c converts to f32 exactly (|16 q x|
+    // sums < 2^24) and s / 16 is exact, so each rounds as q x s does in the
+    // plain version
+    float sc[2][4];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int wv = *reinterpret_cast<const int*>(&wt[tx + TX * j][k4 * 4]);
-        wl[j] = wv & 0x0F0F0F0F;         // q_lo + 8, bytes 0..15
-        wh[j] = wv & (int)0xF0F0F0F0u;   // 16 * q_hi as int8
-      }
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(s + WB + XB + h * BN * 4 + 4 * c0);
+      sc[h][0] = v.x * 0.0625f;
+      sc[h][1] = v.y * 0.0625f;
+      sc[h][2] = v.z * 0.0625f;
+      sc[h][3] = v.w * 0.0625f;
+    }
+    float p[2][2][4];  // [tile][half][e]
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          lo[i][j] = __dp4a(xl[i], wl[j], lo[i][j]);
-          hi[i][j] = __dp4a(xh[i], wh[j], hi[i][j]);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[i][h][e] = __fmul_rn((float)d[i][h][e], sc[h][2 * i + (e >> 1)]);
+    if (R == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e] = __fadd_rn(__fadd_rn(acc[i][e], p[i][0][e]), p[i][1][e]);
+    } else if ((u >> 1) < nsm) {
+      store_products(reinterpret_cast<float*>(held + (u >> 1) * HELD), p);
+    } else {
+#pragma unroll
+      for (int j = 0; j < KREG; ++j)
+        if ((u >> 1) - nsm == j) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) pr[j][i][h][e] = p[i][h][e];
         }
     }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + TX * j;
-      const float slo = scale[(size_t)blk * N + n];
-      const float shi = scale[(size_t)(nblk + blk) * N + n];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int qlo = lo[i][j] - 8 * sx[i];
-        const int qhi = hi[i][j] >> 4;
-        acc[i][j] = __fadd_rn(__fadd_rn(acc[i][j], __fmul_rn((float)qlo, slo)),
-                              __fmul_rn((float)qhi, shi));
-      }
-    }
-    __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + TY * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const size_t o = (size_t)m * N + n0 + tx + TX * j;
-      if (out_bf16 != nullptr)
-        out_bf16[o] = __float2bfloat16(acc[i][j]);
-      else
-        out_f32[o] = acc[i][j];
+  auto store4 = [&](int m, int col, float v0, float v1, float v2, float v3) {
+    const size_t o = (size_t)m * N + n0 + col;
+    if (out_bf16 != nullptr) {
+      *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o + 2) = __floats2bfloat162_rn(v2, v3);
+    } else {
+      *reinterpret_cast<float4*>(out_f32 + o) = make_float4(v0, v1, v2, v3);
     }
+  };
+  if (R == 1) {
+    if (n0 + c0 >= N) return;  // (N % 128 == 64: the last tile's right half)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (2 * t + e < M)
+        store4(2 * t + e, c0, acc[0][e], acc[0][e + 2], acc[1][e], acc[1][e + 2]);
+    return;
   }
+  // the last blocks' products into the ring (block nsm + k in ring slot k),
+  // once every warp is done with it; the replay's table
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < KREG; ++j)
+    if (j < nb - nsm) store_products(reinterpret_cast<float*>(smem + j * HELD), pr[j]);
+  for (int b = tid; b < nblk; b += NT) {
+    const int q = ((b + 1) * R - 1) / nblk;  // the runs start at q nblk / R
+    const int qb0 = q * nblk / R, qs = max((q + 1) * nblk / R - qb0 - KREG, 0), lb = b - qb0;
+    baddr[b] = cluster_addr(smem + (lb < qs ? NS * STAGE + lb * HELD : (lb - qs) * HELD), q);
+  }
+  // the replay: every CTA reaches both barriers; the second keeps each CTA's
+  // shared memory alive while another still reads it. Thread i: token m,
+  // column col of this rank's slice
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int cols = BN / R;
+  for (int i = tid; i < M * cols; i += NT) {
+    const int m = i / cols, col = rank * cols + i % cols;
+    if (n0 + col >= N) continue;
+    const uint32_t item = (m * BN + col) * 4;
+    float a = 0.f;
+    for (int bb = 0; bb < nblk; bb += 8) {
+      float p[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t ad = baddr[min(bb + j, nblk - 1)] + item;
+        p[j][0] = ld_cluster(ad);
+        p[j][1] = ld_cluster(ad + TOK * BN * 4);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (bb + j < nblk) a = __fadd_rn(__fadd_rn(a, p[j][0]), p[j][1]);
+    }
+    const size_t o = (size_t)m * N + n0 + col;
+    if (out_bf16 != nullptr)
+      out_bf16[o] = __float2bfloat16(a);
+    else
+      out_f32[o] = a;
+  }
+  cluster.sync();
 }
+
+int launch(const int8_t* x, const uint8_t* w, const float* sc, float* of, __nv_bfloat16* ob,
+           int M, int N, int K2, int R, cudaStream_t s) {
+  const int nblk = K2 / KB;
+  if (R < 1 || R > 8 || (R & (R - 1)) != 0 || R > nblk) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(nblk, R);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;  // devices whose shared memory limit is raised
+  const int err = cluster_decode::allow_smem(w4a8_dec_kernel, MAX_SMEM, done);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN * R, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, w4a8_dec_kernel, x, w, sc, of, ob, M, N, K2, R);
+}
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // prefill tile: int8 wgmma (Hopper's warpgroup MMA), operands by TMA
@@ -558,9 +812,11 @@ int launch(const int8_t* x, const uint8_t* w, const float* sc, float* of,
 // xq int8 [M, 2*K2]; packed uint8 [K2, N]; scale f32 [2*K2/128, N].
 // Exactly one of out_f32 / out_bf16 is non-null. Needs K2 % 128 == 0,
 // N % 64 == 0 and 16-byte aligned xq, packed and scale (checked by the
-// Python wrapper).
+// Python wrapper). R: the decode tile's cluster size (M <= 8; 1, 2, 4 or 8,
+// at most K2 / 128, its dots within the shared memory: the wrapper's
+// _w4a8_ranks); the prefill tile ignores it.
 extern "C" int w4a8_gemm(const void* xq, const void* packed, const void* scale,
-                         void* out_f32, void* out_bf16, int M, int N, int K2,
+                         void* out_f32, void* out_bf16, int M, int N, int K2, int R,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* x = static_cast<const int8_t*>(xq);
@@ -568,11 +824,16 @@ extern "C" int w4a8_gemm(const void* xq, const void* packed, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   float* of = static_cast<float*>(out_f32);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out_bf16);
-  if (M <= 8) {
-    dim3 grid(N / 32, (M + 7) / 8);
-    w4a8_kernel<8, 32, 1, 1><<<grid, 256, 0, s>>>(x, w, sc, of, ob, M, N, K2);
-    return (int)cudaGetLastError();
-  }
+  if (M <= 8) return dec::launch(x, w, sc, of, ob, M, N, K2, R, s);
   if (M <= 64) return wg::launch<1>(x, w, sc, of, ob, M, N, K2, s);
   return wg::launch<2>(x, w, sc, of, ob, M, N, K2, s);
+}
+
+// The decode tile's dynamic shared memory when a cluster of R CTAs splits
+// nblk 128-row blocks, or -1 where it passes a CTA's limit (the launch
+// refuses that R). The wrapper's rank picker counts the same bytes
+// (quant_gemm._w4a8_smem); chip_smoke.py holds the two equal.
+extern "C" int w4a8_dec_smem(int nblk, int R) {
+  const int b = dec::smem_bytes(nblk, R);
+  return b > dec::MAX_SMEM ? -1 : b;
 }

@@ -8,9 +8,11 @@ blocks to attend come from ``sparsity/skip_softmax.py::select_blocks``:
 [B, S, KH*D] (int8 codes with per-tensor scales, or bf16).
 
 On CUDA tensors the wrapper launches ``csrc/decode_attention.cu``'s
-``block_sparse_decode_attention`` entry (K5's kernel body walking the
-selected blocks); on CPU tensors ``block_sparse_decode_attention_plain``
-computes the same function (and serves as the card's oracle).
+``block_sparse_decode_attention`` entry: at D = 128, G in {1, 2, 4, 8} and
+blocks of 8-512 rows K15's cluster body over the selected blocks
+(``csrc/cluster_decode.cuh``), else K5's one-CTA body walking them; on CPU
+tensors ``block_sparse_decode_attention_plain`` computes the same function
+(and serves as the card's oracle).
 ``block_sparse_decode_attention_xla`` is the reference's other form, a
 plain softmax over the gathered dequantized blocks, which the decoder takes
 outside ``block_sparse_ok``.

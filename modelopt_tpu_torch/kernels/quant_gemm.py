@@ -116,7 +116,10 @@ def w4a8_gemm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
               block: int = 128, out_dtype=torch.float32) -> torch.Tensor:
     """xq int8 [M, K] @ int4-packed W -> [M, N] (the caller applies the
     per-token activation scales). For M <= 256 the product is f32 and then
-    cast to ``out_dtype``; above, the kernel writes ``out_dtype`` itself."""
+    cast to ``out_dtype``; above, the kernel writes ``out_dtype`` itself.
+    One launch: up to M = 8 the mma.sync decode tile (the 128-row blocks
+    split over a cluster of ``_w4a8_ranks`` CTAs that replays the f32 block
+    recurrence in order), above it the wgmma tile."""
     M, K = xq.shape
     K2, N = packed.shape
     _check_packed("w4a8_gemm", packed, scale, block, K, N)
@@ -131,20 +134,59 @@ def w4a8_gemm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     _build.check_cuda("w4a8_gemm", xq, packed, scale)
     if xq.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("w4a8_gemm: x, packed and scale must be 16-byte aligned")
-    fn = _build.function("w4a8_gemm", [_build.c_ptr] * 5 + [_build.c_int] * 3
+    fn = _build.function("w4a8_gemm", [_build.c_ptr] * 5 + [_build.c_int] * 4
                          + [_build.c_ptr])
     out = torch.empty(M, N, dtype=acc_dtype, device=xq.device)
     f32 = acc_dtype == torch.float32
     with torch.cuda.device(xq.device):
         err = fn(xq.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                  out.data_ptr() if f32 else None,
-                 None if f32 else out.data_ptr(), M, N, K2, _build.stream(xq))
+                 None if f32 else out.data_ptr(), M, N, K2, _w4a8_ranks(M, N, K2),
+                 _build.stream(xq))
     w4a8_gemm.launches += 1
     _build.raise_on_error("w4a8_gemm", err)
     return out.to(out_dtype)
 
 
 w4a8_gemm.launches = 0
+
+
+# K1's decode tile (csrc/w4a8_gemm.cu, dec::smem_bytes): a ring of 4
+# half-block stages (the raw packed [64, 128] tile, x's two halves, a
+# block's scale rows: 40 KB) and, where a cluster of R > 1 splits the
+# blocks, each of a rank's blocks but its last W4A8_REG_BLOCKS (which wait
+# in local memory, then in the ring) held for the in-order f32 replay (its
+# rounded products [2][8][128] f32: 8 KB) and the replay's table (4 bytes a
+# block), within the 227 KB a CTA may use
+W4A8_RING_BYTES = 4 * (8192 + 1024 + 1024)
+W4A8_HELD_BYTES = 8192
+W4A8_REG_BLOCKS = 4
+SMEM_LIMIT = 227 * 1024
+
+
+def _w4a8_smem(blocks: int, r: int) -> int:
+    """Shared memory of a K1 decode-tile CTA whose cluster of ``r`` splits
+    ``blocks`` 128-row blocks."""
+    if r == 1:
+        return W4A8_RING_BYTES
+    held = max(-(-blocks // r) - W4A8_REG_BLOCKS, 0)
+    return W4A8_RING_BYTES + held * W4A8_HELD_BYTES + 4 * blocks
+
+
+def _w4a8_ranks(M, N, K2) -> int:
+    """Cluster size of K1's decode tile (M <= 8; 1 above, where the wgmma
+    tile takes no R): the largest of 1, 2, 4, 8 that keeps the 128-column
+    tiles x R within BYTE_TARGET_CTAS (the tile only draws weight bytes, as
+    K7 / K8's decode tile), each rank at least one 128-row block, and a
+    rank's held blocks and the ring within a CTA's shared memory."""
+    if M > 8:
+        return 1
+    tiles, blocks = -(-N // 128), K2 // 128
+    best = 1
+    for r in (2, 4, 8):
+        if r <= blocks and r * tiles <= BYTE_TARGET_CTAS and _w4a8_smem(blocks, r) <= SMEM_LIMIT:
+            best = r
+    return best
 
 
 # ---------------------------------------------------------------------------

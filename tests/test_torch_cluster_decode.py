@@ -1,10 +1,12 @@
-"""K2 fused_decode_attention split over keys, as the CUDA kernel's thread-
-block cluster splits them: a torch model of the kernel's rounds held to the
-JAX package's Pallas kernel (interpret mode) and to the port's plain
-version. It pins the claim that splitting a slot's keys over C CTAs changes
-no int8 probability code: the codes depend only on each chunk's running
-max, which the ranks agree on before any code is rounded, and the integer
-partials sum exactly in any order."""
+"""K2 fused_decode_attention split over keys, and K15
+paged_decode_attention and K17 block_sparse_decode_attention split over
+pages (K17's pages: its selected blocks), as the CUDA kernels' thread-block
+clusters split them: torch models of the kernels' rounds held to the JAX
+package's Pallas kernels (interpret mode) and to the port's plain versions.
+They pin the claim that splitting a slot's keys over C CTAs changes no int8
+probability code: the codes depend only on each chunk's running max, which
+the ranks agree on before any code is rounded, and the integer partials sum
+exactly in any order."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -177,62 +179,108 @@ def page_runs(npages: int, P: int):
     return rounds
 
 
+def _scores(qf, k4, ks, int8):
+    """Every key's score [B, KH, G, T] as the cluster kernels compute it:
+    int8, q requantized per row and exact integer dots; bf16, f32 sums."""
+    D = qf.shape[-1]
+    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D)))
+    if int8:
+        qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        q8 = torch.round(qf * (torch.tensor(127.0) / qmax))
+        return torch.einsum("bhgd,bthd->bhgt", q8, k4.float()) * (qmax * (inv_sqrt_d / 127.0))
+    return torch.einsum("bhgd,bthd->bhgt", qf, ta._kv_values(k4)) * inv_sqrt_d
+
+
+def replay_pages(s, vb, spans, P, int8):
+    """The cluster kernels' rounds over one (slot, KV head): scores s
+    [G, T], values vb [T, D], ``spans`` each page's keys [lo, hi) in page
+    order. Per round of C * P pages: each rank's pages scored and their
+    maxima taken; the running max at every page of the round from all
+    ranks' maxima, in page order; each page's codes against its running
+    max and its integer (int8) or f32 (bf16) partials; the f32 recurrence
+    over the round's pages in order. Returns (l [G, 1], acc [G, D])."""
+    G, D = s.shape[0], vb.shape[-1]
+    m_prev = torch.full((G,), -1e30)
+    m, l, acc = torch.full((G, 1), -1e30), torch.zeros(G, 1), torch.zeros(G, D)
+    for rnd in page_runs(len(spans), P):
+        mr = {}
+        for p0, p1 in rnd:
+            for p in range(p0, p1):
+                lo, hi = spans[p]
+                m_prev = torch.maximum(m_prev, s[:, lo:hi].amax(-1))
+                mr[p] = m_prev
+        parts = {}
+        for p, mp in mr.items():
+            lo, hi = spans[p]
+            e = torch.exp(s[:, lo:hi] - mp[:, None])
+            if int8:
+                e8 = torch.round(e * 127.0).to(torch.int64)
+                es, y = e8.sum(-1), e8 @ vb[lo:hi].to(torch.int64)
+                es, y = es.float() * (1.0 / 127.0), y.float() * (1.0 / 127.0)
+            else:
+                es = e.sum(-1)
+                y = e.to(torch.bfloat16).float() @ ta._kv_values(vb[lo:hi])
+            parts[p] = (es, y)
+        for p in sorted(mr):
+            es, y = parts[p]
+            m_cur = mr[p][:, None]
+            alpha = torch.exp(m - m_cur)
+            l = l * alpha + es[:, None]
+            acc = acc * alpha + y
+            m = m_cur
+    return l, acc
+
+
 def cluster_paged_decode(q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
-    """K15's cluster kernel for every (slot, KV head), round by round: each
-    rank's pages scored and their maxima taken; the running max at every
-    page of the round from all ranks' maxima, in page order; each page's
-    codes against its running max and its integer (int8) or f32 (bf16)
-    partials; the f32 recurrence over the round's pages in order. f32
-    out."""
+    """K15's cluster kernel for every (slot, KV head): the slot's pages
+    gathered in table order, page p the keys [p ps, min(L, (p + 1) ps)) (the
+    last page cut at the length, no key past it visited), replayed as
+    ``replay_pages``. f32 out."""
     B, KH, G, D = q.shape
     _, ps, KHD = k_pages.shape
     PMAX = page_table.shape[1]
     P = min(PP, SB // ps)
     int8 = k_pages.dtype == torch.int8
     ks, vs = (ta._scalar(t, "cpu") for t in (k_scale, v_scale))
-    inv_sqrt_d = ks / torch.sqrt(torch.tensor(float(D)))
-    qf = q.to(torch.bfloat16).float()
     idx = page_table.reshape(-1).long()
     k4 = k_pages[idx].reshape(B, PMAX * ps, KH, D)
     v4 = v_pages[idx].reshape(B, PMAX * ps, KH, D)
-    if int8:
-        qmax = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30)
-        q8 = torch.round(qf * (torch.tensor(127.0) / qmax))
-        scores = torch.einsum("bhgd,bthd->bhgt", q8, k4.float()) * (qmax * (inv_sqrt_d / 127.0))
-    else:
-        scores = torch.einsum("bhgd,bthd->bhgt", qf, ta._kv_values(k4)) * inv_sqrt_d
+    scores = _scores(q.to(torch.bfloat16).float(), k4, ks, int8)
     out = torch.empty(B, KH, G, D)
     for b in range(B):
         L = min(int(lengths[b]), PMAX * ps)
+        spans = [(p * ps, min(L, (p + 1) * ps)) for p in range(-(-L // ps))]
         for h in range(KH):
-            s, vb = scores[b, h], v4[b, :, h]
-            m_prev = torch.full((G,), -1e30)
-            m, l, acc = torch.full((G, 1), -1e30), torch.zeros(G, 1), torch.zeros(G, D)
-            for rnd in page_runs(-(-L // ps), P):
-                mr = {}
-                for p0, p1 in rnd:
-                    for p in range(p0, p1):
-                        m_prev = torch.maximum(m_prev, s[:, p * ps:min(L, (p + 1) * ps)].amax(-1))
-                        mr[p] = m_prev
-                parts = {}
-                for p, mp in mr.items():
-                    lo, hi = p * ps, min(L, (p + 1) * ps)
-                    e = torch.exp(s[:, lo:hi] - mp[:, None])
-                    if int8:
-                        e8 = torch.round(e * 127.0).to(torch.int64)
-                        es, y = e8.sum(-1), e8 @ vb[lo:hi].to(torch.int64)
-                        es, y = es.float() * (1.0 / 127.0), y.float() * (1.0 / 127.0)
-                    else:
-                        es = e.sum(-1)
-                        y = e.to(torch.bfloat16).float() @ ta._kv_values(vb[lo:hi])
-                    parts[p] = (es, y)
-                for p in sorted(mr):
-                    es, y = parts[p]
-                    m_cur = mr[p][:, None]
-                    alpha = torch.exp(m - m_cur)
-                    l = l * alpha + es[:, None]
-                    acc = acc * alpha + y
-                    m = m_cur
+            l, acc = replay_pages(scores[b, h], v4[b, :, h], spans, P, int8)
+            out[b, h] = acc * (vs / l.clamp_min(1e-30))
+    return out
+
+
+def cluster_sparse_decode(q, k_cache, v_cache, sel, nvalid, lengths, k_scale, v_scale,
+                          block_size):
+    """K17's cluster kernel (K15's body over the selected blocks) for every
+    (slot, KV head): page p the whole block sel[b, p] for p < min(nvalid[b],
+    NSEL), in table order, its keys at or past lengths[b] scored -1e30 (a
+    block with no live key still rounds its codes: exp(0) while the running
+    max is -1e30), replayed as ``replay_pages``. f32 out."""
+    B, KH, G, D = q.shape
+    S = k_cache.shape[1]
+    NSEL, bs = sel.shape[1], block_size
+    P = min(PP, SB // bs)
+    int8 = k_cache.dtype == torch.int8
+    ks, vs = (ta._scalar(t, "cpu") for t in (k_scale, v_scale))
+    rows = (sel.long()[..., None] * bs + torch.arange(bs)).reshape(B, NSEL * bs)
+    k4 = torch.stack([k_cache[b, rows[b]] for b in range(B)]).view(B, NSEL * bs, KH, D)
+    v4 = torch.stack([v_cache[b, rows[b]] for b in range(B)]).view(B, NSEL * bs, KH, D)
+    scores = _scores(q.to(torch.bfloat16).float(), k4, ks, int8)
+    scores = torch.where(rows[:, None, None, :] < lengths.long()[:, None, None, None], scores,
+                         torch.tensor(-1e30))
+    out = torch.empty(B, KH, G, D)
+    for b in range(B):
+        n = max(min(int(nvalid[b]), NSEL), 0)
+        spans = [(p * bs, (p + 1) * bs) for p in range(n)]
+        for h in range(KH):
+            l, acc = replay_pages(scores[b, h], v4[b, :, h], spans, P, int8)
             out[b, h] = acc * (vs / l.clamp_min(1e-30))
     return out
 
@@ -287,3 +335,63 @@ def test_split_over_pages_matches_reference(rng, kind, G):
     bar = 1e-5 * float(np.abs(ref).max()) if kind == "int8" else 1e-2
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0 if kind == "int8" else 1e-2,
                                atol=bar)
+
+
+# ---------------------------------------------------------------------------
+# K17 block_sparse_decode_attention on K15's cluster body
+# ---------------------------------------------------------------------------
+SPARSE_BS, SPARSE_NB = 16, 12
+# per slot: (length, selected blocks in table order); S = 192. No live
+# entry; one block, cut by the length; a first block wholly past the length
+# before live ones; every block past the length (the mean of their V rows);
+# twelve blocks, more than the cluster's 8 ranks (the last cut); nine whole
+# blocks and an aliased tail
+SPARSE_SLOTS = ((150, ()), (56, (3,)), (20, (5, 0, 1)), (5, (3, 7)),
+                (170, (11, 0, 5, 1, 10, 2, 9, 3, 8, 4, 7, 6)),
+                (192, (0, 2, 4, 6, 8, 10, 1, 3, 5)))
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_sparse_split_over_blocks_matches_reference(rng, kind):
+    """K17's cluster model (K15's split with a block for a page, whole,
+    keys past the length at -1e30) against the port's plain version: int8
+    bit for bit (the same codes, exact integer partials, the same f32
+    recurrence in block order), bf16 within 1e-5 of the largest output;
+    against the Pallas kernel (interpret mode) at
+    ``test_block_sparse_plain_matches_pallas``'s bar, 1e-2."""
+    from modelopt_tpu.kernels import block_sparse_attention as jbs
+    from modelopt_tpu_torch.kernels import block_sparse_attention as tbs
+
+    KH, G, D, bs = 2, 4, 128, SPARSE_BS
+    B, S, NSEL = len(SPARSE_SLOTS), SPARSE_NB * bs, SPARSE_NB
+    q = rng.standard_normal((B, KH, G, D)).astype(np.float32)
+    if kind == "int8":
+        kc, vc = (rng.integers(-127, 128, (B, S, KH * D)).astype(np.int8) for _ in range(2))
+        ks, vs = 0.011, 0.017
+        jd, td = jnp.int8, torch.int8
+    else:
+        kc, vc = (rng.standard_normal((B, S, KH * D)).astype(np.float32) for _ in range(2))
+        ks = vs = None
+        jd, td = jnp.bfloat16, torch.bfloat16
+    sel = np.zeros((B, NSEL), np.int32)
+    for b, (_, blocks) in enumerate(SPARSE_SLOTS):
+        sel[b, :len(blocks)] = blocks
+    nvalid = np.asarray([len(blocks) for _, blocks in SPARSE_SLOTS], np.int32)
+    lengths = np.asarray([n for n, _ in SPARSE_SLOTS], np.int32)
+    tq = torch.from_numpy(q).bfloat16()
+    tk, tv = (torch.from_numpy(a).to(td) for a in (kc, vc))
+    tsel, tnv, tl = (torch.from_numpy(a) for a in (sel, nvalid, lengths))
+    got = cluster_sparse_decode(tq, tk, tv, tsel, tnv, tl, ks, vs, bs)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # no live entry: l = 0, out 0
+    want = tbs.block_sparse_decode_attention_plain(tq, tk, tv, tsel, tnv, tl, ks, vs,
+                                                   block_size=bs, out_dtype=torch.float32)
+    if kind == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jbs.block_sparse_decode_attention(
+            jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc).astype(jd), jnp.asarray(vc).astype(jd),
+            jnp.asarray(sel), jnp.asarray(nvalid), jnp.asarray(lengths), k_scale=ks, v_scale=vs,
+            block_size=bs, out_dtype=jnp.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-2, atol=1e-2)
