@@ -18,8 +18,9 @@ prefill tile's edges, the decode tile also on Qwen3-30B-A3B's and
 DeepSeek's decode shapes and at M = 1 and 5), ``flash_prefill_kernels``,
 ``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
 at M = 1, 8 and 32; its K11 and K12 rows ride along), ``fp_kernels``
-(K7 / K8 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17, 64, 65,
-200 and 256, every byte code read back through both tiles),
+(K7 / K8 / K9 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17,
+64, 65, 200 and 256, K13 at M = 1, 8, 16, 17 and 32, every byte code and
+every (e2m1 code, e4m3 scale) pair read back through both tiles),
 ``paged_kernels`` and ``block_sparse_kernels`` (K17 at path J's shape,
 short selections and blocks past the length, int8 and bf16) (each held to
 the tree's plain twin at the bar

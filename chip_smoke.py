@@ -27,11 +27,13 @@ Phases, in order (any failure exits non-zero):
      geometries, bit for bit), the fp / int8 weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, also at
      M = 1 and 16 for N = 4096, every byte code read back through both
-     tiles bit for bit, K9 nvfp4_gemm at Qwen3-30B-A3B's, K7 / K8 / K9 at
-     the wgmma tile's token-tile edges (M = 17, 64, 65, 200, 256 at
-     N = 4096), K13 grouped_nvfp4_gemm at its expert down projection; one
-     device kernel a call for K6 / K10 at M <= 16, K9 / K13 above and K7 /
-     K8 at M = 8, 32 and 128), then K1-K4: K1 at Llama-3-8B's four projections at
+     tiles bit for bit, K9 nvfp4_gemm at Qwen3-30B-A3B's, also at M = 1
+     and 16 for N = 4096, K7 / K8 / K9 at the wgmma tile's token-tile edges
+     (M = 17, 64, 65, 200, 256 at N = 4096), K13 grouped_nvfp4_gemm at its
+     expert down projection, also at M = 1 and 16, every (e2m1 code, e4m3
+     scale) pair read back through both of K9's tiles bit for bit; one
+     device kernel a call for K6 / K10 at M <= 16, K9 / K13 at M = 8 and
+     above and K7 / K8 at M = 8, 32 and 128), then K1-K4: K1 at Llama-3-8B's four projections at
      M = 8 and 544 and at its prefill tile's edges (M = 9, 32, 64, 65, 130,
      300 at N = 576, and M = 32 at 4096 x 28672; its decode tile also at
      M = 8 on N = 576 and Qwen3-30B-A3B's decode shapes, at M = 1 and 5,
@@ -150,6 +152,7 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "B=8 S=2176 KH=8 G=4 D=128 int8 ragged pos",
            "M=8 K=2048 N=98304 bf16 out",
            "E=128 M=8 K=768 N=2048",  # K12 reports its first row (routed gscale)
+           "E=128 M=8 K=768 N=2048 bf16 out",
            "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088",
            "B=8 PMAX=34 ps=64 KH=8 G=4 D=128 int8 ragged lengths",
            "B=1 T=544 row=1024 int8",
@@ -1134,6 +1137,39 @@ def byte_codes_exact(torch, name: str, fn) -> None:
     log(f"  {name}: all {len(codes.unique())} byte codes exact through both tiles")
 
 
+def nvfp4_codes_exact(torch) -> None:
+    """Every pair of an e2m1 code (16) and an e4m3 block scale (254: no NaN
+    codes 0x7f / 0xff) read back through K9's decode tile (M = 16) and its
+    wgmma tile (M = 128): weight row k holds code k % 16 in every column,
+    the 2 x 128 scale rows run through the e4m3 codes, x holds one-hot rows
+    and scale2 is 1, so each output is one scaled weight exactly; f32 out,
+    bit for bit against the exact product."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+
+    dev = "cuda"
+    K, N = 512, 128
+    K2 = K // 2
+    code = torch.arange(K, device=dev) % 16  # weight row k's code
+    packed = (code[:K2] | (code[K2:] << 4)).to(torch.uint8)[:, None].expand(K2, N).contiguous()
+    sc = torch.arange(K // 16 * N, device=dev) % 256
+    sc = torch.where((sc & 0x7F) == 0x7F, 0, sc).to(torch.uint8).view(torch.float8_e4m3fn)
+    scale = sc.reshape(K // 16, N)
+    scale2 = torch.ones(1, 1, device=dev)
+    want = kq.nvfp4_unit_weights(packed, scale)
+    rows = scale.view(torch.uint8).tolist()
+    pairs = {(k % 16, b) for k in range(K) for b in rows[k // 16]}
+    if len(pairs) != 16 * 254:
+        raise AssertionError(f"nvfp4 codes: {len(pairs)} (code, scale) pairs, want {16 * 254}")
+    for M in (16, 128):
+        got = torch.cat([kq.nvfp4_gemm(torch.eye(K, device=dev, dtype=torch.bfloat16)[r0:r0 + M],
+                                       packed, scale, scale2, out_dtype=torch.float32)
+                         for r0 in range(0, K, M)])
+        if not torch.equal(got, want):
+            raise AssertionError(f"nvfp4_gemm M={M}: {(got != want).sum().item()} (code, scale) "
+                                 "pairs decode wrong")
+    log(f"  nvfp4_gemm: all {len(pairs)} (e2m1 code, e4m3 scale) pairs exact through both tiles")
+
+
 def fp_kernels(torch, gen, timer, record) -> None:
     """K7 w8a16_gemm and K8 wfp8_gemm at paths G's and H's projection
     shapes (Llama-3-8B's fused qkv, o, fused gate_up and down), K9
@@ -1142,17 +1178,20 @@ def fp_kernels(torch, gen, timer, record) -> None:
     both tiles of each kernel: M = 8 a decode step (the mma.sync decode
     tile), M = 32 the 32-token prefill bucket of the profile windows and the
     small NVFP4 parity, M = 128 the small FP8 parity's prefill (the wgmma
-    tile, split over a cluster where its tiles are few); K7 / K8 also at
-    M = 1 and 16 (the decode tile's edges) for N = 4096, and K7 / K8 and K9
-    at M = 17, 64, 65, 200 and 256 for N = 4096 (the wgmma tile's 64- and
-    128-token tiles and their tails), K13 at 8, 17 and 32. Each kernel
+    tile, split over a cluster where its tiles are few); K7 / K8 / K9 also
+    at M = 1 and 16 (the decode tile's edges) for N = 4096, and at M = 17,
+    64, 65, 200 and 256 (the wgmma tile's 64- and 128-token tiles and their
+    tails), K13 at 1, 8, 16, 17 and 32. Each kernel
     and its plain version multiply the same bf16 x by the same weights,
     exact in bf16 (int8, e4m3, e2m1 times its e4m3 block scale), in f32, and
     apply the f32 scale once: they differ only in the order of the f32 sums,
     the W4A16 bar of the dequantized weight. The library call multiplies x
     by the dequantized bf16 weight. K7 and K8 also read every byte code
     back through both tiles (x one-hot rows, scale 1), bit for bit, and run
-    as one device kernel a call at M = 8, 32 and 128."""
+    as one device kernel a call at M = 8, 32 and 128; K9 reads every (e2m1
+    code, e4m3 scale) pair back likewise, and K9 at M = 8 on each shape and
+    at M = 128 on N = 512, K13 at M = 8 and 32, run as one device kernel a
+    call."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
     from modelopt_tpu_torch.quant import qtensor as qt_
 
@@ -1189,16 +1228,18 @@ def fp_kernels(torch, gen, timer, record) -> None:
             del qt, wdq
 
     log("K9 nvfp4_gemm")
+    nvfp4_codes_exact(torch)
     for K, N in ((2048, 4096), (2048, 512), (4096, 2048), (2048, 98304)):
         w = torch.randn(K, N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
         qt = qt_.quantize_nvfp4(w)
         wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16)
         del w
         args = (qt["data"], qt["scale"], qt["scale2"])
-        if N == 512:  # the wgmma tile's cluster split, in one launch
-            x = torch.randn(128, K, generator=gen, device=dev).to(torch.bfloat16)
-            one_launch(torch, "nvfp4_gemm M=128 N=512", lambda: kq.nvfp4_gemm(x, *args))
-        for M in (8, 17, 32, 64, 65, 128, 200, 256) if N == 4096 else (8, 32, 128):
+        # one launch a call: the decode tile's cluster sum, the wgmma tile's
+        for M in (8, 128) if N == 512 else (8,):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            one_launch(torch, f"nvfp4_gemm M={M} K={K} N={N}", lambda: kq.nvfp4_gemm(x, *args))
+        for M in (1, 8, 16, 17, 32, 64, 65, 128, 200, 256) if N == 4096 else (8, 32, 128):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             y = kq.nvfp4_gemm(x, *args)
             ref = kq.nvfp4_gemm_plain(x, *args)
@@ -1221,10 +1262,11 @@ def fp_kernels(torch, gen, timer, record) -> None:
     wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1) \
         .contiguous()
     args = (qt["data"], qt["scale"], qt["scale2"], N)
-    for M in (8, 17, 32):
+    for M in (1, 8, 16, 17, 32):
         x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        if M == 32:
-            one_launch(torch, "grouped_nvfp4_gemm M=32", lambda: kq.grouped_nvfp4_gemm(x, *args))
+        if M in (8, 32):
+            one_launch(torch, f"grouped_nvfp4_gemm M={M}",
+                       lambda: kq.grouped_nvfp4_gemm(x, *args))
         y = kq.grouped_nvfp4_gemm(x, *args)
         ref = kq.grouped_nvfp4_gemm_plain(x, *args)
         errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
@@ -2390,7 +2432,7 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
         "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_dec_kernel", "w8_wg_kernel",
-        "nvfp4_kernel", "nvfp4_wg_kernel", "nvfp4_reduce_splits", "block_sparse_attention_kernel",
+        "nvfp4_dec_kernel", "nvfp4_wg_kernel", "block_sparse_attention_kernel",
         "sparse_cluster_kernel", "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms in {n_launch} kernels"

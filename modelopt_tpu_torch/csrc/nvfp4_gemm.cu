@@ -23,27 +23,45 @@
 // The bf16 MMA sums into f32; scale2 multiplies the f32 sum once, then the
 // result rounds to the output type.
 //
-// Decode: four codes (one per byte, k order) at a time. Their magnitude
-// indices (code & 7) become the nibbles of a byte-permute selector that
-// picks each bf16's high and low byte from two 8-entry tables held in
-// registers; the sign is code bit 3 moved to bit 15. No table in memory.
+// Decode: two codes (k order) at a time, a bf16x2. One integer multiply
+// and one mask make each code's bits the bf16 of 2^-126 times its value
+// (0 and 0.5 are bf16 subnormals), one bf16 multiply by 2^126 the value and
+// one by the column's block scale the weight: three integer operations, a
+// byte permute and two bf16 multiplies a pair of weights. The block scales
+// go to bf16 by the card's e4m3x2 -> f16x2 conversion (e4m3.cuh).
 //
 // What bounds it on an H100: at decode (M <= 16) the packed weight and
 // scale bytes (K/2 + K/16 per column) over 3.35 TB/s of HBM; at M = 128
 // and N = 98304 the bf16 multiply-adds over the 989 TFLOP/s of the tensor
 // cores.
 //
-// Decode tile (M <= 16): mma.sync m16n8k16, one CTA of 4 warps per 16 x 64
-// output tile and expert, a loop over 128 packed rows at a time. Per step
-// the CTA stages both halves' x columns, the packed [128, 64] tile
-// transposed on the way in (4x4 byte transposes in registers, one 32-bit
-// word = four consecutive k of one column) and the 2 x 8 scale rows of the
-// step. One MMA k-step of 16 rows is one scale block of one half, so a
-// thread's four weights of a fragment share one scale. Where the output
-// has too few tiles to keep HBM busy (N = 512: 8 CTAs), the wrapper splits
-// the packed rows over `splits` CTAs per tile: each writes its f32 partial
-// sum, and a second kernel adds the partials in split order
-// (deterministic), applies scale2 and rounds to the output type.
+// Both tiles run the product transposed, out^T = W^T x^T: the weights are
+// the MMA's A operand, built in registers straight from the raw packed tile
+// in shared memory by one fragment builder (a thread's two fragment rows are
+// two adjacent weight columns: byte permutes of the raw k-rows, the e2m1
+// decode, each weight times its column's e4m3 block scale in bf16: one MMA
+// k16 step is one scale block of one half), and x is the B operand,
+// K-major as it lies in device memory. No byte is transposed and no bf16
+// weight tile is written. So the scales are in the weights, each tile keeps
+// one f32 accumulator over its K walk, and scale2 multiplies it once.
+//
+// Decode tile (M <= 16): mma.sync m16n8k16, one CTA of 4 warps per 64
+// weight columns (16 a warp) and 8 or 16 tokens (one or two n8 tiles) and
+// expert; 128 columns (32 a warp: one 32-bit load of a k-row feeds two m16
+// tiles) at up to 8 tokens where the blocks are not split and that leaves
+// two CTAs an SM (the folded gate / up and K13's experts at decode). Each
+// CTA streams its 128-row blocks through a ring of 3 cp.async stages (the
+// raw packed tile, the block's 16 e4m3 scale rows, both halves' x rows),
+// so the next blocks' bytes are in flight while a block's MMAs run, and
+// each warp converts its columns' scales of a block once into a table of
+// bf16 pairs, so a fragment's scale is one shared load. Where the output
+// has few tiles, a thread-block cluster of R in {1, 2, 4, 8} CTAs shares
+// one tile: rank r walks a contiguous run of the blocks, writes its f32
+// partial to shared memory (the ring, after the walk), and after a cluster
+// barrier the rank that owns each slice of the tile sums the ranks'
+// partials in rank order over distributed shared memory, applies scale2
+// and rounds once. One launch, no scratch tensor, a deterministic sum; the
+// Python wrapper picks R.
 //
 // Tile above M = 16: K6's prefill tile (w4a16_gemm.cu, wgmma_tile.cuh),
 // wgmma m64nBTk16 .f32.bf16.bf16 with the product transposed, out^T =
@@ -70,9 +88,9 @@
 //    cluster of R in {1, 2, 4, 8} CTAs shares one tile, rank r walking a
 //    contiguous run of the blocks; the ranks' f32 partials go to shared
 //    memory and, after a cluster barrier, the rank that owns each slice of
-//    the tile sums them in rank order over distributed shared memory. One
-//    launch either way, and no second reduce launch as at M <= 16; the
-//    Python wrapper picks R (64 tokens a CTA when R > 1).
+//    the tile sums them in rank order over distributed shared memory, as
+//    the decode tile's; the Python wrapper picks R (64 tokens a CTA when
+//    R > 1).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -81,17 +99,16 @@
 
 #include <cooperative_groups.h>
 
-#include "cluster_decode.cuh"  // the shared memory limit
+#include "cluster_decode.cuh"  // cp.async, the shared memory limit
 #include "wgmma_tile.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int KB = 128;      // packed rows of one staging step (8 scale blocks a half)
+constexpr int KB = 128;      // packed rows of one block (a decode stage; two wgmma stages)
 constexpr int BLK = 16;      // weight rows of one e4m3 scale
-constexpr int XP = KB + 16;  // x tile pitch in bf16: 288 B, rows start 8 banks apart
-constexpr int WP = KB + 16;  // transposed weight pitch in bytes: 36 words, 4 banks apart
+constexpr int SB = KB / BLK; // scale rows of one half of a block
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -102,193 +119,285 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// four e2m1 codes (the low nibble of each byte of `codes`, k order) ->
-// two bf16x2 (bytes 0, 1 -> w01; bytes 2, 3 -> w23), exact. The magnitudes
-// 0, .5, 1, 1.5, 2, 3, 4, 6 are the bf16s 0x0000 0x3F00 0x3F80 0x3FC0
-// 0x4000 0x4040 0x4080 0x40C0: high bytes 00 3F 3F 3F 40 40 40 40, low
-// bytes 00 00 80 C0 00 40 80 C0.
-__device__ __forceinline__ void e2m1x4_to_bf16(uint32_t codes, uint32_t& w01, uint32_t& w23) {
-  const uint32_t idx = codes & 0x07070707u;
-  // selector nibbles 0..3 = the four magnitude indices
-  const uint32_t sel = __byte_perm(idx | (idx >> 4), 0u, 0x4420);
-  const uint32_t hi = __byte_perm(0x3F3F3F00u, 0x40404040u, sel);
-  const uint32_t lo = __byte_perm(0xC0800000u, 0xC0804000u, sel);
-  w01 = __byte_perm(lo, hi, 0x5140) | ((codes << 12) & 0x00008000u) |
-        ((codes << 20) & 0x80000000u);
-  w23 = __byte_perm(lo, hi, 0x7362) | ((codes >> 4) & 0x00008000u) |
-        ((codes << 4) & 0x80000000u);
+// Two e2m1 codes -> bf16x2, exact: n holds their packed bytes at bits 0-7
+// and 16-23, `half` 0 takes the low nibbles, 1 the high ones. Each
+// code's magnitude bits e1 e0 m become the bf16's two lowest exponent bits
+// and its top mantissa bit, its sign bit 15: one multiply puts the nibble
+// at bits 6-9 and 12-15 (the two copies do not overlap) and one mask keeps
+// bits 6-8 and 15. Then e1 e0 = 0 is a bf16 subnormal (codes 0 and 1: 0,
+// 2^-127) and e1 e0 > 0 a normal, each exactly 2^-126 times the code's
+// value (0, .5, 1, 1.5, 2, 3, 4, 6), which one bf16 multiply by 2^126 turns
+// into the value.
+__device__ __forceinline__ uint32_t e2m1x2_to_bf16x2(uint32_t n, int half) {
+  const uint32_t v = half == 0 ? (n & 0x000F000Fu) * 4160u : (n & 0x00F000F0u) * 260u;
+  return bits(__hmul2(as_bf16x2(v & 0x81C081C0u), as_bf16x2(0x7E807E80u)));  // x 2^126
 }
 
-__device__ __forceinline__ uint32_t scaled(uint32_t w, __nv_bfloat162 s) {
-  __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&w), s);
-  return *reinterpret_cast<uint32_t*>(&v);
+// A fragments of one k16 step, which is one scale block of one half, for
+// two adjacent weight columns c and c + 1 (fragment rows g and g + 8): p0
+// holds the raw packed bytes (k, column) (2t, c) (2t+1, c) (2t, c+1)
+// (2t+1, c+1), p1 the same at k-rows 2t+8, 2t+9; `half` 0 takes their low
+// nibbles (the low half of K), 1 the high ones; s0, s1 the two columns'
+// block scales, bf16 in both lanes. Each weight times its scale is exact
+// in bf16.
+__device__ __forceinline__ void scaled_fragments(uint32_t p0, uint32_t p1, int half,
+                                                 uint32_t s0, uint32_t s1, uint32_t (&a)[4]) {
+  // a fragment register's two k-rows of one column: bytes 0 and 2
+  a[0] = bits(__hmul2(as_bf16x2(e2m1x2_to_bf16x2(__byte_perm(p0, 0u, 0x4140), half)),
+                      as_bf16x2(s0)));
+  a[1] = bits(__hmul2(as_bf16x2(e2m1x2_to_bf16x2(__byte_perm(p0, 0u, 0x4342), half)),
+                      as_bf16x2(s1)));
+  a[2] = bits(__hmul2(as_bf16x2(e2m1x2_to_bf16x2(__byte_perm(p1, 0u, 0x4140), half)),
+                      as_bf16x2(s0)));
+  a[3] = bits(__hmul2(as_bf16x2(e2m1x2_to_bf16x2(__byte_perm(p1, 0u, 0x4342), half)),
+                      as_bf16x2(s1)));
 }
 
-// one e4m3 scale byte -> bf16x2 (both lanes), exact
-__device__ __forceinline__ __nv_bfloat162 e4m3_to_bf16x2(uint8_t v) {
-  __half_raw h = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)v, __NV_E4M3);
-  return __float2bfloat162_rn(__half2float(*reinterpret_cast<__half*>(&h)));
+// two e4m3 block scales (the low 16 bits of p) -> each one's bf16 in both
+// lanes, exact
+__device__ __forceinline__ void scale_pairs(uint32_t p, uint32_t& s0, uint32_t& s1) {
+  const uint32_t t = e4m3x2_to_bf16x2(p);
+  s0 = __byte_perm(t, 0u, 0x1010);
+  s1 = __byte_perm(t, 0u, 0x3232);
 }
 
-__global__ void __launch_bounds__(128)
-nvfp4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-             const uint8_t* __restrict__ scale, const float* __restrict__ scale2,
-             float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16,
-             float* __restrict__ part, int M, int N, int K2, int EN, int splits) {
-  constexpr int MT = 1, NT = 2, WM = 1, WN = 4;  // 4 warps of 16 x 16
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT * 8;
-  constexpr int NTH = 32 * WM * WN;
-  constexpr int SB = KB / BLK;  // scale rows of one half per step
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM][XP];
-  __shared__ __align__(16) uint8_t wt[BN][WP];
-  __shared__ __align__(16) uint8_t ss[2][SB][BN];
+// ---------------------------------------------------------------------------
+// decode tile (M <= 16): mma.sync, the blocks split over a cluster
+// ---------------------------------------------------------------------------
+namespace dec {
 
-  const int e = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int K = 2 * K2;
+constexpr int NS = 3;    // cp.async stages, one block each
+constexpr int NT = 128;  // threads a CTA
+
+// AT m16 tiles a warp (BN = 64 AT weight columns a CTA of 4 warps) and
+// TOK = 8 MT tokens (MT n8 tiles of the transposed product)
+template <int MT, int AT>
+struct Tile {
+  static constexpr int BN = 64 * AT;
+  static constexpr int CH = BN / 16;      // 16-byte chunks of a k-row of the raw tile
+  static constexpr int WB = KB * BN;      // the raw packed [128, BN] tile
+  static constexpr int SCB = 2 * SB * BN; // the block's 16 e4m3 scale rows [16, BN]
+  static constexpr int TOK = 8 * MT;
+  static constexpr int XB = 2 * TOK * KB * 2;  // both halves' x rows, bf16
+  static constexpr int BYTES = WB + SCB + XB;  // a stage
+  // the ring, then the scale table (the scale rows as bf16 pairs (s, s));
+  // after the walk the ring holds the rank's f32 partial
+  static constexpr int SMEM = NS * BYTES + 4 * SCB;
+  static_assert(TOK * BN * 4 <= NS * BYTES, "the partial fits in the ring");
+};
+
+// Shared memory of a stage: the raw tile [128][BN B], 16-byte chunk c of
+// k-row r at chunk c ^ (AT ((r >> 1) & 3)) (the 4 k-rows 2t + j a fragment
+// load reads fall in distinct chunks); the scale rows [16][BN B], rows
+// 0-7 the low half's 8 blocks of 16 weight rows, 8-15 the high half's; x
+// [half][TOK][128 bf16], chunk c of token m at chunk c ^ (m & 7) (the 8
+// tokens a B load reads, likewise). Warp w owns columns 16 AT w .. 16 AT w
+// + 16 AT - 1 and converts their scales of each block once into a table of
+// bf16 pairs (s, s) [16][BN], which only it reads, so a fragment's scale is
+// one load. A thread loads the 2 AT bytes of columns c0 = 16 AT w + 2 AT g
+// .. c0 + 2 AT - 1 of a k-row at once; A tile i takes columns c0 + 2 i
+// (fragment row g) and c0 + 2 i + 1 (row g + 8), so acc[i][mt][c] holds
+// column c0 + 2 i + c / 2 for token 8 mt + 2 t + c % 2.
+template <int MT, int AT>
+__global__ void __launch_bounds__(NT)
+nvfp4_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                 const uint8_t* __restrict__ scale, const float* __restrict__ scale2,
+                 float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16, int M,
+                 int N, int K2, int EN, int R) {
+  using S = Tile<MT, AT>;
+  constexpr int BN = S::BN, CH = S::CH, WB = S::WB, SCB = S::SCB, TOK = S::TOK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* table = reinterpret_cast<uint32_t*>(smem + NS * S::BYTES);  // [16][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x % R, n0 = (blockIdx.x / R) * BN, e = blockIdx.z;
+  const int K = 2 * K2, nblk = K2 / KB, nsrow = K2 / BLK;  // scale rows of one half
+  const int b0 = rank * nblk / R, nb = (rank + 1) * nblk / R - b0;  // this rank's blocks
+  const int c0 = 16 * AT * warp + 2 * AT * g;
   x += (size_t)e * M * K;
-  w += (size_t)e * N;
-  scale += (size_t)e * N;
-  const size_t obase = (size_t)e * M * N;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;  // fragment row / column group
-  const int t = lane & 3;   // thread in group
-  const int wm = warp / WN;
-  const int wn = warp % WN;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int nsrow_half = K2 / BLK;
+  w += (size_t)e * N + n0;
+  scale += (size_t)e * N + n0;
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  // x rows past M stay zero: no load writes them
+  for (int i = tid; i < NS * 2 * (TOK - M) * 16; i += NT) {
+    const int st = i / (2 * (TOK - M) * 16), r = i % (2 * (TOK - M) * 16);
+    const int row = (r / 16) % (TOK - M) + M, half = r / ((TOK - M) * 16);
+    *reinterpret_cast<uint4*>(smem + st * S::BYTES + WB + SCB +
+                              ((half * TOK + row) * 16 + r % 16) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  auto load = [&](int st, int blk) {
+    unsigned char* s = smem + st * S::BYTES;
+    for (int i = tid; i < KB * CH; i += NT) {
+      const int r = i / CH, c = i % CH;
+      cluster_decode::cp_async16(s + r * BN + ((c ^ (AT * ((r >> 1) & 3))) << 4),
+                                 w + (size_t)(blk * KB + r) * EN + 16 * c);
+    }
+    for (int i = tid; i < 2 * SB * CH; i += NT) {
+      const int q = i / CH, c = i % CH;  // scale row q: half q / SB, block row q % SB
+      cluster_decode::cp_async16(s + WB + q * BN + 16 * c,
+                                 scale + (size_t)((q / SB) * nsrow + blk * SB + q % SB) * EN +
+                                     16 * c);
+    }
+    for (int i = tid; i < 2 * M * 16; i += NT) {
+      const int half = i / (M * 16), m = (i / 16) % M, c = i & 15;
+      cluster_decode::cp_async16(s + WB + SCB + ((half * TOK + m) * 16 + (c ^ (m & 7))) * 16,
+                                 x + (size_t)m * K + half * K2 + blk * KB + 8 * c);
+    }
+  };
 
-  // this CTA's packed rows: steps [s * steps / splits, (s + 1) * steps / splits)
-  const int steps = K2 / KB;
-  const int p_end = (int)((long)(split + 1) * steps / splits) * KB;
-  for (int p0 = (int)((long)split * steps / splits) * KB; p0 < p_end; p0 += KB) {
-    // x columns of this step: low half at p0, high half at K2 + p0
-    for (int i = tid; i < 2 * BM * (KB / 8); i += NTH) {
-      const int half = i / (BM * (KB / 8));
-      const int r = (i / (KB / 8)) % BM;
-      const int c = i % (KB / 8);
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + half * K2 + p0 + c * 8);
-      *reinterpret_cast<uint4*>(&xs[half][r][c * 8]) = v;
+  // this warp's columns of a block's scale rows (raw, in a stage) to the
+  // table: lane l takes 8 AT of row l / 2
+  auto convert = [&](const unsigned char* raw) {
+    const int off = (lane >> 1) * BN + 16 * AT * warp + 8 * AT * (lane & 1);
+#pragma unroll
+    for (int k = 0; k < 2 * AT; ++k) {
+      const uint32_t r = *reinterpret_cast<const uint32_t*>(raw + off + 4 * k);
+      uint4 v;
+      scale_pairs(r, v.x, v.y);
+      scale_pairs(r >> 16, v.z, v.w);
+      *reinterpret_cast<uint4*>(table + off + 4 * k) = v;
     }
-    // packed [KB, BN] tile, transposed to wt[n][k] 4 rows x 4 columns at a time
-    for (int i = tid; i < (KB / 4) * (BN / 4); i += NTH) {
-      const int kr = (i / (BN / 4)) * 4;
-      const int nc = (i % (BN / 4)) * 4;
-      const uint8_t* src = w + (size_t)(p0 + kr) * EN + n0 + nc;
-      const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + EN);
-      const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)EN);
-      const uint32_t r3 = *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)EN);
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-      const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 0][kr]) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 1][kr]) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 2][kr]) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(&wt[nc + 3][kr]) = __byte_perm(t2, t3, 0x7632);
-    }
-    // the step's scale rows: low half p0/16.., high half K2/16 + p0/16..
-    for (int i = tid; i < 2 * SB * (BN / 4); i += NTH) {
-      const int half = i / (SB * (BN / 4));
-      const int r = (i / (BN / 4)) % SB;
-      const int c = (i % (BN / 4)) * 4;
-      const size_t row = (size_t)half * nsrow_half + p0 / BLK + r;
-      *reinterpret_cast<uint32_t*>(&ss[half][r][c]) =
-          *reinterpret_cast<const uint32_t*>(scale + row * EN + n0 + c);
-    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nb) load(st, b0 + st);
+    cluster_decode::cp_async_commit();
+  }
+  float acc[AT][MT][4];
+#pragma unroll
+  for (int i = 0; i < AT; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][mt][c] = 0.f;
+
+  for (int i = 0; i < nb; ++i) {
+    cluster_decode::cp_async_wait<NS - 2>();
+    // block i landed for every thread; stage (i - 1) % NS is free, and so is
+    // the table (each warp is past its reads of block i - 1's)
     __syncthreads();
-
-#pragma unroll 2
-    for (int ks = 0; ks < KB / 16; ++ks) {
-      // A fragments: MMA k slots (2t, 2t+1 | 2t+8, 2t+9) hold x columns
-      // 4t..4t+3 of this 16-column step, rows g and g+8
-      uint32_t alo[MT][4], ahi[MT][4];
+    if (i + NS - 1 < nb) load((i + NS - 1) % NS, b0 + i + NS - 1);
+    cluster_decode::cp_async_commit();
+    const unsigned char* s = smem + (i % NS) * S::BYTES;
+    convert(s + WB);
+    __syncwarp();
+    const unsigned char* xs = s + WB + SCB;
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = wm * MT * 16 + i * 16 + g;
-        const uint2 l0 = *reinterpret_cast<const uint2*>(&xs[0][r][ks * 16 + 4 * t]);
-        const uint2 l1 = *reinterpret_cast<const uint2*>(&xs[0][r + 8][ks * 16 + 4 * t]);
-        const uint2 h0 = *reinterpret_cast<const uint2*>(&xs[1][r][ks * 16 + 4 * t]);
-        const uint2 h1 = *reinterpret_cast<const uint2*>(&xs[1][r + 8][ks * 16 + 4 * t]);
-        alo[i][0] = l0.x; alo[i][1] = l1.x; alo[i][2] = l0.y; alo[i][3] = l1.y;
-        ahi[i][0] = h0.x; ahi[i][1] = h1.x; ahi[i][2] = h0.y; ahi[i][3] = h1.y;
+    for (int ks = 0; ks < SB; ++ks) {
+      uint32_t wv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * ks + 2 * t + (j & 1) + 8 * (j >> 1);  // (r >> 1) & 3 == t
+        const unsigned char* p = s + r * BN + (((c0 >> 4) ^ (AT * t)) << 4) + (c0 & 15);
+        wv[j] = AT == 2 ? *reinterpret_cast<const uint32_t*>(p)
+                        : *reinterpret_cast<const uint16_t*>(p);
+      }
+      uint32_t blo[MT][2], bhi[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = 8 * mt + g;
+        const unsigned char* lo = xs + m * 256 + 4 * t;
+        const unsigned char* hi = lo + TOK * 256;
+        const int q0 = ((2 * ks) ^ (m & 7)) << 4, q1 = ((2 * ks + 1) ^ (m & 7)) << 4;
+        blo[mt][0] = *reinterpret_cast<const uint32_t*>(lo + q0);
+        blo[mt][1] = *reinterpret_cast<const uint32_t*>(lo + q1);
+        bhi[mt][0] = *reinterpret_cast<const uint32_t*>(hi + q0);
+        bhi[mt][1] = *reinterpret_cast<const uint32_t*>(hi + q1);
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = wn * NT * 8 + j * 8 + g;
-        const uint32_t wv = *reinterpret_cast<const uint32_t*>(&wt[c][ks * 16 + 4 * t]);
-        const __nv_bfloat162 slo = e4m3_to_bf16x2(ss[0][ks][c]);
-        const __nv_bfloat162 shi = e4m3_to_bf16x2(ss[1][ks][c]);
-        uint32_t l01, l23, h01, h23;
-        e2m1x4_to_bf16(wv & 0x0F0F0F0Fu, l01, l23);
-        e2m1x4_to_bf16((wv >> 4) & 0x0F0F0F0Fu, h01, h23);
-        const uint32_t blo0 = scaled(l01, slo), blo1 = scaled(l23, slo);
-        const uint32_t bhi0 = scaled(h01, shi), bhi1 = scaled(h23, shi);
+      for (int i2 = 0; i2 < AT; ++i2) {
+        // bytes (k, column) of A tile i2: (2t, c) (2t+1, c) (2t, c+1) (2t+1, c+1) of
+        // c = c0 + 2 i2, then the same 8 rows on
+        const uint32_t sel = i2 == 0 ? 0x5140u : 0x7362u;
+        const uint32_t p0 = __byte_perm(wv[0], wv[1], sel), p1 = __byte_perm(wv[2], wv[3], sel);
+        // the block scales of columns c and c + 1: low half, high half
+        const uint2 slo = *reinterpret_cast<const uint2*>(table + ks * BN + c0 + 2 * i2);
+        const uint2 shi = *reinterpret_cast<const uint2*>(table + (SB + ks) * BN + c0 + 2 * i2);
+        uint32_t a[4];
+        scaled_fragments(p0, p1, 0, slo.x, slo.y, a);
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][j], alo[i], blo0, blo1);
-          mma_bf16(acc[i][j], ahi[i], bhi0, bhi1);
-        }
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[i2][mt], a, blo[mt][0], blo[mt][1]);
+        scaled_fragments(p0, p1, 1, shi.x, shi.y, a);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[i2][mt], a, bhi[mt][0], bhi[mt][1]);
       }
     }
-    __syncthreads();
   }
 
   const float s2 = scale2[0];
+  auto store = [&](int m, int col, float v) {
+    const size_t o = ((size_t)e * M + m) * N + n0 + col;
+    if (out_bf16 != nullptr)
+      out_bf16[o] = __float2bfloat16(v);
+    else
+      out_f32[o] = v;
+  };
+  if (R == 1) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < AT; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = m0 + wm * MT * 16 + i * 16 + g + ((c & 2) ? 8 : 0);
-        if (m >= M) continue;
-        const size_t o = (size_t)m * N + n0 + wn * NT * 8 + j * 8 + 2 * t + (c & 1);
-        if (part != nullptr) {  // a split of the packed rows: its raw f32 sum
-          part[((size_t)e * splits + split) * M * N + o] = acc[i][j][c];
-          continue;
+        for (int c = 0; c < 4; ++c) {
+          const int m = 8 * mt + 2 * t + (c & 1);
+          if (m < M) store(m, c0 + 2 * i + (c >> 1), __fmul_rn(acc[i][mt][c], s2));
         }
-        const float v = __fmul_rn(acc[i][j][c], s2);
-        if (out_bf16 != nullptr)
-          out_bf16[obase + o] = __float2bfloat16(v);
-        else
-          out_f32[obase + o] = v;
-      }
+    return;
+  }
+  // the cluster's sum: every rank's partial to its ring (free once every
+  // warp is past the walk); rank r owns columns [r BN / R, (r + 1) BN / R)
+  // of the tile, adds the ranks' partials in rank order and scales the sum.
+  // Every CTA reaches both barriers; the second keeps each CTA's shared
+  // memory alive while another still reads it.
+  float* part = reinterpret_cast<float*>(smem);  // [TOK][BN]
+  cluster_decode::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < AT; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part[(8 * mt + 2 * t + (c & 1)) * BN + c0 + 2 * i + (c >> 1)] = acc[i][mt][c];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int cols = BN / R;
+  for (int i = tid; i < M * cols; i += NT) {
+    const int m = i / cols, col = rank * cols + i % cols;
+    float v = cluster.map_shared_rank(part, 0)[m * BN + col];
+    for (int q = 1; q < R; ++q) v = __fadd_rn(v, cluster.map_shared_rank(part, q)[m * BN + col]);
+    store(m, col, __fmul_rn(v, s2));
+  }
+  cluster.sync();
 }
 
-// out[e, m, n] = (sum over splits s in order of part[e, s, m, n]) * scale2
-__global__ void __launch_bounds__(256)
-nvfp4_reduce_splits(const float* __restrict__ part, const float* __restrict__ scale2,
-                    float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16, int E,
-                    int splits, int M, int N) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t MN = (size_t)M * N;
-  if (i >= (size_t)E * MN) return;
-  const float* p = part + (i / MN) * splits * MN + i % MN;
-  float acc = p[0];
-  for (int s = 1; s < splits; ++s) acc = __fadd_rn(acc, p[s * MN]);
-  const float v = __fmul_rn(acc, scale2[0]);
-  if (out_bf16 != nullptr)
-    out_bf16[i] = __float2bfloat16(v);
-  else
-    out_f32[i] = v;
+template <int MT, int AT>
+int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const float* s2,
+           float* of, __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, int R,
+           cudaStream_t s) {
+  using S = Tile<MT, AT>;
+  static unsigned done = 0;  // devices whose shared memory limit is raised
+  const int err = cluster_decode::allow_smem(nvfp4_dec_kernel<MT, AT>, S::SMEM, done);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / S::BN * R, 1, E);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, nvfp4_dec_kernel<MT, AT>, x, w, sc, s2, of, ob, M, N, K2,
+                                 EN, R);
 }
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // tile above M = 16: bf16 wgmma, x, the raw weight tile and the scales by TMA
@@ -302,7 +411,6 @@ constexpr int NU = 4;           // TMA stages: one half (lo or hi) of a block ea
 constexpr int NWB = 2;          // raw weight tiles in flight
 constexpr int NT = 256;         // threads a CTA
 constexpr int WT = KB * BN;     // the raw packed [128, BN] tile
-constexpr int SB = KB / BLK;    // scale rows of one half of a block
 constexpr int ST = SB * BN;     // a half's 8 e4m3 scale rows [8, BN]
 
 // BT tokens a CTA (the wgmma's N): 64 or 128, chosen by launch() from M and
@@ -367,7 +475,6 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   auto fragments = [&](uint32_t (&a)[8][4], int u) {
     const unsigned char* t = wr + ((u >> 1) % NWB) * WT;
     const unsigned char* s = sc + (u % NU) * ST;
-    const int shift = 4 * (u & 1);
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks) {
       uint32_t w[4];
@@ -377,19 +484,11 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
         w[j] = *reinterpret_cast<const uint16_t*>(t + r * BN + ((((c0 >> 4) ^ (r & 7)) << 4) |
                                                                 (c0 & 15)));
       }
+      uint32_t s0, s1;
+      scale_pairs(*reinterpret_cast<const uint16_t*>(s + ks * BN + c0), s0, s1);
       // bytes (k, column): p0 = (2t, c) (2t+1, c) (2t, c+1) (2t+1, c+1), p1 the same 8 rows on
-      const uint32_t p0 = (__byte_perm(w[0], w[1], 0x5140) >> shift) & 0x0F0F0F0Fu;
-      const uint32_t p1 = (__byte_perm(w[2], w[3], 0x5140) >> shift) & 0x0F0F0F0Fu;
-      const uint32_t sv = *reinterpret_cast<const uint16_t*>(s + ks * BN + c0);
-      const __nv_bfloat162 s0 = e4m3_to_bf16x2((uint8_t)(sv & 0xFF));
-      const __nv_bfloat162 s1 = e4m3_to_bf16x2((uint8_t)(sv >> 8));
-      uint32_t c00, c01, c10, c11;
-      e2m1x4_to_bf16(p0, c00, c01);  // column c: k 2t, 2t+1 | column c+1
-      e2m1x4_to_bf16(p1, c10, c11);  // the same at k 2t+8, 2t+9
-      a[ks][0] = scaled(c00, s0);
-      a[ks][1] = scaled(c01, s1);
-      a[ks][2] = scaled(c10, s0);
-      a[ks][3] = scaled(c11, s1);
+      scaled_fragments(__byte_perm(w[0], w[1], 0x5140), __byte_perm(w[2], w[3], 0x5140), u & 1,
+                       s0, s1, a[ks]);
     }
   };
   float d[BT / 2];
@@ -531,8 +630,8 @@ int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const fl
 }  // namespace wg
 
 int launch(const void* x, const void* packed, const void* scale, const void* scale2,
-           void* out_f32, void* out_bf16, void* part, int E, int M, int N, int K2, int EN,
-           int splits, int ranks, void* stream) {
+           void* out_f32, void* out_bf16, int E, int M, int N, int K2, int EN, int ranks,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
   const uint8_t* w = static_cast<const uint8_t*>(packed);
@@ -540,54 +639,44 @@ int launch(const void* x, const void* packed, const void* scale, const void* sca
   const float* s2 = static_cast<const float*>(scale2);
   float* of = static_cast<float*>(out_f32);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out_bf16);
-  float* pp = splits > 1 ? static_cast<float*>(part) : nullptr;
-  if (M > 16) {
-    if (splits != 1 || (ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) ||
-        ranks > K2 / KB)
-      return (int)cudaErrorInvalidValue;
-    // 128 tokens a CTA halve the fragment work per product, where that still
-    // leaves at least half the SMs a CTA (and the blocks are not split);
-    // else 64
-    const long ctas128 = (long)((M + 127) / 128) * ((N + wg::BN - 1) / wg::BN) * E;
-    if (ranks == 1 && M > 64 && 2 * ctas128 >= wgmma_tile::sm_count())
-      return wg::launch<128>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
-    return wg::launch<64>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
+  if ((ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) || ranks > K2 / KB)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 16) {
+    // 128 columns a CTA halve the x rows each weight byte is read with, where
+    // the blocks are not split and that leaves two CTAs an SM (at up to 8
+    // tokens: at 16 the narrow tile ran K13 as fast); else 64
+    if (M <= 8 && ranks == 1 && N % 128 == 0 && (long)E * N / 128 >= 2 * wgmma_tile::sm_count())
+      return dec::launch<1, 2>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
+    return M <= 8 ? dec::launch<1, 1>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s)
+                  : dec::launch<2, 1>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
   }
-  if (ranks != 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(N / 64, 1, E * splits);
-  nvfp4_kernel<<<grid, 128, 0, s>>>(xp, w, sc, s2, of, ob, pp, M, N, K2, EN, splits);
-  if (pp != nullptr) {
-    const size_t n_out = (size_t)E * M * N;
-    nvfp4_reduce_splits<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(pp, s2, of, ob, E,
-                                                                        splits, M, N);
-  }
-  return (int)cudaGetLastError();
+  // 128 tokens a CTA halve the fragment work per product, where that still
+  // leaves at least half the SMs a CTA (and the blocks are not split);
+  // else 64
+  const long ctas128 = (long)((M + 127) / 128) * ((N + wg::BN - 1) / wg::BN) * E;
+  if (ranks == 1 && M > 64 && 2 * ctas128 >= wgmma_tile::sm_count())
+    return wg::launch<128>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
+  return wg::launch<64>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
 }
 
 }  // namespace
 
 // x bf16 [M, 2*K2]; packed uint8 [K2, N]; scale e4m3 [2*K2/16, N]; scale2
-// f32 [1]. Exactly one of out_f32 / out_bf16 [M, N] is non-null. splits:
-// CTAs that share one output tile's packed rows (M <= 16: 1 <= splits <=
-// K2 / 128; M > 16: 1); above 1, part is f32 scratch of [splits, M, N].
-// ranks: above M = 16, the CTAs of one cluster that share an output tile
-// (1, 2, 4 or 8, at most K2 / 128); 1 at M <= 16.
-// Needs K2 % 128 == 0, N % 64 == 0 and 16-byte aligned x, packed and scale
-// (checked by the Python wrapper).
+// f32 [1]. Exactly one of out_f32 / out_bf16 [M, N] is non-null. ranks: the
+// CTAs of one cluster that share an output tile's blocks (1, 2, 4 or 8, at
+// most K2 / 128), at every M. Needs K2 % 128 == 0, N % 64 == 0 and 16-byte
+// aligned x, packed and scale (checked by the Python wrapper).
 extern "C" int nvfp4_gemm(const void* x, const void* packed, const void* scale,
-                          const void* scale2, void* out_f32, void* out_bf16, void* part,
-                          int M, int N, int K2, int splits, int ranks, void* stream) {
-  return launch(x, packed, scale, scale2, out_f32, out_bf16, part, 1, M, N, K2, N, splits,
-                ranks, stream);
+                          const void* scale2, void* out_f32, void* out_bf16, int M, int N,
+                          int K2, int ranks, void* stream) {
+  return launch(x, packed, scale, scale2, out_f32, out_bf16, 1, M, N, K2, N, ranks, stream);
 }
 
 // x bf16 [E, M, 2*K2]; packed uint8 [K2, E*N] (folded experts); scale e4m3
-// [2*K2/16, E*N]; scale2 f32 [1]; out [E, M, N]; part f32 [E, splits, M, N]
-// when splits > 1. Same requirements as nvfp4_gemm.
+// [2*K2/16, E*N]; scale2 f32 [1]; out [E, M, N]. Same requirements as
+// nvfp4_gemm.
 extern "C" int grouped_nvfp4_gemm(const void* x, const void* packed, const void* scale,
-                                  const void* scale2, void* out_f32, void* out_bf16,
-                                  void* part, int E, int M, int N, int K2, int splits,
-                                  int ranks, void* stream) {
-  return launch(x, packed, scale, scale2, out_f32, out_bf16, part, E, M, N, K2, E * N,
-                splits, ranks, stream);
+                                  const void* scale2, void* out_f32, void* out_bf16, int E,
+                                  int M, int N, int K2, int ranks, void* stream) {
+  return launch(x, packed, scale, scale2, out_f32, out_bf16, E, M, N, K2, E * N, ranks, stream);
 }

@@ -75,6 +75,7 @@
 #include <cooperative_groups.h>
 
 #include "cluster_decode.cuh"  // cp.async, the shared memory limit
+#include "e4m3.cuh"            // e4m3x2_to_bf16x2
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -92,13 +93,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // two int8 weights, the bytes of p that `sel` puts in each lane's low byte
 // (0x4140: bytes 0, 1; 0x4342: bytes 2, 3) -> bf16x2, exact
 __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t p, uint32_t sel) {
@@ -106,14 +100,6 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t p, uint32_t sel) {
   const uint32_t s = v & 0x00800080u;
   return bits(__hfma2(as_bf16x2(v), as_bf16x2(s ^ 0x3F803F80u),   // 1 or 0.5
                       as_bf16x2(s | 0xC300C300u)));               // -128 or -256
-}
-
-// two e4m3 weights (the low 16 bits of p) -> bf16x2, exact
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t p) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(p & 0xFFFF), __NV_E4M3);
-  const uint32_t hb = (uint32_t)h.x | ((uint32_t)h.y << 16);
-  const uint32_t t = ((hb >> 3) & 0x0FFF0FFFu) | (hb & 0x80008000u);  // 2^-112 x, in bf16
-  return bits(__hmul2(as_bf16x2(t), as_bf16x2(0x77807780u)));         // x 2^112
 }
 
 // A fragments of one k16 step from p0 = bytes (k, column) (2t, c) (2t+1, c)

@@ -413,24 +413,6 @@ def wfp8_gemm_plain(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     return (acc * scale.float().reshape(1, 1)).to(out_dtype)
 
 
-# CTAs the NVFP4 decode tile's K split aims for: about four resident on
-# each of the H100's 132 SMs, enough weight bytes in flight to draw HBM
-SPLIT_TARGET_CTAS = 512
-
-
-def _k_splits(tiles: int, steps: int) -> int:
-    """K splits per output tile of the NVFP4 decode tile that bring
-    ``tiles`` output tiles to about SPLIT_TARGET_CTAS CTAs, at least one
-    128-row step per split."""
-    return max(1, min(steps, -(-SPLIT_TARGET_CTAS // tiles)))
-
-
-def _tiles(E, N) -> int:
-    """Output tiles of the NVFP4 decode tile (16 x 64, M <= 16) over E
-    experts."""
-    return E * (N // 64)
-
-
 # CTAs a K7 / K8 cluster split aims for while one token tile covers M (at
 # most 64 tokens): two on each of the H100's 132 SMs. Such a product only
 # draws its weight bytes, and on the card the Llama decode shapes ran 19-28%
@@ -567,15 +549,16 @@ def _check_nvfp4(name, packed, scale, scale2, block, K, EN):
                          f"scale {tuple(scale.shape)}, scale2 {tuple(scale2.shape)}")
 
 
-def _nvfp4_splits(E, M, N, K2):
-    """(splits, ranks) of an NVFP4 product. M <= 16: K splits of the decode
-    tile, whose partials a second launch sums. Above: the K blocks split
-    over a cluster of ``ranks`` CTAs of the wgmma tile (128 columns x 64
-    tokens), summed in the same launch."""
+def _nvfp4_ranks(E, M, N, K2) -> int:
+    """Cluster size of an NVFP4 product (CTAs that split one output tile's
+    128-row blocks, their partials summed in the same launch): up to M = 16
+    over E experts' 64-column tiles of the decode tile, which only draws
+    weight bytes, at K7 / K8's BYTE_TARGET_CTAS (where R is 1 and tiles are
+    many the kernel takes 128 columns a CTA); above over 128 columns x 64
+    tokens of the wgmma tile."""
     if M <= 16:
-        return _k_splits(_tiles(E, N), K2 // 128), 1
-    tiles = E * -(-N // 128) * -(-M // 64)
-    return 1, _cluster_ranks(tiles, K2 // 128)
+        return _cluster_ranks(E * (N // 64), K2 // 128, BYTE_TARGET_CTAS)
+    return _cluster_ranks(E * -(-N // 128) * -(-M // 64), K2 // 128)
 
 
 def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped):
@@ -595,24 +578,23 @@ def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped)
         raise ValueError(f"{name}: x, packed and scale must be 16-byte aligned")
     out = torch.empty(E, M, n, dtype=out_dtype, device=x3.device)
     f32 = out_dtype == torch.float32
-    splits, ranks = _nvfp4_splits(E, M, n, K2)
-    part = torch.empty(E, splits, M, n, device=x3.device) if splits > 1 else None
-    ints = ([E, M, n, K2] if grouped else [M, n, K2]) + [splits, ranks]
-    fn = _build.function(name, [_build.c_ptr] * 7 + [_build.c_int] * len(ints) + [_build.c_ptr],
+    ints = ([E, M, n, K2] if grouped else [M, n, K2]) + [_nvfp4_ranks(E, M, n, K2)]
+    fn = _build.function(name, [_build.c_ptr] * 6 + [_build.c_int] * len(ints) + [_build.c_ptr],
                          source="nvfp4_gemm")
     with torch.cuda.device(x3.device):
         err = fn(x3.data_ptr(), packed.data_ptr(), scale.data_ptr(), scale2.data_ptr(),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 _build.ptr(part), *ints, _build.stream(x3))
+                 *ints, _build.stream(x3))
     return out, err
 
 
 def nvfp4_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                scale2: torch.Tensor, block: int = 16, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ NVFP4 W (packed uint8 [K/2, N], e4m3
-    scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``: up to
-    M = 16 the mma.sync decode tile (its K splits summed by a second
-    launch), above it the wgmma tile in one launch (``_nvfp4_splits``)."""
+    scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``, every
+    M in one launch: up to M = 16 the mma.sync decode tile, above it the
+    wgmma tile, each splitting the 128-row blocks over a cluster of
+    ``_nvfp4_ranks`` CTAs where tiles are few."""
     M, K = x.shape
     N = packed.shape[1]
     _check_nvfp4("nvfp4_gemm", packed, scale, scale2, block, K, N)

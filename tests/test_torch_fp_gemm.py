@@ -214,16 +214,24 @@ def test_dispatch_takes_the_kernels_at_decode(rng, monkeypatch):
 
 
 @pytest.mark.parametrize("E,M,N,K2,want", [
-    (1, 8, 512, 1024, (8, 1)),       # decode: K splits summed by a second launch
-    (1, 128, 512, 1024, (1, 8)),     # 8 wgmma tiles: a cluster of 8 in one launch
-    (1, 128, 98304, 1024, (1, 1)),   # 1,536 tiles: no split
-    (128, 32, 2048, 384, (1, 1)),    # K13, the expert down projection
+    (1, 8, 4096, 1024, 4),        # decode q: 64 tiles of 64 columns
+    (1, 8, 512, 1024, 8),         # decode k / v: 8 tiles
+    (1, 8, 2048, 2048, 8),        # decode o: 32 tiles, 16 blocks
+    (1, 8, 98304, 1024, 1),       # decode folded gate / up: 1,536 tiles, no split
+    (128, 8, 2048, 384, 1),       # K13 at decode: 4,096 tiles of three blocks
+    (1, 128, 512, 1024, 8),       # 8 wgmma tiles: a cluster of 8 in one launch
+    (1, 128, 98304, 1024, 1),     # 1,536 tiles: no split
+    (128, 32, 2048, 384, 1),      # K13, the expert down projection
 ])
 def test_nvfp4_splits_and_cluster_ranks(E, M, N, K2, want):
-    """(K splits, cluster ranks) of an NVFP4 product at path I's shapes: a
-    second reduce launch only at M <= 16; above, the blocks split over a
-    cluster only where the wgmma tiles are few, and never K splits."""
-    assert tk._nvfp4_splits(E, M, N, K2) == want
+    """Cluster ranks of an NVFP4 product at path I's shapes (Qwen3-30B-A3B's
+    q, k / v, o and folded gate / up, K13's experts; K2 = K / 2): both tiles
+    split the blocks over a cluster summed in the same launch (no K split
+    and no second launch at any M), only where the tiles are few, never
+    with more ranks than blocks."""
+    R = tk._nvfp4_ranks(E, M, N, K2)
+    assert R == want
+    assert R in (1, 2, 4, 8) and R <= K2 // 128
 
 
 def test_cuda_wrappers_refuse_shapes_they_cannot_take():
@@ -371,3 +379,85 @@ def test_byte_gemm_rank_split_matches_twin_and_pallas(rng, interp, fmt, R):
         assert ys.dtype == tdt and ys.shape == (M, N)
         np.testing.assert_allclose(ys.float().numpy(), yp.float().numpy(), rtol=0, atol=bar)
         np.testing.assert_allclose(ys.float().numpy(), yj, rtol=0, atol=bar)
+
+
+def _nvfp4_rank_split(x3, packed, scale, scale2, n, R, out_dtype):
+    """K9 / K13's arithmetic on a cluster of R CTAs, in f32 on the CPU: rank
+    r multiplies bf16 x by the exact scaled weights (e2m1 times its e4m3
+    block scale) of its contiguous run of the 128-row packed blocks
+    [r nblk / R, (r + 1) nblk / R), both halves of K, the ranks' partials
+    are summed in rank order, and scale2 multiplies the sum once."""
+    E, _, K = x3.shape
+    K2 = K // 2
+    xb = x3.to(torch.bfloat16).float()
+    w = tk.nvfp4_unit_weights(packed, scale).reshape(K, E, n).transpose(0, 1)
+    nblk = K2 // 128
+    acc = None
+    for r in range(R):
+        lo = torch.arange(r * nblk // R * 128, (r + 1) * nblk // R * 128)
+        rows = torch.cat([lo, K2 + lo])
+        part = torch.bmm(xb[:, :, rows], w[:, rows])
+        acc = part if acc is None else acc + part
+    return (acc * scale2.float().reshape(1, 1, 1)).to(out_dtype)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_nvfp4_rank_split_matches_twin_and_pallas(rng, interp, grouped, M):
+    """The order of sums of K9's and K13's cluster split (R = 1, 2, 8:
+    partials over contiguous runs of blocks, summed in rank order, scale2
+    once after the sum) stays within the order bar of the twin, and of the
+    Pallas kernel in interpret mode at ``test_nvfp4_plain_matches_pallas``'s
+    tolerance, plain and grouped (E = 2), f32 and bf16 out."""
+    K, N = 2048, 128  # eight 128-row blocks: one a rank at R = 8
+    E = 2 if grouped else 1
+    p, pt, wd = _packed(rng, "nvfp4", K, E * N)
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    for out in ("f32", "bf16"):
+        jdt, tdt = _dtypes(out)
+        xj = jnp.asarray(x, jnp.bfloat16)
+        if grouped:
+            yj = jk.grouped_nvfp4_gemm(xj, p["data"], p["scale"], p["scale2"], N, out_dtype=jdt)
+            yp = tk.grouped_nvfp4_gemm_plain(xt, pt["data"], pt["scale"], pt["scale2"], N,
+                                             out_dtype=tdt)
+        else:
+            yj = jk.nvfp4_gemm(xj[0], p["data"], p["scale"], p["scale2"], out_dtype=jdt)[None]
+            yp = tk.nvfp4_gemm_plain(xt[0], pt["data"], pt["scale"], pt["scale2"],
+                                     out_dtype=tdt)[None]
+        yj = np.asarray(yj.astype(jnp.float32))
+        for R in (1, 2, 8):
+            ys = _nvfp4_rank_split(xt, pt["data"], pt["scale"], pt["scale2"], N, R, tdt)
+            assert ys.dtype == tdt and ys.shape == (E, M, N)
+            for e in range(E):
+                bar = order_bar(yj[e], _bf16(x[e]), wd[:, e * N:(e + 1) * N], out)
+                np.testing.assert_allclose(ys[e].float().numpy(), yp[e].float().numpy(), rtol=0,
+                                           atol=bar)
+                np.testing.assert_allclose(ys[e].float().numpy(), yj[e], rtol=0, atol=bar)
+
+
+def test_nvfp4_operands_exhaustive():
+    """The exact e2m1 -> bf16 identity K9's and K13's CUDA fragments rest on
+    (csrc/nvfp4_gemm.cu, ``e2m1x2_to_bf16x2``), over every pair of packed
+    bytes and both halves, against the reference's decode: the bytes at
+    bits 0-7 and 16-23 of a word, masked to their low (high) nibbles and
+    multiplied by 4160 (260), then masked by 0x81C081C0, hold in each 16-bit
+    lane the bf16 of 2^-126 times the code's value (a subnormal for codes 0
+    and 1); one bf16 multiply by 2^126 gives the value. Times every e4m3
+    block scale (its 254 codes without NaN) the weight is exact in bf16."""
+    b = np.arange(256, dtype=np.uint32)
+    q = (b[:, None] | (b[None, :] << 16)).ravel()  # every pair of bytes
+    codes = np.arange(16, dtype=np.int32)
+    ref = np.asarray(jk._decode_e2m1(jnp.asarray(codes))).astype(np.float64)
+    for half, mask, mul in ((0, 0x000F000F, 4160), (1, 0x00F000F0, 260)):
+        v = ((q & mask) * mul) & 0x81C081C0
+        for lane in (0, 1):
+            lane_bits = (v >> (16 * lane)) & 0xFFFF
+            got = _bf16_value(lane_bits) * 2.0**126
+            code = (q >> (16 * lane + 4 * half)) & 0xF
+            np.testing.assert_array_equal(got, ref[code])
+    u8 = np.arange(256, dtype=np.uint8)
+    u8 = u8[(u8 & 0x7F) != 0x7F]
+    scales = np.asarray(jnp.asarray(u8.view(jnp.float8_e4m3fn)).astype(jnp.float32))
+    weights = ref[:, None] * scales[None, :].astype(np.float64)
+    assert np.all(_bf16_value(_bf16_bits(weights.astype(np.float32))) == weights)
