@@ -17,15 +17,16 @@ block_sparse_decode_attention at every case of ``chip_smoke.py``'s
 prefill tile's edges, the decode tile also on Qwen3-30B-A3B's and
 DeepSeek's decode shapes and at M = 1 and 5), ``flash_prefill_kernels``,
 ``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
-at M = 1, 8 and 32; its K11 and K12 rows ride along), ``fp_kernels``
+at M = 1, 8 and 32, K12 and K11 at every row), ``fp_kernels``
 (K7 / K8 / K9 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17,
 64, 65, 200 and 256, K13 at M = 1, 8, 16, 17 and 32, every byte code and
 every (e2m1 code, e4m3 scale) pair read back through both tiles),
 ``paged_kernels`` and ``block_sparse_kernels`` (K17 at path J's shape,
 short selections and blocks past the length, int8 and bf16) (each held to
 the tree's plain twin at the bar
-stated there; ``chip_smoke.py``'s one-launch checks are left to it, since
-a parent tree may sum K splits in a second launch), with its
+stated there; ``chip_smoke.py``'s one-launch checks and K12's
+shared-memory count are left to it, since a parent tree may sum K splits
+in a second launch or lack the count), with its
 timer: CUDA events, median of
 25 launches, the 50 MB L2 flushed and the stream spun before each; and the host time
 of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
@@ -66,6 +67,7 @@ _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention
                   "w8a16_gemm", "nvfp4_gemm", "paged_kv_write")
                  + (("kv_write",) if prefill else ()))
 cs.one_launch = lambda *args: None  # the tree's own chip_smoke.py checks its launch counts
+cs.combine_smem_agrees = lambda *args: None  # and K12's shared-memory count
 # a tree before K1's decode-tile redesign names that tile w4a8_kernel
 cs.PREFILL_SPLIT["A"] = (("K1", ("w4a8_dec_kernel", "w4a8_wg_kernel", "::w4a8_kernel<")),
                          *cs.PREFILL_SPLIT["A"][1:])
@@ -120,6 +122,7 @@ for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", 
                   ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),
                   ("grouped_w4a16_gemm", "K10"), ("w8a16_gemm", "K7"), ("wfp8_gemm", "K8"),
                   ("nvfp4_gemm", "K9"), ("grouped_nvfp4_gemm", "K13"),
+                  ("grouped_w4a8_gemm", "K11"), ("grouped_w4a8_combine_gemm", "K12"),
                   ("paged_decode_attention", "K15"), ("block_sparse_decode_attention", "K17")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]

@@ -8,9 +8,10 @@ Phases, in order (any failure exits non-zero):
      (one nvcc per source, all started together), ptxas warnings,
      registers and spills (per template instance for the two flash
      sources, K1's w4a8_gemm, K6's w4a16_gemm, K7 / K8's w8a16_gemm, K9's
-     nvfp4_gemm, K2's cluster kernel and decode_attention.cu's K5 / K15 /
-     K17 instances; no instance of w4a16_gemm.cu, nvfp4_gemm.cu or
-     w8a16_gemm.cu, of K1's decode tile or of K17's cluster kernel may
+     nvfp4_gemm, K11 / K12's grouped_w4a8_gemm, K2's cluster kernel and
+     decode_attention.cu's K5 / K15 / K17 instances; no instance of
+     w4a16_gemm.cu, nvfp4_gemm.cu or w8a16_gemm.cu, of K1's decode tile,
+     of K17's cluster kernel or of K11's and K12's 8-token tiles may
      spill); TF32 is switched off
      for matmuls and cuDNN, so the MoE router's f32 product runs in full
      f32;
@@ -22,9 +23,13 @@ Phases, in order (any failure exits non-zero):
      projection shapes, M = 8 and 544, at M = 32 for N = 4096 and 98304
      and at M = 1 and 16 for N = 512 and K = 4096, N = 2048 (the decode
      tile's cluster split), K10 grouped_w4a16_gemm at M = 1, 8 and 32, K12
-     grouped_w4a8_combine_gemm with routed and dense gate scales, and at
-     DeepSeek's straddle shape K=1408, K11 grouped_w4a8_gemm at both expert
-     geometries, bit for bit), the fp / int8 weight kernels (K7
+     grouped_w4a8_combine_gemm with routed and dense gate scales at M = 8,
+     routed at M = 1 and 32, with no row routed and with each used expert
+     routed by one row, and at DeepSeek's straddle shape K=1408, K11
+     grouped_w4a8_gemm at M = 8, 32, 1 and 16 and at the straddle shape,
+     bit for bit, one device kernel a call at M = 8; K12's shared memory as
+     its plan counts it against the kernel's own count), the fp / int8
+     weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, also at
      M = 1 and 16 for N = 4096, every byte code read back through both
      tiles bit for bit, K9 nvfp4_gemm at Qwen3-30B-A3B's, also at M = 1
@@ -1285,8 +1290,8 @@ def fp_kernels(torch, gen, timer, record) -> None:
 
 
 def moe_kernels(torch, gen, timer, record) -> None:
-    """K6, K10 and K12 at the Qwen3-30B-A3B paths' shapes, K12 also at
-    DeepSeek-V2-Lite's."""
+    """K6, K10, K12 and K11 at the Qwen3-30B-A3B paths' shapes, K12 and K11
+    also at DeepSeek-V2-Lite's; then K12's shared-memory count."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
     from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
 
@@ -1351,9 +1356,11 @@ def moe_kernels(torch, gen, timer, record) -> None:
                BF16_FLOPS)
 
     log("K12 grouped_w4a8_combine_gemm")
-    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 8, ("routed", "dense"))
+    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 8,
+                 ((8, "routed"), (8, "dense"), (1, "routed"), (32, "routed"), (8, "zero"),
+                  (8, "single")))
     log("K11 grouped_w4a8_gemm")
-    gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8, 32))
+    gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8, 32, 1, 16))
     del qt, wdq
     # DeepSeek-V2-Lite's decode down projection: 64 experts of [1408, 2048],
     # K/2 = 704 = 5 * 128 + 64, so one scale block straddles the halves
@@ -1362,18 +1369,49 @@ def moe_kernels(torch, gen, timer, record) -> None:
     qt = quantize_int4(w)
     del w
     wdq = dequantize_int4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1).contiguous()
-    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 6, ("routed",))
+    combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 6, ((8, "routed"),))
     gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8,))
     del qt, wdq
+    combine_smem_agrees(torch)
+
+
+def combine_smem_agrees(torch) -> None:
+    """K12's shared memory as the wrapper's plan counts it
+    (``quant_gemm._combine_smem`` within ``SMEM_LIMIT``) against the
+    kernel's own count (``grouped_w4a8_combine_smem``: ``combine_smem``
+    within ``MAX_SMEM``), at every cluster size and held-slot count the
+    launch takes, for 1-256 experts, each token tile and aligned and
+    straddle K: a plan the picker makes is one the launch accepts."""
+    from modelopt_tpu_torch.kernels import _build
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+
+    fn = _build.function("grouped_w4a8_combine_smem", [_build.c_int] * 5, "grouped_w4a8_gemm")
+    n = 0
+    for E in (1, 2, 7, 8, 64, 100, 128, 160, 256):
+        for M in (1, 8, 16, 32, 200):
+            for K2 in (64, 384, 704, 768, 2816):
+                for r in (1, 2, 4, 8, 16):
+                    for slots in ((0,) if r == 1 else range(1, -(-E // r) + 1)):
+                        want = kq._combine_smem(E, M, K2, r, slots)
+                        want = want if want <= kq.SMEM_LIMIT else -1
+                        got = fn(E, M, K2, r, slots)
+                        n += 1
+                        if got != want:
+                            raise AssertionError(
+                                f"grouped_w4a8_combine_gemm E={E} M={M} K2={K2} R={r} "
+                                f"slots={slots}: the kernel takes {got} bytes of shared "
+                                f"memory, the plan counts {want}")
+    log(f"K12: the plan's shared memory equals the kernel's at {n} (E, M, K2, R, slots) "
+        "points")
 
 
 def gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, Ms) -> None:
     """K11 rows at one expert geometry: each expert's exact integer dots
     and f32 block updates rounded as the plain version rounds them, written
     as they stand: bit-exact (tolerance 0), and the same bits on a second
-    launch. Every expert's weights are read (no gates skip any). The
-    library call multiplies the bf16 codes by the dequantized bf16
-    weights."""
+    launch; one device kernel a call at M = 8. Every expert's weights are
+    read (no gates skip any). The library call multiplies the bf16 codes by
+    the dequantized bf16 weights."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
 
     dev = "cuda"
@@ -1381,8 +1419,14 @@ def gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, Ms) -> None:
     straddle = " (straddle)" if (K // 2) % 128 else ""
     for M in Ms:
         xq = torch.randint(-127, 128, (E, M, K), generator=gen, device=dev, dtype=torch.int8)
+        if M == 8:
+            one_launch(torch, f"grouped_w4a8_gemm E={E} M={M} K={K}",
+                       lambda: kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N))
         y = kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N)
         ref = kq.grouped_w4a8_gemm_plain(xq, qt["data"], qt["scale"], N)
+        if not torch.equal(y.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"grouped_w4a8_gemm E={E} M={M}: not the plain version bit "
+                                 f"for bit (max abs err {(y - ref).abs().max().item()})")
         err = (y - ref).abs().max().item()
         if not torch.equal(y, kq.grouped_w4a8_gemm(xq, qt["data"], qt["scale"], N)):
             raise AssertionError("grouped_w4a8_gemm: two launches differ")
@@ -1395,32 +1439,46 @@ def gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, Ms) -> None:
                INT8_OPS)
 
 
-def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, kinds) -> None:
-    """K12 rows at one expert geometry. Exact integer dots, each expert's
-    f32 block update and gated term rounded as the plain version rounds
-    them, the terms summed in expert order: bit-exact (tolerance 0), and the
-    same bits on a second launch. gscale as the W4A8 decode makes it
-    (``top_k`` routed experts per row, gate x the row's activation scale),
-    or dense random. The bound counts the work this gscale needs: the
-    weights of experts some row is routed to, the products of non-zero
-    (expert, row) pairs."""
+def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, cases) -> None:
+    """K12 rows at one expert geometry, one for each (M, kind) of ``cases``.
+    Exact integer dots, each expert's f32 block update and gated term
+    rounded as the plain version rounds them, the terms summed in expert
+    order: bit-exact (tolerance 0), and the same bits on a second launch.
+    gscale as the W4A8 decode makes it (``routed``: ``top_k`` experts per
+    row, gate x the row's activation scale), dense random (``dense``), no
+    row routed at all (``zero``: the output is +0), or each used expert
+    routed by exactly one row (``single``). The kernel reads only the
+    experts some row is routed to; the bound counts that work: their
+    weights, the products of non-zero (expert, row) pairs. One device
+    kernel a call at M = 8 (routed)."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
 
     dev = "cuda"
-    M = 8
     per_expert = K * N // 2 + (K // 128) * N * 4  # packed bytes + scale bytes
-    xs = torch.rand(E, M, 1, generator=gen, device=dev) * 0.05
-    xq = torch.randint(-127, 128, (E, M, K), generator=gen, device=dev, dtype=torch.int8)
-    routed = torch.zeros(E, M, device=dev)
-    top = torch.rand(M, E, generator=gen, device=dev).topk(top_k, dim=-1).indices
-    routed.T.scatter_(1, top, torch.rand(M, top_k, generator=gen, device=dev) / 4)
-    dense = torch.rand(E, M, generator=gen, device=dev)
-    xfq = (xq.float() * xs).to(torch.bfloat16)
-    for kind in kinds:
-        gates = routed if kind == "routed" else dense
+    for M, kind in cases:
+        xs = torch.rand(E, M, 1, generator=gen, device=dev) * 0.05
+        xq = torch.randint(-127, 128, (E, M, K), generator=gen, device=dev, dtype=torch.int8)
+        gates = torch.zeros(E, M, device=dev)
+        if kind == "routed":
+            top = torch.rand(M, E, generator=gen, device=dev).topk(top_k, dim=-1).indices
+            gates.T.scatter_(1, top, torch.rand(M, top_k, generator=gen, device=dev) / 4)
+        elif kind == "dense":
+            gates = torch.rand(E, M, generator=gen, device=dev)
+        elif kind == "single":
+            pick = torch.randperm(E, generator=gen, device=dev)[:M]
+            gates[pick, torch.arange(M, device=dev)] = torch.rand(M, generator=gen,
+                                                                  device=dev) / 4
         gsc = (xs[..., 0] * gates).contiguous()
+        xfq = (xq.float() * xs).to(torch.bfloat16)
+        if M == 8 and kind == "routed":
+            one_launch(torch, f"grouped_w4a8_combine_gemm E={E} M={M} K={K}",
+                       lambda: kq.grouped_w4a8_combine_gemm(xq, gsc, qt["data"], qt["scale"], N))
         y = kq.grouped_w4a8_combine_gemm(xq, gsc, qt["data"], qt["scale"], N)
         ref = kq.grouped_w4a8_combine_gemm_plain(xq, gsc, qt["data"], qt["scale"], N)
+        if not torch.equal(y.view(torch.int32), ref.view(torch.int32)):
+            err = (y - ref).abs().max().item()
+            raise AssertionError(f"grouped_w4a8_combine_gemm E={E} M={M} {kind}: not the "
+                                 f"plain version bit for bit (max abs err {err})")
         err = (y - ref).abs().max().item()
         if not torch.equal(y, kq.grouped_w4a8_combine_gemm(xq, gsc, qt["data"], qt["scale"],
                                                            N)):
@@ -1432,8 +1490,9 @@ def combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, top_k, kinds) -> N
         lib_ms = timer(lambda: torch.einsum("emn,em->mn", torch.bmm(xfq, wdq), gb))
         used = int((gsc != 0).any(dim=1).sum())
         pairs = int((gsc != 0).sum())
-        record("grouped_w4a8_combine_gemm", f"E={E} M={M} K={K} N={N} {kind} gscale "
-               f"({used} experts used)", err, 0.0, ms, plain_ms, lib_ms,
+        record("grouped_w4a8_combine_gemm",
+               f"E={E} M={M} K={K} N={N} {kind} gscale ({used} experts used)", err, 0.0, ms,
+               plain_ms, lib_ms,
                used * (M * K + per_expert) + E * M * 4 + M * N * 4, 2 * pairs * K * N,
                INT8_OPS)
 
@@ -2446,16 +2505,19 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
 
 # sources whose ptxas lines are reported per template instance: the
 # tensor-core tiles (flash, K1's, K6's, K7 / K8's and K9's wgmma tiles,
-# K1's, K6's and K7 / K8's cluster decode tiles), K2's cluster kernel and
+# K1's, K6's and K7 / K8's cluster decode tiles, K11 / K12's tiles on K1's
+# decode tile), K2's cluster kernel and
 # K15's and K17's (decode_attention.cu, beside the one-CTA instances of K5,
 # K15 and K17)
 PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode_attention",
-                     "w4a8_gemm", "w4a16_gemm", "decode_attention", "nvfp4_gemm", "w8a16_gemm")
+                     "w4a8_gemm", "w4a16_gemm", "decode_attention", "nvfp4_gemm", "w8a16_gemm",
+                     "grouped_w4a8_gemm")
 # sources none of whose instances may spill registers, and kernels (by
-# name, in any source) none of whose instances may: K1's decode tile and
-# K17's cluster kernel
+# name, in any source) none of whose instances may: K1's decode tile, K17's
+# cluster kernel, and K12's and K11's 8-token instances (the decode steps')
 NO_SPILL = ("w4a16_gemm", "nvfp4_gemm", "w8a16_gemm")
-NO_SPILL_KERNELS = ("w4a8_dec_kernel", "sparse_cluster_kernel")
+NO_SPILL_KERNELS = ("w4a8_dec_kernel", "sparse_cluster_kernel", "grouped_w4a8_combine_kernel<1,",
+                    "grouped_w4a8_kernel<1,")
 
 
 def ptxas_by_function(text: str) -> dict:

@@ -13,7 +13,8 @@
 // Layout: xq int8 [E, M, K]; gscale f32 [E, M] (routing gate x the row's
 // activation scale); packed uint8 [K/2, E*N] and scale f32 [K/128, E*N] in
 // the folded expert layout (expert e is columns e*N..e*N+N-1, each a
-// split-half int4 tensor as in w4a8_gemm.cu). Returns f32 [M, N].
+// split-half int4 tensor as in w4a8_gemm.cu). K12 returns f32 [M, N], K11
+// f32 [E, M, N].
 //
 // K/2 need not be a multiple of 128. With rem = K/2 % 128 (then always 64,
 // since K % 128 == 0) one scale block straddles the half boundary, and the
@@ -25,382 +26,566 @@
 // rows rem + b*128 (x columns K/2 + rem + b*128) under scale rows
 // nfull+1+b. Each such "stage" updates the f32 accumulator once,
 // acc + q*s, in that order. Without a straddle a stage is one block with
-// both halves, acc + q_lo*s_lo + q_hi*s_hi, as before.
+// both halves, acc + q_lo*s_lo + q_hi*s_hi.
 //
-// What bounds it on an H100: the packed expert bytes (K/2 * E*N) over
-// 3.35 TB/s of HBM; at the Qwen3-30B-A3B decode shape (E=128, K=768,
-// N=2048, M=8) about 108 MB, 32 us.
+// What bounds it on an H100: the packed bytes and scale rows of the experts
+// the kernel must read, over 3.35 TB/s of HBM. K12 reads only the experts
+// some row is routed to (a non-zero gscale): at the Qwen3-30B-A3B decode
+// shape (E=128, K=768, N=2048, M=8, top-8, about 53 experts used) about
+// 44.7 MB, 13.3 us. K11 reads every expert and writes the f32 output
+// E*M*N*4: at the same shape about 116 MB, 35 us.
 //
-// Design: the Pallas grid runs (N-tile, expert) with the expert innermost
-// and carries the sum in the revisited output block. Hopper CTAs run in no
-// order, so here one CTA owns a 16-row x 16-column output tile for ALL
-// experts: its 16 warps each take every 16th expert, compute that expert's
-// product in full (per 128-row scale block: exact int32 fragments, then
-// acc + qlo*s_lo + qhi*s_hi in f32 with explicit rounding, K1's order) and
-// the gated term p_e = acc_e * gscale[e, m]; after each round of 16 experts
-// the CTA adds the round's terms to its output in expert order,
-// out = out + p_e, e = 0..E-1. Each expert's term is computed alone and the
-// sum runs in one fixed order, so the result is bit-identical to the plain
-// version and to itself from run to run (no atomics). The nibbles are never
-// widened: (w & 0x0F) is q_lo + 8 (corrected by 8 * sum(x) per row), and
-// (w & 0xF0) read as int8 is 16 * q_hi. Each warp stages its own x rows and
-// its expert's packed tile (transposed 4x4 bytes at a time, so one word is
-// four k of one column) in shared memory and syncs only with itself.
-// At the decode shape the 16-column tiles give 128 CTAs for 132 SMs, each
-// with 16 experts' loads in flight; wider tiles would leave SMs idle, and
-// splitting E across CTAs would change the order of the sum. Each warp
-// still waits on its own loads before its MMAs: a pipeline that stages the
-// next block while the current one computes is the next redesign target.
+// Design: K1's decode tile per expert (w4a8_tile.cuh): out^T = W^T x^T on
+// mma.sync, the weights the A operand built in registers from the raw
+// packed tile (a 4 x 4 byte transpose; b & 0xF0 is 16 q_hi, ((b << 4) &
+// 0xF0) ^ 0x80 is 16 q_lo), the tokens the n8 operand: 8, 16 or 32 tokens
+// a CTA for K11, 8 or 16 for K12 (1, 2 or 4 n8 tiles, the template's NJ),
+// so that at M <= 32 (K12: 16) each weight byte is read from HBM once. A
+// CTA of 4 warps owns 128 weight columns and streams "units" of 64 packed
+// rows (each k-row one 128-byte line) with their x columns and the scale
+// rows of the stages they end, through a ring of 4 cp.async stages that
+// flows from one expert into the next: the next units' bytes are in flight
+// while one unit's products run. Each thread's copy offsets are worked out
+// once (w4a8_tile::StageLoader). Every unit carries both nibbles of its 64
+// packed rows, so each weight byte passes through the ring once. Aligned
+// K: block j is units 2 j and 2 j + 1, and ends with the plain version's
+// update acc =
+// (acc + c_lo (s_lo / 16)) + c_hi (s_hi / 16). Straddle K: the low blocks
+// end at odd units and update acc as they end, in order; the high
+// nibbles' blocks sit 64 rows later, so high block b ends at unit 2 b + 2:
+// its product c (s / 16) is rounded then and held in shared memory (each
+// thread its own), and the high head's s32 dots (unit 0) wait in
+// registers; at the last unit, 2 nfull, the straddle stage acc + (c_tail +
+// c_head) (s / 16), then the held high blocks, in the stage walk's order.
+// The s32 dots restart with each block; each product and sum is rounded on
+// its own: c = 16 q is exact in f32 and s / 16 is exact, so c (s / 16)
+// rounds as q s does.
 //
-// K11 has no sum over experts, so, as the Pallas grid (E, N/TN) does, its
-// work splits by (expert, column tile): each warp runs the same per-expert
-// body (expert_product) for one pair and writes its f32 fragment to
-// out[e, m, n] directly, bit-identical to the plain version. What bounds it
-// is the same packed expert bytes, now for every expert (nothing is
-// skipped), plus the f32 output E*M*N*4: at Qwen3-30B-A3B's down projection
-// (E=128, K=768, N=2048, M=8) about 116 MB, 35 us. 16384 warps in 4096
-// CTAs of four fill the card's 132 SMs many times over.
+// K12: grid (token tiles, column tiles x R), a thread-block cluster of R
+// in {1, 2, 4, 8, 16} CTAs along y (16 is a non-portable cluster size; the
+// Python wrapper picks R and the held slots: _combine_plan, which keeps a
+// CTA within 75 KB so that three fit an SM and 16 clusters of 16 run in
+// one wave: on the card both the cluster count and the CTAs an SM set the
+// speed, since a unit costs ~1,900 cycles of issue at three CTAs an SM and
+// the waits on the ring are 3-21% of the loop). Every CTA reads
+// gscale's rows of its token tile, marks an expert used if any of them is
+// non-zero, and builds the ordered list of used experts in shared memory
+// (a ballot and a prefix sum a pass of 64 experts): nothing is read back to
+// the host. Rank r takes list entries r, r + R, r + 2R, ... in order. For
+// each it computes the expert's product, then the gated term p_e =
+// acc_e * gscale[e, m], rounded. R = 1: out = out + p_e in shared memory
+// (each thread its own elements), in list order. R > 1: the rank holds p_e
+// in shared memory; after a cluster
+// barrier the rank that owns each column slice replays out = out + p_e
+// over the list in list order (expert order), reading each term from the
+// rank that holds it over distributed shared memory (ld.shared::cluster),
+// eight terms' loads in flight; a second barrier keeps every CTA's terms
+// alive until all are read. Where a rank's terms would not fit its slots,
+// the list runs in rounds of R x slots consecutive entries, each with its
+// barriers and replay, the order unchanged. One launch, no scratch tensor,
+// no atomics.
+//
+// Why skipping unused experts is the plain version bit for bit
+// (grouped_w4a8_combine_gemm_plain adds every expert's term): a skipped
+// term is acc * (+-0) = +-0, since acc is finite; out starts at +0, and
+// under round-to-nearest a sum of finite terms is never -0 (x + y is -0
+// only if both are -0); and x + (+-0) = x for every x that is not -0. So
+// dropping those additions changes no bit, -0.0 entries of gscale included.
+// The used experts' terms are summed in the plain version's order.
+//
+// K11: no gates and no sum over experts: one CTA of 128 columns per (token
+// tile, expert, column tile), grid (token tiles, column tiles x E); each
+// writes its f32 fragment to out[e, m, n] as it stands, the plain version
+// bit for bit.
+//
+// Above their token tile both take grid rows of tiles (K11 32 tokens, K12
+// 16), the token tiles fastest, so that the tiles that share a weight tile
+// run together and read it from L2.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_decode.cuh"  // cp.async groups, the shared memory limit
+#include "w4a8_tile.cuh"       // K1's stage, loader and fragment builder
+
 namespace {
 
-constexpr int KB = 128;      // rows of one scale block
-constexpr int BM = 16;       // output rows per CTA (one m16 MMA tile)
-constexpr int BN = 16;       // output columns per CTA (two n8 MMA tiles)
-constexpr int NT = BN / 8;   // n8 MMA tiles per warp
-constexpr int NW = 16;       // warps per CTA; warp w takes experts w, w+16, ...
-constexpr int NTH = 32 * NW;
-constexpr int PER = (BM * BN + NTH - 1) / NTH;  // output elements per thread
-constexpr int PITCH = KB + 16;  // smem row pitch in bytes: 36 words, 4 banks apart
-constexpr int PP = BN + 1;   // pitch of the per-warp gated-term tile in floats
+namespace cg = cooperative_groups;
+using w4a8_tile::BN;  // weight columns a CTA: 4 warps of 32
+using w4a8_tile::KB;
+using w4a8_tile::NT;
+using w4a8_tile::SK;
 
-struct WarpSmem {
-  int8_t xs[2][BM][PITCH];   // x rows, low and high half of one scale block
-  uint8_t wt[BN][PITCH];     // packed tile transposed: wt[n][k]
-  int sx[BM];                // per-row sum of the low-half x (the +8 offset)
-};
+constexpr int MAX_SMEM = 227 * 1024;
+constexpr int NS = 4;           // cp.async stages
+constexpr int MAX_RANKS = 16;   // a cluster's CTAs (16 is a non-portable cluster size)
+constexpr int MISC = 16 + 4 * MAX_RANKS;  // the list builder's warp counts, the replay's rank table
 
-// One 128-row step of the K loop: two 64-row segments j, each with its
-// packed rows from ps[j], its low-half x columns from xl[j] and its
-// high-half x columns from xh[j] (-1: none, the rows stay zero), and the
-// scale row(s): s1 >= 0 for an aligned block (acc + q_lo*s[s0] +
-// q_hi*s[s1]), s1 < 0 for a straddle-layout stage (acc + (q_lo+q_hi)*s[s0]).
-struct Stage {
-  int ps[2], xl[2], xh[2], s0, s1;
-};
+__host__ __device__ constexpr int ring_bytes(int tok) {
+  return NS * w4a8_tile::stage_bytes(tok);
+}
+// tokens a CTA: K11 8, 16 or 32; K12 8 or 16 (its 32-token instance's
+// ~250 registers left two CTAs an SM, and clusters of 16 then ran in two
+// waves: two 16-token tiles ran 32 tokens faster)
+__host__ __device__ constexpr int tokens(int M, bool combine) {
+  return M <= 8 ? 8 : M <= 16 || combine ? 16 : 32;
+}
+// straddle K: the high blocks' rounded products a thread holds until the
+// straddle stage, [K2 / 128][2][NJ][4] f32 a thread (0 for aligned K)
+__host__ __device__ constexpr int hold_bytes(int tok, int K2) {
+  return K2 % KB ? (K2 / KB) * tok * BN * 4 : 0;
+}
+// K12's dynamic shared memory: the ring, the straddle hold, `slots`
+// [TOK][BN] f32 (R > 1: the held gated terms; R = 1: one, the running
+// sum), the list of used experts, MISC
+__host__ __device__ constexpr int combine_smem(int E, int tok, int K2, int slots) {
+  return ring_bytes(tok) + hold_bytes(tok, K2) + slots * tok * BN * 4 + 4 * E + MISC;
+}
 
-template <bool kStraddle>
-__device__ __forceinline__ Stage stage_of(int st, int K2, int nfull, int rem) {
-  Stage g;
-  g.s1 = -1;
-  if (!kStraddle) {  // aligned: block st, both halves over the same packed rows
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      g.ps[j] = g.xl[j] = st * KB + 64 * j;
-      g.xh[j] = K2 + st * KB + 64 * j;
-    }
-    g.s0 = st;
-    g.s1 = nfull + st;
-  } else if (st < nfull) {  // low-half block
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      g.ps[j] = g.xl[j] = st * KB + 64 * j;
-      g.xh[j] = -1;
-    }
-    g.s0 = st;
-  } else if (st == nfull) {  // straddle: low tail, then high head
-    g.ps[0] = g.xl[0] = nfull * KB;
-    g.xh[0] = -1;
-    g.ps[1] = 0;
-    g.xl[1] = -1;
-    g.xh[1] = K2;
-    g.s0 = nfull;
-  } else {  // high-half block b, shifted by rem
-    const int b = st - nfull - 1;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      g.ps[j] = rem + b * KB + 64 * j;
-      g.xl[j] = -1;
-      g.xh[j] = K2 + rem + b * KB + 64 * j;
-    }
-    g.s0 = nfull + 1 + b;
+// The body of both kernels. kCombine: K12 (R ranks a cluster, `slots`
+// held terms a rank), else K11 (R = E: blockIdx.y % R is the expert).
+// kStraddle: K2 % 128 == 64.
+template <int NJ, bool kStraddle, bool kCombine>
+__device__ __forceinline__ void grouped_body(const int8_t* __restrict__ xq,
+                                             const float* __restrict__ gscale,
+                                             const uint8_t* __restrict__ w,
+                                             const float* __restrict__ scale,
+                                             float* __restrict__ out, int E, int M, int N, int K2,
+                                             int R, int slots) {
+  constexpr int TOK = 8 * NJ;
+  constexpr int STAGE = w4a8_tile::stage_bytes(TOK), SLOT = TOK * BN * 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hold = reinterpret_cast<float*>(smem + NS * STAGE);  // straddle: [nfull][8 NJ][BN]
+  unsigned char* held = smem + NS * STAGE + hold_bytes(TOK, K2);  // [slots][TOK][BN]
+  int* list = reinterpret_cast<int*>(held + slots * SLOT);  // K12: the used experts
+  int* wcount = list + E;                                     // [NT / 32]
+  uint32_t* rbase = reinterpret_cast<uint32_t*>(wcount + 4);  // [R]: each rank's `held`
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, c0 = 32 * warp + 4 * g;
+  const int m0 = blockIdx.x * TOK, rows = min(TOK, M - m0);
+  const int rank = blockIdx.y % R, n0 = (blockIdx.y / R) * BN;
+  const int K = 2 * K2, nfull = K2 / KB;
+  const size_t EN = (size_t)E * N;
+  const int nunits = K2 / SK;  // units of 64 packed rows, both nibbles of each
+
+  // x rows past M stay zero: no load writes them
+  for (int i = tid; i < NS * 2 * (TOK - rows) * (SK / 16); i += NT) {
+    const int st = i / (2 * (TOK - rows) * (SK / 16)), r = i % (2 * (TOK - rows) * (SK / 16));
+    const int h = r / ((TOK - rows) * (SK / 16)), c = r % ((TOK - rows) * (SK / 16));
+    *reinterpret_cast<uint4*>(smem + st * STAGE + SK * BN + (h * TOK + rows) * SK + 16 * c) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
-  return g;
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Expert e's exact W4A8 product for output rows m0..m0+15 and columns
-// n0..n0+BN-1, computed by one warp in its own shared memory ``my``: per
-// stage, exact int32 fragments on the int8 tensor cores, then the f32
-// update acc + q*s with explicit rounding in _w4a8_body's order. The
-// fragment layout of acc is mma.sync's: acc[j][c] is row g + 8 * (c >= 2),
-// column j * 8 + 2 * t + (c & 1) (g = lane / 4, t = lane % 4).
-template <bool kStraddle>
-__device__ __forceinline__ void expert_product(const int8_t* __restrict__ xq,
-                                               const uint8_t* __restrict__ w,
-                                               const float* __restrict__ scale, int e, int m0,
-                                               int n0, int M, int N, int K2, int EN,
-                                               WarpSmem& my, float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int K = 2 * K2;
-  const int nfull = K2 / KB;
-  const int rem = K2 % KB;
-  const int nstage = kStraddle ? 2 * nfull + 1 : nfull;
-
-  const int8_t* xe = xq + (size_t)e * M * K;
+  // the entries: K12 the experts a row of the token tile is routed to, in
+  // expert order; K11 every expert
+  int nused = E;
+  if (kCombine) {
+    nused = 0;
+    for (int e0 = 0; e0 < E; e0 += NT) {
+      const int e = e0 + tid;
+      bool used = false;
+      if (e < E)
+        for (int m = 0; m < rows; ++m) used |= gscale[(size_t)e * M + m0 + m] != 0.f;
+      const unsigned b = __ballot_sync(0xffffffffu, used);
+      if (lane == 0) wcount[warp] = __popc(b);
+      __syncthreads();
+      int before = 0, all = 0;
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  for (int st = 0; st < nstage; ++st) {
-    const Stage sg = stage_of<kStraddle>(st, K2, nfull, rem);
-    // x rows m0..m0+15 (zero past M and where a segment has no columns
-    // of that half), both halves: 16 x 2 x 8 uint4
-#pragma unroll
-    for (int i = lane; i < 2 * BM * (KB / 16); i += 32) {
-      const int half = i / (BM * (KB / 16));
-      const int r = (i / (KB / 16)) % BM;
-      const int c = i % (KB / 16);
-      const int j = c / 4;  // 64-row segment
-      const int col = half ? sg.xh[j] : sg.xl[j];
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && (!kStraddle || col >= 0))
-        v = *reinterpret_cast<const uint4*>(xe + (size_t)m * K + col + (c % 4) * 16);
-      *reinterpret_cast<uint4*>(&my.xs[half][r][c * 16]) = v;
+      for (int q = 0; q < NT / 32; ++q) {
+        before += q < warp ? wcount[q] : 0;
+        all += wcount[q];
+      }
+      if (used) list[nused + before + __popc(b & ((1u << lane) - 1u))] = e;
+      nused += all;
+      __syncthreads();
     }
-    // packed [KB, BN] tile of expert e, transposed 4 rows x 4 columns at a time
-#pragma unroll 4
-    for (int i = lane; i < (KB / 4) * (BN / 4); i += 32) {
-      const int kr = (i / (BN / 4)) * 4;
-      const int nc = (i % (BN / 4)) * 4;
-      const int prow = sg.ps[kr / 64] + kr % 64;
-      const uint8_t* src = w + (size_t)prow * EN + (size_t)e * N + n0 + nc;
-      const uint32_t r0 = *reinterpret_cast<const uint32_t*>(src);
-      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(src + EN);
-      const uint32_t r2 = *reinterpret_cast<const uint32_t*>(src + 2 * (size_t)EN);
-      const uint32_t r3 = *reinterpret_cast<const uint32_t*>(src + 3 * (size_t)EN);
-      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
-      const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
-      const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
-      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
-      *reinterpret_cast<uint32_t*>(&my.wt[nc + 0][kr]) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(&my.wt[nc + 1][kr]) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(&my.wt[nc + 2][kr]) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(&my.wt[nc + 3][kr]) = __byte_perm(t2, t3, 0x7632);
-    }
-    __syncwarp();
-    if (lane < BM) {
-      int s = 0;
-#pragma unroll 8
-      for (int k4 = 0; k4 < KB / 4; ++k4)
-        s = __dp4a(*reinterpret_cast<const int*>(&my.xs[0][lane][k4 * 4]), 0x01010101, s);
-      my.sx[lane] = s;
-    }
-    __syncwarp();
+  }
+  const bool split = kCombine && R > 1;
+  // this rank's entries: list[rank + R s], s < ns
+  const int ns = nused > rank ? (nused - rank + R - 1) / R : 0;
+  const int total = ns * nunits;
+  const int nrounds = split ? max((nused + R * slots - 1) / (R * slots), 1) : 1;
+  auto expert = [&](int s) { return kCombine ? list[rank + R * s] : rank + R * s; };
 
-    int lo[NT][4], hi[NT][4];
+  // unit u of an expert: packed rows [64 u, 64 u + 64), x columns 64 u (low
+  // nibbles) and K2 + 64 u (high), and the scale rows of the stages it
+  // ends: aligned, u odd, block u / 2's two rows; straddle, the low
+  // block's row u / 2 (u odd) or the straddle row nfull (u = 2 nfull), and
+  // the high block's row nfull + u / 2 (u even, u >= 2). The load cursor:
+  // unit lu of entry ls (expert le) goes into ring slot lst next.
+  const w4a8_tile::StageLoader<TOK> loader(tid, (int)EN, BN / 16, K, K2, rows);
+  int ls = 0, lu = 0, lst = 0, le = ns > 0 ? expert(0) : 0;
+  auto load_next = [&]() {
+    const float* sc = scale + (size_t)le * N + n0;
+    int rlo = lu >> 1, rhi = nfull + (lu >> 1), srows = (lu & 1) ? 3 : 0;
+    if (kStraddle) {
+      rlo = (lu & 1) ? lu >> 1 : nfull;
+      srows = ((lu & 1) || lu == 2 * nfull ? 1 : 0) | ((lu & 1) == 0 && lu >= 2 ? 2 : 0);
+    }
+    loader.issue(smem + lst * STAGE, w + (size_t)SK * lu * EN + (size_t)le * N + n0,
+                 xq + ((size_t)le * M + m0) * K + SK * lu, sc + (size_t)rlo * EN,
+                 sc + (size_t)rhi * EN, srows);
+    lst = lst + 1 == NS ? 0 : lst + 1;
+    if (++lu == nunits) {
+      lu = 0;
+      if (++ls < ns) le = expert(ls);
+    }
+  };
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < total) load_next();
+    cluster_decode::cp_async_commit();
+  }
+  if (split && tid < R) rbase[tid] = w4a8_tile::cluster_addr(held, tid);
+
+  // the halves whose stage ends with unit u (bit h): aligned, both at odd
+  // u; straddle, the low half at odd u and at u = 2 nfull, the high half at
+  // even u (u = 0: the high head)
+  auto ends = [&](int u) {
+    if (!kStraddle) return (u & 1) ? 3 : 0;
+    return ((u & 1) || u == 2 * nfull ? 1 : 0) | ((u & 1) == 0 ? 2 : 0);
+  };
+  int d[2][2][NJ][4], head[2][NJ][4];  // head: straddle, the high head's dots
+  float acc[2][NJ][4], gs[NJ][2], psc[2][4];  // psc: a stage's scale rows / 16
+  float rr[TOK];  // R > 1: the replayed sums of this thread's items of the rank's slice
 #pragma unroll
-      for (int c = 0; c < 4; ++c) lo[j][c] = hi[j][c] = 0;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int ks = 0; ks < KB / 32; ++ks) {
-      const int k = ks * 32 + 4 * t;
-      uint32_t al[4], ah[4];
-      al[0] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k]);
-      al[1] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k]);
-      al[2] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g][k + 16]);
-      al[3] = *reinterpret_cast<const uint32_t*>(&my.xs[0][g + 8][k + 16]);
-      ah[0] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k]);
-      ah[1] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k]);
-      ah[2] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g][k + 16]);
-      ah[3] = *reinterpret_cast<const uint32_t*>(&my.xs[1][g + 8][k + 16]);
+    for (int n = 0; n < NJ; ++n)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&my.wt[j * 8 + g][k + 16]);
-        mma_s8(lo[j], al, b0 & 0x0F0F0F0Fu, b1 & 0x0F0F0F0Fu);  // q_lo + 8
-        mma_s8(hi[j], ah, b0 & 0xF0F0F0F0u, b1 & 0xF0F0F0F0u);  // 16 * q_hi
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+#pragma unroll
+  for (int q = 0; q < TOK; ++q) rr[q] = 0.f;
+  // K12 at R = 1: the running sum out = out + p_e in held slot 0, each
+  // thread's own elements, from +0
+  float* runs = reinterpret_cast<float*>(held) + c0;
+  if (kCombine && !split) {
+#pragma unroll
+    for (int n = 0; n < NJ; ++n)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        *reinterpret_cast<float4*>(runs + (8 * n + 2 * t + p) * BN) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int cols = BN / R, items = rows * cols;
+
+  // the stage updates unit pu (of entry ps, expert pe) ends, with its
+  // scales psc (c (s / 16) for q s)
+  auto finish = [&](int pu, int ps, int pe, int k) {
+    if (!kStraddle) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NJ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][n][e] = __fadd_rn(
+                __fadd_rn(acc[i][n][e], __fmul_rn((float)d[i][0][n][e], psc[0][2 * i + (e >> 1)])),
+                __fmul_rn((float)d[i][1][n][e], psc[1][2 * i + (e >> 1)]));
+    } else {
+      // the low blocks' updates in order as they end (u odd); the high
+      // head's dots kept (u = 0); each high block's product rounded and
+      // held as it ends (u even, u >= 2); at u = 2 nfull the straddle
+      // stage (low tail plus high head), then the held high blocks in order
+      if (pu == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) head[i][n][e] = d[i][1][n][e];
+      }
+      if (pu & 1) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][n][e] = __fadd_rn(
+                  acc[i][n][e], __fmul_rn((float)d[i][0][n][e], psc[0][2 * i + (e >> 1)]));
+      } else if (pu >= 2) {
+        float* hb = hold + ((pu - 2) >> 1) * 8 * NJ * BN + tid;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hb[((i * NJ + n) * 4 + e) * BN] =
+                  __fmul_rn((float)d[i][1][n][e], psc[1][2 * i + (e >> 1)]);
+      }
+      if (pu == 2 * nfull) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][n][e] = __fadd_rn(acc[i][n][e],
+                                       __fmul_rn((float)(d[i][0][n][e] + head[i][n][e]),
+                                                 psc[0][2 * i + (e >> 1)]));
+        for (int b = 0; b < nfull; ++b) {
+          const float* hb = hold + b * 8 * NJ * BN + tid;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < NJ; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][n][e] = __fadd_rn(acc[i][n][e], hb[((i * NJ + n) * 4 + e) * BN]);
+        }
       }
     }
-    const int sx0 = my.sx[g];
-    const int sx1 = my.sx[g + 8];
+    if (pu != nunits - 1) return;
+    // the expert's product is done
+    if (!kCombine) {
+      float* oe = out + ((size_t)pe * M + m0) * N + n0 + c0;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const size_t col = (size_t)e * N + n0 + j * 8 + 2 * t;
-      const float2 s0 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s0 * EN + col);
-      if (!kStraddle) {
-        const float2 s1 = *reinterpret_cast<const float2*>(scale + (size_t)sg.s1 * EN + col);
+      for (int n = 0; n < NJ; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qlo = lo[j][c] - 8 * ((c & 2) ? sx1 : sx0);
-          const int qhi = hi[j][c] >> 4;
-          acc[j][c] = __fadd_rn(
-              __fadd_rn(acc[j][c], __fmul_rn((float)qlo, (c & 1) ? s0.y : s0.x)),
-              __fmul_rn((float)qhi, (c & 1) ? s1.y : s1.x));
+        for (int p = 0; p < 2; ++p)
+          if (8 * n + 2 * t + p < rows)
+            *reinterpret_cast<float4*>(oe + (size_t)(8 * n + 2 * t + p) * N) =
+                make_float4(acc[0][n][p], acc[0][n][p + 2], acc[1][n][p], acc[1][n][p + 2]);
+    } else {
+      float pt[2][NJ][4];  // the gated term acc_e * gscale[e, m], rounded
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < NJ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pt[i][n][e] = __fmul_rn(acc[i][n][e], gs[n][e & 1]);
+      float* hp = split ? reinterpret_cast<float*>(held + (ps - k * slots) * SLOT) + c0 : runs;
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float4* q = reinterpret_cast<float4*>(hp + (8 * n + 2 * t + p) * BN);
+          float4 v = make_float4(pt[0][n][p], pt[0][n][p + 2], pt[1][n][p], pt[1][n][p + 2]);
+          if (!split) {
+            const float4 o = *q;
+            v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y), __fadd_rn(o.z, v.z),
+                            __fadd_rn(o.w, v.w));
+          }
+          *q = v;
         }
-      } else {
+    }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = (lo[j][c] - 8 * ((c & 2) ? sx1 : sx0)) + (hi[j][c] >> 4);
-          acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn((float)q, (c & 1) ? s0.y : s0.x));
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  };
+
+  // the compute cursor: unit U is unit u of entry s (expert ce), in ring slot cst
+  int U = 0, s = 0, u = 0, cst = 0, ce = 0;
+  for (int k = 0; k < nrounds; ++k) {
+    const int uend = (split ? min((k + 1) * slots, ns) : ns) * nunits;
+    for (; U < uend;
+         ++U, cst = cst + 1 == NS ? 0 : cst + 1, u = u + 1 == nunits ? 0 : u + 1, s += u == 0) {
+      cluster_decode::cp_async_wait<NS - 2>();
+      // unit U landed for every thread; every warp is done with the slot before cst
+      __syncthreads();
+      if (U + NS - 1 < total) load_next();
+      cluster_decode::cp_async_commit();
+      // the s32 dots restart with each stage: a low half's at even units, a
+      // high half's (straddle) at odd ones and at u = 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if ((h == 0 || !kStraddle) ? (u & 1) == 0 : (u & 1) == 1 || u == 0) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < NJ; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) d[i][h][n][e] = 0;
+        }
+      if (u == 0) {
+        ce = expert(s);
+        if (kCombine) {  // the expert's gates, read while its units stream
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              const int tok = 8 * n + 2 * t + p;
+              gs[n][p] = tok < rows ? gscale[(size_t)ce * M + m0 + tok] : 0.f;
+            }
         }
       }
+      const unsigned char* sp = smem + cst * STAGE;
+      w4a8_tile::stage_dots<NJ>(sp, c0, g, t, d);
+      if (ends(u) == 0) continue;
+      const float* ss = reinterpret_cast<const float*>(sp + SK * BN + 2 * TOK * SK);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(ss + h * BN + c0);
+        psc[h][0] = v.x * 0.0625f;
+        psc[h][1] = v.y * 0.0625f;
+        psc[h][2] = v.z * 0.0625f;
+        psc[h][3] = v.w * 0.0625f;
+      }
+      finish(u, s, ce, k);
     }
-    __syncwarp();
+    if (split) {
+      // the round's replay: rank r owns columns [r BN / R, (r + 1) BN / R);
+      // entry i's term lies in rank i % R, slot i / R - k slots
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      const int ib = k * R * slots, ie = min(ib + R * slots, nused);
+#pragma unroll
+      for (int q = 0; q < TOK; ++q) {
+        const int it = tid + q * NT;
+        if (it >= items) continue;
+        const uint32_t off = ((it / cols) * BN + rank * cols + it % cols) * 4;
+        float a = rr[q];
+        for (int i0 = ib; i0 < ie; i0 += 8) {
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int i = min(i0 + j, ie - 1);
+            v[j] = w4a8_tile::ld_cluster(rbase[i % R] + (i / R - k * slots) * SLOT + off);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (i0 + j < ie) a = __fadd_rn(a, v[j]);
+        }
+        rr[q] = a;
+      }
+      cluster.sync();
+    }
+  }
+  if constexpr (kCombine) {
+    if (!split) {
+      float* o = out + (size_t)m0 * N + n0 + c0;
+#pragma unroll
+      for (int n = 0; n < NJ; ++n)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (8 * n + 2 * t + p < rows)
+            *reinterpret_cast<float4*>(o + (size_t)(8 * n + 2 * t + p) * N) =
+                *reinterpret_cast<const float4*>(runs + (8 * n + 2 * t + p) * BN);
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < TOK; ++q) {
+      const int it = tid + q * NT;
+      if (it < items) out[(size_t)(m0 + it / cols) * N + n0 + rank * cols + it % cols] = rr[q];
+    }
   }
 }
-// kStraddle: K2 % 128 == 64 (the stage walk above); false compiles the
-// aligned walk with the straddle bookkeeping folded away.
-template <bool kStraddle>
-__global__ void __launch_bounds__(NTH, 1)
+
+// K12 and K11 under names of their own (the profile windows count them apart)
+template <int NJ, bool kStraddle>
+__global__ void __launch_bounds__(BN)
 grouped_w4a8_combine_kernel(const int8_t* __restrict__ xq, const float* __restrict__ gscale,
                             const uint8_t* __restrict__ w, const float* __restrict__ scale,
-                            float* __restrict__ out, int E, int M, int N, int K2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  WarpSmem* ws = reinterpret_cast<WarpSmem*>(smem);
-  float* ps = reinterpret_cast<float*>(smem + NW * sizeof(WarpSmem));  // [NW][BM][PP]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int EN = E * N;
-  WarpSmem& my = ws[warp];
-  float* myp = ps + warp * BM * PP;
-
-  // the CTA's output, PER elements per thread, summed in expert order
-  float o[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) o[k] = 0.f;
-
-  for (int e0 = 0; e0 < E; e0 += NW) {
-    const int e = e0 + warp;
-    if (e < E) {
-      float acc[NT][4];
-      expert_product<kStraddle>(xq, w, scale, e, m0, n0, M, N, K2, EN, my, acc);
-      // this expert's gated term p_e = acc_e * gscale[e, m]
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = g + ((c & 2) ? 8 : 0);
-          const int m = m0 + r;
-          const float gs = m < M ? gscale[(size_t)e * M + m] : 0.f;
-          myp[r * PP + j * 8 + 2 * t + (c & 1)] = __fmul_rn(acc[j][c], gs);
-        }
-    }
-    __syncthreads();
-    // out = out + p_e in expert order for this round
-    const int ne = min(NW, E - e0);
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int idx = tid + k * NTH;
-      if (idx >= BM * BN) continue;
-      const int r = idx / BN;
-      const int c = idx % BN;
-      for (int i = 0; i < ne; ++i) o[k] = __fadd_rn(o[k], ps[i * BM * PP + r * PP + c]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int idx = tid + k * NTH;
-    const int m = m0 + idx / BN;
-    if (idx < BM * BN && m < M) out[(size_t)m * N + n0 + idx % BN] = o[k];
-  }
+                            float* __restrict__ out, int E, int M, int N, int K2, int R,
+                            int slots) {
+  grouped_body<NJ, kStraddle, true>(xq, gscale, w, scale, out, E, M, N, K2, R, slots);
+}
+template <int NJ, bool kStraddle>
+__global__ void __launch_bounds__(BN)
+grouped_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ gscale,
+                    const uint8_t* __restrict__ w, const float* __restrict__ scale,
+                    float* __restrict__ out, int E, int M, int N, int K2, int R, int slots) {
+  grouped_body<NJ, kStraddle, false>(xq, gscale, w, scale, out, E, M, N, K2, R, slots);
 }
 
-constexpr size_t SMEM_BYTES = NW * sizeof(WarpSmem) + NW * BM * PP * sizeof(float);
+template <int NJ, bool kStraddle, bool kCombine>
+int launch(const int8_t* xq, const float* gscale, const uint8_t* w, const float* sc, float* out,
+           int E, int M, int N, int K2, int R, int slots, int smem, cudaStream_t s) {
+  auto kernel = grouped_w4a8_kernel<NJ, kStraddle>;
+  if constexpr (kCombine) kernel = grouped_w4a8_combine_kernel<NJ, kStraddle>;
+  static unsigned done = 0;  // devices whose shared memory limit is raised
+  const int err = cluster_decode::allow_smem(kernel, MAX_SMEM, done);
+  if (err != 0) return err;
+  if (kCombine && R > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + 8 * NJ - 1) / (8 * NJ), N / BN * R, 1);
+  cfg.blockDim = dim3(BN, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = kCombine ? R : 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, xq, gscale, w, sc, out, E, M, N, K2, R, slots);
+}
 
-// K11: every (expert, 16-column tile) pair is one warp's task, GW tasks to a
-// CTA (neighbouring tiles of one expert), the CTA's row tile in blockIdx.y;
-// each warp writes its expert's f32 product to out[e, m, n] as it stands.
-constexpr int GW = 4;
-
-template <bool kStraddle>
-__global__ void __launch_bounds__(32 * GW)
-grouped_w4a8_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ w,
-                    const float* __restrict__ scale, float* __restrict__ out, int E, int M,
-                    int N, int K2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  WarpSmem* ws = reinterpret_cast<WarpSmem*>(smem);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int ntiles = N / BN;
-  const int task = blockIdx.x * GW + warp;
-  if (task >= E * ntiles) return;  // the body syncs only within a warp
-  const int e = task / ntiles;
-  const int n0 = (task % ntiles) * BN;
-  const int m0 = blockIdx.y * BM;
-  float acc[NT][4];
-  expert_product<kStraddle>(xq, w, scale, e, m0, n0, M, N, K2, E * N, ws[warp], acc);
-  float* oe = out + (size_t)e * M * N;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int m = m0 + g + ((c & 2) ? 8 : 0);
-      if (m < M) oe[(size_t)m * N + n0 + j * 8 + 2 * t + (c & 1)] = acc[j][c];
-    }
+// the instance for the token tile (M) and the straddle layout (K2)
+template <bool kCombine>
+int dispatch(const int8_t* xq, const float* gscale, const uint8_t* w, const float* sc,
+             float* out, int E, int M, int N, int K2, int R, int slots, int smem,
+             cudaStream_t s) {
+  const bool straddle = K2 % KB != 0;
+  const int tok = tokens(M, kCombine);
+#define W4A8_GROUPED(NJ, ST)                                                                  \
+  if constexpr (!kCombine || NJ < 4)                                                          \
+    if (tok == 8 * NJ && straddle == ST)                                                      \
+      return launch<NJ, ST, kCombine>(xq, gscale, w, sc, out, E, M, N, K2, R, slots, smem, s);
+  W4A8_GROUPED(1, false)
+  W4A8_GROUPED(2, false)
+  W4A8_GROUPED(4, false)
+  W4A8_GROUPED(1, true)
+  W4A8_GROUPED(2, true)
+  W4A8_GROUPED(4, true)
+#undef W4A8_GROUPED
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// xq int8 [E, M, 2*K2]; gscale f32 [E, M]; packed uint8 [K2, E*N]; scale f32
-// [2*K2/128, E*N]; out f32 [M, N]. Needs K2 % 64 == 0 (K2 % 128 == 64 is the
-// straddle layout), N % 16 == 0 and 16-byte aligned xq (checked by the
-// Python wrapper).
+// K12: xq int8 [E, M, 2*K2]; gscale f32 [E, M]; packed uint8 [K2, E*N];
+// scale f32 [2*K2/128, E*N]; out f32 [M, N]. Needs K2 % 64 == 0 (K2 % 128
+// == 64 is the straddle layout), N % 128 == 0 and 16-byte aligned xq,
+// packed and scale (checked by the Python wrapper). R: the cluster size (1,
+// 2, 4, 8 or 16, at most E); slots: the gated terms a rank holds per round
+// (R > 1), within the shared memory (the wrapper's _combine_plan).
 extern "C" int grouped_w4a8_combine_gemm(const void* xq, const void* gscale, const void* packed,
                                          const void* scale, void* out, int E, int M, int N,
-                                         int K2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = (K2 % KB) ? grouped_w4a8_combine_kernel<true> : grouped_w4a8_combine_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  kernel<<<grid, NTH, SMEM_BYTES, s>>>(
+                                         int K2, int R, int slots, void* stream) {
+  if (M <= 0 || E <= 0 || N <= 0) return 0;
+  if (R < 1 || R > MAX_RANKS || (R & (R - 1)) != 0 || (R > 1 && (slots < 1 || R > E)) ||
+      N % BN != 0 || K2 % SK != 0 || K2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (R == 1) slots = 1;  // the running sum
+  const int smem = combine_smem(E, tokens(M, true), K2, slots);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(gscale),
       static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
-      static_cast<float*>(out), E, M, N, K2);
-  return (int)cudaGetLastError();
+      static_cast<float*>(out), E, M, N, K2, R, slots, smem,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K12's dynamic shared memory at (E, M, K2, R, slots), or -1 where it passes a
+// CTA's limit (the launch refuses it). The wrapper's _combine_plan counts
+// the same bytes (quant_gemm._combine_smem); chip_smoke.py holds the two
+// equal.
+extern "C" int grouped_w4a8_combine_smem(int E, int M, int K2, int R, int slots) {
+  const int b = combine_smem(E, tokens(M, true), K2, R > 1 ? slots : 1);
+  return b > MAX_SMEM ? -1 : b;
 }
 
 // K11: xq int8 [E, M, 2*K2]; packed uint8 [K2, E*N]; scale f32 [2*K2/128, E*N];
 // out f32 [E, M, N], out[e] = xq[e] @ W_e with no gates and no activation
-// scale. The same requirements as grouped_w4a8_combine_gemm.
+// scale. Needs K2 % 64 == 0, N % 128 == 0 and 16-byte aligned xq, packed
+// and scale (checked by the Python wrapper).
 extern "C" int grouped_w4a8_gemm(const void* xq, const void* packed, const void* scale,
                                  void* out, int E, int M, int N, int K2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E * M * N == 0) return 0;
-  auto kernel = (K2 % KB) ? grouped_w4a8_kernel<true> : grouped_w4a8_kernel<false>;
-  const size_t smem = GW * sizeof(WarpSmem);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((E * (N / BN) + GW - 1) / GW, (M + BM - 1) / BM);
-  kernel<<<grid, 32 * GW, smem, s>>>(static_cast<const int8_t*>(xq),
-                                     static_cast<const uint8_t*>(packed),
-                                     static_cast<const float*>(scale), static_cast<float*>(out),
-                                     E, M, N, K2);
-  return (int)cudaGetLastError();
+  if (N % BN != 0 || K2 % SK != 0 || K2 <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<false>(static_cast<const int8_t*>(xq), nullptr,
+                                  static_cast<const uint8_t*>(packed),
+                                  static_cast<const float*>(scale), static_cast<float*>(out), E,
+                                  M, N, K2, E, 0,
+                                  ring_bytes(tokens(M, false)) + hold_bytes(tokens(M, false), K2),
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -81,6 +81,7 @@
 #include <tuple>
 
 #include "cluster_decode.cuh"  // cp.async, the shared memory limit
+#include "w4a8_tile.cuh"       // the decode tile's stage, loader and fragment builder
 
 namespace {
 
@@ -93,16 +94,17 @@ constexpr int KB = 128;  // rows of one scale block
 namespace dec {
 
 namespace cg = cooperative_groups;
+using w4a8_tile::cluster_addr;
+using w4a8_tile::ld_cluster;
+using w4a8_tile::BN;               // weight columns a CTA: 4 warps of 32
+using w4a8_tile::NT;               // threads a CTA
+using w4a8_tile::SK;               // packed rows of a stage: half a block
 
-constexpr int BN = 128;            // weight columns a CTA: 4 warps of 32
-constexpr int SK = KB / 2;         // packed rows of a stage: half a block
 constexpr int NS = 4;              // cp.async stages
-constexpr int NT = 128;            // threads a CTA
 constexpr int TOK = 8;             // tokens: the n8 of the transposed product
 constexpr int WB = SK * BN;        // a stage's raw packed [64, 128] tile
 constexpr int XB = 2 * TOK * SK;   // its x rows, both halves: [2][8][64]
-constexpr int SCB = 2 * BN * 4;    // a block's two scale rows [2][128] f32
-constexpr int STAGE = WB + XB + SCB;
+constexpr int STAGE = w4a8_tile::stage_bytes(TOK);  // and a block's two scale rows
 constexpr int HELD = 2 * TOK * BN * 4;  // one held block (R > 1): its f32 products, both halves
 constexpr int KREG = 4;  // a rank's last blocks, kept aside until the ring is free
 constexpr int MAX_SMEM = 227 * 1024;
@@ -120,67 +122,16 @@ constexpr int smem_bytes(int nblk, int R) {
   return NS * STAGE + (R > 1 ? held_bytes((nblk + R - 1) / R) + 4 * nblk : 0);
 }
 
-// the shared::cluster address of local shared memory `p` in CTA `rank` of
-// the cluster, and a load from it
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-// d (16 x 8 s32) += a (16 x 32 s8, row) * b (32 x 8 s8, col)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// w[j]: the packed bytes of columns c .. c + 3 of k-row k + j -> col[i]:
-// those of column c + i at k-rows k .. k + 3 (a 4 x 4 byte transpose)
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&col)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
-  col[0] = __byte_perm(t0, t1, 0x5410);
-  col[1] = __byte_perm(t0, t1, 0x7632);
-  col[2] = __byte_perm(t2, t3, 0x5410);
-  col[3] = __byte_perm(t2, t3, 0x7632);
-}
-// four packed bytes -> int8 16 q_lo, 16 q_hi
-__device__ __forceinline__ uint32_t lo16(uint32_t w) {
-  return ((w << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
-}
-__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
-
 // A CTA of 4 warps owns 128 weight columns (tile n0 = blockIdx.x / R) and
 // rank r = blockIdx.x % R of its cluster walks the contiguous run of blocks
 // [r nblk / R, (r + 1) nblk / R), both halves of each: out^T = W^T x^T on
 // mma.sync m16n8k32 s8 x s8 -> s32, the weights the A operand.
 //
-// Stage u of the ring: packed rows [64 u', 64 u' + 64) of the run (u' its
-// index in W), their x columns of both halves and, on a block's second
-// stage, its two scale rows. Shared memory of a stage: the raw
-// tile [64][128 B], 16-byte chunk c of k-row r at chunk c ^ (2 ((r >> 2) &
-// 3)); x [2][8][64 B], chunk c of token m at chunk c ^ ((m >> 1) & 3); the
-// scale rows [2][128] f32. Every load a warp issues falls in 32 banks.
-//
-// Lane (g, t) of warp w loads the 32-bit words of columns c0 = 32 w + 4 g
-// .. c0 + 3 at k-rows 4 t + j and 16 + 4 t + j (j < 4) of each 32-row step
-// and transposes them in registers (transpose4): one word then holds four
-// consecutive k of one column, an A register. A tile 0 takes columns c0
-// (fragment row g) and c0 + 1 (row g + 8), tile 1 columns c0 + 2 and
-// c0 + 3; the lane's x word of token g at k 4 t (and 16 + 4 t) is its B
-// register. d[i][h][e] is then column c0 + 2 i + e / 2, token 2 t + e % 2
-// of half h (0: 16 q_lo, 1: 16 q_hi).
+// Stage u of the ring (w4a8_tile.cuh): packed rows [64 u', 64 u' + 64) of
+// the run (u' its index in W), their x columns of both halves and, on a
+// block's second stage, its two scale rows; w4a8_tile::stage_dots takes
+// each stage's products, d[i][h][0][e] column c0 + 2 i + e / 2 (c0 =
+// 32 w + 4 g), token 2 t + e % 2 of half h (0: 16 q_lo, 1: 16 q_hi).
 //
 // The s32 dots restart every block. R = 1: after each block the f32 update
 // acc = (acc + c_lo (s_lo / 16)) + c_hi (s_hi / 16) in registers. R > 1:
@@ -233,29 +184,11 @@ w4a8_dec_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
         *reinterpret_cast<float4*>(pb + (h * TOK + 2 * t + e) * BN + c0) =
             make_float4(p[0][h][e], p[0][h][e + 2], p[1][h][e], p[1][h][e + 2]);
   };
+  const w4a8_tile::StageLoader<TOK> loader(tid, N, live, K, K2, M);
   auto load = [&](int st, int u) {
-    unsigned char* s = smem + st * STAGE;
-    const int k0 = (2 * b0 + u) * SK;
-    for (int i = tid; i < SK * (BN / 16); i += NT) {
-      const int r = i >> 3, c = i & 7;
-      if (c < live)
-        cluster_decode::cp_async16(s + r * BN + ((c ^ (((r >> 2) & 3) << 1)) << 4),
-                                   w + (size_t)(k0 + r) * N + 16 * c);
-    }
-    for (int i = tid; i < 2 * M * (SK / 16); i += NT) {
-      const int h = i / (M * (SK / 16)), m = (i / (SK / 16)) % M, c = i % (SK / 16);
-      cluster_decode::cp_async16(s + WB + (h * TOK + m) * SK + ((c ^ ((m >> 1) & 3)) << 4),
-                                 x + (size_t)m * K + h * K2 + k0 + 16 * c);
-    }
-    if (u & 1) {
-      const int blk = b0 + (u >> 1);
-      for (int i = tid; i < 2 * (BN / 4); i += NT) {
-        const int h = i / (BN / 4), c = i % (BN / 4);
-        if (c < 4 * live)
-          cluster_decode::cp_async16(s + WB + XB + h * BN * 4 + 16 * c,
-                                     scale + (size_t)(h * nblk + blk) * N + 4 * c);
-      }
-    }
+    const int k0 = (2 * b0 + u) * SK, blk = b0 + (u >> 1);
+    loader.issue(smem + st * STAGE, w + (size_t)k0 * N, x + k0, scale + (size_t)blk * N,
+                 scale + (size_t)(nblk + blk) * N, (u & 1) ? 3 : 0);
   };
 
 #pragma unroll
@@ -263,7 +196,7 @@ w4a8_dec_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
     if (st < nunits) load(st, st);
     cluster_decode::cp_async_commit();
   }
-  int d[2][2][4];
+  int d[2][2][1][4];
   float acc[2][4];
   // the last blocks' products (R > 1): block nsm + j in pr[j]. ptxas keeps
   // them in local memory (L1), which leaves the tile at ~66 registers; held
@@ -286,39 +219,10 @@ w4a8_dec_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) d[i][h][e] = 0;
+          for (int e = 0; e < 4; ++e) d[i][h][0][e] = 0;
     }
     const unsigned char* s = smem + (u % NS) * STAGE;
-    const unsigned char* xs = s + WB;
-    const int wofs = (((c0 >> 4) ^ (t << 1)) << 4) + (c0 & 15);
-#pragma unroll
-    for (int ks = 0; ks < SK / 32; ++ks) {
-      uint32_t raw[2][4], col[2][4];
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          raw[q][j] = *reinterpret_cast<const uint32_t*>(s + (32 * ks + 16 * q + 4 * t + j) * BN +
-                                                         wofs);
-      transpose4(raw[0], col[0]);  // k-rows 4 t .. 4 t + 3 of the step
-      transpose4(raw[1], col[1]);  // 16 + 4 t ..
-      uint32_t xb[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          xb[h][q] = *reinterpret_cast<const uint32_t*>(
-              xs + (h * TOK + g) * SK + (((2 * ks + q) ^ ((g >> 1) & 3)) << 4) + 4 * t);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint32_t alo[4] = {lo16(col[0][2 * i]), lo16(col[0][2 * i + 1]),
-                                 lo16(col[1][2 * i]), lo16(col[1][2 * i + 1])};
-        const uint32_t ahi[4] = {hi16(col[0][2 * i]), hi16(col[0][2 * i + 1]),
-                                 hi16(col[1][2 * i]), hi16(col[1][2 * i + 1])};
-        mma_s8(d[i][0], alo, xb[0][0], xb[0][1]);
-        mma_s8(d[i][1], ahi, xb[1][0], xb[1][1]);
-      }
-    }
+    w4a8_tile::stage_dots<1>(s, c0, g, t, d);
     if ((u & 1) == 0) continue;
     // the block's products c (s / 16): c converts to f32 exactly (|16 q x|
     // sums < 2^24) and s / 16 is exact, so each rounds as q x s does in the
@@ -339,7 +243,7 @@ w4a8_dec_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          p[i][h][e] = __fmul_rn((float)d[i][h][e], sc[h][2 * i + (e >> 1)]);
+          p[i][h][e] = __fmul_rn((float)d[i][h][0][e], sc[h][2 * i + (e >> 1)]);
     if (R == 1) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)

@@ -307,14 +307,17 @@ DECODE_MAX_D = 640
 
 
 def decode_attention_ok(q_shape, S: int, cache_dtype) -> bool:
-    """The reference's rule for its TPU kernel (``decode_attention_ok``):
-    quantized caches (int8 or e4m3) with S <= 8192 and D % 128 == 0; other
-    decodes take the einsum path. The reference's CPU branch (always the
-    einsum path) is not followed: on a CPU tensor the wrapper computes the
-    kernel's twin."""
+    """Whether a decode step takes K5. The reference's rule for its TPU
+    kernel (``decode_attention_ok``): quantized caches (int8 or e4m3) with
+    S <= 8192 and D % 128 == 0; other decodes take the einsum path. Then
+    what the port's K5 takes: int8 caches only, since its e4m3 branch is not
+    ported (the wrapper refuses e4m3), so an e4m3 step takes the einsum
+    over the cache, as the reference's do where its gate says no. The
+    reference's CPU branch (always the einsum path) is not followed: on a
+    CPU tensor the wrapper computes the kernel's twin."""
     D = q_shape[-1]
     return (cache_dtype in (torch.int8, torch.float8_e4m3fn) and S <= 8192
-            and D % 128 == 0)
+            and D % 128 == 0 and cache_dtype == torch.int8)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, k_scale=None,

@@ -302,6 +302,9 @@ grouped_w4a16_gemm.launches = 0
 # ---------------------------------------------------------------------------
 # K11: grouped W4A8, one product per expert
 # ---------------------------------------------------------------------------
+# columns a CTA of K12 and of K11 (csrc/grouped_w4a8_gemm.cu)
+GROUPED_BN = 128
+
 def grouped_w4a8_gemm_plain(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                             n_per_expert: int, block: int = 128) -> torch.Tensor:
     """Per-expert ``w4a8_gemm_plain``: xq int8 [E, M, K] on the folded
@@ -315,18 +318,19 @@ def grouped_w4a8_gemm(xq: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
     """Per-expert W4A8 GEMMs ``y[e] = xq[e] @ W_e`` in one launch: xq int8
     [E, M, K] (the caller applies the per-row activation scales),
     packed/scale the folded [K/2, E*N] layout (straddle widths included) ->
-    f32 [E, M, N]."""
+    f32 [E, M, N]. On the card one CTA of K1's decode tile per (32-token
+    tile, expert, 128-column tile), so N must be a multiple of 128."""
     E, M, K = xq.shape
     N = n_per_expert
     _check_packed("grouped_w4a8_gemm", packed, scale, block, K, E * N)
     if xq.device.type == "cpu":
         return grouped_w4a8_gemm_plain(xq, packed, scale, N, block)
-    _check_card("grouped_w4a8_gemm", packed, scale, block, N, 16, straddle=True)
+    _check_card("grouped_w4a8_gemm", packed, scale, block, N, GROUPED_BN, straddle=True)
     if xq.dtype != torch.int8:
         raise ValueError("grouped_w4a8_gemm: wants int8 x")
     _build.check_cuda("grouped_w4a8_gemm", xq, packed, scale)
-    if xq.data_ptr() % 16:
-        raise ValueError("grouped_w4a8_gemm: x must be 16-byte aligned")
+    if xq.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("grouped_w4a8_gemm: x, packed and scale must be 16-byte aligned")
     fn = _build.function("grouped_w4a8_gemm", [_build.c_ptr] * 4 + [_build.c_int] * 4
                          + [_build.c_ptr])
     out = torch.empty(E, M, N, dtype=torch.float32, device=xq.device)
@@ -344,6 +348,62 @@ grouped_w4a8_gemm.launches = 0
 # ---------------------------------------------------------------------------
 # K12: grouped W4A8 fused with the routed combine
 # ---------------------------------------------------------------------------
+# K12's shared memory (combine_smem): a ring of 4 stages (the raw packed
+# [64, 128] tile, x's two halves of TOK (8 or 16) tokens, a block's scale
+# rows), at straddle K the high blocks' products each thread holds
+# ([K/256, TOK, 128] f32), the held gated terms [TOK, 128] f32 a slot (one
+# slot, the running sum, at R = 1), the list of used experts, 80 bytes more
+COMBINE_STAGES = 4
+COMBINE_MISC = 80
+# a K12 CTA's shared memory for three CTAs an SM (3 x (75 + 1) KB of the
+# SM's 228), so that 16 clusters of 16 fit one wave (on the card only 14
+# did at 78 KB a CTA: PERF.md), and the fewest held slots a rank takes
+COMBINE_WAVE_SMEM = 75 * 1024
+COMBINE_MIN_SLOTS = 3
+# CTAs K12's clusters aim for: four an SM (above 16 rows two token tiles
+# of 16 at clusters of 16, 512 CTAs, ran 7-25% faster than clusters of 8)
+COMBINE_TARGET_CTAS = 528
+
+
+def _combine_tokens(M) -> int:
+    """Tokens a K12 CTA: 8 or 16 (one or two n8 tiles); above 16 rows,
+    tiles of 16 (a 32-token instance's registers left two CTAs an SM)."""
+    return 8 if M <= 8 else 16
+
+
+def _combine_smem(E, M, K2, r, slots) -> int:
+    """Dynamic shared memory of a K12 CTA: the ring, the straddle hold,
+    ``slots`` held gated terms where a cluster of ``r`` > 1 splits the
+    experts (one, the running sum, at ``r`` = 1), the used list."""
+    tok = _combine_tokens(M)
+    stage = 64 * GROUPED_BN + 2 * tok * 64 + 2 * GROUPED_BN * 4
+    hold = (K2 // 128) * tok * GROUPED_BN * 4 if K2 % 128 else 0
+    held = (slots if r > 1 else 1) * tok * GROUPED_BN * 4
+    return COMBINE_STAGES * stage + hold + held + 4 * E + COMBINE_MISC
+
+
+def _combine_plan(E, M, N, K2):
+    """(R, slots) of K12: the largest cluster R of 1, 2, 4, 8, 16 (at most
+    E) that keeps the 128-column tiles x 16-token tiles x R within
+    COMBINE_TARGET_CTAS, and the gated terms a rank holds per round: as many
+    as fit COMBINE_WAVE_SMEM (three CTAs an SM), up to ceil(E / R), but at
+    least COMBINE_MIN_SLOTS within the 227 KB (fewer rounds beat a third
+    CTA an SM at 16 tokens). More used experts than R x slots run in
+    rounds. R = 1 sums in order in one CTA."""
+    tiles = N // GROUPED_BN * -(-M // 16)
+    r = 1
+    while r < 16 and 2 * r <= E and 2 * r * tiles <= COMBINE_TARGET_CTAS:
+        r *= 2
+    if r == 1:
+        return 1, 0
+    slot = _combine_tokens(M) * GROUPED_BN * 4
+    fit = (COMBINE_WAVE_SMEM - _combine_smem(E, M, K2, r, 0)) // slot
+    slots = min(-(-E // r), max(fit, COMBINE_MIN_SLOTS))
+    while slots > 1 and _combine_smem(E, M, K2, r, slots) > SMEM_LIMIT:
+        slots -= 1
+    return r, slots
+
+
 def grouped_w4a8_combine_gemm_plain(xq: torch.Tensor, gscale: torch.Tensor,
                                     packed: torch.Tensor, scale: torch.Tensor,
                                     n_per_expert: int, block: int = 128) -> torch.Tensor:
@@ -363,7 +423,10 @@ def grouped_w4a8_combine_gemm(xq: torch.Tensor, gscale: torch.Tensor,
                               n_per_expert: int, block: int = 128) -> torch.Tensor:
     """``out[m] = sum_e gscale[e, m] * (xq[e, m] @ W_e)``: xq int8 [E, M, K],
     gscale f32 [E, M] (routing gate x per-row activation scale),
-    packed/scale the folded layout -> f32 [M, N]."""
+    packed/scale the folded layout -> f32 [M, N]. On the card one launch
+    of K1's decode tile over the experts some row is routed to (128
+    columns a CTA, so N must be a multiple of 128), split over a cluster of
+    ``_combine_plan`` CTAs and summed in expert order."""
     E, M, K = xq.shape
     N = n_per_expert
     _check_packed("grouped_w4a8_combine_gemm", packed, scale, block, K, E * N)
@@ -372,19 +435,22 @@ def grouped_w4a8_combine_gemm(xq: torch.Tensor, gscale: torch.Tensor,
                          f"want {(E, M)}")
     if xq.device.type == "cpu":
         return grouped_w4a8_combine_gemm_plain(xq, gscale, packed, scale, N, block)
-    _check_card("grouped_w4a8_combine_gemm", packed, scale, block, N, 16, straddle=True)
+    _check_card("grouped_w4a8_combine_gemm", packed, scale, block, N, GROUPED_BN,
+                straddle=True)
     if (xq.dtype, gscale.dtype) != (torch.int8, torch.float32):
         raise ValueError("grouped_w4a8_combine_gemm: wants int8 x, f32 gscale")
     _build.check_cuda("grouped_w4a8_combine_gemm", xq, gscale, packed, scale)
-    if xq.data_ptr() % 16:
-        raise ValueError("grouped_w4a8_combine_gemm: x must be 16-byte aligned")
+    if xq.data_ptr() % 16 or packed.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("grouped_w4a8_combine_gemm: x, packed and scale must be 16-byte "
+                         "aligned")
     fn = _build.function("grouped_w4a8_combine_gemm",
-                         [_build.c_ptr] * 5 + [_build.c_int] * 4 + [_build.c_ptr],
+                         [_build.c_ptr] * 5 + [_build.c_int] * 6 + [_build.c_ptr],
                          source="grouped_w4a8_gemm")
+    K2 = packed.shape[0]
     out = torch.empty(M, N, dtype=torch.float32, device=xq.device)
     with torch.cuda.device(xq.device):
         err = fn(xq.data_ptr(), gscale.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                 out.data_ptr(), E, M, N, packed.shape[0], _build.stream(xq))
+                 out.data_ptr(), E, M, N, K2, *_combine_plan(E, M, N, K2), _build.stream(xq))
     grouped_w4a8_combine_gemm.launches += 1
     _build.raise_on_error("grouped_w4a8_combine_gemm", err)
     return out

@@ -164,5 +164,9 @@ def test_decode_attention_refusals():
     (torch.int8, 64, 192, False)])
 def test_dispatch_rule_is_the_reference_tpu_rule(dtype, S, D, ok):
     """The reference's TPU rule (``decode_attention_ok``, attention.py:396):
-    a quantized cache, S <= 8192, D a multiple of 128."""
-    assert ta.decode_attention_ok((8, 1, 16, D), S, dtype) is ok
+    a quantized cache, S <= 8192, D a multiple of 128 (``ok``); the port's
+    gate then admits int8 caches only, since K5's e4m3 branch is not
+    ported: an e4m3 step the reference sends to its kernel takes the
+    einsum (``test_torch_kernel_gates.py``)."""
+    assert ta.decode_attention_ok((8, 1, 16, D), S, dtype) is (
+        ok and dtype != torch.float8_e4m3fn)

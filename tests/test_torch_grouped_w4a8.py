@@ -219,3 +219,124 @@ def test_down_projection_dispatch(monkeypatch):
                 assert y.shape == ((1, T, E, fout) if gates is None else (1, T, fout))
                 seen.append(list(calls))
     assert seen == [["grouped_w4a8_gemm"], ["grouped_w4a8_combine_gemm"], [], []]
+
+
+# ---------------------------------------------------------------------------
+# K12's card design on the CPU: the routed experts only, summed in expert order
+# ---------------------------------------------------------------------------
+def _routed_sum(xq, gs, pt, N, tile=32):
+    """K12's CUDA kernel, on the CPU: per 32-token tile, the list of experts
+    some row of the tile is routed to (a gscale that compares non-zero, so
+    -0.0 counts as zero), each used expert's gated term acc_e * gscale[e]
+    rounded, summed in list order (expert order) from +0; the experts the
+    list leaves out are never read."""
+    M = xq.shape[1]
+    y = tk.grouped_w4a8_gemm_plain(xq, pt["data"], pt["scale"], N)
+    out = torch.zeros(M, N)
+    for m0 in range(0, M, tile):
+        rows = slice(m0, min(m0 + tile, M))
+        used = [e for e in range(xq.shape[0]) if bool((gs[e, rows] != 0).any())]
+        acc = torch.zeros(rows.stop - m0, N)
+        for e in used:
+            acc = acc + y[e, rows] * gs[e, rows][:, None]
+        out[rows] = acc
+    return out
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _gates(rng, kind, E, M):
+    """gscale [E, M]: ``top2`` each row routed to 2 experts; ``single`` each
+    used expert routed by exactly one row; ``negzero`` top2 with -0.0 in
+    about half the unrouted entries and in one expert's whole row; ``zero`` no
+    row routed anywhere (all +0 and -0)."""
+    g = np.zeros((E, M), np.float32)
+    if kind in ("top2", "negzero"):
+        for m in range(M):
+            g[rng.choice(E, 2, replace=False), m] = rng.random(2) * 0.05 + 1e-3
+    if kind == "single":
+        for m, e in enumerate(rng.choice(E, min(M, E), replace=False)):
+            g[e, m] = rng.random() * 0.05 + 1e-3
+    if kind in ("negzero", "zero"):
+        neg = (g == 0) & (rng.random((E, M)) < 0.5)
+        g[neg] = -0.0
+        g[int(np.argmin(g.any(axis=1))), :] = -0.0  # one expert's whole row
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("K", [256, 384])  # aligned; straddle (K/2 % 128 == 64)
+@pytest.mark.parametrize("kind,M", [("top2", 5), ("single", 6), ("negzero", 8),
+                                    ("zero", 4), ("top2", 40)])
+def test_combine_over_routed_experts_is_the_plain_version(K, kind, M):
+    """The plain version adds every expert's term in expert order; K12's
+    kernel adds only those of the experts some row of its 32-token tile is
+    routed to. A skipped term is acc * (+-0) = +-0 (acc is finite), out
+    starts at +0, a sum of finite terms under round-to-nearest is never -0,
+    and x + (+-0) = x for every other x: so the two agree bit for bit (sign
+    bits of zeros included), with experts routed by a single row, -0.0
+    gates, no routed expert at all (then out is +0 everywhere), and M = 40
+    (two token tiles with lists of their own)."""
+    rng = np.random.default_rng(K + M)
+    E, N = 6, 64
+    _, pt = _packed(rng, E, K, N)
+    xq = torch.from_numpy(rng.integers(-127, 128, (E, M, K)).astype(np.int8))
+    gs = _gates(rng, kind, E, M)
+    want = tk.grouped_w4a8_combine_gemm(xq, gs, pt["data"], pt["scale"], N)
+    got = _routed_sum(xq, gs, pt, N)
+    assert torch.equal(_bits(got), _bits(want))
+    if kind == "zero":
+        assert torch.equal(_bits(want), torch.zeros(M, N, dtype=torch.int32))
+    else:
+        assert (want != 0).any()
+
+
+@pytest.mark.parametrize("E,K", [(64, 1408), (128, 768)])
+@pytest.mark.parametrize("M", [1, 8, 16, 32])
+def test_combine_plan_fits_the_card(E, K, M):
+    """K12's cluster at the served decode geometries (DeepSeek-V2-Lite's and
+    Qwen3-30B-A3B's down projections, N = 2048), every expert used: a
+    cluster of 16 (16 tiles of 128 columns x 16 = 256 CTAs, at 32 rows two
+    16-token tiles and 512, within COMBINE_TARGET_CTAS); a CTA's shared memory (the 4-stage ring, at straddle
+    K the high blocks' products, the held terms, the used list) within
+    227 KB; held slots as many as keep three CTAs an SM
+    (COMBINE_WAVE_SMEM), at least three, at most one a rank's expert. At
+    M <= 8 every rank holds all its terms in one round."""
+    N, K2 = 2048, K // 2
+    R, slots = tk._combine_plan(E, M, N, K2)
+    assert R == 16 and N // tk.GROUPED_BN * -(-M // 16) * R <= tk.COMBINE_TARGET_CTAS
+    smem = tk._combine_smem(E, M, K2, R, slots)
+    assert smem <= tk.SMEM_LIMIT
+    assert slots <= -(-E // R)
+    assert smem <= tk.COMBINE_WAVE_SMEM or slots == tk.COMBINE_MIN_SLOTS
+    if slots < -(-E // R):
+        assert tk._combine_smem(E, M, K2, R, slots + 1) > tk.COMBINE_WAVE_SMEM
+    if M <= 8 and E == 128:
+        assert slots == E // R
+    tok = 8 if M <= 8 else 16
+    ring = 4 * (64 * 128 + 2 * tok * 64 + 2 * 128 * 4)
+    hold = (K2 // 128) * tok * 128 * 4 if K2 % 128 else 0  # the straddle's held high blocks
+    assert smem == ring + hold + slots * tok * 128 * 4 + 4 * E + 80
+
+
+def test_card_kernels_take_their_column_multiples():
+    """On a tensor off the CPU the wrappers check the CUDA kernels' limits
+    before anything else: the 128-column tiles of K12 and K11 want
+    N % 128 == 0 (straddle K accepted); shapes that pass reach the device
+    check, which refuses these meta tensors."""
+    def args(E, K, N, M=8):
+        pt = {"data": torch.empty(K // 2, E * N, dtype=torch.uint8, device="meta"),
+              "scale": torch.empty(K // 128, E * N, device="meta")}
+        return torch.empty(E, M, K, dtype=torch.int8, device="meta"), pt
+
+    E = 2
+    for K in (256, 384):
+        for N, ok in ((64, False), (192, False), (128, True), (2048, True)):
+            xq, pt = args(E, K, N)
+            gs = torch.empty(E, 8, device="meta")
+            want = "must be on the card" if ok else f"N={N} must be a multiple of 128"
+            with pytest.raises(ValueError, match=want):
+                tk.grouped_w4a8_combine_gemm(xq, gs, pt["data"], pt["scale"], N)
+            with pytest.raises(ValueError, match=want):
+                tk.grouped_w4a8_gemm(xq, pt["data"], pt["scale"], N)

@@ -269,3 +269,50 @@ def test_uncached_forward_at_d256_takes_the_einsum(reference_rules, monkeypatch)
     tb = from_jax_variables(to_numpy(jb.variables), cfg, device="cpu")
     got, _ = tb.apply(torch.from_numpy(ids))
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_two_ulps(want))
+
+
+@pytest.mark.parametrize("geometry", [
+    dict(num_heads=2, num_kv_heads=1),                 # D = 256
+    dict(num_heads=16, num_kv_heads=1, head_dim=128),  # G = 16
+], ids=["d256", "g16"])
+def test_e4m3_decode_that_k2_turns_away_takes_the_einsum(geometry, monkeypatch,
+                                                          no_dense_kernels):
+    """An 8-token prefill and one decode step over an e4m3 dense cache (bf16
+    weights: the keys and values go in as direct e4m3 casts), at head
+    geometries the reference's K2 admits and the port's card kernel lacks.
+    The port's ``fused_decode_ok`` refuses the step, and its
+    ``decode_attention_ok`` admits int8 caches only (K5's e4m3 branch is
+    not ported), so the step takes the masked einsum over the cache, codes
+    times their scale in the model dtype; before the repair the gate sent
+    it to K5, whose wrapper raises on e4m3. Held to the reference on its
+    CPU route (both of its gates say no there, so it takes the same einsum)
+    at two bf16 ulps, and to the reference under its shape rules (its K2
+    takes the step in interpret mode, attending rounded e4m3 codes) at the
+    engine tests' logit bar."""
+    wide = dict(hidden_size=512, intermediate_size=256, num_layers=1,
+                max_position_embeddings=512, **geometry)
+    B, T, S = 1, 8, 256
+    jb = reference_bundle(None, **wide)
+    cfg = tt.tiny_test_config(dtype=torch.bfloat16, **wide)
+    G, D = cfg.num_heads // cfg.num_kv_heads, cfg.dims_per_head
+    assert not fused_decode_ok((B, cfg.num_kv_heads, G, D), S, torch.float8_e4m3fn)
+    ids = np.random.default_rng(7).integers(1, 256, (B, T + 1)).astype(np.int32)
+
+    def reference():
+        fn = jax.jit(jb.make_fn())
+        cache = jt.make_cache(jb.module.cfg, B, S, dtype=jnp.float8_e4m3fn)
+        _, cache = fn(jb.variables, jnp.asarray(ids[:, :T]), cache)
+        logits, _ = fn(jb.variables, jnp.asarray(ids[:, T:]), cache)
+        return np.asarray(logits[:, -1], np.float32)
+
+    tb = from_jax_variables(to_numpy(jb.variables), cfg, device="cpu")
+    tcache = tt.make_cache(cfg, B, S, dtype=torch.float8_e4m3fn, device="cpu")
+    _, tcache = tb.apply(torch.from_numpy(ids[:, :T]), tcache)
+    got, _ = tb.apply(torch.from_numpy(ids[:, T:]), tcache)
+    got = got[:, -1].float().numpy()
+    assert np.isfinite(got).all()
+    want = reference()
+    np.testing.assert_allclose(got, want, rtol=0, atol=_two_ulps(want))
+    with reference_shape_rules(monkeypatch):
+        want_k2 = reference()
+    np.testing.assert_allclose(got, want_k2, rtol=0, atol=0.15)
