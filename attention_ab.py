@@ -5,30 +5,27 @@ the card, to compare two commits on one card.
 
 Builds the tree's ``decode_attention``, ``fused_decode_attention``,
 ``flash_attention``, ``flash_prefill_attention``, ``w4a8_gemm``,
-``w4a16_gemm``, ``grouped_w4a8_gemm``, ``w8a16_gemm``, ``nvfp4_gemm`` and
-``paged_kv_write`` sources, then
-times K5 decode_attention and K15 paged_decode_attention at
-``chip_smoke.py``'s kernel-phase shapes (int8 and bf16 caches), and K2
-fused_decode_attention, K1 w4a8_gemm, K4 flash_prefill_attention, K14
-flash_attention, K6 w4a16_gemm, K10 grouped_w4a16_gemm, K7 w8a16_gemm, K8
-wfp8_gemm, K9 nvfp4_gemm, K13 grouped_nvfp4_gemm, K15 and K17
-block_sparse_decode_attention at every case of ``chip_smoke.py``'s
-``fused_decode_kernels``, ``w4a8_kernels`` (K1 at M = 8 and 544 and the
-prefill tile's edges, the decode tile also on Qwen3-30B-A3B's and
-DeepSeek's decode shapes and at M = 1 and 5), ``flash_prefill_kernels``,
-``flash_kernels``, ``moe_kernels`` (K6 at M = 1, 8, 16, 32 and 544, K10
-at M = 1, 8 and 32, K12 and K11 at every row), ``fp_kernels``
-(K7 / K8 / K9 at M = 8, 32 and 128, at N = 4096 also at M = 1, 16, 17,
-64, 65, 200 and 256, K13 at M = 1, 8, 16, 17 and 32, every byte code and
-every (e2m1 code, e4m3 scale) pair read back through both tiles),
-``paged_kernels`` and ``block_sparse_kernels`` (K17 at path J's shape,
-short selections and blocks past the length, int8 and bf16) (each held to
-the tree's plain twin at the bar
-stated there; ``chip_smoke.py``'s one-launch checks and K12's
-shared-memory count are left to it, since a parent tree may sum K splits
-in a second launch or lack the count), with its
-timer: CUDA events, median of
-25 launches, the 50 MB L2 flushed and the stream spun before each; and the host time
+``w4a16_gemm``, ``grouped_w4a8_gemm``, ``w8a16_gemm``, ``nvfp4_gemm``,
+``kv_write`` and ``paged_kv_write`` sources, then times K3
+dense_kv_write, K5 decode_attention, K2 fused_decode_attention, K1
+w4a8_gemm, K4 flash_prefill_attention, K14 flash_attention, K6
+w4a16_gemm, K10 grouped_w4a16_gemm, K7 w8a16_gemm, K8 wfp8_gemm, K9
+nvfp4_gemm, K11 / K12 grouped_w4a8(_combine)_gemm, K13
+grouped_nvfp4_gemm, K15 paged_decode_attention, K16 paged_kv_write and
+K17 block_sparse_decode_attention at every case of ``chip_smoke.py``'s
+``kv_write_kernels`` (K3 at a 544-row chunk, int8 and e4m3, and at a
+decode step of one row a slot, 1024 and 640 bytes), ``mla_decode_kernel``
+(K5 at MLA's geometry: lengths 1..1088, two chunks, 33..56 keys, and a
+bf16 cache), ``fused_decode_kernels``, ``w4a8_kernels``,
+``flash_prefill_kernels``, ``flash_kernels``, ``moe_kernels``,
+``fp_kernels``, ``paged_kernels`` (K15 at E's, L's and F's geometry, F
+also at 33..56 keys) and ``block_sparse_kernels``, each held to the tree's
+plain twin at the bar stated there (the K5 / K15 rows at MLA's geometry
+also to the tree's one-CTA body, which runs where V is a second buffer;
+``chip_smoke.py``'s one-launch checks and K12's shared-memory count are
+left to it, since a parent tree may sum K splits in a second launch or
+lack the count), with its timer: CUDA events, median of 25 launches, the
+50 MB L2 flushed and the stream spun before each; and the host time
 of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
 M = 8 and 544; calls enqueued behind a spin of the stream). Inputs
 are seeded, the same in every tree. ``--prefill`` also builds path A's
@@ -57,15 +54,13 @@ _spec.loader.exec_module(cs)
 
 from modelopt_tpu_torch.kernels import _build  # noqa: E402
 from modelopt_tpu_torch.kernels import attention as ka  # noqa: E402
-from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 
 prefill = "--prefill" in sys.argv[2:]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
                   "flash_prefill_attention", "w4a8_gemm", "w4a16_gemm", "grouped_w4a8_gemm",
-                  "w8a16_gemm", "nvfp4_gemm", "paged_kv_write")
-                 + (("kv_write",) if prefill else ()))
+                  "w8a16_gemm", "nvfp4_gemm", "kv_write", "paged_kv_write"))
 cs.one_launch = lambda *args: None  # the tree's own chip_smoke.py checks its launch counts
 cs.combine_smem_agrees = lambda *args: None  # and K12's shared-memory count
 # a tree before K1's decode-tile redesign names that tile w4a8_kernel
@@ -76,54 +71,21 @@ print(f"{os.path.basename(tree) or tree}: card {cs.card_line()}", flush=True)
 dev = "cuda"
 gen = torch.Generator(device=dev).manual_seed(0)
 out = {}
-B, D = 8, 640
-for S, top in ((2176, 1088), (512, 512)):
-    q = (torch.randn(B, 1, 16, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
-    lat = torch.randint(-127, 128, (B, S, D), generator=gen, device=dev, dtype=torch.int8)
-    lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
-    sc = torch.tensor(0.03, device=dev)
-    out[f"K5 int8 S={S}"] = timer(lambda: ka.decode_attention(q, lat, lat, lengths, sc, sc))
-lat = torch.randn(B, 2176, D, generator=gen, device=dev).to(torch.bfloat16)
-lengths = torch.linspace(1, 1088, B, device=dev).round().to(torch.int32)
-out["K5 bf16"] = timer(lambda: ka.decode_attention(q, lat, lat, lengths))
-ps, pmax, P = 64, 34, 145
-lens = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32, device=dev)
-perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0)) + 1
-pt = torch.zeros(8, pmax, dtype=torch.int32)
-used = 0
-for b, L in enumerate(lens.tolist()):
-    n = -(-L // ps)
-    pt[b, :n] = perm[used:used + n]
-    used += n
-pt = pt.to(dev)
-q = (torch.randn(8, 8, 4, 128, generator=gen, device=dev) * 2).to(torch.bfloat16)
-for kind in ("int8", "bf16"):
-    if kind == "int8":
-        kpool, vpool = (torch.randint(-127, 128, (P, ps, 1024), generator=gen, device=dev,
-                                      dtype=torch.int8) for _ in range(2))
-        ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
-    else:
-        kpool, vpool = (torch.randn(P, ps, 1024, generator=gen, device=dev).to(torch.bfloat16)
-                        for _ in range(2))
-        ks = vs = None
-    out[f"K15 {kind}"] = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lens, ks,
-                                                                  vs))
-ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
-del kpool, vpool, lat
 
-# K2, K4, K14, K1, K6-K10, K13, K15 and K17 at chip_smoke's cases, each
-# against the tree's twin
+# every kernel at chip_smoke's cases, each against the tree's twin
 rows: dict = {}
-for phase in (cs.fused_decode_kernels, cs.flash_prefill_kernels, cs.flash_kernels,
-              cs.w4a8_kernels, cs.moe_kernels, cs.fp_kernels, cs.paged_kernels,
-              cs.block_sparse_kernels):
+for phase in (cs.kv_write_kernels, cs.mla_decode_kernel, cs.fused_decode_kernels,
+              cs.flash_prefill_kernels, cs.flash_kernels, cs.w4a8_kernels, cs.moe_kernels,
+              cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
-for name, tag in (("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
+for name, tag in (("dense_kv_write", "K3"), ("decode_attention", "K5"),
+                  ("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
                   ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),
                   ("grouped_w4a16_gemm", "K10"), ("w8a16_gemm", "K7"), ("wfp8_gemm", "K8"),
                   ("nvfp4_gemm", "K9"), ("grouped_nvfp4_gemm", "K13"),
                   ("grouped_w4a8_gemm", "K11"), ("grouped_w4a8_combine_gemm", "K12"),
-                  ("paged_decode_attention", "K15"), ("block_sparse_decode_attention", "K17")):
+                  ("paged_decode_attention", "K15"), ("paged_kv_write", "K16"),
+                  ("block_sparse_decode_attention", "K17")):
     for r in rows[name]:
         out[f"{tag} {r['shape']}"] = r["ms"]
 
@@ -145,6 +107,7 @@ def host_us(fn, n: int = 100) -> float:
 from modelopt_tpu_torch.kernels import quant_gemm as kq  # noqa: E402
 
 pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
+ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
 q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
 kc, vc = (torch.randint(-127, 128, (8, 2176, 1024), generator=gen, device=dev,
                         dtype=torch.int8) for _ in range(2))

@@ -309,7 +309,51 @@ def kernel_phase(torch, results: dict) -> None:
     w4a8_kernels(torch, gen, timer, record)
     w4a8_smem_agrees(torch)
 
-    # K3 — a copy: bit-exact
+    kv_write_kernels(torch, gen, timer, record)
+
+    # the e4m3 decode that K2 and K15 read caches through (csrc/e4m3.cuh),
+    # on every code: the reference's bit assembly, 0x7f / 0xff -> +-480
+    codes = torch.arange(256, dtype=torch.uint8, device=dev)
+    got, want = ka.e4m3_decode(codes), ka.e4m3_decode_plain(codes)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("e4m3 decode: the card's decode differs from the twin's")
+    log(f"e4m3 decode: all 256 codes bit for bit against the twin (0x7f -> "
+        f"{got[0x7F].item():g}, 0xff -> {got[0xFF].item():g}, 0x80 -> {got[0x80].item():g})")
+
+    fused_decode_kernels(torch, gen, timer, record)
+    flash_prefill_kernels(torch, gen, timer, record)
+    latent_smem_agrees(torch)
+    mla_decode_kernel(torch, gen, timer, record)
+    paged_kernels(torch, gen, timer, record)
+    skip_softmax_kernels(torch, gen, timer, record)
+
+    # the reference's e4m3 branches no path of the port runs (K5, K17):
+    # an e4m3 cache on the card is refused, never dequantized for bf16
+    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
+
+    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
+    c = e4m3_codes(torch, gen, (1, 256, 128))
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
+                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
+                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
+                           one))):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} took an e4m3 cache on the card")
+    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
+
+
+def kv_write_kernels(torch, gen, timer, record) -> None:
+    """K3 at a prefill chunk (T=544 rows of 1024 bytes into one slot, int8
+    and e4m3) and at a decode step (B=8 slots, one row each at its own
+    position, 1024 and 640 bytes): a copy, byte for byte."""
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    dev = "cuda"
+    # a copy: bit-exact
     log("K3 dense_kv_write")
     B, S, T, KHD, st = 1, 2176, 544, 1024, 544
     cache = torch.randint(-127, 128, (B, S, KHD), generator=gen, device=dev,
@@ -336,39 +380,28 @@ def kernel_phase(torch, results: dict) -> None:
     lib_ms = timer(lambda: c2[:, st:st + T].copy_(vals))
     record("dense_kv_write", f"B={B} T={T} S={S} row={KHD} e4m3 start={st}",
            byte_diff(torch, got, ref), 0.0, ms, plain_ms, lib_ms, 2 * B * T * KHD, 0, INT8_OPS)
-
-    # the e4m3 decode that K2 and K15 read caches through (csrc/e4m3.cuh),
-    # on every code: the reference's bit assembly, 0x7f / 0xff -> +-480
-    codes = torch.arange(256, dtype=torch.uint8, device=dev)
-    got, want = ka.e4m3_decode(codes), ka.e4m3_decode_plain(codes)
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError("e4m3 decode: the card's decode differs from the twin's")
-    log(f"e4m3 decode: all 256 codes bit for bit against the twin (0x7f -> "
-        f"{got[0x7F].item():g}, 0xff -> {got[0xFF].item():g}, 0x80 -> {got[0x80].item():g})")
-
-    fused_decode_kernels(torch, gen, timer, record)
-    flash_prefill_kernels(torch, gen, timer, record)
-    mla_decode_kernel(torch, gen, timer, record)
-    paged_kernels(torch, gen, timer, record)
-    skip_softmax_kernels(torch, gen, timer, record)
-
-    # the reference's e4m3 branches no path of the port runs (K5, K17):
-    # an e4m3 cache on the card is refused, never dequantized for bf16
-    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
-
-    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
-    c = e4m3_codes(torch, gen, (1, 256, 128))
-    one = torch.ones(1, dtype=torch.int32, device=dev)
-    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
-                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
-                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
-                           one))):
-        try:
-            call()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{name} took an e4m3 cache on the card")
-    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
+    one_launch(torch, f"dense_kv_write B={B} T={T} row={KHD}",
+               lambda: ka.dense_kv_write(c2, vals, start))
+    # a decode step's rows at B = 8 (path J's K and V rows, D's 640-byte
+    # latent row), each slot's row at its own position, byte for byte; the
+    # library call is the indexed write of one row a slot
+    pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
+    slots, pos_l = torch.arange(8, device=dev), pos.long()
+    for row in (1024, 640):
+        cache = torch.randint(-127, 128, (8, S, row), generator=gen, device=dev, dtype=torch.int8)
+        vals = torch.randint(-127, 128, (8, 1, row), generator=gen, device=dev, dtype=torch.int8)
+        got = ka.dense_kv_write(cache.clone(), vals, pos)
+        ref = ka.dense_kv_write_plain(cache.clone(), vals, pos)
+        c2 = cache.clone()
+        ms = timer(lambda: ka.dense_kv_write(c2, vals, pos))
+        plain_ms = timer(lambda: ka.dense_kv_write_plain(c2, vals, pos))
+        lib_ms = timer(lambda: c2.__setitem__((slots, pos_l), vals[:, 0]))
+        # rows read and written once, the positions read once
+        record("dense_kv_write", f"B=8 T=1 S={S} row={row} int8 own positions",
+               byte_diff(torch, got, ref), 0.0, ms, plain_ms, lib_ms, 2 * 8 * row + 4 * 8, 0,
+               INT8_OPS)
+        one_launch(torch, f"dense_kv_write B=8 T=1 row={row}",
+                   lambda: ka.dense_kv_write(c2, vals, pos))
 
 
 def w4a8_kernels(torch, gen, timer, record) -> None:
@@ -668,13 +701,41 @@ def flash_prefill_kernels(torch, gen, timer, record) -> None:
                4 * B * keys * KH * G * D, BF16_FLOPS)
 
 
+def latent_smem_agrees(torch) -> None:
+    """The latent cluster kernel's dynamic shared memory as
+    ``attention.latent_smem`` counts it against the kernel's own count
+    (``latent_decode_smem``) at every D it takes."""
+    from modelopt_tpu_torch.kernels import _build
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    fn = _build.function("latent_decode_smem", [_build.c_int], source="decode_attention")
+    counts = {D: (fn(D), ka.latent_smem(D)) for D in range(128, 641, 128)}
+    if any(a != b for a, b in counts.values()):
+        raise AssertionError(f"latent cluster kernel's shared memory: kernel / Python {counts}")
+    log(f"latent cluster kernel's shared memory, kernel = Python: "
+        f"{ {D: a for D, (a, _) in counts.items()} } bytes")
+
+
+def same_as_one_cta(torch, what: str, out, one) -> None:
+    """The latent cluster kernel's output against the one-CTA body's on the
+    same inputs (the body runs where V is a second buffer holding K's
+    codes), bit for bit: the same codes, exact integer partials, the same
+    f32 recurrence."""
+    if not torch.equal(out.view(torch.int16), one.view(torch.int16)):
+        raise AssertionError(f"{what}: the latent cluster kernel differs from the one-CTA body "
+                             f"by {(out.float() - one.float()).abs().max().item():g}")
+    log(f"  {what}: the latent cluster kernel = the one-CTA body, bit for bit")
+
+
 def mla_decode_kernel(torch, gen, timer, record) -> None:
     """K5 at the MLA decode shape of DeepSeek-V2-Lite: B=8 slots, one
     shared KV head, G=16 query heads, D=640 (the 576-wide latent row
     padded), the same int8 latent tensor as K and V, lengths spread over
     1..1088; S=2176 is one chunk of S (2176 % 256 != 0), S=512 two chunks,
-    where the 7-bit codes are rounded against a running max; then a bf16
-    cache at the path shape."""
+    where the 7-bit codes are rounded against a running max; lengths
+    33..56 (D's decode-window contexts: one piece a slot, rank 0 of each
+    cluster alone); then a bf16 cache at the path shape. The int8 rows run
+    the latent cluster kernel and are also held to the one-CTA body."""
     import torch.nn.functional as F
 
     from modelopt_tpu_torch.kernels import attention as ka
@@ -688,13 +749,20 @@ def mla_decode_kernel(torch, gen, timer, record) -> None:
     # bf16 ulp of the largest output for the final rounding.
     log("K5 decode_attention")
     B, G, D, vs_ = 8, 16, 640, 0.03
-    for S, top in ((2176, 1088), (512, 512)):
+    short = torch.tensor([33, 40, 56, 50, 47, 36, 45, 52], dtype=torch.int32, device=dev)
+    for S, top in ((2176, 1088), (512, 512), (2176, None)):
         q = (torch.randn(B, 1, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
         lat = torch.randint(-127, 128, (B, S, D), generator=gen, device=dev,
                             dtype=torch.int8)
-        lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+        lengths = (torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+                   if top else short)
+        label = f"lengths 1..{top}" if top else "lengths 33..56"
         sc = torch.tensor(vs_, device=dev)
         out = ka.decode_attention(q, lat, lat, lengths, sc, sc)
+        same_as_one_cta(torch, f"K5 S={S} {label}", out,
+                        ka.decode_attention(q, lat, lat.clone(), lengths, sc, sc))
+        one_launch(torch, f"decode_attention S={S} {label}",
+                   lambda: ka.decode_attention(q, lat, lat, lengths, sc, sc))
         ref = ka.decode_attention_plain(q, lat, lat, lengths, sc, sc)
         err = (out.float() - ref.float()).abs().max().item()
         top_ref = ref.float().abs().max().item()
@@ -708,7 +776,7 @@ def mla_decode_kernel(torch, gen, timer, record) -> None:
         live = int(lengths.long().sum())
         # the aliased K = V rows are read once; q in, out back, bf16
         nbytes = live * D + 2 * B * G * D * 2
-        record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} int8 K=V lengths 1..{top}",
+        record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} int8 K=V {label}",
                err, tol, ms, plain_ms, lib_ms, nbytes, 4 * live * G * D, INT8_OPS)
 
     # A bf16 cache (off the served paths: MLA decodes a bf16 latent cache
@@ -781,9 +849,13 @@ def paged_kernels(torch, gen, timer, record) -> None:
     lengths_1 = torch.tensor([33, 40, 64, 50, 47, 63, 45, 64], dtype=torch.int32, device=dev)
     lengths_128 = torch.tensor([8192, 8000, 7000, 8192, 100, 4097, 8191, 6000],
                                dtype=torch.int32, device=dev)
+    # F's geometry also at its decode-window contexts (33..56 keys: one
+    # page a slot, rank 0 of each cluster alone)
+    lengths_fs = torch.tensor([33, 40, 56, 50, 47, 36, 45, 52], dtype=torch.int32, device=dev)
     cases = (("E", 8, 4, 128, "int8", lengths_e, pmax, P),
              ("E", 8, 4, 128, "bf16", lengths_e, pmax, P),
              ("F", 1, 16, 640, "int8", lengths_f, pmax, P),
+             ("F1", 1, 16, 640, "int8", lengths_fs, pmax, P),
              ("L", 8, 4, 128, "e4m3", lengths_e, pmax, P),
              ("E1", 8, 4, 128, "int8", lengths_1, pmax, P),
              ("E128", 8, 4, 128, "int8", lengths_128, 128, 8 * 128 + 1))
@@ -812,6 +884,11 @@ def paged_kernels(torch, gen, timer, record) -> None:
             rate = BF16_FLOPS
         kpool, vpool = pools[0], pools[-1]
         out = kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs)
+        if path.startswith("F"):  # the latent cluster kernel
+            same_as_one_cta(torch, f"K15 {path} PMAX={tmax}", out, kp.paged_decode_attention(
+                q, kpool, kpool.clone(), pt, lengths, ks, vs))
+            one_launch(torch, f"paged_decode_attention {path}",
+                       lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
         ref = kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths, ks, vs)
         err = (out.float() - ref.float()).abs().max().item()
         ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
@@ -834,8 +911,8 @@ def paged_kernels(torch, gen, timer, record) -> None:
         nbytes = (len(pools) * live * KH * D * item + 4 * sum(-(-int(L) // ps) for L in
                   lengths.tolist()) + 4 * B + 2 * 2 * B * KH * G * D)
         shape = (f"B={B} PMAX={tmax} ps={ps} KH={KH} G={G} D={D} {kind} "
-                 + {"F": "K=V lengths 1..1088", "E1": "one page a slot"}.get(
-                     path, "ragged lengths"))
+                 + {"F": "K=V lengths 1..1088", "F1": "K=V lengths 33..56",
+                    "E1": "one page a slot"}.get(path, "ragged lengths"))
         record("paged_decode_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * live * KH * G * D, rate)
         del pools, deq, kpool, vpool
@@ -2117,7 +2194,8 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "E": ("Llama-3-8B W4A8 + int8 KV pages", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
     "F": ("DeepSeek-V2-Lite W4A8 + int8 latent pages", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
           "int8"),
-    "G": ("Llama-3-8B FP8 W8A8 + bf16 KV", "llama3_8b", "FP8_DEFAULT_CFG", "bfloat16"),
+    "G": ("Llama-3-8B FP8 W8A8 + bf16 KV, 16 of 32 layers", "llama3_8b", "FP8_DEFAULT_CFG",
+          "bfloat16"),
     "H": ("Llama-3-8B INT8 weight-only + bf16 KV", "llama3_8b", "INT8_WEIGHT_ONLY_CFG",
           "bfloat16"),
     "I": ("Qwen3-30B-A3B NVFP4 weight-only + bf16 KV", "qwen3_moe", "NVFP4_WEIGHT_ONLY_CFG",
@@ -2125,14 +2203,22 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "K": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
     "L": ("Llama-3-8B FP8 W8A8 + e4m3 KV pages", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
 }
+# paths served at a cut depth (Llama-3-8B: 32 layers), to keep the script
+# well inside its time limit
+PATH_LAYERS = {"G": 16}
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
 PAGED = ("E", "F", "L")
+# paths whose decode attention is also profiled at ~1024 keys a slot (K5,
+# K15 at MLA's geometry), beside the 8 x 32 -> 24 window every path takes
+LONG_WINDOW = ("D", "F")
 TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
-def path_config(torch, model: str):
+def path_config(torch, model: str, layers: int = None):
+    """The path's model configuration at full width; ``layers`` cuts a Llama
+    to that depth."""
     from modelopt_tpu_torch.models import (deepseek_v2_lite_config, llama3_8b_config,
                                            qwen3_moe_config)
 
@@ -2142,7 +2228,7 @@ def path_config(torch, model: str):
     if model == "deepseek_v2_lite":  # full width, 14 of 27 layers, 64 + 2 experts
         return deepseek_v2_lite_config(num_layers=14, param_dtype=torch.bfloat16)
     return llama3_8b_config(max_position_embeddings=2176, param_dtype=torch.bfloat16,
-                            fused_qkv=True, fused_gate_up=True)
+                            fused_qkv=True, fused_gate_up=True, num_layers=layers or 32)
 
 
 def static_quantizers(bundle) -> list:
@@ -2176,7 +2262,7 @@ def serve_path(torch, name) -> dict:
     from modelopt_tpu_torch.serve import ServingEngine, run_serving_benchmark
 
     title, model, preset, kv = PATHS[name]
-    cfg = path_config(torch, model)
+    cfg = path_config(torch, model, PATH_LAYERS.get(name))
     kv_dtype = getattr(torch, kv)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
@@ -2219,6 +2305,8 @@ def serve_path(torch, name) -> dict:
         raise AssertionError(f"path {name}: a cache is not {kv_dtype}")
     log(f"  every cache tensor is {kv_dtype}")
     profile_window(torch, eng, 8, 32, 24, cfg.vocab_size)
+    if name in LONG_WINDOW:
+        context_window(torch, eng, 8, TRAFFIC[1], cfg.vocab_size)
     check_output(torch, eng, cfg.vocab_size)
     if paging and eng.allocator.free_pages != PAGED_POOL - 1:
         raise AssertionError(f"path {name}: {eng.allocator.free_pages} pages free at the end, "
@@ -2402,6 +2490,38 @@ def profile_window(torch, eng, n_req: int, in_len: int, out_len: int, vocab: int
                    f"{eng.stats['prefill_chunks'] - forwards[1]} prefill chunks")
 
 
+def context_window(torch, eng, n_req: int, in_len: int, vocab: int) -> None:
+    """torch.profiler over one scheduler tick, a burst of the engine's
+    multi_step decode forwards, with every slot at ~in_len keys: n_req
+    prompts of in_len tokens are prefilled first (a slot decodes one token a
+    tick while the others prefill, and the tick that ends the last prefill
+    bursts once: the first slot holds ~24 tokens, the last 17), 48 new
+    tokens each, so no slot finishes before the profiled burst does and a
+    paged slot needs at most 17 pages of 64 rows; the requests finish
+    outside the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = torch.Generator().manual_seed(9)
+    reqs = [eng.submit(torch.randint(1, vocab, (in_len,), generator=rng).tolist(),
+                       max_new_tokens=48) for _ in range(n_req)]
+    while not all(r.out_tokens for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    forwards = eng.stats["decode_forwards"]
+    keys = [in_len + len(r.out_tokens) for r in reqs]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    active = sum(not r.done for r in reqs)
+    report_profile(torch, prof, wall,
+                   f"{n_req} requests at {min(keys)}-{max(keys)} keys, one tick; "
+                   f"{eng.stats['decode_forwards'] - forwards} decode forwards, {active} "
+                   f"requests still running after it")
+    eng.run()
+
+
 # the kernels a prefill window reports apart, by path: (label, kernel names)
 PREFILL_SPLIT = {
     "A": (("K1", ("w4a8_dec_kernel", "w4a8_wg_kernel")),
@@ -2490,7 +2610,8 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
         "w4a8_dec_kernel", "w4a8_wg_kernel", "w4a16_dec_kernel", "w4a16_wg_kernel",
         "grouped_w4a8_combine_kernel", "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
-        "paged_attention_kernel", "paged_cluster_kernel", "page_write_kernel", "w8_dec_kernel", "w8_wg_kernel",
+        "paged_attention_kernel", "paged_cluster_kernel", "latent_cluster_kernel",
+        "page_write_kernel", "w8_dec_kernel", "w8_wg_kernel",
         "nvfp4_dec_kernel", "nvfp4_wg_kernel", "block_sparse_attention_kernel",
         "sparse_cluster_kernel", "flash_attention_kernel", "grouped_w4a8_kernel")}
     log(f"  profile window ({what}): wall "
@@ -2514,10 +2635,11 @@ PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode
                      "grouped_w4a8_gemm")
 # sources none of whose instances may spill registers, and kernels (by
 # name, in any source) none of whose instances may: K1's decode tile, K17's
-# cluster kernel, and K12's and K11's 8-token instances (the decode steps')
+# cluster kernel, K12's and K11's 8-token instances (the decode steps') and
+# K5 / K15's latent cluster kernel
 NO_SPILL = ("w4a16_gemm", "nvfp4_gemm", "w8a16_gemm")
 NO_SPILL_KERNELS = ("w4a8_dec_kernel", "sparse_cluster_kernel", "grouped_w4a8_combine_kernel<1,",
-                    "grouped_w4a8_kernel<1,")
+                    "grouped_w4a8_kernel<1,", "latent_cluster_kernel")
 
 
 def ptxas_by_function(text: str) -> dict:

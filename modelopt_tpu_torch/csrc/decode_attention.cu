@@ -57,11 +57,11 @@
 // 3.35 TB/s of HBM; paged, the same rows wherever their pages lie;
 // block-sparse, the rows of the selected blocks only.
 //
-// Design (K5, and K15 and K17 off the cluster geometry, e.g. MLA's
-// D = 640): the reference's arithmetic is independent per (head, group)
-// row, so the grid is (slot, KV head, pair of rows): B * KH * G/2 CTAs of 256 threads (64 at the MLA decode shape
-// B=8, G=16), each reading the slot's live rows; the CTAs of one slot meet
-// the same rows in L2. Each CTA walks all keys of its slot. Per chunk: each
+// Design of the one-CTA body (K5 and K15 off both cluster geometries below,
+// e.g. a bf16 latent cache; K17 off its own): the reference's arithmetic is
+// independent per (head, group) row, so the grid is (slot, KV head, pair of
+// rows): B * KH * G/2 CTAs of 256 threads, each reading the slot's live
+// rows; the CTAs of one slot meet the same rows in L2. Each CTA walks all keys of its slot. Per chunk: each
 // warp scores one key at a time (a lane takes 4 columns of each 128, the
 // row is one coalesced read, a warp shuffle sums it) into shared memory; a
 // block reduction gives the chunk max; threads turn scores into codes;
@@ -83,6 +83,25 @@
 // f32 recurrence over all pages in order for its 16 columns. So an int8
 // output is the same arithmetic on the same integers as one CTA that walks
 // every page.
+//
+// K5, and K15 off the D = 128 cluster geometry, at MLA's geometry (KH = 1,
+// G <= 16, D a multiple of 128 up to 640, an int8 cache given as both K and
+// V, chunks of at most 2176 keys: paths D's and F's decode steps) run
+// latent_decode.cuh's tensor-core cluster kernel instead (latent_ok): one
+// cluster of 16 CTAs a slot that splits the slot's latent rows into pieces
+// of at most 68 keys inside chunk boundaries, each CTA staging its rows once
+// for both the scores and PV. The argument is K15's: a code depends only on
+// its score and its chunk's running max, and a max is the same in any
+// order, so once the ranks agree on every chunk's running max (exchanged
+// over distributed shared memory) before any code is rounded, each rank's
+// codes are those of one CTA walking every key; integer partials sum
+// exactly in any order, so the owner of each column slice sums a chunk's
+// partials over the ranks that hold it and replays the f32 recurrence
+// chunk by chunk in order, as the body here does. An int8 output is the
+// same arithmetic on the same integers, bit for bit this body's. With one
+// piece in the slot (the short contexts), rank 0 alone runs it. Every other
+// geometry (bf16 at D = 640, K15's e4m3 instance, K and V two buffers, K17
+// off its cluster geometry) keeps the one-CTA body.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -90,6 +109,7 @@
 
 #include "cluster_decode.cuh"
 #include "e4m3.cuh"
+#include "latent_decode.cuh"
 
 namespace {
 
@@ -630,6 +650,34 @@ bool cluster_ok(int D, int G, int ps) {
          ps <= cluster_decode::SB;
 }
 
+// whether latent_decode.cuh's cluster kernel takes the geometry (else the
+// one-CTA body): int8, one KV head, G <= 16, K and V one buffer (its rows
+// are staged once for both), D a multiple of 128 up to 640 and a chunk
+// (dense: 256 keys or all of S; paged: a page) that fits one round
+bool latent_ok(const Args& a, int D, int cache_kind) {
+  return cache_kind == 1 && a.KH == 1 && a.G <= latent::GM && D % 128 == 0 && D <= 640 &&
+         a.kc == a.vc && a.sel == nullptr && a.chunk <= latent::MAX_CHUNK;
+}
+
+int launch_latent(const Args& a, int D, int pmax, cudaStream_t s) {
+  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+  const auto* c = static_cast<const int8_t*>(a.kc);
+  const auto* lengths = static_cast<const int*>(a.lengths);
+  const auto* pt = static_cast<const int*>(a.page_table);
+  const auto* ks = static_cast<const float*>(a.kscale);
+  const auto* vs = static_cast<const float*>(a.vscale);
+  auto* of = static_cast<float*>(a.out_f32);
+  auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
+  switch (D) {
+    case 128: return latent::launch<1>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 256: return latent::launch<2>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 384: return latent::launch<3>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 512: return latent::launch<4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 640: return latent::launch<5>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q bf16 [B, KH, G, D]; caches [B, S, KH*D] of bf16 (cache_kind 0) or int8
@@ -643,12 +691,15 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
                                 int D, int chunk, int cache_kind, void* stream) {
   const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, nullptr, nullptr, out_f32, out_bf16,
                B, S, KH, G, chunk, 0};
-  return dispatch(D, cache_kind, a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * KH * G > 0 && latent_ok(a, D, cache_kind)) return launch_latent(a, D, 0, s);
+  return dispatch(D, cache_kind, a, s);
 }
 
 // K15, paged decode attention: at D = 128, G in {1, 2, 4, 8} and pages of
-// 8 to 512 rows (paths E and L) the cluster kernel, else (MLA's D = 640) the
-// same kernel as K5 with chunk = page. Pools
+// 8 to 512 rows (paths E and L) the cluster kernel; at MLA's geometry
+// (latent_ok: path F) latent_decode.cuh's cluster kernel, one page a
+// chunk; else the same kernel as K5 with chunk = page. Pools
 // [n_pages, page_size, KH*D] (bf16, int8 or e4m3: cache_kind 0, 1, 2;
 // 16-byte aligned; K and V may be one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
 // valid page (unused ones 0); keys [0, min(lengths[b], pmax * page_size)).
@@ -661,7 +712,9 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
   const Args a{q, k_pages, v_pages, lengths, kscale, vscale, page_table, nullptr, nullptr,
                out_f32, out_bf16, B, pmax * page_size, KH, G, page_size, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B * KH * G == 0 || !cluster_ok(D, G, page_size)) return dispatch(D, cache_kind, a, s);
+  if (B * KH * G == 0) return 0;
+  if (!cluster_ok(D, G, page_size))
+    return latent_ok(a, D, cache_kind) ? launch_latent(a, D, pmax, s) : dispatch(D, cache_kind, a, s);
   switch (cache_kind) {
     case 0: return cluster_g<__nv_bfloat16>(a, pmax, s);
     case 1: return cluster_g<int8_t>(a, pmax, s);
@@ -690,5 +743,19 @@ extern "C" int block_sparse_decode_attention(const void* q, const void* kc, cons
     case 0: return cluster_g<__nv_bfloat16>(a, 0, s);
     case 1: return cluster_g<int8_t>(a, 0, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory of one CTA of latent_decode.cuh's cluster kernel at
+// D (0 for a D it does not take): kernels/attention.py's latent_smem must
+// agree
+extern "C" int latent_decode_smem(int D) {
+  switch (D) {
+    case 128: return latent::Geo<1>::SMEM;
+    case 256: return latent::Geo<2>::SMEM;
+    case 384: return latent::Geo<3>::SMEM;
+    case 512: return latent::Geo<4>::SMEM;
+    case 640: return latent::Geo<5>::SMEM;
+    default: return 0;
   }
 }

@@ -8,28 +8,35 @@
 // dynamic_update_slice: start[b] is clamped to [0, S - T].
 //
 // What bounds it on an H100: bytes, T * row read once and written once per
-// slot, over the 3.35 TB/s of HBM.
+// slot, over the 3.35 TB/s of HBM; below ~1 MB (every shape the paths run:
+// 557 KB for a 544-row chunk of 1024-byte rows, 5-8 KB for a decode step's
+// one row a slot) the latency of one round trip, a load and the store that
+// depends on it.
 //
-// Design: one CTA per (slot, group of rows); every thread moves 16-byte
-// vectors, so a warp writes 512 contiguous bytes. Only the touched rows
-// move; the rest of the cache is never read.
+// Design: the grid is sized to the copy, one 16-byte vector a thread, so
+// every load of the update is issued at once and each thread's store
+// waits only on its own load (a thread that looped over several vectors
+// would wait out one round trip a vector). Consecutive threads take
+// consecutive vectors: a warp moves 512 contiguous bytes, and at T = 1 a
+// 1024-byte row is two warps, a 640-byte row 40 lanes, with no CTA of idle
+// threads. Only the touched rows move; the rest of the cache is never read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void kv_write_kernel(uint4* __restrict__ cache,
-                                const uint4* __restrict__ vals,
-                                const int* __restrict__ start, int S, int T,
-                                int row_vecs, int rows_per_cta) {
-  const int b = blockIdx.y;
+constexpr int NT = 128;  // threads a CTA
+
+__global__ void __launch_bounds__(NT)
+kv_write_kernel(uint4* __restrict__ cache, const uint4* __restrict__ vals,
+                const int* __restrict__ start, int S, int T, int row_vecs, int total) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= total) return;
+  const uint4 v = vals[i];  // in flight while start[b] is read
+  const int slot_vecs = T * row_vecs;
+  const int b = i / slot_vecs;
   const int s = max(0, min(start[b], S - T));
-  const int r0 = blockIdx.x * rows_per_cta;
-  const int r1 = min(T, r0 + rows_per_cta);
-  const uint4* src = vals + (size_t)b * T * row_vecs;
-  uint4* dst = cache + ((size_t)b * S + s) * row_vecs;
-  for (int i = r0 * row_vecs + threadIdx.x; i < r1 * row_vecs; i += blockDim.x)
-    dst[i] = src[i];
+  cache[((size_t)b * S + s) * row_vecs + (i - b * slot_vecs)] = v;
 }
 
 }  // namespace
@@ -39,11 +46,10 @@ __global__ void kv_write_kernel(uint4* __restrict__ cache,
 extern "C" int kv_write(void* cache, const void* vals, const void* start, int B,
                         int S, int T, int row_bytes, void* stream) {
   const int row_vecs = row_bytes / 16;
-  int rows_per_cta = 1024 / row_vecs;  // 4 vectors a thread
-  if (rows_per_cta < 1) rows_per_cta = 1;
-  dim3 grid((T + rows_per_cta - 1) / rows_per_cta, B);
-  kv_write_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int total = B * T * row_vecs;
+  if (total == 0) return 0;
+  kv_write_kernel<<<(total + NT - 1) / NT, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint4*>(cache), static_cast<const uint4*>(vals),
-      static_cast<const int*>(start), S, T, row_vecs, rows_per_cta);
+      static_cast<const int*>(start), S, T, row_vecs, total);
   return (int)cudaGetLastError();
 }

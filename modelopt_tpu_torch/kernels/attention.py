@@ -9,7 +9,9 @@ cache buffers, these functions write into the tensors they are given and
 hand the same tensors back. K5 only reads.
 
 On CUDA tensors the wrappers launch ``csrc/kv_write.cu``,
-``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu``; on CPU
+``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu`` (at
+MLA's geometry K5's entry runs ``csrc/latent_decode.cuh``'s cluster kernel,
+else its one-CTA body); on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as
 the card's oracles). Caches hold bf16 values or int8 or e4m3 codes with
 f32 scalar scales; e4m3 codes are read as the reference reads them
@@ -306,6 +308,58 @@ DECODE_MAX_G = 16
 DECODE_MAX_D = 640
 
 
+# K5 and K15 at MLA's geometry (one KV head, G <= 16, D a multiple of 128
+# up to 640, one int8 tensor as K and V, chunks of at most
+# LATENT_RANKS * LATENT_SLOTS * LATENT_PIECE = 2176 keys) run
+# csrc/latent_decode.cuh's cluster kernel; its C entry decides
+# (``latent_ok`` in csrc/decode_attention.cu), every other geometry takes
+# the one-CTA body. The plan below is the kernel's, worked out on the
+# device from each slot's length.
+LATENT_RANKS = 16      # CTAs a cluster
+LATENT_PIECE = 68      # keys a piece at most
+LATENT_SLOTS = 2       # pieces a CTA holds a round
+# two CTAs an SM: each may take (228 KB - 2 x 1 KB reserved) / 2 bytes
+LATENT_CTA_SMEM = 115_712
+LATENT_STATIC_SMEM = 5_008  # the kernel's static arrays (maxima, code sums, scales, tables)
+
+
+def latent_plan(L: int, chunk: int) -> list:
+    """The latent cluster kernel's split of a slot of ``L`` keys in chunks
+    of ``chunk`` keys: a list of rounds, each a list over the ranks that
+    hold pieces (at most LATENT_RANKS) of their pieces (chunk index, lo,
+    hi). A chunk of n keys falls in ceil(n / LATENT_PIECE) balanced pieces;
+    a round takes whole chunks, at most LATENT_RANKS * LATENT_SLOTS pieces,
+    and of its n pieces rank r of R = min(LATENT_RANKS, n) takes
+    [n r / R, n (r + 1) / R). One piece in all
+    (``L <= min(LATENT_PIECE, chunk)``): rank 0 alone runs the slot."""
+    if L <= 0:
+        return []
+    nchunks = -(-L // chunk)
+    p_full = -(-chunk // LATENT_PIECE)
+    p_last = -(-(L - (nchunks - 1) * chunk) // LATENT_PIECE)
+    cpr = LATENT_RANKS * LATENT_SLOTS // p_full
+    rounds = []
+    for c0 in range(0, nchunks, cpr):
+        pieces = []
+        for c in range(c0, min(nchunks, c0 + cpr)):
+            n, p = min(chunk, L - c * chunk), p_last if c == nchunks - 1 else p_full
+            pieces += [(c, c * chunk + n * i // p, c * chunk + n * (i + 1) // p)
+                       for i in range(p)]
+        n = len(pieces)
+        R = min(LATENT_RANKS, n)
+        rounds.append([pieces[n * r // R:n * (r + 1) // R] for r in range(R)])
+    return rounds
+
+
+def latent_smem(D: int) -> int:
+    """Dynamic shared memory of one CTA of the latent cluster kernel:
+    staged rows (the held partials over them), q's int8 A fragments, the
+    scores and the 7-bit codes of its two pieces. ``chip_smoke.py`` holds
+    it to the kernel's own count (``latent_decode_smem``)."""
+    rows = LATENT_SLOTS * LATENT_PIECE * D
+    return rows + 16 * D + 4 * LATENT_SLOTS * 16 * 72 + LATENT_SLOTS * 16 * 112
+
+
 def decode_attention_ok(q_shape, S: int, cache_dtype) -> bool:
     """Whether a decode step takes K5. The reference's rule for its TPU
     kernel (``decode_attention_ok``): quantized caches (int8 or e4m3) with
@@ -375,7 +429,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
     if lengths.dtype != torch.int32:
         raise ValueError("decode_attention: lengths must be int32")
     chunk = _decode_chunk(S, chunk)
-    q = q.to(torch.bfloat16).contiguous()
+    q = _build.aligned16(q.to(torch.bfloat16).contiguous())
     scales = [None if t is None else _scalar(t, q.device) for t in (k_scale, v_scale)]
     _build.check_cuda("decode_attention", q, k_cache, v_cache, lengths, *scales)
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:

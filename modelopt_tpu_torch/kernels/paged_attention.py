@@ -8,8 +8,10 @@ index to a pool page id, unused entries pointing at the null page 0.
 On CUDA tensors the wrappers launch ``csrc/decode_attention.cu``'s
 ``paged_decode_attention`` entry (at D = 128 and G in {1, 2, 4, 8} a
 thread-block cluster of 8 CTAs per slot and KV head that splits the
-slot's pages, ``csrc/cluster_decode.cuh``; at MLA's geometry K5's kernel
-walking one page per chunk) and ``csrc/paged_kv_write.cu``; on CPU
+slot's pages, ``csrc/cluster_decode.cuh``; at MLA's geometry K5's
+latent cluster kernel, ``csrc/latent_decode.cuh``, one page a chunk; else
+K5's one-CTA body walking one page per chunk) and
+``csrc/paged_kv_write.cu``; on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as
 the card's oracles). K16 writes the pool IN PLACE and hands it back,
 where the reference aliases it.
@@ -102,7 +104,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, k_scale=Non
         raise ValueError(f"paged_decode_attention: out_dtype {out_dtype}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("paged_decode_attention: page_table and lengths must be int32")
-    q = q.to(torch.bfloat16).contiguous()
+    q = _build.aligned16(q.to(torch.bfloat16).contiguous())
     scales = [None if t is None else _scalar(t, q.device) for t in (k_scale, v_scale)]
     _build.check_cuda("paged_decode_attention", q, k_pages, v_pages, page_table, lengths,
                       *scales)

@@ -1,6 +1,7 @@
-"""K2 fused_decode_attention split over keys, and K15
+"""K2 fused_decode_attention split over keys, K15
 paged_decode_attention and K17 block_sparse_decode_attention split over
-pages (K17's pages: its selected blocks), as the CUDA kernels' thread-block
+pages (K17's pages: its selected blocks), and K5 / K15 at MLA's geometry
+split over pieces of the latent rows, as the CUDA kernels' thread-block
 clusters split them: torch models of the kernels' rounds held to the JAX
 package's Pallas kernels (interpret mode) and to the port's plain versions.
 They pin the claim that splitting a slot's keys over C CTAs changes no int8
@@ -395,3 +396,145 @@ def test_sparse_split_over_blocks_matches_reference(rng, kind):
             jnp.asarray(sel), jnp.asarray(nvalid), jnp.asarray(lengths), k_scale=ks, v_scale=vs,
             block_size=bs, out_dtype=jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K15 at MLA's geometry: the latent cluster kernel
+# ---------------------------------------------------------------------------
+def latent_cluster_decode(q, cache, lengths, k_scale, v_scale, chunk, page_table=None):
+    """The latent cluster kernel (csrc/latent_decode.cuh) for every slot:
+    one int8 latent tensor [B, S, D] (or pool [n_pages, chunk, D] with
+    ``page_table``) as K and V, one KV head, G <= 16 query rows, split as
+    ``latent_plan`` says. Per round: each rank's pieces scored and their
+    maxima taken; the running max at each chunk of the round from all
+    pieces' maxima, in order; each piece's codes against its chunk's
+    running max, summed as s32 per rank over its pieces of one chunk (a
+    segment); the owner of each column sums a chunk's segments over the
+    ranks, then one f32 update per chunk in order. f32 out."""
+    from modelopt_tpu_torch.kernels import paged_attention as tpa
+
+    B, KH, G, D = q.shape
+    assert KH == 1 and G <= 16
+    if page_table is not None:
+        cache = tpa.paged_gather_dense(cache, page_table)
+    S = cache.shape[1]
+    ks, vs = (ta._scalar(t, "cpu") for t in (k_scale, v_scale))
+    scores = _scores(q.to(torch.bfloat16).float(), cache.view(B, S, 1, D), ks, True)[:, 0]
+    out = torch.empty(B, 1, G, D)
+    for b in range(B):
+        L = max(min(int(lengths[b]), S), 0)
+        s, vb = scores[b], cache[b].to(torch.int64)
+        m_prev = torch.full((G,), -1e30)
+        m, l, acc = torch.full((G, 1), -1e30), torch.zeros(G, 1), torch.zeros(G, D)
+        for rnd in ta.latent_plan(L, chunk):
+            assert len(rnd) <= ta.LATENT_RANKS
+            order = [p for held in rnd for p in held]
+            cm = {}
+            for i, (c, lo, hi) in enumerate(order):
+                m_prev = torch.maximum(m_prev, s[:, lo:hi].amax(-1))
+                if i == len(order) - 1 or order[i + 1][0] != c:
+                    cm[c] = m_prev
+            segments = []  # (chunk, sum of codes, s32 partial) of each rank, rank by rank
+            for held in rnd:
+                assert 1 <= len(held) <= ta.LATENT_SLOTS
+                for c, lo, hi in held:
+                    assert hi - lo <= ta.LATENT_PIECE and lo // chunk == (hi - 1) // chunk == c
+                    e8 = torch.round(torch.exp(s[:, lo:hi] - cm[c][:, None]) * 127.0)
+                    e8 = e8.to(torch.int64)
+                    es, y = e8.sum(-1), e8 @ vb[lo:hi]
+                    if segments and segments[-1][0] == c and held[0] != (c, lo, hi):
+                        segments[-1] = (c, segments[-1][1] + es, segments[-1][2] + y)
+                    else:
+                        segments.append((c, es, y))
+            for c in sorted(cm):
+                t = sum(y for cc, _, y in segments if cc == c)
+                es = sum(e for cc, e, _ in segments if cc == c)
+                mc = cm[c][:, None]
+                alpha = torch.exp(m - mc)
+                l = l * alpha + es.float()[:, None] * (1.0 / 127.0)
+                acc = acc * alpha + t.float() * (1.0 / 127.0)
+                m = mc
+        out[b, 0] = acc * (vs / l.clamp_min(1e-30))
+    return out
+
+
+# empty, one key, a short context (one piece: rank 0 alone), a piece's
+# edge (64 / 65 keys: one piece and two), 300 keys over five ranks, the
+# whole cache
+LATENT_LENGTHS = [0, 1, 33, 64, 65, 300]
+
+
+@pytest.mark.parametrize("layout", ["one chunk", "256-key chunks", "pages"])
+def test_latent_split_matches_reference(rng, layout):
+    """MLA's geometry (one KV head, G = 16, D = 640, one int8 latent tensor
+    as K and V) split as the latent cluster kernel splits it: bit for bit
+    the port's plain version (the same codes, exact integer partials, the
+    same f32 recurrence chunk by chunk); against the Pallas kernel
+    (interpret mode) within 1e-2, the bar of
+    test_torch_decode_attention.py (exp and the summation order differ in
+    the last bits there, which can move one 7-bit code)."""
+    from modelopt_tpu.kernels import paged_attention as jpa
+    from modelopt_tpu_torch.kernels import paged_attention as tpa
+
+    G, D, sc = 16, 640, 0.03
+    S = {"one chunk": 520, "256-key chunks": 512, "pages": 576}[layout]
+    lengths = np.asarray(LATENT_LENGTHS + [S], np.int32)
+    B = len(lengths)
+    q = (rng.standard_normal((B, 1, G, D)) * 2).astype(np.float32)
+    tq, tl = torch.from_numpy(q).bfloat16(), torch.from_numpy(lengths)
+    if layout == "pages":
+        ps = 64
+        pmax, n_pages = S // ps, 24  # tables drawn from a pool of 24 pages (a page may recur)
+        pool = rng.integers(-127, 128, (n_pages, ps, D)).astype(np.int8)
+        pt = rng.integers(0, n_pages, (B, pmax)).astype(np.int32)
+        tp, tpt = torch.from_numpy(pool), torch.from_numpy(pt)
+        got = latent_cluster_decode(tq, tp, tl, sc, sc, ps, tpt)
+        want = tpa.paged_decode_attention_plain(tq, tp, tp, tpt, tl, sc, sc,
+                                                out_dtype=torch.float32)
+        with pltpu.force_tpu_interpret_mode():
+            jp = jnp.asarray(pool)
+            ref = jpa.paged_decode_attention(jnp.asarray(q, jnp.bfloat16), jp, jp,
+                                             jnp.asarray(pt), jnp.asarray(lengths), k_scale=sc,
+                                             v_scale=sc, out_dtype=jnp.float32)
+    else:
+        lat = rng.integers(-127, 128, (B, S, D)).astype(np.int8)
+        tc = torch.from_numpy(lat)
+        got = latent_cluster_decode(tq, tc, tl, sc, sc, ta._decode_chunk(S, 256))
+        want = ta.decode_attention_plain(tq, tc, tc, tl, sc, sc, out_dtype=torch.float32)
+        with pltpu.force_tpu_interpret_mode():
+            jc = jnp.asarray(lat)
+            ref = ja.decode_attention(jnp.asarray(q, jnp.bfloat16), jc, jc, jnp.asarray(lengths),
+                                      k_scale=sc, v_scale=sc, out_dtype=jnp.float32)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # no key: l = 0, out 0
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("chunk,S", [(2176, 2176), (520, 520), (256, 4096), (64, 2176),
+                                     (8, 512), (136, 2176), (2176, 8192)])
+def test_latent_plan_covers_every_length(chunk, S):
+    """At every length up to S: the pieces cover [0, L) once, in order,
+    each at most LATENT_PIECE keys inside one chunk; a round takes whole
+    chunks, at most LATENT_RANKS ranks of at most LATENT_SLOTS pieces; one
+    piece in all exactly where L <= min(LATENT_PIECE, chunk) (rank 0
+    alone). The held rows and partials fit the kernel's shared memory."""
+    for L in range(S + 1):
+        plan = ta.latent_plan(L, chunk)
+        keys, total = 0, 0
+        for rnd in plan:
+            assert 1 <= len(rnd) <= ta.LATENT_RANKS
+            chunks = {c for held in rnd for c, _, _ in held}
+            assert chunks == set(range(min(chunks), max(chunks) + 1))
+            for held in rnd:
+                assert 1 <= len(held) <= ta.LATENT_SLOTS
+                for c, lo, hi in held:
+                    assert lo == keys and 0 < hi - lo <= ta.LATENT_PIECE
+                    assert c * chunk <= lo and hi <= min((c + 1) * chunk, L)
+                    keys, total = hi, total + 1
+            # a round's chunks are whole: the next round starts a chunk
+            assert keys == L or keys % chunk == 0
+        assert keys == L
+        assert (total <= 1) == (L <= min(ta.LATENT_PIECE, chunk))
+    for D in range(128, 641, 128):
+        assert ta.latent_smem(D) + ta.LATENT_STATIC_SMEM <= ta.LATENT_CTA_SMEM
+        assert 4 * 16 * (D + 1) <= ta.LATENT_PIECE * D  # a chunk's partial over its rows
