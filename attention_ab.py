@@ -19,15 +19,22 @@ decode step of one row a slot, 1024 and 640 bytes), ``mla_decode_kernel``
 bf16 cache), ``fused_decode_kernels``, ``w4a8_kernels``,
 ``flash_prefill_kernels``, ``flash_kernels``, ``moe_kernels``,
 ``fp_kernels``, ``paged_kernels`` (K15 at E's, L's and F's geometry, F
-also at 33..56 keys) and ``block_sparse_kernels``, each held to the tree's
-plain twin at the bar stated there (the K5 / K15 rows at MLA's geometry
+also at 33..56 keys), ``block_sparse_kernels`` and, where the tree has
+them, ``kv_pair_kernels`` (K3's ``dense_kv_write_pair``) and
+``paged_rows_kernels`` (K16's ``paged_kv_write_rows``), each held to the
+tree's plain twin at the bar stated there (a tree without those entries
+times, at the same cases, the calls its models made for a layer: two
+one-cache K3 writes, and ``_page_slots``, the zero pad and one
+``paged_kv_write`` a pool) (the K5 / K15 rows at MLA's geometry
 also to the tree's one-CTA body, which runs where V is a second buffer;
 ``chip_smoke.py``'s one-launch checks and K12's shared-memory count are
 left to it, since a parent tree may sum K splits in a second launch or
 lack the count), with its timer: CUDA events, median of 25 launches, the
 50 MB L2 flushed and the stream spun before each; and the host time
 of one call of the K2 and K1 wrappers (K2 at S = 2176, K1 at 4096 x 4096,
-M = 8 and 544; calls enqueued behind a spin of the stream). Inputs
+M = 8 and 544; calls enqueued behind a spin of the stream), and
+``chip_smoke.py``'s ``write_census`` without its checks (host launch calls
+and device kernels of one paged decode forward). Inputs
 are seeded, the same in every tree. ``--prefill`` also builds path A's
 model (Llama-3-8B W4A8 + int8 KV, random weights, seed 0, KV scales from one
 64-token forward), then path C's (Qwen3-30B-A3B, 24 of 48 layers, W4A16 +
@@ -74,10 +81,35 @@ out = {}
 
 # every kernel at chip_smoke's cases, each against the tree's twin
 rows: dict = {}
+from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
+
+one_launch_writes = hasattr(kp, "paged_kv_write_rows")
 for phase in (cs.kv_write_kernels, cs.mla_decode_kernel, cs.fused_decode_kernels,
               cs.flash_prefill_kernels, cs.flash_kernels, cs.w4a8_kernels, cs.moe_kernels,
-              cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels):
+              cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels) + (
+                  (cs.kv_pair_kernels, cs.paged_rows_kernels) if one_launch_writes else ()):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
+if not one_launch_writes:
+    # a tree before the one-launch layer writes: the calls its models made
+    # for a layer, at the same cases
+    import torch.nn.functional as F  # noqa: E402
+
+    from modelopt_tpu_torch.models import transformer as tt  # noqa: E402
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, caches, vals, start in cs.kv_pair_cases(torch, g):
+        out[f"K3 {label}"] = timer(
+            lambda: [ka.dense_kv_write(c, v, start) for c, v in zip(caches, vals)])
+    for label, pools, prow, pt, pos, _ in cs.paged_rows_cases(torch, g):
+        def layer_write():
+            pids, offs = tt._page_slots(pt, pos, pools[0].shape[1])
+            for p, v in zip(pools, prow):
+                pad = p.shape[-1] - v.shape[-1]
+                kp.paged_kv_write(p, F.pad(v, (0, pad)) if pad else v, pids, offs)
+        out[f"K16 {label}"] = timer(layer_write)
+for model, counts in cs.write_census(torch, strict=False).items():
+    for what, n in zip(("host launch calls", "device kernel records"), counts):
+        out[f"census {model} {what}"] = n
 for name, tag in (("dense_kv_write", "K3"), ("decode_attention", "K5"),
                   ("fused_decode_attention", "K2"), ("flash_prefill_attention", "K4"),
                   ("flash_attention", "K14"), ("w4a8_gemm", "K1"), ("w4a16_gemm", "K6"),

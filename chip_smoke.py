@@ -46,7 +46,9 @@ Phases, in order (any failure exits non-zero):
      groups the paths run (G = 4 and 8) and on e4m3 caches (K2 also at the
      decode windows' short contexts and at ~512 keys, at S = 2048, eight
      256-key chunks, with positions at chunk and cluster-range edges, and
-     on long caches, S = 4096 to 32768; K3 copying e4m3 rows; the e4m3 decode of K2 and K15 on all 256
+     on long caches, S = 4096 to 32768; K3 copying e4m3 rows, and its
+     two-cache form, an MHA layer's K and V in one launch, at a prefill
+     chunk and a decode step; the e4m3 decode of K2 and K15 on all 256
      codes, bit for bit; K4 also at a prompt's first chunk, an unpadded
      second chunk, a ragged row count and with f32 output), then K5 decode_attention at
      the MLA decode shape (KH=1, G=16, D=640, K and V one latent tensor)
@@ -55,7 +57,12 @@ Phases, in order (any failure exits non-zero):
      pools as on path L, and bf16 off the paths; int8 also at one page a
      slot and over a 128-page table) and path F's (one int8 latent pool
      as K and V), K16 paged_kv_write at a prefill chunk and at
-     E's, F's and L's decode steps, K17
+     E's, F's and L's decode steps, and its layer-write entry
+     paged_kv_write_rows (page lookup, MLA's zero pad and every pool in one
+     launch, bit for bit, one device kernel a call) at E's decode step and
+     prefill chunk, F's and L's decode steps, slots past the table's
+     capacity with idle slots on the null page, and page ids outside the
+     pool, K17
      block_sparse_decode_attention at path J's decode shape (int8 and bf16
      caches, fewer live blocks than in range, lengths mid-block; one and two
      blocks a slot; no live block, blocks wholly past the length; one
@@ -63,6 +70,10 @@ Phases, in order (any failure exits non-zero):
      flash_attention at J's calibration forwards (and with windows and
      sinks, one long enough that whole key tiles are skipped, and with
      rows not a multiple of its tile, in f32 and bf16);
+  then a census of one paged decode forward (a 2-layer llama at E's
+     attention geometry, a 2-layer MLA at DeepSeek-V2-Lite's latent row):
+     host launch calls and device kernels, K16 once a layer, and neither
+     page_slots nor nn.functional.pad called on the card;
   3. parity: small models built from the same numpy weights on the CPU
      (plain versions) and on the card (kernels), prefill and 4 decode steps
      compared: a 2-layer Qwen3-MoE at the real per-expert geometry (hidden
@@ -91,6 +102,8 @@ Phases, in order (any failure exits non-zero):
      prompt tokens -> 64 new tokens each, greedy. Launch counters are zeroed
      just before each measured run and read just after: every kernel of the
      path must have launched, and no kernel of another path (K11 on none);
+     the KV write once a layer (K16 a forward on E, F, L; K3 a forward on D,
+     a prefill chunk on the other dense paths, a forward on J);
      every cache tensor must be of the path's KV dtype;
        B: Qwen3-30B-A3B (full width, 24 of its 48 layers, so that the
           script keeps within about 600 s) under W4A8_INT8KV_CFG, KV scales
@@ -160,7 +173,8 @@ PRIMARY = ("M=8 K=4096 N=28672",
            "E=128 M=8 K=768 N=2048 bf16 out",
            "B=8 S=2176 KH=1 G=16 D=640 int8 K=V lengths 1..1088",
            "B=8 PMAX=34 ps=64 KH=8 G=4 D=128 int8 ragged lengths",
-           "B=1 T=544 row=1024 int8",
+           "rows B=8 T=1 row=1024 int8 K+V",  # K16's layer write at E's decode step
+           "K+V B=1 T=544 S=2176 row=1024 int8 start=544",  # K3 at a prefill chunk
            "M=8 K=4096 N=28672 bf16 out",
            "B=8 S=2176 KH=8 G=4 D=128 block=128 NSEL=17 int8 lengths mid-block",
            "B=2 T=S=1024 KH=8 G=4 D=128 bf16 causal",
@@ -202,6 +216,10 @@ SOURCES = {
     "grouped_w4a8_gemm": ("modelopt_tpu_torch/csrc/grouped_w4a8_gemm.cu",
                           "modelopt_tpu/kernels/quant_gemm.py:710"),
 }
+# wrappers that launch a kernel beside the one named after it, counted
+# under its name
+ENTRIES = {"dense_kv_write": ["dense_kv_write", "dense_kv_write_pair"],
+           "paged_kv_write": ["paged_kv_write", "paged_kv_write_rows"]}
 # kernels each serving path must launch
 PATH_KERNELS = {
     "A": ("w4a8_gemm", "dense_kv_write", "fused_decode_attention",
@@ -310,6 +328,7 @@ def kernel_phase(torch, results: dict) -> None:
     w4a8_smem_agrees(torch)
 
     kv_write_kernels(torch, gen, timer, record)
+    kv_pair_kernels(torch, gen, timer, record)
 
     # the e4m3 decode that K2 and K15 read caches through (csrc/e4m3.cuh),
     # on every code: the reference's bit assembly, 0x7f / 0xff -> +-480
@@ -325,6 +344,7 @@ def kernel_phase(torch, results: dict) -> None:
     latent_smem_agrees(torch)
     mla_decode_kernel(torch, gen, timer, record)
     paged_kernels(torch, gen, timer, record)
+    paged_rows_kernels(torch, gen, timer, record)
     skip_softmax_kernels(torch, gen, timer, record)
 
     # the reference's e4m3 branches no path of the port runs (K5, K17):
@@ -402,6 +422,51 @@ def kv_write_kernels(torch, gen, timer, record) -> None:
                INT8_OPS)
         one_launch(torch, f"dense_kv_write B=8 T=1 row={row}",
                    lambda: ka.dense_kv_write(c2, vals, pos))
+
+
+def kv_pair_cases(torch, gen):
+    """K3's two-cache form at an MHA layer's K and V caches [B, 2176, 1024]
+    of int8 codes: (label, [k_cache, v_cache], [k_vals, v_vals], start) at a
+    prefill chunk (B = 1, T = 544 from row 544) and at a decode step (B = 8,
+    one row a slot at its own position, one past S - T: clamped)."""
+    dev = "cuda"
+    S, row = 2176, 1024
+    for B, T, start in ((1, 544, [544]), (8, 1, [1023, 1500, 7, 2176, 300, 1024, 2000, 0])):
+        caches = [torch.randint(-127, 128, (B, S, row), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2)]
+        vals = [torch.randint(-127, 128, (B, T, row), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2)]
+        yield (f"K+V B={B} T={T} S={S} row={row} int8 "
+               + ("start=544" if T > 1 else "own positions"), caches, vals,
+               torch.tensor(start, dtype=torch.int32, device=dev))
+
+
+def kv_pair_kernels(torch, gen, timer, record) -> None:
+    """K3's ``dense_kv_write_pair`` (an MHA layer's K and V in one launch)
+    at ``kv_pair_cases``, byte for byte against its plain version, one
+    device kernel a call; the library time is the reference's two one-cache
+    writes as PyTorch calls (the indexed write of each cache's rows)."""
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    log("K3 dense_kv_write_pair (K and V in one launch)")
+    for label, caches, vals, start in kv_pair_cases(torch, gen):
+        B, S, _ = caches[0].shape
+        T = vals[0].shape[1]
+        got = ka.dense_kv_write_pair(*[c.clone() for c in caches], *vals, start)
+        ref = ka.dense_kv_write_pair_plain(*[c.clone() for c in caches], *vals, start)
+        err = max(byte_diff(torch, g, r) for g, r in zip(got, ref))
+        c2 = [c.clone() for c in caches]
+        ms = timer(lambda: ka.dense_kv_write_pair(*c2, *vals, start))
+        plain_ms = timer(lambda: ka.dense_kv_write_pair_plain(*c2, *vals, start))
+        rows = start.long().clamp(0, S - T)[:, None] + torch.arange(T, device="cuda")
+        slots = torch.arange(B, device="cuda")[:, None]
+        lib_ms = timer(lambda: [c.__setitem__((slots, rows), v) for c, v in zip(c2, vals)])
+        # both caches' rows read and written once, start read once
+        record("dense_kv_write", label, err, 0.0, ms, plain_ms, lib_ms,
+               2 * 2 * vals[0].numel() + 4 * B, 0, INT8_OPS)
+        one_launch(torch, f"dense_kv_write_pair {label}",
+                   lambda: ka.dense_kv_write_pair(*c2, *vals, start))
+        del caches, c2
 
 
 def w4a8_kernels(torch, gen, timer, record) -> None:
@@ -951,6 +1016,187 @@ def paged_kernels(torch, gen, timer, record) -> None:
         record("paged_kv_write", f"B={B} T={T} row={row} {kind}", err, 0.0, ms, plain_ms,
                lib_ms, 2 * B * T * row + 8 * B * T, 0, INT8_OPS)
         del pool, p2
+
+
+def paged_rows_cases(torch, gen):
+    """K16's layer-write cases over pools of PAGED_POOL pages of 64 rows and
+    a 34-column table: (label, pools, rows, page_table, positions, drops)
+    with ``drops`` true where a target lies outside the pool. E's decode
+    step (two int8 pools of 1024-byte rows, 8 slots, one row each at its
+    slot's last position), E's prefill chunk (B = 1, T = 544 from row 544),
+    F's decode step (one int8 latent pool, 576-byte rows padded to 640), L's
+    (two e4m3 pools); E's geometry with one slot past the table's capacity
+    and four idle slots on the null page, three of them aimed at one row
+    with equal values; F's with two slots' pages outside the pool."""
+    dev = "cuda"
+    ps, pmax, P = PAGE_SIZE, 2176 // PAGE_SIZE, PAGED_POOL
+    ends = [1024, 1501, 8, 2176, 301, 1025, 2001, 1]
+
+    def codes(kind, shape):
+        if kind == "e4m3":
+            return e4m3_codes(torch, gen, shape)
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def case(label, kind, n_pools, w, lengths, positions, edit=None):
+        pt = page_table(torch, lengths, pmax, P)
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev).reshape(len(lengths), -1)
+        row = 640 if w == 576 else w
+        pools = [codes(kind, (P, ps, row)) for _ in range(n_pools)]
+        rows = [codes(kind, (*pos.shape, w)) for _ in range(n_pools)]
+        drops = False
+        if edit is not None:
+            drops = edit(pt, rows)
+        return label, pools, rows, pt, pos, drops
+
+    yield case("rows B=8 T=1 row=1024 int8 K+V", "int8", 2, 1024, ends,
+               [e - 1 for e in ends])
+    yield case("rows B=1 T=544 row=1024 int8 K+V start=544", "int8", 2, 1024, [1088],
+               list(range(544, 1088)))
+    yield case("rows B=8 T=1 row=576->640 int8 latent", "int8", 1, 576, ends,
+               [e - 1 for e in ends])
+    yield case("rows B=8 T=1 row=1024 e4m3 K+V", "e4m3", 2, 1024, ends, [e - 1 for e in ends])
+
+    def idle_equal(pt, rows):  # slots 4-6 all write (page 0, row 5)
+        for r in rows:
+            r[5:7] = r[4]
+        return False
+
+    yield case("rows B=8 T=1 row=1024 int8 K+V past capacity, idle slots on page 0",
+               "int8", 2, 1024, [1024, 2176, 8, 301, 0, 0, 0, 0],
+               [1023, pmax * ps + 5, 7, 300, 5, 5, pmax * ps + 5, 9], idle_equal)
+
+    def outside(pt, rows):  # slots 1 and 5: their current page is no pool page
+        pt[1, 1500 // ps] = P
+        pt[5, 1024 // ps] = P + 1000
+        return True
+
+    yield case("rows B=8 T=1 row=576->640 int8 latent, page ids outside the pool", "int8", 1,
+               576, ends, [e - 1 for e in ends], outside)
+
+
+def paged_rows_kernels(torch, gen, timer, record) -> None:
+    """K16's ``paged_kv_write_rows`` (a paged layer's whole write: the page
+    lookup, MLA's zero pad, every pool, one launch) at ``paged_rows_cases``,
+    byte for byte against its plain version (which runs the reference's
+    composite), one device kernel a call. The library time is the torch
+    composite it replaces: ``page_slots``, the zero pad where the row is
+    narrower than the pool's, and ``index_put_`` a pool (where targets lie
+    outside the pool, the rows that land, as the plain version picks them)."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import paged_attention as kp
+
+    log("K16 paged_kv_write_rows (one launch a layer)")
+    for label, pools, rows, pt, pos, drops in paged_rows_cases(torch, gen):
+        P, ps, row = pools[0].shape
+        B, T = pos.shape
+        got = kp.paged_kv_write_rows([p.clone() for p in pools], rows, pt, pos)
+        ref = kp.paged_kv_write_rows_plain([p.clone() for p in pools], rows, pt, pos)
+        err = max(byte_diff(torch, g, r) for g, r in zip(got, ref))
+        p2 = [p.clone() for p in pools]
+        ms = timer(lambda: kp.paged_kv_write_rows(p2, rows, pt, pos))
+        plain_ms = timer(lambda: kp.paged_kv_write_rows_plain(p2, rows, pt, pos))
+
+        def library():
+            pids, offs = kp.page_slots(pt, pos, ps)
+            li, lo = pids.long(), offs.long()
+            for p, v in zip(p2, rows):
+                if v.shape[-1] < row:
+                    v = F.pad(v, (0, row - v.shape[-1]))
+                if drops:
+                    keep = li < P
+                    p.index_put_((li[keep], lo[keep]), v[keep])
+                else:
+                    p.index_put_((li, lo), v)
+
+        lib_ms = timer(library)
+        # rows read once and pool rows written once a pool, positions and
+        # the table entries the rows use read once
+        col = (pos.long() // ps).clamp(max=pt.shape[1] - 1)
+        entries = torch.unique(torch.arange(B, device="cuda")[:, None] * pt.shape[1]
+                               + col).numel()
+        item = pools[0].element_size()
+        nbytes = len(pools) * B * T * (rows[0].shape[-1] + row) * item + 4 * B * T + 4 * entries
+        record("paged_kv_write", label, err, 0.0, ms, plain_ms, lib_ms, nbytes, 0, INT8_OPS)
+        one_launch(torch, f"paged_kv_write_rows {label}",
+                   lambda: kp.paged_kv_write_rows(p2, rows, pt, pos))
+        del pools, p2
+
+
+def write_census(torch, strict: bool = True) -> dict:
+    """What one paged decode forward puts on the card, and how much of it is
+    the KV write: a 2-layer llama at path E's attention geometry (32 / 8
+    heads of 128, hidden 1024) and a 2-layer MLA at DeepSeek-V2-Lite's
+    latent row (r = 512, dr = 64: 576 of 640 lanes), unquantized, random
+    weights, bf16 pools of 64-row pages; 8 slots prefilled 40 tokens, then
+    two decode forwards, the second profiled (the first warms the profiler
+    up). Returns {model: (host launch calls, device kernel records, K16
+    launches in the two decode forwards)}. ``strict`` (this tree):
+    ``page_slots`` and ``nn.functional.pad`` raise while the forwards run,
+    so the paged writes call neither on the card, and K16 must launch once
+    a layer a forward."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from modelopt_tpu_torch import kernels
+    from modelopt_tpu_torch.kernels import paged_attention as kp
+    from modelopt_tpu_torch.models import llama_config, small_mla_compressed_config
+    from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
+    from modelopt_tpu_torch.serve.paged_cache import (PagedCacheConfig, make_paged_cache,
+                                                      write_page_table)
+
+    def refuse(*a, **k):
+        raise AssertionError("the paged write called page_slots or pad on the card")
+
+    out = {}
+    cfgs = {"llama E geometry": llama_config(
+                vocab_size=1024, hidden_size=1024, num_layers=2, num_heads=32,
+                num_kv_heads=8, head_dim=128, intermediate_size=2048,
+                max_position_embeddings=128, fused_qkv=True, fused_gate_up=True),
+            "MLA V2-Lite latent row": small_mla_compressed_config(
+                kv_lora_rank=512, qk_rope_head_dim=64, max_position_embeddings=128)}
+    for model, cfg in cfgs.items():
+        bundle = build_compressed_bundle(cfg, {"quant_cfg": {}}, seed=0, device="cuda")
+        cache = make_paged_cache(cfg, 8, PagedCacheConfig(page_size=PAGE_SIZE, n_pages=17,
+                                                          max_pages_per_slot=2), device="cuda")
+        for slot in range(8):
+            write_page_table(cache, slot, [1 + 2 * slot, 2 + 2 * slot])
+        ids = torch.randint(1, cfg.vocab_size, (8, 40), dtype=torch.int32, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        patches = ((kp, "page_slots"), (F, "pad")) if strict else ()
+        saved = [getattr(m, n) for m, n in patches]
+        for m, n in patches:
+            setattr(m, n, refuse)
+        try:
+            _, cache = bundle.apply(ids, cache)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for i in range(2):
+                    _, cache = bundle.apply(ids[:, i:i + 1], cache)
+                    torch.cuda.synchronize()
+                    prof.step()
+        finally:
+            for (m, n), f in zip(patches, saved):
+                setattr(m, n, f)
+        k16 = kernels.launch_counts()["paged_kv_write"]
+        events = prof.key_averages()
+        calls = sum(ev.count for ev in events if ev.device_type == DeviceType.CPU
+                    and any(k in ev.key for k in ("Launch", "Memcpy", "Memset")))
+        records = sum(ev.count for ev in events if ev.device_type == DeviceType.CUDA
+                      and not ev.key.startswith("ProfilerStep"))
+        out[model] = (calls, records, k16)
+        log(f"  census, {model}, {cfg.num_layers} layers, one paged decode forward: {calls} "
+            f"host launch calls, {records} device kernel records; K16 {k16} launches in two "
+            f"forwards")
+        if strict and k16 != 2 * cfg.num_layers:
+            raise AssertionError(f"census {model}: K16 launched {k16} times in two forwards "
+                                 f"of {cfg.num_layers} layers, want one a layer")
+        del bundle, cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def e4m3_codes(torch, gen, shape):
@@ -2400,6 +2646,9 @@ def skip_path(torch) -> dict:
     if launches["block_sparse_decode_attention"] != cfg.num_layers * steps:
         raise AssertionError(f"path J: {launches['block_sparse_decode_attention']} K17 "
                              f"launches, expected {cfg.num_layers * steps}")
+    if launches["dense_kv_write"] != cfg.num_layers * (2 + steps):  # K and V in one launch
+        raise AssertionError(f"path J: {launches['dense_kv_write']} K3 launches, expected "
+                             f"{cfg.num_layers * (2 + steps)}")
     missing = [k for k in PATH_KERNELS["J"] if launches[k] <= 0]
     strays = [k for k in launches if k not in PATH_KERNELS["J"] and launches[k]]
     if missing or strays:
@@ -2453,6 +2702,17 @@ def measured_run(torch, eng, name) -> dict:
     strays = [k for k in launches if k not in PATH_KERNELS[name] and launches[k]]
     if strays:
         raise AssertionError(f"path {name} launched {strays}, kernels of another path")
+    # one KV-write launch a layer: every forward writes through K16 (paged)
+    # or K3 (MLA's dense latent cache); an MHA dense cache's prefill chunks
+    # through K3 (K2 writes its decode steps)
+    stats, layers = rep["engine_stats"], eng.cfg.num_layers
+    forwards = stats["prefill_chunks"] + stats["decode_forwards"]
+    write = "paged_kv_write" if eng.paged else "dense_kv_write"
+    want = layers * (forwards if eng.paged or eng.cfg.attention_type == "mla"
+                     else stats["prefill_chunks"])
+    if launches[write] != want:
+        raise AssertionError(f"path {name}: {launches[write]} {write} launches, want one a "
+                             f"layer: {want}")
     return launches
 
 
@@ -2715,6 +2975,8 @@ def main() -> int:
 
     results: dict = {}
     kernel_phase(torch, results)
+    log(f"census: a paged decode forward's launches ({time.time() - t_start:.0f} s)")
+    write_census(torch)
     log(f"parity: small models, card against CPU ({time.time() - t_start:.0f} s)")
     parity_phase(torch)
     log(f"gateless QuantEinsum: K11's entry point ({time.time() - t_start:.0f} s)")
@@ -2732,7 +2994,8 @@ def main() -> int:
         head = next((r for r in shapes if r["shape"] in PRIMARY), shapes[0])
         per_path = {p: c[name] for p, c in by_path.items() if c[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": sum(per_path.values()),
+                     "replaces": replaces, "entries": ENTRIES.get(name, [name]),
+                     "launches": sum(per_path.values()),
                      **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "library_ms")},
                      "launches_by_path": per_path, "shapes": shapes})

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 twin. Every wrapper counts its launches in a ``launches`` attribute. (K14
 ``flash_attention`` is reached through its module, ``kernels.flash_attention``,
-whose name it shares.)"""
+whose name it shares. K3's ``dense_kv_write_pair`` and K16's
+``paged_kv_write_rows`` count under ``dense_kv_write`` and ``paged_kv_write``.)"""
 
 from .attention import decode_attention, dense_kv_write, fused_decode_attention
 from .block_sparse_attention import block_sparse_decode_attention

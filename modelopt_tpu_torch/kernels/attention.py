@@ -8,6 +8,7 @@ K2 and K3 update them IN PLACE: where the reference donates/aliases the
 cache buffers, these functions write into the tensors they are given and
 hand the same tensors back. K5 only reads.
 
+K3's ``dense_kv_write_pair`` writes an MHA layer's K and V in one launch.
 On CUDA tensors the wrappers launch ``csrc/kv_write.cu``,
 ``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu`` (at
 MLA's geometry K5's entry runs ``csrc/latent_decode.cuh``'s cluster kernel,
@@ -41,32 +42,60 @@ def dense_kv_write_plain(cache: torch.Tensor, vals: torch.Tensor,
     return cache
 
 
+def dense_kv_write_pair_plain(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                              k_vals: torch.Tensor, v_vals: torch.Tensor,
+                              start: torch.Tensor):
+    """An MHA layer's K and V rows, one ``dense_kv_write_plain`` a cache
+    (the reference's two calls)."""
+    return (dense_kv_write_plain(k_cache, k_vals, start),
+            dense_kv_write_plain(v_cache, v_vals, start))
+
+
+def _kv_write(name: str, caches: tuple, vals: tuple, start: torch.Tensor) -> None:
+    """K3 over one or two caches of one shape and dtype: the plain version on
+    the CPU, else one launch (counted as one ``dense_kv_write`` launch)."""
+    B, S, KHD = caches[0].shape
+    T = vals[0].shape[1]
+    if (T > S or any(c.shape != caches[0].shape or c.dtype != caches[0].dtype for c in caches)
+            or any(v.shape != (B, T, KHD) for v in vals)):
+        raise ValueError(f"{name}: caches {[tuple(c.shape) for c in caches]}, "
+                         f"vals {[tuple(v.shape) for v in vals]}")
+    if caches[0].device.type == "cpu":
+        for c, v in zip(caches, vals):
+            dense_kv_write_plain(c, v, start)
+        return
+    vals = tuple(v.to(c.dtype) for c, v in zip(caches, vals))
+    row_bytes = KHD * caches[0].element_size()
+    if row_bytes % 16 or start.dtype != torch.int32 or start.shape != (B,):
+        raise ValueError(f"{name}: rows must be 16-byte multiples and start int32 [B]")
+    _build.check_cuda(name, *caches, *vals, start)
+    if any(t.data_ptr() % 16 for t in caches + vals):
+        raise ValueError(f"{name}: caches and vals must be 16-byte aligned")
+    fn = _build.function("kv_write", [_build.c_ptr] * 5 + [_build.c_int] * 5
+                         + [_build.c_ptr])
+    second = len(caches) == 2
+    with torch.cuda.device(caches[0].device):
+        err = fn(caches[0].data_ptr(), caches[1].data_ptr() if second else None,
+                 vals[0].data_ptr(), vals[1].data_ptr() if second else None,
+                 start.data_ptr(), len(caches), B, S, T, row_bytes, _build.stream(caches[0]))
+    dense_kv_write.launches += 1
+    _build.raise_on_error(name, err)
+
+
 def dense_kv_write(cache: torch.Tensor, vals: torch.Tensor,
                    start: torch.Tensor) -> torch.Tensor:
     """In-place per-slot cache write (see ``dense_kv_write_plain``)."""
-    B, S, KHD = cache.shape
-    T = vals.shape[1]
-    if vals.shape[0] != B or vals.shape[2] != KHD or T > S:
-        raise ValueError(f"dense_kv_write: cache {tuple(cache.shape)}, "
-                         f"vals {tuple(vals.shape)}")
-    if cache.device.type == "cpu":
-        return dense_kv_write_plain(cache, vals, start)
-    vals = vals.to(cache.dtype)
-    row_bytes = KHD * cache.element_size()
-    if row_bytes % 16 or start.dtype != torch.int32 or start.shape != (B,):
-        raise ValueError("dense_kv_write: rows must be 16-byte multiples and "
-                         "start int32 [B]")
-    _build.check_cuda("dense_kv_write", cache, vals, start)
-    if cache.data_ptr() % 16 or vals.data_ptr() % 16:
-        raise ValueError("dense_kv_write: cache and vals must be 16-byte aligned")
-    fn = _build.function("kv_write", [_build.c_ptr] * 3 + [_build.c_int] * 4
-                         + [_build.c_ptr])
-    with torch.cuda.device(cache.device):
-        err = fn(cache.data_ptr(), vals.data_ptr(), start.data_ptr(), B, S, T,
-                 row_bytes, _build.stream(cache))
-    dense_kv_write.launches += 1
-    _build.raise_on_error("kv_write", err)
+    _kv_write("dense_kv_write", (cache,), (vals,), start)
     return cache
+
+
+def dense_kv_write_pair(k_cache: torch.Tensor, v_cache: torch.Tensor, k_vals: torch.Tensor,
+                        v_vals: torch.Tensor, start: torch.Tensor):
+    """``dense_kv_write`` of an MHA layer's K and V rows into two caches of
+    one shape and dtype, in place: on the card one K3 launch for both.
+    Returns (k_cache, v_cache)."""
+    _kv_write("dense_kv_write_pair", (k_cache, v_cache), (k_vals, v_vals), start)
+    return k_cache, v_cache
 
 
 dense_kv_write.launches = 0

@@ -14,12 +14,16 @@ K5's one-CTA body walking one page per chunk) and
 ``csrc/paged_kv_write.cu``; on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as
 the card's oracles). K16 writes the pool IN PLACE and hands it back,
-where the reference aliases it.
+where the reference aliases it. Its two entries run one body:
+``paged_kv_write`` (the reference kernel's signature, slots given) and
+``paged_kv_write_rows``, a paged layer's whole write in one launch (the
+page lookup, MLA's zero pad and every pool).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from . import _build
 from .attention import CACHE_KIND, DECODE_MAX_D, DECODE_MAX_G, _attend_chunks, _scalar
@@ -131,6 +135,18 @@ paged_decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 # K16: paged KV write
 # ---------------------------------------------------------------------------
+def page_slots(page_table: torch.Tensor, positions: torch.Tensor, page_size: int):
+    """Pool targets of the tokens at ``positions`` [B, T]: (page ids, in-page
+    offsets), int32 [B, T]. A position at or past the table's capacity (a
+    slot at the cache cap writing on an idle tick) takes the table's last
+    column, as the reference's gather clamps the column index; the offset
+    is not clamped."""
+    col = torch.div(positions, page_size, rounding_mode="floor").clamp(
+        max=page_table.shape[1] - 1)
+    pids = page_table.gather(1, col.long())
+    return pids.contiguous(), (positions % page_size).to(torch.int32).contiguous()
+
+
 def paged_kv_write_plain(pool: torch.Tensor, vals: torch.Tensor, pids: torch.Tensor,
                          offs: torch.Tensor) -> torch.Tensor:
     """``pool[pids, offs] = vals`` in the pool's dtype, in place; targets
@@ -173,3 +189,61 @@ def paged_kv_write(pool: torch.Tensor, vals: torch.Tensor, pids: torch.Tensor,
 
 
 paged_kv_write.launches = 0
+
+
+def paged_kv_write_rows_plain(pools, rows, page_table: torch.Tensor,
+                              positions: torch.Tensor):
+    """The reference's write of a paged layer (its ``transformer.py:481-492``,
+    ``mla.py:164-177``): the slots by ``page_slots``, each row padded with
+    zeros to its pool's row, one ``paged_kv_write_plain`` a pool."""
+    pids, offs = page_slots(page_table, positions, pools[0].shape[1])
+    for pool, vals in zip(pools, rows):
+        pad = pool.shape[-1] - vals.shape[-1]
+        paged_kv_write_plain(pool, nn.functional.pad(vals, (0, pad)) if pad else vals,
+                             pids, offs)
+    return pools
+
+
+def paged_kv_write_rows(pools, rows, page_table: torch.Tensor,
+                        positions: torch.Tensor):
+    """A paged layer's write, IN PLACE: row (b, t) of ``rows[i]`` [B, T, w]
+    into ``pools[i]`` [n_pages, page_size, row] (one or two pools of one
+    shape and dtype, w <= row) at page ``page_table[b, min(pos // ps,
+    PMAX - 1)]``, offset ``pos % ps`` for ``pos = positions[b, t]``, zeros
+    after the w values; a target outside the pool is dropped (see
+    ``paged_kv_write_rows_plain``). On the card one launch of K16, which
+    counts as one ``paged_kv_write`` launch. Returns ``pools``."""
+    pools, rows = tuple(pools), tuple(rows)
+    P, ps, R = pools[0].shape
+    B, T = positions.shape
+    w = rows[0].shape[-1] if rows else 0
+    if (len(pools) not in (1, 2) or len(rows) != len(pools) or w > R
+            or any(p.shape != pools[0].shape or p.dtype != pools[0].dtype for p in pools)
+            or any(v.shape != (B, T, w) for v in rows)
+            or page_table.dim() != 2 or page_table.shape[0] != B):
+        raise ValueError(f"paged_kv_write_rows: pools {[tuple(p.shape) for p in pools]}, "
+                         f"rows {[tuple(v.shape) for v in rows]}, page_table "
+                         f"{tuple(page_table.shape)}, positions {tuple(positions.shape)}")
+    if pools[0].device.type == "cpu":
+        return paged_kv_write_rows_plain(pools, rows, page_table, positions)
+    rows = tuple(v.to(pools[0].dtype).contiguous() for v in rows)
+    item = pools[0].element_size()
+    if (R * item) % 16 or (w * item) % 16:
+        raise ValueError("paged_kv_write_rows: pool rows and value rows must be 16-byte "
+                         "multiples")
+    if positions.dtype != torch.int32 or page_table.dtype != torch.int32:
+        raise ValueError("paged_kv_write_rows: positions and page_table must be int32")
+    _build.check_cuda("paged_kv_write_rows", *pools, *rows, page_table, positions)
+    if any(t.data_ptr() % 16 for t in pools + rows):
+        raise ValueError("paged_kv_write_rows: pools and rows must be 16-byte aligned")
+    fn = _build.function("paged_kv_write_rows", [_build.c_ptr] * 6 + [_build.c_int] * 8
+                         + [_build.c_ptr], source="paged_kv_write")
+    second = len(pools) == 2
+    with torch.cuda.device(pools[0].device):
+        err = fn(pools[0].data_ptr(), pools[1].data_ptr() if second else None,
+                 rows[0].data_ptr(), rows[1].data_ptr() if second else None,
+                 positions.data_ptr(), page_table.data_ptr(), len(pools), B, T,
+                 page_table.shape[1], P, ps, R * item, w * item, _build.stream(pools[0]))
+    paged_kv_write.launches += 1
+    _build.raise_on_error("paged_kv_write_rows", err)
+    return pools

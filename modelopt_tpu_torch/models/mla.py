@@ -14,7 +14,8 @@ the layer's ``k_quantizer`` and zero-padded to whole 128-lane tiles
     out    = o_lat @ w_v                   [B, T, H, dv]
 
 The latent row is written by ``dense_kv_write`` at every T (a paged cache:
-``paged_kv_write`` through the page table). A decode step (T == 1) over an
+``paged_kv_write_rows``, which finds the page and zero-pads the row in one
+launch). A decode step (T == 1) over an
 int8 latent cache is exactly one KV head of read-only decode attention:
 q_eff = [q_lat ; q_pe ; 0-pad] against the padded rows, K and V the same
 tensor, the value projection commuted out of the PV product; it runs
@@ -33,11 +34,11 @@ from torch import nn
 
 from ..kernels.attention import decode_attention, decode_attention_ok, dense_kv_write
 from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
-                                       paged_gather_dense, paged_kv_write)
+                                       paged_gather_dense, paged_kv_write_rows)
 from ..nn.layers import PackedWeight, QuantDense, RMSNorm
 from ..nn.quantizer import TensorQuantizer, active_quant_config
 from ..quant.qtensor import dequantize_qtensor
-from .transformer import DecoderConfig, _page_slots, _rope, _yarn_get_mscale
+from .transformer import DecoderConfig, _rope, _yarn_get_mscale
 
 
 class AbsorbedKernel(PackedWeight, nn.Module):
@@ -164,13 +165,12 @@ class MLAttention(nn.Module):
                 row_codes = self.k_quantizer(rows).to(ck.dtype)
             else:
                 raise NotImplementedError(f"{ck.dtype} latent caches are not ported")
-            pad = ck.shape[-1] - (r + dr)
-            if pad:
-                row_codes = nn.functional.pad(row_codes, (0, pad))
-            if page_table is not None:
-                pids, offs = _page_slots(page_table, positions_kv, ck.shape[1])
-                paged_kv_write(ck, row_codes.contiguous(), pids, offs)
+            if page_table is not None:  # K16 finds the pages and zero-pads the rows
+                paged_kv_write_rows((ck,), (row_codes,), page_table, positions_kv)
             else:
+                pad = ck.shape[-1] - (r + dr)
+                if pad:
+                    row_codes = nn.functional.pad(row_codes, (0, pad))
                 dense_kv_write(ck, row_codes.contiguous(),
                                positions_kv[:, 0].to(torch.int32).contiguous())
             new_kv = (ck, cv_ph)

@@ -16,19 +16,21 @@ same paths.
 
 Cached forwards take the reference's kernel gates: T == 1 is one
 ``fused_decode_attention`` step under ``fused_decode_ok``; otherwise the
-chunk's K/V go in by ``dense_kv_write``, then T > 1 attends with
-``flash_prefill_attention`` under ``flash_prefill_ok``, T == 1 with
+chunk's K/V go in by ``dense_kv_write_pair`` (K3, one launch for both),
+then T > 1 attends with ``flash_prefill_attention`` under
+``flash_prefill_ok``, T == 1 with
 ``decode_attention`` under ``decode_attention_ok``, and anything else with
 the einsum over the cache, dequantized as the reference dequantizes it.
 Uncached forwards of T >= 256 rows
 attend with ``flash_attention`` where its rule holds, others with an
 einsum. With ``cfg.skip_softmax`` (``sparsity/skip_softmax.py``) the cache
 also carries per-layer block summaries: every forward writes through
-``dense_kv_write`` and folds its keys into them, a decode step attends the
+``dense_kv_write_pair`` and folds its keys into them, a decode step attends the
 selected blocks with ``block_sparse_decode_attention`` and a longer
 forward takes the masked einsum over the cache, as the reference does. A
 paged cache (``serve/paged_cache.py``: per-layer page pools and a
-``page_table``) writes through ``paged_kv_write`` at every T; T == 1
+``page_table``) writes through ``paged_kv_write_rows`` at every T (K16 finds
+each row's page and writes K and V in one launch); T == 1
 attends with ``paged_decode_attention`` under the reference's rule, other
 forwards gather the pages dense and take the reference's masked einsum.
 Caches hold bf16 values or int8 or e4m3 codes with the k / v quantizers'
@@ -48,14 +50,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.attention import (decode_attention, decode_attention_ok, dense_kv_write,
+from ..kernels.attention import (decode_attention, decode_attention_ok, dense_kv_write_pair,
                                  fused_decode_attention, fused_decode_ok)
 from ..kernels.block_sparse_attention import (block_sparse_decode_attention,
                                               block_sparse_decode_attention_xla, block_sparse_ok)
 from ..kernels.flash_attention import (flash_attention, flash_attention_ok,
                                        flash_prefill_attention, flash_prefill_ok)
 from ..kernels.paged_attention import (paged_attention_ok, paged_decode_attention,
-                                       paged_gather_dense, paged_kv_write)
+                                       paged_gather_dense, paged_kv_write_rows)
 from ..nn.layers import QuantDense, QuantEinsum, QuantEmbed, RMSNorm
 from ..nn.quantizer import TensorQuantizer, assign_paths
 from ..sparsity.skip_softmax import init_block_summaries, select_blocks, update_block_summaries
@@ -273,17 +275,6 @@ def _rope_params(d: int, theta: float, scaling):
     return torch.from_numpy(out_f.astype(np.float32)), 1.0
 
 
-def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page_size: int):
-    """Pool targets of the tokens at ``positions`` [B, T]: (page ids, in-page
-    offsets), int32 [B, T]. A position at or past the table's capacity (a
-    slot at the cache cap writing on an idle tick) takes the table's last
-    column, as the reference's gather clamps the column index."""
-    col = torch.div(positions, page_size, rounding_mode="floor").clamp(
-        max=page_table.shape[1] - 1)
-    pids = page_table.gather(1, col.long())
-    return pids.contiguous(), (positions % page_size).to(torch.int32).contiguous()
-
-
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float, scaling=None):
     """Rotary embeddings on x [B, T, heads, D] at positions [B, T]. As the
     reference's code does, the two HALVES of the head dim rotate together
@@ -413,7 +404,7 @@ class Attention(nn.Module):
         """The dense cache under the reference's gates (its :495-529 write,
         :578-593 prefill, :636-669 decode, then the einsum): a decode step
         under ``fused_decode_ok`` writes and attends in one kernel; any
-        other forward writes its rows by ``dense_kv_write``, then attends
+        other forward writes its rows by ``dense_kv_write_pair``, then attends
         by ``flash_prefill_attention`` (T > 1, ``flash_prefill_ok``),
         ``decode_attention`` (T == 1, ``decode_attention_ok``) or the
         masked einsum over the cache, codes times their scale in the model
@@ -429,8 +420,7 @@ class Attention(nn.Module):
                 q[:, 0].reshape(B, KH, G, D).contiguous(), k_rows, v_rows, ck, cv, start,
                 k_scale=k_scale, v_scale=v_scale, out_dtype=cfg.dtype)
             return self.o_proj(out.reshape(B, 1, H * D))
-        dense_kv_write(ck, k_rows.contiguous(), start)
-        dense_kv_write(cv, v_rows.contiguous(), start)
+        dense_kv_write_pair(ck, cv, k_rows.contiguous(), v_rows.contiguous(), start)
         if T > 1 and flash_prefill_ok(T, S, D, ck.dtype):
             out = flash_prefill_attention(
                 q.reshape(B, T, KH, G, D).contiguous(), ck, cv, start,
@@ -456,7 +446,7 @@ class Attention(nn.Module):
     def _skip_softmax(self, q, k_codes, k_rows, v_rows, ck, cv, start, k_scale, v_scale,
                       mask, kmax, kmin):
         """The skip-softmax cache (the reference's :499-572): rows written
-        through ``dense_kv_write`` at every T (the fused decode step is not
+        through ``dense_kv_write_pair`` at every T (the fused decode step is not
         taken), the keys' real values (codes times k_scale) folded into the
         block summaries; a decode step attends the blocks ``select_blocks``
         keeps (``block_sparse_decode_attention`` under ``block_sparse_ok``,
@@ -467,8 +457,7 @@ class Attention(nn.Module):
         H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         G = H // KH
         B, T = q.shape[:2]
-        dense_kv_write(ck, k_rows.contiguous(), start)
-        dense_kv_write(cv, v_rows.contiguous(), start)
+        dense_kv_write_pair(ck, cv, k_rows.contiguous(), v_rows.contiguous(), start)
         k_real = k_codes.float()
         if k_scale is not None:
             k_real = k_real * k_scale.float()
@@ -502,9 +491,7 @@ class Attention(nn.Module):
         H, KH, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
         B, T = q.shape[:2]
         ps = k_pool.shape[1]
-        pids, offs = _page_slots(page_table, positions_kv, ps)
-        paged_kv_write(k_pool, k_rows, pids, offs)
-        paged_kv_write(v_pool, v_rows, pids, offs)
+        paged_kv_write_rows((k_pool, v_pool), (k_rows, v_rows), page_table, positions_kv)
         new_kv = (k_pool, v_pool)
         if T == 1 and paged_attention_ok(B, KH, H // KH, D, ps):
             lengths = (positions[:, 0] + 1).to(torch.int32).contiguous()

@@ -9,8 +9,9 @@ and the pool can be smaller than the worst case.
 
 Allocation is host bookkeeping; page ids are data, so the forward never
 changes shape as pages move. Writes go through the page table with
-``paged_kv_write`` (K16); decode reads through ``paged_decode_attention``
-(K15), prefill gathers the pages dense (``kernels/paged_attention.py``).
+``paged_kv_write_rows`` (K16, one launch a layer); decode reads through
+``paged_decode_attention`` (K15), prefill gathers the pages dense
+(``kernels/paged_attention.py``).
 
 Page 0 is RESERVED as the null page: unused page-table entries point at it
 so every routed read and write has a valid target, and the lengths mask

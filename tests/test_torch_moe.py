@@ -376,19 +376,19 @@ def test_decode_to_cache_end_matches_reference(engine_bundles, monkeypatch):
     kw = dict(max_batch=2, max_seq_len=S_, prefill_buckets=(8, 16), max_admit=1,
               multi_step=4)
     seen = []
-    real, real_write = tt.fused_decode_attention, tt.dense_kv_write
+    real, real_write = tt.fused_decode_attention, tt.dense_kv_write_pair
 
     def spy(q, k, v, kc, vc, pos, *a, **k2):
         seen.append(pos.clone())
         return real(q, k, v, kc, vc, pos, *a, **k2)
 
-    def spy_write(cache, vals, start):
-        if vals.shape[1] == 1:
+    def spy_write(k_cache, v_cache, k_vals, v_vals, start):
+        if k_vals.shape[1] == 1:
             seen.append(start.clone())
-        return real_write(cache, vals, start)
+        return real_write(k_cache, v_cache, k_vals, v_vals, start)
 
     monkeypatch.setattr(tt, "fused_decode_attention", spy)
-    monkeypatch.setattr(tt, "dense_kv_write", spy_write)
+    monkeypatch.setattr(tt, "dense_kv_write_pair", spy_write)
 
     def serve(engine):
         r1 = engine.submit(PROMPTS[1], max_new_tokens=100)

@@ -187,7 +187,7 @@ def test_page_slots_clamp_the_column_like_the_reference_gather():
     ``page_table[rows, pos // ps]`` clamps the column index."""
     pt = torch.tensor([[3, 7, 9], [4, 0, 0]], dtype=torch.int32)
     pos = torch.tensor([[0, 9], [24, 5]], dtype=torch.int32)
-    pids, offs = tt._page_slots(pt, pos, 8)
+    pids, offs = tpa.page_slots(pt, pos, 8)
     rows = jnp.arange(2)[:, None]
     jpos = jnp.asarray(pos.numpy())
     assert pids.tolist() == np.asarray(jnp.asarray(pt.numpy())[rows, jpos // 8]).tolist()

@@ -171,10 +171,10 @@ def test_paged_cached_logits_match(bf16_models, model, kv):
 
 
 def test_paged_decode_dispatch(bf16_models, monkeypatch):
-    """Every forward writes through K16 (twice a layer for MHA, once for the
-    latent row); a decode step runs K15 on int8 pools of both families and
-    on the MHA bf16 pool, never on a bf16 latent pool (the reference's
-    rule); prefill never runs it."""
+    """Every forward writes through K16 once a layer (K and V together for
+    MHA, the latent row); a decode step runs K15 on int8 pools of both
+    families and on the MHA bf16 pool, never on a bf16 latent pool (the
+    reference's rule); prefill never runs it."""
     from modelopt_tpu_torch.models import mla as tm
 
     seen = []
@@ -186,7 +186,7 @@ def test_paged_decode_dispatch(bf16_models, monkeypatch):
         return f
 
     for mod in (tt, tm):
-        monkeypatch.setattr(mod, "paged_kv_write", spy("write", mod.paged_kv_write))
+        monkeypatch.setattr(mod, "paged_kv_write_rows", spy("write", mod.paged_kv_write_rows))
         monkeypatch.setattr(mod, "paged_decode_attention",
                             spy("attend", mod.paged_decode_attention))
     counts = {}
@@ -201,7 +201,7 @@ def test_paged_decode_dispatch(bf16_models, monkeypatch):
             tb.apply(torch.ones(B, 1, dtype=torch.int32), tc)
             counts[model, kv] = (prefill.count("write"), prefill.count("attend"),
                                  seen.count("write"), seen.count("attend"))
-    assert counts == {("mha", "int8"): (4, 0, 4, 2), ("mha", "bf16"): (4, 0, 4, 2),
+    assert counts == {("mha", "int8"): (2, 0, 2, 2), ("mha", "bf16"): (2, 0, 2, 2),
                       ("mla", "int8"): (2, 0, 2, 2), ("mla", "bf16"): (2, 0, 2, 0)}
 
 
@@ -315,13 +315,13 @@ def test_paged_decode_to_cache_end_matches_reference(f32_models, monkeypatch):
     S_ = 32
     kw = dict(KW, max_seq_len=S_, multi_step=4, kv_pages=None)
     seen = []
-    real = tt._page_slots
+    real = tt.paged_kv_write_rows
 
-    def spy(page_table, positions, page_size):
+    def spy(pools, rows, page_table, positions):
         seen.append(int(positions.max()))
-        return real(page_table, positions, page_size)
+        return real(pools, rows, page_table, positions)
 
-    monkeypatch.setattr(tt, "_page_slots", spy)
+    monkeypatch.setattr(tt, "paged_kv_write_rows", spy)
     prompts = _prompts(tb.module.cfg.vocab_size)
 
     def serve(engine):
