@@ -69,7 +69,11 @@ Phases, in order (any failure exits non-zero):
      device kernel a call) and K14
      flash_attention at J's calibration forwards (and with windows and
      sinks, one long enough that whole key tiles are skipped, and with
-     rows not a multiple of its tile, in f32 and bf16);
+     rows not a multiple of its tile, in f32 and bf16); then
+     int8_dynamic_gemm (no hand-written kernel: per-row int8 codes and
+     torch._int_mm, as the reference's XLA dot_general) at a 544-row chunk
+     on Llama-3-8B's four projections, bit for bit against its plain
+     version, beside the bf16 torch.matmul of the shape;
   then a census of one paged decode forward (a 2-layer llama at E's
      attention geometry, a 2-layer MLA at DeepSeek-V2-Lite's latent row):
      host launch calls and device kernels, K16 once a layer, and neither
@@ -91,7 +95,10 @@ Phases, in order (any failure exits non-zero):
      greedy decode, tokens and every block selection equal; and
      tiny_test_config() (D = 16) over a bf16 dense cache, a prefill and
      one decode step, which the dense-cache gates send to K3 and the
-     einsum on both devices; then K11's
+     einsum on both devices; a tiny f32 llama quantized by the port on
+     both devices from the same weights and ids under INT8_KV_CFG
+     (SmoothQuant) and W4A8_INT8KV_CFG (awq_lite): the same exponents,
+     pre-quant scales within 1e-5, compressed logits at the 3% bar; then K11's
      entry point, the compressed gateless QuantEinsum down projection at
      Qwen3-30B-A3B's expert geometry: K11 once a call and no other kernel,
      the card's result the CPU twin's bit for bit;
@@ -105,29 +112,38 @@ Phases, in order (any failure exits non-zero):
      the KV write once a layer (K16 a forward on E, F, L; K3 a forward on D,
      a prefill chunk on the other dense paths, a forward on J);
      every cache tensor must be of the path's KV dtype;
-       B: Qwen3-30B-A3B (full width, 24 of its 48 layers, so that the
-          script keeps within about 600 s) under W4A8_INT8KV_CFG, KV scales
-          calibrated by one 64-token forward;
-       C: Qwen3-30B-A3B (full width, 24 of 48 layers) under
+       B: Qwen3-30B-A3B (full width, 12 of its 48 layers, PATH_LAYERS, so
+          that the script keeps well inside its limit) under
+          W4A8_INT8KV_CFG, KV scales calibrated by one 64-token forward;
+       C: Qwen3-30B-A3B (full width, 12 of 48 layers) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
        D: DeepSeek-V2-Lite (full width: MLA, 64 experts top-6 plus 2
-          shared, a dense first layer; 14 of its 27 layers, so that the
-          script keeps near 600 s) under W4A8_INT8KV_CFG, the int8 latent
-          cache calibrated by one 64-token forward;
+          shared, a dense first layer; 7 of its 27 layers) under
+          W4A8_INT8KV_CFG, the int8 latent cache calibrated by one 64-token
+          forward;
        E: A's model over a paged KV cache: int8 pools of 145 pages of 64
           rows per layer (8 requests' worst case of 18 pages each, plus the
           null page; 53% of the dense cache);
        F: D's model over a paged int8 latent pool of 145 pages;
-       G: A's model under FP8_DEFAULT_CFG (e4m3 weights, static e4m3
-          activations calibrated by one 64-token forward), bf16 KV cache;
+       G: A's model, 16 of its 32 layers (as H, K and L), under
+          FP8_DEFAULT_CFG (e4m3 weights, static e4m3 activations
+          calibrated by one 64-token forward), bf16 KV cache;
        H: A's model under INT8_WEIGHT_ONLY_CFG, bf16 KV cache;
-       I: B's model (24 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
+       I: B's model (12 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
           cache;
        K: A's model under FP8_KV_CFG (G's static e4m3 activations, and the
           k / v quantizers calibrated by the same 64-token forward) with an
           e4m3 KV cache;
        L: K over paged e4m3 pools of 145 pages;
+       M: Llama-3-8B (full width and depth) built in bf16 on the card with
+          channel outliers, quantized there under INT8_KV_CFG by its own
+          algorithm (SmoothQuant on 4 x 512 captured tokens, then max
+          calibration), held against its fake-quant self layer by layer
+          and at the logits, compressed (the bf16 kernels dropped), then
+          served: the 544-row prefill chunks through int8_dynamic_gemm,
+          the 32-row bucket and decode through K7, K2-K4 over the int8
+          KV cache;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request; after
      A's and C's, a prefill window (one 1024-token prompt in the engine's
@@ -137,8 +153,15 @@ Phases, in order (any failure exits non-zero):
           engine serves skip-softmax): calibrate_skip_softmax on RULER
           needle batches (K14 in its capture forwards), 8 prompts of 1024
           tokens prefilled in two chunks, 64 greedy decode steps through
-          K17, with launch asserts and a profile window of 16 decode steps.
-Then one JSON line of per-kernel numbers, and last the device line.
+          K17, with launch asserts and a profile window of 16 decode steps;
+  5. the PTQ phase: Llama-3-8B at full width, 4 of 32 layers, under
+     W4A8_INT8KV_CFG (awq_lite) and INT4_AWQ_FULL_CFG (awq_lite then
+     awq_clip), each quantized, compressed and held against its
+     fake-quant self as path M, its exponents and clip ratios logged, and
+     one request served (K1, K6 and K2-K4), with launch asserts.
+Then the int8_dynamic_gemm rows and one JSON line of per-kernel numbers
+(launches by path, M and the PTQ phase among them), and last the device
+line.
 To iterate on one phase, import this module and call its phase function
 (``kernel_phase``, ``flash_prefill_kernels``, ``flash_kernels``,
 ``parity_phase``, ``gateless_phase``, ``serve_path``, ``prefill_window``)
@@ -239,6 +262,12 @@ PATH_KERNELS = {
     "J": ("w4a8_gemm", "dense_kv_write", "flash_attention", "block_sparse_decode_attention"),
     "K": ("wfp8_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
     "L": ("wfp8_gemm", "paged_kv_write", "paged_decode_attention"),
+    "M": ("w8a16_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    # the PTQ phase: AWQ's capture and calibration forwards (K14 at 512
+    # rows), then each compressed model's one request (K1 under W4A8 with
+    # an int8 cache, K6 under INT4_AWQ_FULL_CFG with a bf16 one)
+    "PTQ": ("w4a8_gemm", "w4a16_gemm", "dense_kv_write", "fused_decode_attention",
+            "flash_prefill_attention", "flash_attention"),
     # the gateless-einsum phase: no served path reaches K11 (the MoE block
     # always passes gates, in the reference too)
     "gateless": ("grouped_w4a8_gemm",),
@@ -1994,9 +2023,9 @@ def cpu_reference(torch, cfg, preset, kv_dtype, ids_seed, B, T, steps, paged=Fal
     return variables, ids, logits, trace, fq_trace
 
 
-def _perturbed_sums(torch, rel: float):
+def _perturbed_sums(torch, rel: float, seed: int = 0):
     """While active, the plain versions of K7, K8 and K9 scale each f32 sum
-    by (1 + rel * u), u uniform in [-1, 1] from a fixed seed, before their
+    by (1 + rel * u), u uniform in [-1, 1] from ``seed``, before their
     scale and output rounding: another order of the same f32 sums, as a
     kernel's tensor cores take (the order bar allows up to K * 2^-24)."""
     import contextlib
@@ -2005,7 +2034,7 @@ def _perturbed_sums(torch, rel: float):
 
     @contextlib.contextmanager
     def ctx():
-        gen = torch.Generator().manual_seed(0)
+        gen = torch.Generator().manual_seed(seed)
         real = {n: getattr(kq, n) for n in ("w8a16_gemm_plain", "wfp8_gemm_plain",
                                              "nvfp4_gemm_plain")}
 
@@ -2343,6 +2372,9 @@ def parity_phase(torch) -> None:
             2, 64, paged=True, noise_floor=True)
     # path J: K17 (its twin on the CPU) over the selected blocks
     skip_parity(torch)
+    # path M and the PTQ phase: the calibration algorithms themselves, card
+    # against CPU
+    ptq_parity(torch)
     # the reference's dense-cache gates: at D = 16 neither K2 nor K4 takes
     # the forward, the card writes by K3 and takes the einsum, as the CPU
     _parity(torch, "tiny llama (D = 16) + bf16 KV, gated to the einsum",
@@ -2442,16 +2474,23 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
           "int8"),
     "G": ("Llama-3-8B FP8 W8A8 + bf16 KV, 16 of 32 layers", "llama3_8b", "FP8_DEFAULT_CFG",
           "bfloat16"),
-    "H": ("Llama-3-8B INT8 weight-only + bf16 KV", "llama3_8b", "INT8_WEIGHT_ONLY_CFG",
-          "bfloat16"),
+    "H": ("Llama-3-8B INT8 weight-only + bf16 KV, 16 of 32 layers", "llama3_8b",
+          "INT8_WEIGHT_ONLY_CFG", "bfloat16"),
     "I": ("Qwen3-30B-A3B NVFP4 weight-only + bf16 KV", "qwen3_moe", "NVFP4_WEIGHT_ONLY_CFG",
           "bfloat16"),
     "K": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
     "L": ("Llama-3-8B FP8 W8A8 + e4m3 KV pages", "llama3_8b", "FP8_KV_CFG", "float8_e4m3fn"),
+    # quantized and compressed on the card (``ptq_path``), not drawn packed
+    "M": ("Llama-3-8B INT8 SmoothQuant W8A8 + int8 KV, quantized and compressed on the card",
+          "llama3_8b", "INT8_KV_CFG", "int8"),
 }
-# paths served at a cut depth (Llama-3-8B: 32 layers), to keep the script
-# well inside its time limit
-PATH_LAYERS = {"G": 16}
+# paths served at a cut depth, to keep the script well inside its time
+# limit on a slow host (which ran the whole script ~35% longer than a fast
+# one): Llama-3-8B 16 of 32 layers, Qwen3-30B-A3B 12 of 48,
+# DeepSeek-V2-Lite 7 of 27 (a dense first layer and 6 MoE layers); A, E,
+# J and M keep Llama's 32
+PATH_LAYERS = {"G": 16, "H": 16, "K": 16, "L": 16, "B": 12, "C": 12, "I": 12, "D": 7,
+               "F": 7}
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
@@ -2463,16 +2502,17 @@ TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
 def path_config(torch, model: str, layers: int = None):
-    """The path's model configuration at full width; ``layers`` cuts a Llama
-    to that depth."""
+    """The path's model configuration at full width; ``layers`` cuts it to
+    that depth (by default Qwen3-30B-A3B 24 of 48 layers, DeepSeek-V2-Lite
+    14 of 27, Llama-3-8B all 32)."""
     from modelopt_tpu_torch.models import (deepseek_v2_lite_config, llama3_8b_config,
                                            qwen3_moe_config)
 
-    if model == "qwen3_moe":  # full width, 24 of 48 layers, 128 experts
-        return qwen3_moe_config(num_layers=24, max_position_embeddings=2176,
+    if model == "qwen3_moe":  # full width, 128 experts
+        return qwen3_moe_config(num_layers=layers or 24, max_position_embeddings=2176,
                                 param_dtype=torch.bfloat16)
-    if model == "deepseek_v2_lite":  # full width, 14 of 27 layers, 64 + 2 experts
-        return deepseek_v2_lite_config(num_layers=14, param_dtype=torch.bfloat16)
+    if model == "deepseek_v2_lite":  # full width, 64 + 2 experts
+        return deepseek_v2_lite_config(num_layers=layers or 14, param_dtype=torch.bfloat16)
     return llama3_8b_config(max_position_embeddings=2176, param_dtype=torch.bfloat16,
                             fused_qkv=True, fused_gate_up=True, num_layers=layers or 32)
 
@@ -2505,11 +2545,9 @@ def serve_path(torch, name) -> dict:
     from modelopt_tpu_torch.models import make_cache
     from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
     from modelopt_tpu_torch.quant.api import calibrate, validate_calibration
-    from modelopt_tpu_torch.serve import ServingEngine, run_serving_benchmark
 
     title, model, preset, kv = PATHS[name]
     cfg = path_config(torch, model, PATH_LAYERS.get(name))
-    kv_dtype = getattr(torch, kv)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     bundle = build_compressed_bundle(cfg, preset, seed=0, device="cuda")
@@ -2525,6 +2563,19 @@ def serve_path(torch, name) -> dict:
         bad = validate_calibration(bundle)
         n_amax = sum(getattr(m, "amax", None) is not None for m in bundle.module.modules())
         log(f"  calibrated: {n_amax} quantizers hold an amax, {len(bad)} invalid")
+    return serve_bundle(torch, name, bundle, cfg)
+
+
+def serve_bundle(torch, name, bundle, cfg) -> dict:
+    """Serve path ``name`` from its compressed, calibrated ``bundle``: warm
+    the engine up with one request, serve TRAFFIC (``measured_run``; on
+    path M also counting ``int8_dynamic_gemm``'s calls), take the prefill
+    window of ``PREFILL_SPLIT``, profile a window of decode ticks, check one
+    more request, and free the model. Returns the measured run's
+    launches."""
+    from modelopt_tpu_torch.serve import ServingEngine, run_serving_benchmark
+
+    kv_dtype = getattr(torch, PATHS[name][3])
     paging = (dict(paged=True, page_size=PAGE_SIZE, kv_pages=PAGED_POOL) if name in PAGED
               else {})
     eng = ServingEngine(bundle, max_batch=8, max_seq_len=2176, prefill_buckets=(32, 544),
@@ -2542,7 +2593,18 @@ def serve_path(torch, name) -> dict:
     run_serving_benchmark(eng, n_requests=1, input_len=TRAFFIC[1], output_len=8,
                           vocab=cfg.vocab_size)
     log(f"  warm-up request {time.time() - t0:.1f} s")
-    launches = measured_run(torch, eng, name)
+    with dynamic_gemm_calls() as calls:
+        launches = measured_run(torch, eng, name)
+    if name == "M":
+        # every projection of every 544-row prefill chunk, and nothing else
+        per_chunk = 4 * cfg.num_layers
+        log(f"  int8_dynamic_gemm: {len(calls)} calls in the measured run, all at M = "
+            f"{sorted(set(calls))} ({len(calls) // per_chunk} prefill chunks of "
+            f"{eng.stats['prefill_chunks']} x 4 projections x {cfg.num_layers} layers)")
+        if not calls or len(calls) % per_chunk or min(calls) <= 256:
+            raise AssertionError(f"path M: int8_dynamic_gemm calls {len(calls)}")
+    elif calls:
+        raise AssertionError(f"path {name}: {len(calls)} int8_dynamic_gemm calls")
     if name in PREFILL_SPLIT:
         prefill_window(torch, bundle, cfg, kv_dtype, name)
     # the cache tensors the kernels wrote are the path's dtype (K and L:
@@ -2670,6 +2732,418 @@ def skip_path(torch) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# post-training quantization on the card: path M, the PTQ phase
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def dynamic_gemm_calls():
+    """While active, record the row count of every ``int8_dynamic_gemm``
+    call (a list, yielded)."""
+    from modelopt_tpu_torch.quant import backends as qb
+
+    calls: list = []
+    real = qb.int8_dynamic_gemm
+
+    def counted(x2d, *args, **kw):
+        calls.append(x2d.shape[0])
+        return real(x2d, *args, **kw)
+
+    qb.int8_dynamic_gemm = counted
+    try:
+        yield calls
+    finally:
+        qb.int8_dynamic_gemm = real
+
+
+def int8_dynamic_rows(torch, gen, timer, results: dict) -> None:
+    """``int8_dynamic_gemm`` (quant/backends.py: per-row int8 codes, the
+    s8 x s8 -> s32 product by ``torch._int_mm``, ``acc * xscale * scale``)
+    at a 544-row prefill chunk on Llama-3-8B's four projections (path M),
+    bit for bit against its plain version (the same codes and scales, the
+    s32 product through an exact f64 matmul: |acc| < 2^53), beside the bf16
+    ``torch.matmul`` of the same shape (``library_ms``) and the bound
+    (2 M K N at the int8 rate, or the bytes); and ``torch._int_mm`` alone
+    on the row-major weight against the K-major copy and product the
+    function takes. Records the GEMM kernels
+    ``torch._int_mm`` launches in it and the weight copy's kernel, for path
+    M's prefill split."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from modelopt_tpu_torch.quant import backends as qb
+    from modelopt_tpu_torch.quant.qtensor import dequantize_int8, quantize_int8
+
+    record = recorder(results)
+    M, dev = 544, "cuda"
+    log("int8_dynamic_gemm (torch._int_mm; no hand-written kernel, as the reference's "
+        "XLA dot_general)")
+    for K, N in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        qt = quantize_int8(torch.randn(K, N, generator=gen, device=dev,
+                                       dtype=torch.bfloat16) * 0.02)
+        wdq = dequantize_int8(qt).to(torch.bfloat16)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+
+        def plain():
+            xq, xs = qb._int8_rows(x.float())
+            acc = (xq.double() @ qt["data"].double()).float()
+            return (acc * xs * qt["scale"]).to(torch.bfloat16)
+
+        y = qb.int8_dynamic_gemm(x, qt["data"], qt["scale"], torch.bfloat16)
+        err = (y.float() - plain().float()).abs().max().item()
+        ms = timer(lambda: qb.int8_dynamic_gemm(x, qt["data"], qt["scale"], torch.bfloat16))
+        plain_ms = timer(plain, 5)
+        lib_ms = timer(lambda: torch.matmul(x, wdq))
+        nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+        record("int8_dynamic_gemm", f"M={M} K={K} N={N}", err, 0.0, ms, plain_ms, lib_ms,
+               nbytes, 2 * M * K * N, INT8_OPS)
+        # the layout choice: cuBLAS's product on the row-major weight as
+        # given, against the K-major copy and product int8_dynamic_gemm takes
+        xq = qb._int8_rows(x.float())[0]
+        row_ms = timer(lambda: torch._int_mm(xq, qt["data"]))
+        copy_ms = timer(lambda: torch._int_mm(xq, qt["data"].t().contiguous().t()))
+        results["int8_dynamic_gemm"][-1].update(int_mm_row_major_ms=row_ms,
+                                                 int_mm_k_major_copy_ms=copy_ms)
+        log(f"    torch._int_mm alone: row-major weight {row_ms:.4f} ms, K-major copy + "
+            f"product {copy_ms:.4f} ms")
+        # the device kernels of the call: cuBLAS's GEMM (its tile differs by
+        # shape) and the weight's K-major copy; the rest are elementwise. A
+        # window opened just before a call can lose its kernel records (as
+        # K17's and this copy's did after the kernel phase), so each window
+        # has the profiler's warm-up step first, as ``one_launch``'s
+        for keep, fn in ((INT_MM_KERNELS, lambda: qb.int8_dynamic_gemm(
+                x, qt["data"], qt["scale"], torch.bfloat16)),
+                         (WEIGHT_COPY_KERNELS, lambda: qt["data"].t().contiguous())):
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            names = {ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+                     and not ev.key.startswith("ProfilerStep")}
+            keep.extend(sorted(n for n in names - set(keep)
+                               if keep is WEIGHT_COPY_KERNELS or "gemm" in n))
+        del qt, wdq, x
+    log(f"  int8_dynamic_gemm's GEMM kernels: {[n[:90] for n in INT_MM_KERNELS]}; the "
+        f"weight copy's: {[n[:90] for n in WEIGHT_COPY_KERNELS]}")
+    if not (INT_MM_KERNELS and WEIGHT_COPY_KERNELS):
+        raise AssertionError("int8_dynamic_gemm: no GEMM or copy kernel recorded")
+
+
+# 4 batches of 1 x 512 synthetic ids (seed 0): at most 2,048 captured rows
+PTQ_BATCHES = (4, 512)
+PTQ_PROBE = 64  # tokens of the prompt whose fake-quant and compressed logits are compared
+# The compressed model against its fake-quant self before ``compress`` on
+# the same prompt (PERF.md derives both bars from CPU runs of this phase):
+# each packed layer on the input it saw in the fake-quant forward, max
+# |difference| over max |fake-quant output| (the two paths differ by the
+# fake-quant weights' bf16 rounding and the kernels' f32 sums), and the
+# logits, ||difference|| / ||fake-quant logits||, per (preset, depth): a
+# random model's per-tensor int8 activations amplify the first layers'
+# differences layer by layer, so the logit bar grows with depth.
+PTQ_LAYER_BAR = 0.02
+PTQ_LOGIT_BAR = {("INT8_KV_CFG", 32): 0.8, ("W4A8_INT8KV_CFG", 4): 0.2,
+                 ("INT4_AWQ_FULL_CFG", 4): 0.1}
+
+
+def with_outliers(bundle) -> None:
+    """Channels 0-3 of every layer's two input RMSNorm scales at 30 (the
+    channel outliers SmoothQuant moves into the weights), in place."""
+    for layer in bundle.module.layers():
+        for norm in (layer.input_norm, layer.post_attn_norm):
+            norm.scale.data[:4] = 30.0
+
+
+@contextlib.contextmanager
+def step_times(torch, module):
+    """Time an algorithm module's ``capture_inputs`` and ``max_calibrate``
+    calls (the card synchronized around each); yields {step: seconds}."""
+    times = {"capture": 0.0, "calibration": 0.0}
+    real = {"capture": module.capture_inputs, "calibration": module.max_calibrate}
+
+    def timed(step):
+        def fn(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = real[step](*args, **kw)
+            torch.cuda.synchronize()
+            times[step] += time.time() - t0
+            return out
+        return fn
+
+    module.capture_inputs, module.max_calibrate = timed("capture"), timed("calibration")
+    try:
+        yield times
+    finally:
+        module.capture_inputs, module.max_calibrate = real["capture"], real["calibration"]
+
+
+def quantize_on_card(torch, cfg, preset) -> tuple:
+    """Build ``cfg`` in full precision (``build_bundle``, seed 0) with
+    channel outliers, ``quantize`` it under ``preset`` with its own
+    algorithm on PTQ_BATCHES, take the QUANT-phase logits of a PTQ_PROBE-
+    token prompt, ``compress``, check that every quantized kernel is gone,
+    and hold the compressed model's logits on the same prompt to the
+    fake-quant ones (PTQ_LOGIT_BAR, PTQ_ARGMAX_BAR). Logs each step's time,
+    the peak memory and the compressed model's size. Returns the bundle and
+    {step: seconds}."""
+    from modelopt_tpu_torch.models.synthetic import build_bundle
+    from modelopt_tpu_torch.quant.algorithms import awq, smoothquant
+    from modelopt_tpu_torch.quant.api import quantize
+    from modelopt_tpu_torch.quant.compress import compress
+
+    dev, times = "cuda", {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    bundle = build_bundle(cfg, seed=0, device=dev)
+    with_outliers(bundle)
+    torch.cuda.synchronize()
+    times["build"] = time.time() - t0
+    size = sum(t.numel() * t.element_size() for t in bundle.module.parameters())
+    log(f"  built {cfg.num_layers} layers in full precision ({cfg.param_dtype}): "
+        f"{size / 1e9:.2f} GB in {times['build']:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, T = PTQ_BATCHES
+    batches = [torch.randint(1, cfg.vocab_size, (1, T), dtype=torch.int32, device=dev,
+                             generator=gen) for _ in range(n)]
+    algorithm = {"INT8_KV_CFG": smoothquant}.get(preset, awq)
+    with step_times(torch, algorithm) as steps:
+        t0 = time.time()
+        bundle = quantize(bundle, preset, lambda f: [f(ids) for ids in batches])
+        torch.cuda.synchronize()
+        total = time.time() - t0
+    times.update(steps)
+    times["search"] = total - steps["capture"] - steps["calibration"]
+    peak = torch.cuda.max_memory_allocated()
+    probe = torch.randint(1, cfg.vocab_size, (1, PTQ_PROBE), dtype=torch.int32, device=dev,
+                          generator=gen)
+    seen = {}  # packed layer: (its input, its fake-quant output) in the probe's forward
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.__setitem__(m, (i[0], o)))
+             for m in bundle.module.modules() if type(m).__name__ == "QuantDense"
+             and m.path != "lm_head"]
+    fq = bundle.apply(probe)[0].float()
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bundle = compress(bundle)
+    torch.cuda.synchronize()
+    times["compress"] = time.time() - t0
+    packed = bundle.records[-1].metadata["compressed"]
+    dense = [m.path for m in bundle.module.modules() if getattr(m, "kernel", None) is not None]
+    if len(packed) != 4 * cfg.num_layers or dense != ["lm_head"]:
+        raise AssertionError(f"compress: packed {len(packed)}, dense kernels left {dense}")
+    size_c = sum(t.numel() * t.element_size() for t in
+                 list(bundle.module.parameters()) + list(bundle.module.buffers()))
+    layer_err = {}
+    with bundle.contexts(), torch.no_grad():
+        for m, (x, y) in seen.items():
+            layer_err[m.path] = ((m(x).float() - y.float()).abs().max()
+                                 / y.float().abs().max()).item()
+    worst = max(layer_err, key=layer_err.get)
+    got = bundle.apply(probe)[0].float()
+    err = ((got - fq).norm() / fq.norm()).item()
+    agree = (got.argmax(-1) == fq.argmax(-1)).float().mean().item()
+    bar = PTQ_LOGIT_BAR[(preset, cfg.num_layers)]
+    log(f"  {preset}: " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        + f"; peak memory {peak / 2**30:.2f} GiB through quantize; compressed model "
+        f"{size_c / 1e9:.2f} GB ({len(packed)} layers packed, the bf16 kernels dropped)")
+    log(f"  compressed vs fake-quant on a {PTQ_PROBE}-token prompt: each packed layer on its "
+        f"fake-quant input, max |diff| / max |output| <= {layer_err[worst]:.4f} ({worst}; "
+        f"bar {PTQ_LAYER_BAR}); logits ||diff|| / ||logits|| {err:.4f} (bar {bar}), max "
+        f"|diff| / max |logit| {(got - fq).abs().max().item() / fq.abs().max().item():.4f}, "
+        f"argmax agreement {agree:.3f}")
+    if not (len(layer_err) == len(packed) and layer_err[worst] <= PTQ_LAYER_BAR
+            and torch.isfinite(got).all() and err <= bar):
+        raise AssertionError(f"{preset}: the compressed model is off its fake-quant self")
+    return bundle, times
+
+
+def ptq_path(torch, name: str = "M") -> dict:
+    """Path M: Llama-3-8B at full width and depth built in bf16 on the card,
+    quantized under INT8_KV_CFG by its own algorithm (SmoothQuant over the
+    captured inputs, then max calibration of the per-channel weights, the
+    static activations and the int8 KV cache), compressed, then served as
+    ``serve_bundle`` serves the other paths. Returns the measured run's
+    launches."""
+    title, model, preset, _ = PATHS[name]
+    cfg = path_config(torch, model)
+    bundle, _ = quantize_on_card(torch, cfg, preset)
+    return serve_bundle(torch, name, bundle, cfg)
+
+
+PTQ_LAYERS = 4  # of Llama-3-8B's 32, at full width
+PTQ_PRESETS = (("W4A8_INT8KV_CFG", "int8"), ("INT4_AWQ_FULL_CFG", "bfloat16"))
+
+
+def ptq_phase(torch) -> dict:
+    """The AWQ family on the card: Llama-3-8B at full width, PTQ_LAYERS
+    layers, under W4A8_INT8KV_CFG (awq_lite, then K1 serving) and
+    INT4_AWQ_FULL_CFG (awq_lite then awq_clip, then K6 serving): quantize,
+    compress and compare (``quantize_on_card``), log each group's chosen
+    exponent and the clip ratios, then serve one request of TRAFFIC's
+    prompt length. Launch counters are zeroed before the first quantize and
+    read after the last request; returns them."""
+    from modelopt_tpu_torch import kernels
+    from modelopt_tpu_torch.serve import ServingEngine
+
+    cfg = path_config(torch, "llama3_8b", PTQ_LAYERS)
+    kernels.reset_launch_counts()
+    for preset, kv in PTQ_PRESETS:
+        log(f"  {preset} at {PTQ_LAYERS} layers")
+        bundle, _ = quantize_on_card(torch, cfg, preset)
+        alphas = {p: round(v["alpha"], 2) for p, v in bundle.metadata["awq_lite"].items()}
+        log(f"  awq_lite exponents: {json.dumps(alphas)}")
+        if "awq_clip" in bundle.metadata:
+            total: dict = {}
+            for hist in bundle.metadata["awq_clip"].values():
+                for r, c in hist.items():
+                    total[r] = total.get(r, 0) + c
+            log(f"  awq_clip ratios chosen (count of blocks x columns): {json.dumps(total)}")
+        eng = ServingEngine(bundle, max_batch=1, max_seq_len=2176, prefill_buckets=(32, 544),
+                            kv_dtype=getattr(torch, kv), multi_step=16, max_admit=1,
+                            device="cuda")
+        prompt = torch.randint(1, cfg.vocab_size, (TRAFFIC[1],),
+                               generator=torch.Generator().manual_seed(3)).tolist()
+        req = eng.submit(prompt, max_new_tokens=16)
+        eng.run()
+        lps = torch.tensor(req.out_logprobs)
+        if not (len(req.out_tokens) == 16 and torch.isfinite(lps).all()):
+            raise AssertionError(f"{preset}: bad served request {req.out_tokens}")
+        log(f"  served one request of {TRAFFIC[1]} -> 16 tokens, {kv} cache")
+        del eng, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"  launches in the PTQ phase: {launches}")
+    missing = [k for k in PATH_KERNELS["PTQ"] if launches[k] <= 0]
+    strays = [k for k in launches if k not in PATH_KERNELS["PTQ"] and launches[k]]
+    if missing or strays:
+        raise AssertionError(f"PTQ phase: never launched {missing}, launched {strays}")
+    return launches
+
+
+PTQ_FLOOR_DRAWS = 4
+
+
+def ptq_parity(torch) -> None:
+    """A tiny f32 llama (hidden 1024, 2 layers, D = 128) drawn on the CPU
+    (``build_bundle``, channel outliers) and copied to the card, quantized
+    by the port on both devices with the same ids under INT8_KV_CFG
+    (SmoothQuant) and W4A8_INT8KV_CFG (awq_lite): the same awq_lite
+    exponents (or, where they differ, losses within 1e-5 relative), the
+    same pre-quant scales and calibrated amax (the first projection's,
+    layer 0's qkv_proj, whose input is the same up to the embedding's norm,
+    to rtol 1e-5; the others', whose inputs come through f32 GEMMs summed
+    in another order, to rtol 1e-4); then, from the card's calibrated
+    state copied back to the CPU, both devices' compressed logits on a
+    probe within 3% of the largest CPU logit plus the CPU's noise floor
+    (the FP8 parity's rule, ``_parity(noise_floor=True)``, with the sums
+    moved by the kernels' own order bar, K * 2^-24, the largest change of
+    PTQ_FLOOR_DRAWS draws: static int8
+    activations with channel outliers round a projection's input to a
+    coarse grid, so a last-bit change moves a code by a whole step, which
+    the layers amplify). So that the floor hides no fault, every fake-quant
+    call of the CPU run is repeated on the card, bit for bit, and each
+    packed layer is run on the card on the input the CPU's layer saw,
+    within 1e-3 of its largest output (f32 outputs: the kernels' sums in
+    another order). The CPU's own calibration is not used
+    for the logits: a grid an ulp apart flips codes too."""
+    import copy
+
+    from modelopt_tpu_torch.core.bundle import ModelBundle
+    from modelopt_tpu_torch.models import llama_config
+    from modelopt_tpu_torch.models.synthetic import build_bundle
+    from modelopt_tpu_torch.quant.api import quantize
+    from modelopt_tpu_torch.quant.compress import compress
+
+    cfg = llama_config(vocab_size=4096, hidden_size=1024, num_layers=2, num_heads=8,
+                       num_kv_heads=2, intermediate_size=2048, max_position_embeddings=256,
+                       rope_theta=500000.0, fused_qkv=True, fused_gate_up=True,
+                       dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    calib = torch.randint(1, cfg.vocab_size, (2, 64), dtype=torch.int32, generator=g)
+    probe = torch.randint(1, cfg.vocab_size, (2, 32), dtype=torch.int32, generator=g)
+    for preset in ("INT8_KV_CFG", "W4A8_INT8KV_CFG"):
+        cpu = build_bundle(cfg, seed=0, init_scale=0.05, device="cpu")
+        with_outliers(cpu)
+        gpu = ModelBundle(module=copy.deepcopy(cpu.module).to("cuda"))
+        out = {}
+        for dev, b in (("cpu", cpu), ("cuda", gpu)):
+            ids = calib.to(dev)
+            b = quantize(b, preset, lambda f: f(ids))
+            state = {(m.path, k): getattr(m, k).float().cpu() for m in b.module.modules()
+                     for k in ("pre_quant_scale", "amax") if getattr(m, k, None) is not None}
+            out[dev] = (b, b.metadata.get("awq_lite", {}), state)
+        (_, aw_c, st_c), (gpu, aw_g, st_g) = out["cpu"], out["cuda"]
+
+        def back():  # the card's calibrated state, compressed on the CPU
+            b = ModelBundle(module=copy.deepcopy(gpu.module).to("cpu"), records=gpu.records)
+            return compress(b)
+
+        cpu_c = back()
+        fq_trace = _fake_quant_trace(cpu_c)
+        seen = {}  # packed layer path: (its input, its output) in the CPU's forward
+        hooks = [m.register_forward_hook(
+            lambda m, i, o: seen.__setitem__(m.path, (i[0].clone(), o.clone())))
+            for m in cpu_c.module.modules() if getattr(m, "compressed", False)]
+        ref = cpu_c.apply(probe)[0].float()
+        for h in hooks:
+            h.remove()
+        # the noise floor: the CPU run again with its GEMMs' f32 sums moved by
+        # the kernels' own order bar, K * 2^-24 at K = 2048, the largest
+        # change of PTQ_FLOOR_DRAWS draws
+        floor = 0.0
+        for seed in range(PTQ_FLOOR_DRAWS):
+            with _perturbed_sums(torch, 2048 * 2.0**-24, seed):
+                floor = max(floor, (back().apply(probe)[0].float() - ref).abs().max().item())
+        gpu = compress(gpu)
+        _replay_fake_quant(torch, f"ptq {preset}", fq_trace, gpu)
+        mods = {m.path: m for m in gpu.module.modules()}
+        with gpu.contexts(), torch.no_grad():
+            layer_err = max(((mods[p](x.to("cuda")).float().cpu() - y.float()).abs().max()
+                             / y.float().abs().max()).item() for p, (x, y) in seen.items())
+        got = gpu.apply(probe.to("cuda"))[0].float().cpu()
+        if sorted(st_c) != sorted(st_g) or not any(k == "pre_quant_scale" for _, k in st_c):
+            raise AssertionError(f"ptq parity {preset}: calibrated state on other layers")
+        flips = []
+        for p in aw_c:
+            a, b = aw_c[p], aw_g[p]
+            if a["alpha"] != b["alpha"]:
+                rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+                flips.append((p, a["alpha"], b["alpha"], rel))
+                if rel > 1e-5:
+                    raise AssertionError(f"ptq parity {preset}: {p} exponent {a['alpha']} on "
+                                         f"the CPU, {b['alpha']} on the card, losses {rel}")
+        rel = {key: ((st_g[key] - st_c[key]).abs() / st_c[key].abs()).max().item()
+               for key in st_c}
+        worst = {}  # (the first projection or not, buffer) -> largest relative difference
+        for (path, k), r in rel.items():
+            key = (path.startswith("layers_0/attn/qkv_proj/"), k)
+            worst[key] = max(worst.get(key, 0.0), r)
+        loss_err = max((max(abs(x - y) / abs(x) for x, y in zip(aw_c[p]["losses"],
+                                                                 aw_g[p]["losses"]))
+                        for p in aw_c), default=0.0)
+        err = (got - ref).abs().max().item()
+        tol = 3e-2 * ref.abs().max().item() + floor
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"  ptq {preset}: exponents {[round(v['alpha'], 2) for v in aw_c.values()]} on both"
+            + (f" but {flips}" if flips else "") + f", awq losses within {loss_err:.3g} "
+            "relative; card against CPU, largest relative difference: "
+            + ", ".join(f"{'first projection' if first else 'the rest'} {k} {r:.3g}"
+                        for (first, k), r in sorted(worst.items()))
+            + f"; from the card's state, each of {len(seen)} packed layers on the CPU's "
+            f"input within {layer_err:.3g} of its largest output (bar 1e-3), compressed "
+            f"logits max |diff| {err:.4g} (tol {tol:.4g}, of which the CPU's noise floor "
+            f"{floor:.4g}), argmax agreement {agree:.3f}")
+        bad = [key for key, r in worst.items() if r > (1e-5 if key[0] else 1e-4)]
+        if bad or not (layer_err <= 1e-3 and err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"ptq parity {preset}: state {bad}, layers {layer_err}, "
+                                 f"logits {err}")
+
+
 def measured_run(torch, eng, name) -> dict:
     """Serve TRAFFIC with the launch counters zeroed just before and read
     just after; check that every request got its tokens, that every kernel
@@ -2782,6 +3256,12 @@ def context_window(torch, eng, n_req: int, in_len: int, vocab: int) -> None:
     eng.run()
 
 
+# the GEMM kernels torch._int_mm runs for int8_dynamic_gemm at a 544-row
+# chunk of each Llama projection, and the kernel of the weight's K-major
+# copy, by name (filled by ``int8_dynamic_rows`` in the kernel phase, read
+# by path M's prefill window; other strided copies share the copy's name)
+INT_MM_KERNELS: list = []
+WEIGHT_COPY_KERNELS: list = []
 # the kernels a prefill window reports apart, by path: (label, kernel names)
 PREFILL_SPLIT = {
     "A": (("K1", ("w4a8_dec_kernel", "w4a8_wg_kernel")),
@@ -2789,6 +3269,11 @@ PREFILL_SPLIT = {
     # K6 and K10 share their kernels: "K6" is both (K10 takes the MoE's down
     # projection in the 32-row bucket only)
     "C": (("K6", ("w4a16_dec_kernel", "w4a16_wg_kernel")), ("K3", ("kv_write_kernel",)),
+          ("K4", ("flash_prefill_kernel",))),
+    # the 544-row chunks' projections: int8_dynamic_gemm's s8 x s8 product
+    # and its K-major weight copies (the kernels of the kernel phase's rows)
+    "M": (("int8 GEMM", INT_MM_KERNELS), ("strided copies", WEIGHT_COPY_KERNELS),
+          ("K7", ("w8_dec_kernel", "w8_wg_kernel")), ("K3", ("kv_write_kernel",)),
           ("K4", ("flash_prefill_kernel",))),
 }
 
@@ -2975,6 +3460,9 @@ def main() -> int:
 
     results: dict = {}
     kernel_phase(torch, results)
+    dynamic: dict = {}
+    int8_dynamic_rows(torch, torch.Generator(device="cuda").manual_seed(5), Timer(torch),
+                      dynamic)
     log(f"census: a paged decode forward's launches ({time.time() - t_start:.0f} s)")
     write_census(torch)
     log(f"parity: small models, card against CPU ({time.time() - t_start:.0f} s)")
@@ -2983,10 +3471,13 @@ def main() -> int:
     by_path = {"gateless": gateless_phase(torch)}
     for name in PATHS:
         log(f"path {name}: {PATHS[name][0]}, ServingEngine ({time.time() - t_start:.0f} s)")
-        by_path[name] = serve_path(torch, name)
+        by_path[name] = ptq_path(torch, name) if name == "M" else serve_path(torch, name)
     log(f"path J: Llama-3-8B W4A8 + int8 KV, calibrated skip-softmax decode, Decoder "
         f"({time.time() - t_start:.0f} s)")
     by_path["J"] = skip_path(torch)
+    log(f"PTQ phase: Llama-3-8B at full width, {PTQ_LAYERS} layers, the AWQ presets "
+        f"quantized, compressed and served on the card ({time.time() - t_start:.0f} s)")
+    by_path["PTQ"] = ptq_phase(torch)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
@@ -3000,6 +3491,8 @@ def main() -> int:
                                              "bound_ms", "bound_by", "library_ms")},
                      "launches_by_path": per_path, "shapes": shapes})
     log(f"total {time.time() - t_start:.0f} s")
+    log(json.dumps({"int8_dynamic_gemm": dynamic["int8_dynamic_gemm"],
+                    "gemm_kernels": INT_MM_KERNELS, "weight_copy_kernels": WEIGHT_COPY_KERNELS}))
     log(card_line())  # again, beside the numbers at the end of the log
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

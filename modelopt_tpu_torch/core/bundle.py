@@ -18,8 +18,7 @@ from typing import Any
 from .mode import get_mode
 
 # Phases a converted model runs in: quantizers collect amax in CALIB,
-# quantize in QUANT, pass through in OFF; CAPTURE quantizes as QUANT does
-# (without the KV cache's real codes or the GEMMs' skipped fake-quant) and
+# quantize in QUANT, pass through in OFF; CAPTURE passes through too and
 # records quantizer inputs for calibration algorithms.
 PHASE_QUANT = "quant"
 PHASE_CALIB = "calib"

@@ -7,10 +7,11 @@ MLA norms, the MoE router's kernel and bias, MLA's absorbed ``kv_b_proj``
 kernel, a kernel left dense by ``compress``) and ``quant`` (packed ``qweight``
 {data, scale} in the same [in, out] layout, the folded [in, E*out] one for
 experts, plus NVFP4's ``scale2``, the e4m3 arrays of fp8 and NVFP4 weights
-carried bit for bit; calibrated quantizer ``amax``) — and loads them into a
-port Decoder, so both packages compute the same model. Every leaf must be
-consumed: a leaf the port has no place for (a pre-quant scale, an unported
-quantizer state) raises instead of being dropped.
+carried bit for bit; calibrated quantizer ``amax``, per tensor or per
+channel, and the ``pre_quant_scale`` SmoothQuant and AWQ set on input
+quantizers) — and loads them into a port Decoder, so both packages compute
+the same model. Every leaf must be consumed: a leaf the port has no place
+for (an unported quantizer state) raises instead of being dropped.
 """
 
 from __future__ import annotations
@@ -72,8 +73,10 @@ def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
                 qt["scale2"] = take(f"quant/{base}/qweight/scale2")
             mod.set_qweight(qt)
             compressed = True
-        if isinstance(mod, TensorQuantizer) and f"quant/{base}/amax" in leaves:
-            mod.amax = take(f"quant/{base}/amax").float()
+        if isinstance(mod, TensorQuantizer):
+            for name in ("amax", "pre_quant_scale"):
+                if f"quant/{base}/{name}" in leaves:
+                    setattr(mod, name, take(f"quant/{base}/{name}").float())
         for name, _ in list(mod.named_parameters(recurse=False)):
             setattr(mod, name, nn.Parameter(take(f"params/{base}/{name}"),
                                             requires_grad=False))

@@ -1,5 +1,7 @@
-"""Build a compressed Llama-, Qwen3-MoE- or DeepSeek-scale bundle without
-its full-precision weights.
+"""Build a Llama-, Qwen3-MoE- or DeepSeek-scale bundle from random weights:
+full precision (``build_bundle``, the counterpart of ``module.init`` in
+the reference's quantize-then-compress flow), or compressed without its
+full-precision weights (``build_compressed_bundle``).
 
 Port of ``modelopt_tpu/models/synthetic.py::build_compressed_bundle``. The
 decoder is built on the meta device; then, layer by layer on ``device``,
@@ -27,9 +29,44 @@ from ..core.bundle import ModelBundle, ModeRecord
 from ..nn.layers import QuantDense, QuantEinsum, RMSNorm
 from ..quant import mode as _mode  # noqa: F401  (registers quantize/compress)
 from ..quant.config import get_config
-from ..quant.qtensor import compressible_format, quantize_qtensor, spec_folds
+from ..quant.qtensor import compressible_format, quantize_qtensor, spec_folds, unfold_experts
 from .mla import AbsorbedKernel
 from .transformer import Decoder, DecoderConfig
+
+
+def _param(mod, name: str, p, gen, init_scale: float, device) -> torch.Tensor:
+    """A non-kernel parameter: norm scales 1, biases 0, the rest
+    ``N(0, 1) * init_scale`` drawn in f32, in the parameter's dtype."""
+    if isinstance(mod, RMSNorm) and name == "scale":
+        return torch.ones(p.shape, dtype=p.dtype, device=device)
+    if name == "bias":
+        return torch.zeros(p.shape, dtype=p.dtype, device=device)
+    return (torch.randn(p.shape, generator=gen, device=device) * init_scale).to(p.dtype)
+
+
+def build_bundle(cfg: DecoderConfig, seed: int = 0, init_scale: float = 0.02,
+                 device="cuda") -> ModelBundle:
+    """A full-precision Decoder on ``device`` with no mode applied, ready
+    for ``quant.api.quantize``: every kernel drawn as
+    ``build_compressed_bundle`` draws one (bf16 ``N(0, 1) * init_scale``, an
+    expert kernel in its folded [in, E*out] shape, then unfolded), stored in
+    ``cfg.param_dtype``; the other parameters by ``_param``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Decoder(cfg, device="meta")
+    for mod in model.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            if name == "kernel" and isinstance(mod, QuantEinsum):
+                E, fin, fout = mod.kernel_shape
+                w = torch.randn((fin, E * fout), generator=gen, device=device,
+                                dtype=torch.bfloat16) * init_scale
+                arr = unfold_experts(w, E).to(p.dtype).contiguous()
+            elif name == "kernel":
+                arr = (torch.randn(p.shape, generator=gen, device=device,
+                                   dtype=torch.bfloat16) * init_scale).to(p.dtype)
+            else:
+                arr = _param(mod, name, p, gen, init_scale, device)
+            setattr(mod, name, nn.Parameter(arr, requires_grad=False))
+    return ModelBundle(module=model)
 
 
 def build_compressed_bundle(cfg: DecoderConfig, quant_preset, seed: int = 0,
@@ -52,14 +89,8 @@ def build_compressed_bundle(cfg: DecoderConfig, quant_preset, seed: int = 0,
                 mod.set_qweight(quantize_qtensor(w, specs[0])[0])
                 del w
         for name, p in list(mod.named_parameters(recurse=False)):
-            if isinstance(mod, RMSNorm) and name == "scale":
-                arr = torch.ones(p.shape, dtype=p.dtype, device=device)
-            elif name == "bias":
-                arr = torch.zeros(p.shape, dtype=p.dtype, device=device)
-            else:
-                arr = (torch.randn(p.shape, generator=gen, device=device)
-                       * init_scale).to(p.dtype)
-            setattr(mod, name, nn.Parameter(arr, requires_grad=False))
+            setattr(mod, name, nn.Parameter(_param(mod, name, p, gen, init_scale, device),
+                                            requires_grad=False))
     records = (ModeRecord("quantize", qcfg, {}),
                ModeRecord("compress", {}, {"compressed": "synthetic"}))
     return ModelBundle(module=model, records=records)

@@ -3,18 +3,21 @@
 Port of ``modelopt_tpu/nn/quantizer.py`` for the serving slice. Each
 quantizer knows its path (``layers_0/attn/k_quantizer``, the reference's
 naming, set by ``assign_paths``) and resolves its specs from the active
-QuantizeConfig at call time; its calibrated ``amax`` is a buffer (None until
-calibrated). Behaviour follows the phase (core.bundle): CALIB passes x
-through and max-updates amax, QUANT quantizes, OFF is identity, CAPTURE
-records x (``capture_records``) and then quantizes as QUANT does, except
-that the KV cache's real codes and a GEMM's skipped fake-quant are QUANT's
-alone (the reference's rule).
+QuantizeConfig at call time; its calibrated ``amax`` and the pre-quant
+scale a calibration algorithm sets (SmoothQuant, AWQ) are buffers (None
+until set). Behaviour follows the phase (core.bundle): OFF is identity;
+otherwise x is first multiplied by ``pre_quant_scale`` (also when the
+quantizer's own spec is disabled: weight-only AWQ rescales the activation
+path), then CALIB passes x through and max-updates amax, QUANT quantizes
+and CAPTURE records x (``capture_records``) and passes it through, as the
+reference does.
 
 Ported specs: per-tensor static int8 and e4m3 (calibrated amax, also the
-real-codes path for the KV cache), per-token dynamic int8, the FP8
-presets' static e4m3 activations and NVFP4's two-level blocks (a
+real-codes path for the KV cache), per-channel static integer amax
+(``axis=(-1,)``: the INT8 presets' weights), per-token dynamic int8, the
+FP8 presets' static e4m3 activations and NVFP4's two-level blocks (a
 calibrated per-tensor amax over dynamic block scales). Sequential chains,
-pre-quant scales, rotation and affine specs raise NotImplementedError.
+rotation and affine specs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -89,6 +92,24 @@ def _needs_static_amax(spec: QuantizerSpec) -> bool:
     return spec.block.two_level
 
 
+def _calib_stat(x: torch.Tensor, spec: QuantizerSpec, two_level: bool) -> torch.Tensor:
+    """One batch's amax statistic (f32): a scalar for per-tensor specs and
+    NVFP4's per-tensor amax, max |x| over every axis but the kept trailing
+    ones for per-channel integer specs (``axis=(-1,)``: [out] of an [in,
+    out] or [E, in, out] kernel)."""
+    if spec.block is not None and not two_level:
+        raise NotImplementedError("calibration of static-block amax is not ported")
+    if spec.axis is None or two_level:
+        return x.abs().amax().float()
+    if spec.is_fp:
+        raise NotImplementedError("calibration of per-channel fp amax is not ported")
+    keep = sorted(a % x.dim() for a in spec.axis)
+    if keep != list(range(x.dim() - len(keep), x.dim())):
+        raise NotImplementedError("calibration of a non-trailing per-channel amax "
+                                  "is not ported")
+    return x.abs().float().amax(dim=tuple(range(x.dim() - len(keep))))
+
+
 def assign_paths(root: nn.Module) -> None:
     """Give every module its reference path: ``layers_0.attn.k_quantizer``
     becomes ``layers_0/attn/k_quantizer``."""
@@ -103,6 +124,7 @@ class TensorQuantizer(nn.Module):
         super().__init__()
         self.path = ""
         self.register_buffer("amax", None)
+        self.register_buffer("pre_quant_scale", None)
 
     def specs(self):
         cfg = active_quant_config()
@@ -124,8 +146,12 @@ class TensorQuantizer(nn.Module):
         phase = current_phase()
         if phase == PHASE_OFF:
             return ret(x)
+        if self.pre_quant_scale is not None and (
+                phase == PHASE_CAPTURE or active_quant_config() is not None):
+            x = (x * self.pre_quant_scale).to(x.dtype)
         if phase == PHASE_CAPTURE:
             self._record(x)
+            return ret(x)
         specs = self.specs()
         if not specs:
             return ret(x)
@@ -175,10 +201,7 @@ class TensorQuantizer(nn.Module):
         two_level = spec.block is not None and spec.block.dynamic and spec.block.two_level
         if phase == PHASE_CALIB:
             if needs_amax:
-                if (spec.block is not None and not two_level) or spec.axis is not None:
-                    raise NotImplementedError(
-                        "calibration of per-channel / static-block amax is not ported")
-                stat = x.detach().abs().amax().float()
+                stat = _calib_stat(x.detach(), spec, two_level)
                 self.amax = stat if self.amax is None else torch.maximum(self.amax, stat)
             return x
         amax = None
@@ -188,6 +211,8 @@ class TensorQuantizer(nn.Module):
                     f"Quantizer {self.path} has no calibrated 'amax'. Run "
                     "calibrate() first (or use a dynamic spec).")
             amax = self.amax
+            if 0 < amax.dim() < x.dim():  # a per-channel amax over the trailing axes
+                amax = amax.reshape((1,) * (x.dim() - amax.dim()) + tuple(amax.shape))
         if two_level:
             return fake_quantize(x, spec, tensor_amax=amax)
         return fake_quantize(x, spec, amax=amax)

@@ -14,15 +14,17 @@ kernel on the card, its plain twin on the CPU):
     DeepSeek's K=1408 included), without gates ``grouped_w4a8_gemm`` (the
     same widths), int4 weight-only ``grouped_w4a16_gemm``, NVFP4
     ``grouped_nvfp4_gemm``;
+  * int8 weights with int8 activations above 256 rows:
+    ``int8_dynamic_gemm`` (dynamic per-row int8 activations, an s8 x s8 ->
+    s32 product: ``torch._int_mm`` on the card, an exact int32 product on
+    the CPU), which the JAX package also computes outside any Pallas
+    kernel;
   * everything else, above 256 rows in particular, the reference's
     dequantize + ``torch.matmul`` / ``torch.einsum``, which the JAX package
     also computes outside any Pallas kernel, on both devices.
-One case belongs to a function of the reference that is no Pallas kernel
-and is not ported, and raises on a CUDA tensor (the CPU keeps the
-dequantize path): int8 weights with int8 activations above 256 rows
-(``int8_dynamic_gemm``). (The reference routes its CPU calls to the
-dequantize path; this port keeps the kernels' arithmetic on both devices,
-so a CPU run checks the card's.)
+(The reference routes its CPU calls to the dequantize path; this port
+keeps the kernels' arithmetic on both devices, so a CPU run checks the
+card's.)
 """
 
 from __future__ import annotations
@@ -67,12 +69,35 @@ def _fq_int8_per_token(x: torch.Tensor) -> torch.Tensor:
     return (codes.float() * xs).to(x.dtype)
 
 
+def int8_dynamic_gemm(x2d: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+                      out_dtype) -> torch.Tensor:
+    """W8A8 with dynamic per-row int8 activations: x2d [M, K] quantized per
+    row (scale max(|x|, 1e-12)/127 in f32, codes round-half-even(x/scale)
+    clipped to +-127), an s8 x s8 -> s32 product with the int8 weight
+    ``data`` [K, N], then ``acc * xscale * scale`` in f32 (``scale`` [1, N],
+    the weight's per-channel scale), cast to ``out_dtype``. The product is
+    ``torch._int_mm`` on the card (cuBLAS; the reference's is XLA's
+    ``dot_general``, no Pallas kernel) and an exact int32 product on the
+    CPU. cuBLAS's fast int8 GEMMs take both operands K-major: the [K, N]
+    weight goes in as a K-major copy made for the call (on an H100 the
+    row-major weight takes a slower sm80 WMMA kernel; ``chip_smoke.py``'s
+    int8_dynamic_gemm rows time both; a hand-written tile that reads
+    [K, N] would need neither)."""
+    xq, xs = _int8_rows(x2d.float())
+    if xq.device.type == "cpu":
+        acc = torch.matmul(xq.to(torch.int32), data.to(torch.int32))
+    else:
+        acc = torch._int_mm(xq, data.t().contiguous().t())
+    return (acc.float() * xs * scale).to(out_dtype)
+
+
 def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
           act_int8: bool = False, act_raw: bool = False) -> torch.Tensor:
     """x2d [M, K] @ packed weight -> [M, N]. ``act_int8`` with int4 weights
     selects W4A8: per-row scale xs = max(|x|, 1e-12)/127 in f32,
     xq = round-half-even(x/xs) clipped to +-127, the kernel's product, then
     ``* xs`` in f32 for M <= 256 and in ``out_dtype`` above.
+    int8 weights with ``act_int8`` above 256 rows take ``int8_dynamic_gemm``.
     ``act_raw``: the layer skipped its input fake-quant, so a 16-bit path
     must fake-quantize x first to keep the A8 semantics."""
     fmt = compressible_format(spec, tuple(kn))
@@ -90,6 +115,8 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
         # and CPU calls to a dequantize + matmul; the port's kernel serves all
         return w4a16_gemm(x2d, qt["data"], qt["scale"], block=block_of(spec),
                           out_dtype=out_dtype)
+    if fmt == "int8" and act_int8 and x2d.shape[0] > PREFILL_MIN_M:
+        return int8_dynamic_gemm(x2d, qt["data"], qt["scale"], out_dtype)
     if act_int8 and act_raw:
         # a 16-bit product still serves A8: one per-token rounding
         x2d = _fq_int8_per_token(x2d)
@@ -101,10 +128,6 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
         if fmt == "nvfp4":
             return nvfp4_gemm(x2d, qt["data"], qt["scale"], qt["scale2"],
                               block=block_of(spec, 16), out_dtype=out_dtype)
-    elif fmt == "int8" and act_int8 and x2d.device.type != "cpu":
-        raise NotImplementedError(
-            "qgemm: int8 weights with int8 activations above 256 rows have no CUDA "
-            "kernel yet (int8_dynamic_gemm is not ported)")
     w = dequantize_qtensor(qt, spec, kn).to(out_dtype)
     return torch.matmul(x2d.to(out_dtype), w)
 

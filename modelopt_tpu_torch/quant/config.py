@@ -4,8 +4,11 @@ Port of ``modelopt_tpu/quant/config.py``: the same rule engine (ordered
 fnmatch rules on quantizer paths such as
 ``layers_0/attn/qkv_proj/weight_quantizer``, later matches overriding
 earlier ones attribute by attribute) and, of the presets, those the
-serving paths run: ``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG``,
-``INT8_KV_CFG``, ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16),
+serving paths and the ported calibration algorithms run:
+``W4A8_INT8KV_CFG``, ``W4A8_INT8_DYNAMIC_CFG``, ``INT8_KV_CFG``,
+``INT8_DEFAULT_CFG``, ``INT8_SMOOTHQUANT_CFG``, ``INT4_AWQ_CFG``,
+``INT4_AWQ_CLIP_CFG``, ``INT4_AWQ_FULL_CFG``,
+``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16),
 ``INT8_WEIGHT_ONLY_CFG``, ``FP8_DEFAULT_CFG`` (e4m3 weights and static
 e4m3 activations), ``FP8_KV_CFG`` (the same with an e4m3 KV cache),
 ``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG`` and
@@ -70,6 +73,11 @@ class QuantizeConfig:
                 rules.append((pattern, _freeze(attrs)))
         alg = d.get("algorithm", "max")
         return QuantizeConfig(rules=tuple(rules), algorithm=_freeze(alg))
+
+    def updated(self, extra_rules: dict) -> "QuantizeConfig":
+        """Append rules (later rules win): ``disable_quantizer`` and the like."""
+        extra = QuantizeConfig.from_dict({"quant_cfg": extra_rules})
+        return dataclasses.replace(self, rules=self.rules + extra.rules)
 
     def resolve(self, path: str) -> Optional[tuple]:
         return _resolve_cached(self, path)
@@ -166,6 +174,11 @@ KV_CACHE_FP8 = {
     "*v_quantizer": {"num_bits": (4, 3), "axis": None},
 }
 
+INT8_DEFAULT_CFG = _cfg(_W_INT8_PC, _A_INT8_PT)
+INT8_SMOOTHQUANT_CFG = _cfg(_W_INT8_PC, _A_INT8_PT, algorithm="smoothquant")
+INT4_AWQ_CFG = _cfg(_W_INT4_BLOCK, None, algorithm={"method": "awq_lite"})
+INT4_AWQ_CLIP_CFG = _cfg(_W_INT4_BLOCK, None, algorithm={"method": "awq_clip"})
+INT4_AWQ_FULL_CFG = _cfg(_W_INT4_BLOCK, None, algorithm={"method": "awq_full"})
 W4A8_INT8_DYNAMIC_CFG = _cfg(_W_INT4_BLOCK, _A_INT8_PER_TOKEN,
                              algorithm={"method": "awq_lite"})
 INT8_KV_CFG = _cfg(_W_INT8_PC, _A_INT8_PT, extra=KV_CACHE_INT8,
@@ -181,6 +194,11 @@ NVFP4_WEIGHT_ONLY_CFG = _cfg(_W_NVFP4, None)
 W4A16_NVFP4_CFG = _cfg(_W_NVFP4, None)
 
 choices = {
+    "INT8_DEFAULT_CFG": INT8_DEFAULT_CFG,
+    "INT8_SMOOTHQUANT_CFG": INT8_SMOOTHQUANT_CFG,
+    "INT4_AWQ_CFG": INT4_AWQ_CFG,
+    "INT4_AWQ_CLIP_CFG": INT4_AWQ_CLIP_CFG,
+    "INT4_AWQ_FULL_CFG": INT4_AWQ_FULL_CFG,
     "W4A8_INT8_DYNAMIC_CFG": W4A8_INT8_DYNAMIC_CFG,
     "INT8_KV_CFG": INT8_KV_CFG,
     "W4A8_INT8KV_CFG": W4A8_INT8KV_CFG,

@@ -2,9 +2,10 @@
 
 Port of ``modelopt_tpu/quant/fake_quant.py`` for: per-tensor static int8
 (a calibrated amax), per-token dynamic int8 (a scale per row from this
-call's values), dynamic one-level integer blocks (the int4 block-128 weight
-spec on a kernel too ragged to pack, such as DeepSeek-V2-Lite's first down
-projection, K=10944), per-tensor fp (the FP8 presets' e4m3 activations and
+call's values), per-channel integer (the INT8 presets' weights, a
+calibrated amax per kept axis), dynamic one-level integer blocks (the int4
+block-128 weight spec on a kernel too ragged to pack, such as
+DeepSeek-V2-Lite's first down projection, K=10944), per-tensor fp (the FP8 presets' e4m3 activations and
 weights: ``fake_quant_fp``) and NVFP4's dynamic two-level blocks (e2m1
 elements, e4m3 block scales over an f32 per-tensor scale), with the
 reference's zero padding of a dimension the block does not divide. Other
@@ -17,10 +18,21 @@ from __future__ import annotations
 
 import torch
 
-from .formats import FPFormat, cast_to_fp, parse_format
+from .formats import FPFormat, cast_to_fp, parse_format, true_divide
 from .qspec import QuantizerSpec
 
 _TINY = 1e-24
+
+
+def reduce_amax(x: torch.Tensor, axis=None, keepdims: bool = True) -> torch.Tensor:
+    """Max of |x| over every dim except those ``axis`` names (the kept ones);
+    ``axis=None`` reduces all of them to a scalar."""
+    x = x.abs()
+    if axis is None:
+        return x.amax()
+    keep = {a % x.dim() for a in axis}
+    red = tuple(i for i in range(x.dim()) if i not in keep)
+    return x.amax(dim=red, keepdim=keepdims)
 
 
 def fake_quant_int(x: torch.Tensor, amax, num_bits: int = 8, unsigned: bool = False,
@@ -49,7 +61,7 @@ def fake_quant_int8_per_token(x: torch.Tensor, spec: QuantizerSpec) -> torch.Ten
     """Dynamic per-row int8 (block {-1: 0}): scale = max(|row|)/bound."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(_TINY)
-    scale = amax / spec.int_bound
+    scale = true_divide(amax, spec.int_bound)
     y = torch.round(torch.clamp(xf / scale, -spec.int_bound - 1, spec.int_bound)) * scale
     return y.to(x.dtype)
 
@@ -96,7 +108,7 @@ def fake_quant_block_int(x: torch.Tensor, spec: QuantizerSpec) -> torch.Tensor:
     the padding is cut away."""
     xb, unblock, axes = _blocked(x.float(), spec)
     amax = xb.abs().amax(dim=axes, keepdim=True)
-    scale = amax.clamp_min(_TINY) / spec.int_bound
+    scale = true_divide(amax.clamp_min(_TINY), spec.int_bound)
     y = torch.round(torch.clamp(xb / scale, -spec.int_bound - 1, spec.int_bound)) * scale
     return unblock(y).to(x.dtype)
 
@@ -159,10 +171,10 @@ def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None,
                 and spec.block.scale_format is None and not spec.block.four_over_six):
             return fake_quant_block_int(x, spec)
         raise NotImplementedError(f"block fake quantization of {spec} is not ported")
-    if spec.axis is not None:
-        raise NotImplementedError("per-channel fake quantization is not ported")
+    if spec.axis is not None and spec.is_fp:
+        raise NotImplementedError("per-channel fp fake quantization is not ported")
     if amax is None:
-        amax = x.abs().amax().float()
+        amax = reduce_amax(x, spec.axis).float()
     if spec.is_fp:
         return fake_quant_fp(x, amax, spec.fp_format)
     return fake_quant_int(x, amax, spec.num_bits, spec.unsigned, spec.narrow_range)

@@ -1,6 +1,6 @@
 """Quantization mode descriptors (port of ``modelopt_tpu/quant/mode.py``):
 ``quantize`` binds its QuantizeConfig while the model runs; ``compress``
-marks a bundle whose weights are packed (nothing to bind)."""
+packs the weights (``quant/compress.py``) and binds nothing."""
 
 from __future__ import annotations
 
@@ -31,4 +31,6 @@ class CompressModeDescriptor(ModeDescriptor):
     name = "compress"
 
     def convert(self, bundle, config):
-        return bundle, {}
+        from .compress import _compress_variables
+
+        return bundle, {"compressed": _compress_variables(bundle)}

@@ -14,7 +14,8 @@ to the reference's, so a packed weight from either package feeds the other:
     nibble row p, high nibble row K/2+p), e4m3 block-16 scales [K/16, N]
     and one f32 ``scale2`` [1, 1]: w ~ e2m1 * scale * scale2.
 
-Scales are the dequantization multipliers (w ~ code * scale).
+Scales are the dequantization multipliers (w ~ code * scale), each a true
+quotient (``formats.true_divide``), so the card packs the CPU's bits.
 
 MoE expert kernels [E, in, out] pack as their FOLDED view [in, E*out]
 (``fold_experts``, the reference's quant/compress.py:37-49): expert e is
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .formats import true_divide
 from .qspec import QuantizerSpec
 
 
@@ -57,7 +59,7 @@ def quantize_int4(w: torch.Tensor, block: int = 128) -> dict:
         raise ValueError(f"quantize_int4: K={K} must be even and a multiple of {block}")
     wb = w.float().reshape(K // block, block, N)
     amax = wb.abs().amax(dim=1, keepdim=True)
-    scale = amax.clamp_min(1e-12) / 7.0
+    scale = true_divide(amax.clamp_min(1e-12), 7.0)
     q = torch.clamp(torch.round(wb / scale), -8, 7).to(torch.int32).reshape(K, N)
     return {"data": pack_int4(q), "scale": scale[:, 0, :]}
 
@@ -71,7 +73,7 @@ def dequantize_int4(qt: dict, block: int = 128) -> torch.Tensor:
 def quantize_int8(w: torch.Tensor) -> dict:
     """w [K, N] -> {'data': int8 [K, N], 'scale': f32 [1, N]} per out channel."""
     wf = w.float()
-    scale = wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-12) / 127.0
+    scale = true_divide(wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-12), 127.0)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"data": q, "scale": scale}
 
@@ -84,7 +86,7 @@ def quantize_fp8(w: torch.Tensor) -> dict:
     """w [K, N] -> {'data': e4m3 [K, N], 'scale': f32 [1, 1]}: one scale
     max(|w|, 1e-12)/448, codes cast with round half to even."""
     wf = w.float()
-    scale = wf.abs().amax().clamp_min(1e-12) / 448.0
+    scale = true_divide(wf.abs().amax().clamp_min(1e-12), 448.0)
     data = torch.clamp(wf / scale, -448.0, 448.0).to(torch.float8_e4m3fn)
     return {"data": data, "scale": scale.reshape(1, 1)}
 
@@ -122,8 +124,8 @@ def quantize_nvfp4(w: torch.Tensor, block: int = 16) -> dict:
     wf = w.float()
     wb = wf.reshape(K // block, block, N)
     bamax = wb.abs().amax(dim=1, keepdim=True)
-    scale2 = wf.abs().amax().clamp_min(1e-12) / (6.0 * 448.0)
-    s1 = torch.clamp(bamax.clamp_min(1e-12) / 6.0 / scale2, -448.0, 448.0) \
+    scale2 = true_divide(wf.abs().amax().clamp_min(1e-12), 6.0 * 448.0)
+    s1 = torch.clamp(true_divide(bamax.clamp_min(1e-12), 6.0) / scale2, -448.0, 448.0) \
         .to(torch.float8_e4m3fn)
     eff = (s1.float() * scale2).clamp_min(1e-20)
     codes = _encode_e2m1(torch.clamp(wb / eff, -6.0, 6.0)).reshape(K, N)

@@ -123,10 +123,8 @@ def test_qgemm_matches_reference(rng, M):
 def test_qgemm_dequantize_path_is_cpu_only(rng):
     """int8 per-channel weights with bf16 activations (K7 w8a16_gemm; its
     twin on the CPU) match the reference's CPU dequantize + matmul at bf16
-    tolerance. The one qgemm route still without a ported kernel, int8
-    weights with int8 activations above 256 rows (the reference's
-    int8_dynamic_gemm), dequantizes on the CPU only and raises on any other
-    device rather than let a library matmul stand in for the kernel."""
+    tolerance. int8 weights with int8 activations above 256 rows take the
+    reference's route, ``int8_dynamic_gemm``, on every device."""
     K, N = 256, 128
     x = rng.standard_normal((4, K)).astype(np.float32)
     w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
@@ -138,9 +136,9 @@ def test_qgemm_dequantize_path_is_cpu_only(rng):
     spec = TSpec(num_bits=8, axis=(-1,))
     yt = tb.qgemm(torch.from_numpy(x).bfloat16(), pt, spec, (K, N)).float().numpy()
     np.testing.assert_allclose(yt, yj, rtol=0, atol=2e-2 * np.abs(yj).max())
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        tb.qgemm(torch.empty(300, K, dtype=torch.bfloat16, device="meta"), pt, spec, (K, N),
-                 act_int8=True)
+    x300 = torch.from_numpy(rng.standard_normal((300, K)).astype(np.float32)).bfloat16()
+    assert torch.equal(tb.qgemm(x300, pt, spec, (K, N), act_int8=True),
+                       tb.int8_dynamic_gemm(x300, pt["data"], pt["scale"], torch.bfloat16))
 
 
 def test_packed_byte_operands_exhaustive():
