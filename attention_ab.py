@@ -18,10 +18,12 @@ decode step of one row a slot, 1024 and 640 bytes), ``mla_decode_kernel``
 (K5 at MLA's geometry: lengths 1..1088, two chunks, 33..56 keys, and a
 bf16 cache), ``fused_decode_kernels``, ``w4a8_kernels``,
 ``flash_prefill_kernels``, ``flash_kernels``, ``moe_kernels``,
-``fp_kernels``, ``paged_kernels`` (K15 at E's, L's and F's geometry, F
-also at 33..56 keys), ``block_sparse_kernels`` and, where the tree has
-them, ``kv_pair_kernels`` (K3's ``dense_kv_write_pair``) and
-``paged_rows_kernels`` (K16's ``paged_kv_write_rows``), each held to the
+``fp_kernels``, ``paged_kernels`` (K15 at E's, L's, F's and O's geometry,
+F and O also at 33..56 keys), ``block_sparse_kernels`` and, where the tree
+has them, ``kv_pair_kernels`` (K3's ``dense_kv_write_pair``),
+``paged_rows_kernels`` (K16's ``paged_kv_write_rows``) and
+``e4m3_branch_kernels`` (K5 on e4m3 caches at path N's latent rows and the
+MHA decodes K2 turns away, K17 on e4m3 caches at J's rows), each held to the
 tree's plain twin at the bar stated there (a tree without those entries
 times, at the same cases, the calls its models made for a layer: two
 one-cache K3 writes, and ``_page_slots``, the zero pad and one
@@ -84,10 +86,13 @@ rows: dict = {}
 from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 
 one_launch_writes = hasattr(kp, "paged_kv_write_rows")
+# a tree with K5's and K17's e4m3 branches also times their rows
+e4m3_branches = hasattr(ka, "e4m3_pair_decode")
 for phase in (cs.kv_write_kernels, cs.mla_decode_kernel, cs.fused_decode_kernels,
               cs.flash_prefill_kernels, cs.flash_kernels, cs.w4a8_kernels, cs.moe_kernels,
               cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels) + (
-                  (cs.kv_pair_kernels, cs.paged_rows_kernels) if one_launch_writes else ()):
+                  (cs.kv_pair_kernels, cs.paged_rows_kernels) if one_launch_writes else ()) + (
+                  (cs.e4m3_branch_kernels,) if e4m3_branches else ()):
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
 if not one_launch_writes:
     # a tree before the one-launch layer writes: the calls its models made

@@ -69,7 +69,13 @@ Phases, in order (any failure exits non-zero):
      device kernel a call) and K14
      flash_attention at J's calibration forwards (and with windows and
      sinks, one long enough that whole key tiles are skipped, and with
-     rows not a multiple of its tile, in f32 and bf16); then
+     rows not a multiple of its tile, in f32 and bf16); then the e4m3
+     branches: the latent cluster kernel's e4m3 operand decode on all 256
+     codes, bit for bit, K5 on e4m3 caches at path N's latent shape (the
+     int8 rows' lengths, also against the one-CTA body) and at the MHA
+     decodes K2 turns away (KH=2, G=16, D=128 and 256), K17 on e4m3 caches
+     at path P's shape (J's rows), one device kernel a call each (K15 on
+     path O's e4m3 latent pool is a row of its own phase); then
      int8_dynamic_gemm (no hand-written kernel: per-row int8 codes and
      torch._int_mm, as the reference's XLA dot_general) at a 544-row chunk
      on Llama-3-8B's four projections, bit for bit against its plain
@@ -90,8 +96,10 @@ Phases, in order (any failure exits non-zero):
      scattered over the pool); the llama under FP8_DEFAULT_CFG (activation
      amax calibrated on the CPU) and the Qwen3-MoE under
      NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; the llama under
-     FP8_KV_CFG with an e4m3 KV cache, dense and paged; an f32 llama with
-     skip-softmax (64-row blocks, int8 KV) through cached prefill and
+     FP8_KV_CFG with an e4m3 KV cache, dense and paged; the DeepSeek-V2
+     under FP8_KV_CFG with an e4m3 latent cache, dense and paged; an f32
+     llama with skip-softmax (64-row blocks, int8 KV; again with no
+     quantizer over an e4m3 KV cache) through cached prefill and
      greedy decode, tokens and every block selection equal; and
      tiny_test_config() (D = 16) over a bf16 dense cache, a prefill and
      one decode step, which the dense-cache gates send to K3 and the
@@ -112,30 +120,36 @@ Phases, in order (any failure exits non-zero):
      the KV write once a layer (K16 a forward on E, F, L; K3 a forward on D,
      a prefill chunk on the other dense paths, a forward on J);
      every cache tensor must be of the path's KV dtype;
-       B: Qwen3-30B-A3B (full width, 12 of its 48 layers, PATH_LAYERS, so
+       B: Qwen3-30B-A3B (full width, 8 of its 48 layers, PATH_LAYERS, so
           that the script keeps well inside its limit) under
           W4A8_INT8KV_CFG, KV scales calibrated by one 64-token forward;
-       C: Qwen3-30B-A3B (full width, 12 of 48 layers) under
+       C: Qwen3-30B-A3B (full width, 8 of 48 layers) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
        D: DeepSeek-V2-Lite (full width: MLA, 64 experts top-6 plus 2
-          shared, a dense first layer; 7 of its 27 layers) under
+          shared, a dense first layer; 4 of its 27 layers) under
           W4A8_INT8KV_CFG, the int8 latent cache calibrated by one 64-token
           forward;
-       E: A's model over a paged KV cache: int8 pools of 145 pages of 64
+       E: A's model (16 of its 32 layers) over a paged KV cache: int8 pools of 145 pages of 64
           rows per layer (8 requests' worst case of 18 pages each, plus the
           null page; 53% of the dense cache);
        F: D's model over a paged int8 latent pool of 145 pages;
-       G: A's model, 16 of its 32 layers (as H, K and L), under
+       G: A's model, 8 of its 32 layers (as H, K and L), under
           FP8_DEFAULT_CFG (e4m3 weights, static e4m3 activations
           calibrated by one 64-token forward), bf16 KV cache;
        H: A's model under INT8_WEIGHT_ONLY_CFG, bf16 KV cache;
-       I: B's model (12 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
+       I: B's model (8 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
           cache;
        K: A's model under FP8_KV_CFG (G's static e4m3 activations, and the
           k / v quantizers calibrated by the same 64-token forward) with an
           e4m3 KV cache;
        L: K over paged e4m3 pools of 145 pages;
+       N: D's model under FP8_KV_CFG (e4m3 weights, static e4m3
+          activations calibrated by one 64-token forward, the k quantizer's
+          e4m3 latent codes; the MoE experts' e4m3 weights and the dense
+          layer's K = 10944 down projection take the reference's dequantize
+          route) with an e4m3 latent cache: K5's e4m3 latent cluster;
+       O: N over paged e4m3 latent pools of 145 pages: K15's;
        M: Llama-3-8B (full width and depth) built in bf16 on the card with
           channel outliers, quantized there under INT8_KV_CFG by its own
           algorithm (SmoothQuant on 4 x 512 captured tokens, then max
@@ -149,11 +163,13 @@ Phases, in order (any failure exits non-zero):
      A's and C's, a prefill window (one 1024-token prompt in the engine's
      chunks to its first token: wall, device time of K1 or K6, K3, K4 and
      the rest);
-       J: A's model and KV calibration, then at the Decoder level (no
+       J: A's model (8 of its 32 layers) and KV calibration, then at the Decoder level (no
           engine serves skip-softmax): calibrate_skip_softmax on RULER
           needle batches (K14 in its capture forwards), 8 prompts of 1024
           tokens prefilled in two chunks, 64 greedy decode steps through
           K17, with launch asserts and a profile window of 16 decode steps;
+       P: J under FP8_KV_CFG with an e4m3 KV cache (K8, K14, K3, K17's e4m3
+          branch);
   5. the PTQ phase: Llama-3-8B at full width, 4 of 32 layers, under
      W4A8_INT8KV_CFG (awq_lite) and INT4_AWQ_FULL_CFG (awq_lite then
      awq_clip), each quantized, compressed and held against its
@@ -263,6 +279,12 @@ PATH_KERNELS = {
     "K": ("wfp8_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
     "L": ("wfp8_gemm", "paged_kv_write", "paged_decode_attention"),
     "M": ("w8a16_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    # DeepSeek-V2-Lite under FP8_KV_CFG: the MoE experts' e4m3 weights take
+    # the reference's dequantize-and-einsum route (no kernel), as does the
+    # dense layer's down projection (K = 10944: not whole 128-row blocks)
+    "N": ("wfp8_gemm", "dense_kv_write", "decode_attention"),
+    "O": ("wfp8_gemm", "paged_kv_write", "paged_decode_attention"),
+    "P": ("wfp8_gemm", "dense_kv_write", "flash_attention", "block_sparse_decode_attention"),
     # the PTQ phase: AWQ's capture and calibration forwards (K14 at 512
     # rows), then each compressed model's one request (K1 under W4A8 with
     # an int8 cache, K6 under INT4_AWQ_FULL_CFG with a bf16 one)
@@ -376,23 +398,14 @@ def kernel_phase(torch, results: dict) -> None:
     paged_rows_kernels(torch, gen, timer, record)
     skip_softmax_kernels(torch, gen, timer, record)
 
-    # the reference's e4m3 branches no path of the port runs (K5, K17):
-    # an e4m3 cache on the card is refused, never dequantized for bf16
-    from modelopt_tpu_torch.kernels import block_sparse_attention as kb
-
-    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device=dev)
-    c = e4m3_codes(torch, gen, (1, 256, 128))
-    one = torch.ones(1, dtype=torch.int32, device=dev)
-    for name, call in (("decode_attention", lambda: ka.decode_attention(q, c, c, one)),
-                       ("block_sparse_decode_attention", lambda: kb.block_sparse_decode_attention(
-                           q, c, c, torch.zeros(1, 2, dtype=torch.int32, device=dev), one,
-                           one))):
-        try:
-            call()
-        except NotImplementedError:
-            continue
-        raise AssertionError(f"{name} took an e4m3 cache on the card")
-    log("K5 and K17 refuse e4m3 caches on the card (their e4m3 branches are not ported)")
+    # the latent cluster kernel's e4m3 operand decode (csrc/e4m3.cuh's
+    # e4m3_cache_pair) on every code: the reference's decode, bit for bit
+    got = ka.e4m3_pair_decode(codes)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("e4m3 operand decode: the card's differs from the twin's")
+    log(f"e4m3 operand decode of the latent cluster kernel: all 256 codes bit for bit "
+        f"(0x7f -> {got[0x7F].item():g}, 0x01 -> {got[0x01].item():g})")
+    e4m3_branch_kernels(torch, gen, timer, record)
 
 
 def kv_write_kernels(torch, gen, timer, record) -> None:
@@ -798,23 +811,37 @@ def flash_prefill_kernels(torch, gen, timer, record) -> None:
 def latent_smem_agrees(torch) -> None:
     """The latent cluster kernel's dynamic shared memory as
     ``attention.latent_smem`` counts it against the kernel's own count
-    (``latent_decode_smem``) at every D it takes."""
+    (``latent_decode_smem``) at every D it takes, for its int8 and its e4m3
+    instance."""
     from modelopt_tpu_torch.kernels import _build
     from modelopt_tpu_torch.kernels import attention as ka
 
-    fn = _build.function("latent_decode_smem", [_build.c_int], source="decode_attention")
-    counts = {D: (fn(D), ka.latent_smem(D)) for D in range(128, 641, 128)}
-    if any(a != b for a, b in counts.values()):
-        raise AssertionError(f"latent cluster kernel's shared memory: kernel / Python {counts}")
-    log(f"latent cluster kernel's shared memory, kernel = Python: "
-        f"{ {D: a for D, (a, _) in counts.items()} } bytes")
+    fn = _build.function("latent_decode_smem", [_build.c_int] * 2, source="decode_attention")
+    for dtype, kind in ((torch.int8, "int8"), (torch.float8_e4m3fn, "e4m3")):
+        counts = {D: (fn(D, ka.CACHE_KIND[dtype]), ka.latent_smem(D, dtype))
+                  for D in range(128, 641, 128)}
+        if any(a != b for a, b in counts.values()):
+            raise AssertionError(f"latent cluster kernel's {kind} shared memory: kernel / "
+                                 f"Python {counts}")
+        log(f"latent cluster kernel's {kind} shared memory, kernel = Python: "
+            f"{ {D: a for D, (a, _) in counts.items()} } bytes")
 
 
-def same_as_one_cta(torch, what: str, out, one) -> None:
+def same_as_one_cta(torch, what: str, out, one, bar: float = 0.0) -> None:
     """The latent cluster kernel's output against the one-CTA body's on the
     same inputs (the body runs where V is a second buffer holding K's
-    codes), bit for bit: the same codes, exact integer partials, the same
-    f32 recurrence."""
+    codes). int8 (``bar`` 0): bit for bit, the same codes, exact integer
+    partials, the same f32 recurrence. e4m3: the same bf16 probabilities
+    but where an f32 sum in another order moves one across a rounding
+    point, and f32 sums in another order: within ``bar``."""
+    if bar:
+        err = (out.float() - one.float()).abs().max().item()
+        log(f"  {what}: the latent cluster kernel against the one-CTA body: max |diff| "
+            f"{err:.3g} (bar {bar:.3g})")
+        if not err <= bar:
+            raise AssertionError(f"{what}: the latent cluster kernel differs from the one-CTA "
+                                 f"body by {err} > {bar}")
+        return
     if not torch.equal(out.view(torch.int16), one.view(torch.int16)):
         raise AssertionError(f"{what}: the latent cluster kernel differs from the one-CTA body "
                              f"by {(out.float() - one.float()).abs().max().item():g}")
@@ -944,12 +971,15 @@ def paged_kernels(torch, gen, timer, record) -> None:
     lengths_128 = torch.tensor([8192, 8000, 7000, 8192, 100, 4097, 8191, 6000],
                                dtype=torch.int32, device=dev)
     # F's geometry also at its decode-window contexts (33..56 keys: one
-    # page a slot, rank 0 of each cluster alone)
+    # page a slot, rank 0 of each cluster alone); O is F over an e4m3
+    # latent pool (the latent cluster kernel's e4m3 instance)
     lengths_fs = torch.tensor([33, 40, 56, 50, 47, 36, 45, 52], dtype=torch.int32, device=dev)
     cases = (("E", 8, 4, 128, "int8", lengths_e, pmax, P),
              ("E", 8, 4, 128, "bf16", lengths_e, pmax, P),
              ("F", 1, 16, 640, "int8", lengths_f, pmax, P),
              ("F1", 1, 16, 640, "int8", lengths_fs, pmax, P),
+             ("O", 1, 16, 640, "e4m3", lengths_f, pmax, P),
+             ("O1", 1, 16, 640, "e4m3", lengths_fs, pmax, P),
              ("L", 8, 4, 128, "e4m3", lengths_e, pmax, P),
              ("E1", 8, 4, 128, "int8", lengths_1, pmax, P),
              ("E128", 8, 4, 128, "int8", lengths_128, 128, 8 * 128 + 1))
@@ -958,7 +988,7 @@ def paged_kernels(torch, gen, timer, record) -> None:
         pt = page_table(torch, lengths.tolist(), tmax, pool)
         q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
         if kind == "e4m3":
-            pools = [e4m3_codes(torch, gen, (pool, ps, KH * D)) for _ in range(2)]
+            pools = [e4m3_codes(torch, gen, (pool, ps, KH * D)) for _ in range(2 if KH > 1 else 1)]
             ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.02, device=dev)
             deq = [(p.float() * s).to(torch.bfloat16) for p, s in zip(pools, (ks, vs))]
             rate = BF16_FLOPS
@@ -978,15 +1008,15 @@ def paged_kernels(torch, gen, timer, record) -> None:
             rate = BF16_FLOPS
         kpool, vpool = pools[0], pools[-1]
         out = kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs)
-        if path.startswith("F"):  # the latent cluster kernel
-            same_as_one_cta(torch, f"K15 {path} PMAX={tmax}", out, kp.paged_decode_attention(
-                q, kpool, kpool.clone(), pt, lengths, ks, vs))
-            one_launch(torch, f"paged_decode_attention {path}",
-                       lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
         ref = kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths, ks, vs)
         err = (out.float() - ref.float()).abs().max().item()
         ulp = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
         tol = (0.03 if kind == "int8" else 1e-3) + ulp
+        if path[0] in "FO":  # the latent cluster kernel
+            same_as_one_cta(torch, f"K15 {path} PMAX={tmax}", out, kp.paged_decode_attention(
+                q, kpool, kpool.clone(), pt, lengths, ks, vs), 0.0 if kind == "int8" else tol)
+            one_launch(torch, f"paged_decode_attention {path}",
+                       lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
         ms = timer(lambda: kp.paged_decode_attention(q, kpool, vpool, pt, lengths, ks, vs))
         plain_ms = timer(lambda: kp.paged_decode_attention_plain(q, kpool, vpool, pt, lengths,
                                                                  ks, vs), 5)
@@ -1006,6 +1036,7 @@ def paged_kernels(torch, gen, timer, record) -> None:
                   lengths.tolist()) + 4 * B + 2 * 2 * B * KH * G * D)
         shape = (f"B={B} PMAX={tmax} ps={ps} KH={KH} G={G} D={D} {kind} "
                  + {"F": "K=V lengths 1..1088", "F1": "K=V lengths 33..56",
+                    "O": "K=V lengths 1..1088", "O1": "K=V lengths 33..56",
                     "E1": "one page a slot"}.get(path, "ragged lengths"))
         record("paged_decode_attention", shape, err, tol, ms, plain_ms, lib_ms, nbytes,
                4 * live * KH * G * D, rate)
@@ -1253,17 +1284,17 @@ def skip_softmax_kernels(torch, gen, timer, record) -> None:
     flash_kernels(torch, gen, timer, record)
 
 
-def block_sparse_kernels(torch, gen, timer, record) -> None:
+def block_sparse_kernels(torch, gen, timer, record, kinds=("int8", "bf16")) -> None:
     """K17 at path J's decode shape (B=8 slots, KH=8, G=4, D=128, S=2176,
-    128-row blocks, NSEL=17 table entries: the cluster kernel) on int8 and
-    bf16 caches, lengths in the middle of the 9th block, fewer live entries
-    than in-range blocks in shuffled order (forced blocks first, as
-    ``select_blocks`` orders them); then, with inputs of their own seed,
-    short selections (every slot one block, every slot two) and the edge
-    cases of the cluster's CPU model (a slot with no live entry, one whose
-    first block lies wholly past its length before a live block, one whose
-    every block is masked), each on int8 and bf16; and one device kernel a
-    call at J's shape."""
+    128-row blocks, NSEL=17 table entries: the cluster kernel) on the caches
+    of ``kinds`` (int8 and bf16; e4m3 as on path P), lengths in the middle
+    of the 9th block, fewer live entries than in-range blocks in shuffled
+    order (forced blocks first, as ``select_blocks`` orders them); then,
+    with inputs of their own seed, short selections (every slot one block,
+    every slot two) and the edge cases of the cluster's CPU model (a slot
+    with no live entry, one whose first block lies wholly past its length
+    before a live block, one whose every block is masked), each on every
+    kind; and one device kernel a call at J's shape, int8 and e4m3."""
     import torch.nn.functional as F
 
     from modelopt_tpu_torch.kernels import block_sparse_attention as kb
@@ -1271,20 +1302,25 @@ def block_sparse_kernels(torch, gen, timer, record) -> None:
     dev = "cuda"
     # K17: as K5 and K15 (the same arithmetic), kernel and plain version
     # differ only where expf and torch.exp round a 7-bit code across .5:
-    # an int8 bar of vs plus one bf16 ulp of the largest output; bf16
-    # caches, f32 sums in another order, 1e-3 plus one output ulp.
+    # an int8 bar of vs plus one bf16 ulp of the largest output; bf16 and
+    # e4m3 caches, f32 sums in another order, 1e-3 plus one output ulp.
     log("K17 block_sparse_decode_attention")
     B, KH, G, D, S, bs, nsel = 8, 8, 4, 128, 2176, 128, 17
 
     def case(g, lengths, nvalid, sel, label):
         q = (torch.randn(B, KH, G, D, generator=g, device=dev) * 2).to(torch.bfloat16)
-        for kind in ("int8", "bf16"):
+        for kind in kinds:
             if kind == "int8":
                 kc, vc = (torch.randint(-127, 128, (B, S, KH * D), generator=g, device=dev,
                                         dtype=torch.int8) for _ in range(2))
                 ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
                 kd, vd = ((c.float() * sc).to(torch.bfloat16) for c, sc in ((kc, ks), (vc, vs)))
                 rate = INT8_OPS
+            elif kind == "e4m3":
+                kc, vc = (e4m3_codes(torch, g, (B, S, KH * D)) for _ in range(2))
+                ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.02, device=dev)
+                kd, vd = ((c.float() * sc).to(torch.bfloat16) for c, sc in ((kc, ks), (vc, vs)))
+                rate = BF16_FLOPS
             else:
                 kc, vc = (torch.randn(B, S, KH * D, generator=g, device=dev).to(torch.bfloat16)
                           for _ in range(2))
@@ -1357,12 +1393,98 @@ def block_sparse_kernels(torch, gen, timer, record) -> None:
     sel_e, nv_e = table([[], [5], [8, 0], [8], [3, 4], [2, 1], [], [3, 0]])
     case(short, edge_lengths, nv_e, sel_e, "nvalid 0-2, blocks past the length")
 
-    kc, vc = (torch.randint(-127, 128, (B, S, KH * D), generator=short, device=dev,
-                            dtype=torch.int8) for _ in range(2))
     sc = torch.tensor(0.02, device=dev)
-    one_launch(torch, f"block_sparse_decode_attention B={B} S={S} NSEL={nsel} int8",
-               lambda: kb.block_sparse_decode_attention(q, kc, vc, sel, nvalid, lengths, sc, sc,
-                                                        block_size=bs))
+    for kind in ("int8", "e4m3"):
+        if kind not in kinds:
+            continue
+        if kind == "int8":
+            kc, vc = (torch.randint(-127, 128, (B, S, KH * D), generator=short, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+        else:
+            kc, vc = (e4m3_codes(torch, short, (B, S, KH * D)) for _ in range(2))
+        one_launch(torch, f"block_sparse_decode_attention B={B} S={S} NSEL={nsel} {kind}",
+                   lambda: kb.block_sparse_decode_attention(q, kc, vc, sel, nvalid, lengths, sc,
+                                                            sc, block_size=bs))
+
+
+def e4m3_branch_kernels(torch, gen, timer, record) -> None:
+    """The e4m3 branches of K5 (``mla_e4m3_kernels``: path N's latent rows
+    and the MHA decodes K2 turns away) and K17 (``block_sparse_kernels`` on
+    e4m3 caches, path P's); K15's (path O's latent pool) are rows of
+    ``paged_kernels``."""
+    mla_e4m3_kernels(torch, gen, timer, record)
+    block_sparse_kernels(torch, gen, timer, record, kinds=("e4m3",))
+
+
+def mla_e4m3_kernels(torch, gen, timer, record) -> None:
+    """K5 on e4m3 caches. At path N's decode shape (DeepSeek-V2-Lite over an
+    e4m3 latent cache: B=8 slots, one shared KV head, G=16, D=640, the same
+    e4m3 latent tensor as K and V) the latent cluster kernel's e4m3
+    instance, at the int8 rows' lengths: S=2176 (one chunk) lengths
+    1..1088, S=512 (two chunks) lengths 1..512, and 33..56 keys (one piece
+    a slot: rank 0 alone); each also against the one-CTA body (V a second
+    buffer of K's codes) and at one device kernel a call. Then the MHA
+    decodes the reference sends to K5 where its K2 says no, at the shapes
+    the port's K2 turns away (KH=2, G=16 at D=128 and at D=256, separate
+    K and V, S=2176, ragged lengths): the one-CTA body, one device kernel a
+    call. e4m3 is the bf16 arithmetic on exactly decoded codes, f32 sums in
+    another order than the plain version's: held to it, and the cluster to
+    the one-CTA body, at K2's e4m3 bar, 1e-3 plus one bf16 ulp of the
+    largest output."""
+    import torch.nn.functional as F
+
+    from modelopt_tpu_torch.kernels import attention as ka
+
+    dev, B = "cuda", 8
+    log("K5 decode_attention, e4m3 caches")
+    short = torch.tensor([33, 40, 56, 50, 47, 36, 45, 52], dtype=torch.int32, device=dev)
+    ragged = torch.tensor([1024, 1501, 8, 2176, 301, 1025, 2001, 1], dtype=torch.int32,
+                          device=dev)
+    cases = [(S, 1, 16, 640, top) for S, top in ((2176, 1088), (512, 512), (2176, None))]
+    cases += [(2176, 2, 16, 128, "ragged"), (2176, 2, 16, 256, "ragged")]
+    for S, KH, G, D, top in cases:
+        q = (torch.randn(B, KH, G, D, generator=gen, device=dev) * 2).to(torch.bfloat16)
+        kc = e4m3_codes(torch, gen, (B, S, KH * D))
+        vc = kc if KH == 1 else e4m3_codes(torch, gen, (B, S, KH * D))
+        if top == "ragged":
+            lengths, label = ragged, "ragged lengths"
+        elif top:
+            lengths = torch.linspace(1, top, B, device=dev).round().to(torch.int32)
+            label = f"K=V lengths 1..{top}"
+        else:
+            lengths, label = short, "K=V lengths 33..56"
+        sc = torch.tensor(0.011, device=dev)
+        out = ka.decode_attention(q, kc, vc, lengths, sc, sc)
+        ref = ka.decode_attention_plain(q, kc, vc, lengths, sc, sc)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-3 + _ulp_bf16(ref.float().abs().max().item())
+        if KH == 1:
+            vc2 = kc.clone()  # V a second buffer: the one-CTA body
+            one = ka.decode_attention(q, kc, vc2, lengths, sc, sc)
+            same_as_one_cta(torch, f"K5 e4m3 S={S} {label}", out, one, tol)
+        one_launch(torch, f"decode_attention e4m3 S={S} KH={KH} D={D} {label}",
+                   lambda: ka.decode_attention(q, kc, vc, lengths, sc, sc))
+        ms = timer(lambda: ka.decode_attention(q, kc, vc, lengths, sc, sc))
+        plain_ms = timer(lambda: ka.decode_attention_plain(q, kc, vc, lengths, sc, sc), 5)
+        kd = (kc.float() * sc).to(torch.bfloat16).reshape(B, S, KH, D).transpose(1, 2)
+        vd = kd if KH == 1 else (vc.float() * sc).to(torch.bfloat16).reshape(
+            B, S, KH, D).transpose(1, 2)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None].long())
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q.reshape(B, KH * G, 1, D), kd, vd, attn_mask=mask[:, None, None, :],
+            enable_gqa=True))
+        del kd, vd
+        live = int(lengths.clamp(max=S).long().sum())
+        # the live rows once (K = V aliased: once), q in, out back, bf16
+        nbytes = (1 if KH == 1 else 2) * live * KH * D + 2 * B * KH * G * D * 2
+        record("decode_attention", f"B={B} S={S} KH={KH} G={G} D={D} e4m3 {label}", err, tol,
+               ms, plain_ms, lib_ms, nbytes, 4 * live * KH * G * D, BF16_FLOPS)
+        if KH == 1:  # the same row on the one-CTA body, which the cluster must beat
+            record("decode_attention", f"B={B} S={S} KH=1 G={G} D={D} e4m3 one-CTA body "
+                   f"{label.replace('K=V', 'K, V two buffers,')}",
+                   (one.float() - ref.float()).abs().max().item(), tol,
+                   timer(lambda: ka.decode_attention(q, kc, vc2, lengths, sc, sc)), plain_ms,
+                   lib_ms, 2 * live * D + 2 * B * G * D * 2, 4 * live * G * D, BF16_FLOPS)
 
 
 def flash_kernels(torch, gen, timer, record) -> None:
@@ -2177,6 +2299,10 @@ def small_mla_config():
 # position is at least 0.8 in router logits from a tie, every other at
 # least 0.05.
 MLA_IDS_SEED = 1
+# the same under FP8_KV_CFG (paths N, O), which routes otherwise: on seed 6
+# every top-2 choice at a compared position is at least 0.24 from a tie,
+# every other at least 0.21 (seed 1 leaves 0.11 and 0.08)
+MLA_FP8_IDS_SEED = 6
 
 
 @contextlib.contextmanager
@@ -2255,11 +2381,14 @@ def _skip_decode(torch, bundle, cache, tok, dev):
     return torch.stack(rows), torch.stack(toks), [tuple(t.cpu() for t in r) for r in trace]
 
 
-def skip_parity(torch) -> None:
-    """The skip-softmax llama under W4A8_INT8KV_CFG with an int8 KV cache,
-    64-row blocks: the same numpy weights on the CPU (K1, K3 and K17's
-    twins) and on the card (the kernels), the KV amax calibrated on the CPU
-    and carried over. Each device prefills the prompts into its own cache:
+def skip_parity(torch, preset="W4A8_INT8KV_CFG", kv_dtype=None,
+                label: str = "W4A8 + int8 KV") -> None:
+    """The skip-softmax llama under ``preset`` with a ``kv_dtype`` KV cache
+    (W4A8_INT8KV_CFG and int8, path J's; or no quantizer and an e4m3 cache,
+    the keys and values cast with scale 1, K17's e4m3 branch), 64-row
+    blocks: the same numpy weights on the CPU (K1, K3 and K17's twins) and
+    on the card (the kernels), any KV amax calibrated on the CPU and
+    carried over. Each device prefills the prompts into its own cache:
     last-position logits within the llama parity's 3% of the largest CPU
     logit. Then both decode greedily from the CPU's prefilled cache (copied
     to the card): greedy tokens, every step's and layer's ``sel`` and
@@ -2274,7 +2403,8 @@ def skip_parity(torch) -> None:
     from modelopt_tpu_torch.quant.api import calibrate
     from modelopt_tpu_torch.sparsity import sparsify_attention_dynamic
 
-    cfg, preset = skip_llama_config(torch), "W4A8_INT8KV_CFG"
+    cfg = skip_llama_config(torch)
+    kv_dtype = kv_dtype or torch.int8
     variables = _numpy_variables(cfg, preset)
     ids = torch.randint(1, cfg.vocab_size, (2, SKIP_PROMPT), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(SKIP_IDS_SEED))
@@ -2292,7 +2422,7 @@ def skip_parity(torch) -> None:
                                      **ss)
     caches, pre = {}, {}
     for dev, bundle in (("cpu", cpu), ("cuda", gpu)):
-        cache = make_cache(bundle.module.cfg, 2, SKIP_MAXLEN, torch.int8, device=dev)
+        cache = make_cache(bundle.module.cfg, 2, SKIP_MAXLEN, kv_dtype, device=dev)
         out, caches[dev] = bundle.apply(ids.to(dev), cache)
         pre[dev] = out[:, -1].float().cpu()
     pre_err = (pre["cuda"] - pre["cpu"]).abs().max().item()
@@ -2312,7 +2442,9 @@ def skip_parity(torch) -> None:
     top2 = ref.topk(2, -1).values
     tie = (top2[..., 0] - top2[..., 1]).min().item()
     nv = torch.stack([r[1] for r in ref_trace]).float()
-    log(f"  skip-softmax llama W4A8 + int8 KV, tau {SKIP_TAU}: prefill 2 x {SKIP_PROMPT}, "
+    if not all(t.dtype == kv_dtype for t in shared["k"] + shared["v"]):
+        raise AssertionError(f"skip parity {label}: a cache is not {kv_dtype}")
+    log(f"  skip-softmax llama {label}, tau {SKIP_TAU}: prefill 2 x {SKIP_PROMPT}, "
         f"each device's own: max |logit diff| {pre_err:.4g}; {SKIP_STEPS} greedy steps from "
         f"the CPU's cache: max |logit diff| {err:.4g} (tol {tol:.4g}), tokens "
         f"{'equal' if torch.equal(tok, ref_tok) else 'DIFFER'}, sel / nvalid of "
@@ -2370,8 +2502,18 @@ def parity_phase(torch) -> None:
             noise_floor=True)
     _parity(torch, "llama FP8 + e4m3 KV pages", llama, "FP8_KV_CFG", torch.float8_e4m3fn, 1,
             2, 64, paged=True, noise_floor=True)
-    # path J: K17 (its twin on the CPU) over the selected blocks
+    # paths N and O: FP8_KV_CFG's e4m3 latent codes through the latent
+    # cluster kernel's e4m3 instance (K5, K15; the twins on the CPU), e4m3
+    # activations as jumpy as the llama's: the same noise floor and replay
+    _parity(torch, "DeepSeek-V2 FP8 + e4m3 latent cache", small_mla_config(), "FP8_KV_CFG",
+            torch.float8_e4m3fn, MLA_FP8_IDS_SEED, 2, 16, noise_floor=True)
+    _parity(torch, "DeepSeek-V2 FP8 + e4m3 latent pages", small_mla_config(), "FP8_KV_CFG",
+            torch.float8_e4m3fn, MLA_FP8_IDS_SEED, 2, 16, paged=True, noise_floor=True)
+    # path J: K17 (its twin on the CPU) over the selected blocks; path P's
+    # e4m3 branch of K17 on an f32 decoder whose e4m3 cache is the only
+    # rounding (no quantizer: keys and values cast, scale 1)
     skip_parity(torch)
+    skip_parity(torch, NO_QUANT, torch.float8_e4m3fn, "f32 + e4m3 KV")
     # path M and the PTQ phase: the calibration algorithms themselves, card
     # against CPU
     ptq_parity(torch)
@@ -2472,9 +2614,9 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     "E": ("Llama-3-8B W4A8 + int8 KV pages", "llama3_8b", "W4A8_INT8KV_CFG", "int8"),
     "F": ("DeepSeek-V2-Lite W4A8 + int8 latent pages", "deepseek_v2_lite", "W4A8_INT8KV_CFG",
           "int8"),
-    "G": ("Llama-3-8B FP8 W8A8 + bf16 KV, 16 of 32 layers", "llama3_8b", "FP8_DEFAULT_CFG",
+    "G": ("Llama-3-8B FP8 W8A8 + bf16 KV, 8 of 32 layers", "llama3_8b", "FP8_DEFAULT_CFG",
           "bfloat16"),
-    "H": ("Llama-3-8B INT8 weight-only + bf16 KV, 16 of 32 layers", "llama3_8b",
+    "H": ("Llama-3-8B INT8 weight-only + bf16 KV, 8 of 32 layers", "llama3_8b",
           "INT8_WEIGHT_ONLY_CFG", "bfloat16"),
     "I": ("Qwen3-30B-A3B NVFP4 weight-only + bf16 KV", "qwen3_moe", "NVFP4_WEIGHT_ONLY_CFG",
           "bfloat16"),
@@ -2483,21 +2625,29 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
     # quantized and compressed on the card (``ptq_path``), not drawn packed
     "M": ("Llama-3-8B INT8 SmoothQuant W8A8 + int8 KV, quantized and compressed on the card",
           "llama3_8b", "INT8_KV_CFG", "int8"),
+    "N": ("DeepSeek-V2-Lite FP8 W8A8 + e4m3 latent cache", "deepseek_v2_lite", "FP8_KV_CFG",
+          "float8_e4m3fn"),
+    "O": ("DeepSeek-V2-Lite FP8 W8A8 + e4m3 latent pages", "deepseek_v2_lite", "FP8_KV_CFG",
+          "float8_e4m3fn"),
 }
+# the skip-softmax paths at the Decoder level (``skip_path``): name ->
+# (title, preset, KV cache dtype), on Llama-3-8B
+SKIP_PATHS = {"J": ("Llama-3-8B W4A8 + int8 KV", "W4A8_INT8KV_CFG", "int8"),
+              "P": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "FP8_KV_CFG", "float8_e4m3fn")}
 # paths served at a cut depth, to keep the script well inside its time
 # limit on a slow host (which ran the whole script ~35% longer than a fast
-# one): Llama-3-8B 16 of 32 layers, Qwen3-30B-A3B 12 of 48,
-# DeepSeek-V2-Lite 7 of 27 (a dense first layer and 6 MoE layers); A, E,
-# J and M keep Llama's 32
-PATH_LAYERS = {"G": 16, "H": 16, "K": 16, "L": 16, "B": 12, "C": 12, "I": 12, "D": 7,
-               "F": 7}
+# one): Llama-3-8B 8 of 32 layers (G, H, K, L, J, P) or 16 (E),
+# Qwen3-30B-A3B 8 of 48, DeepSeek-V2-Lite 4 of 27 (a dense first layer and 3
+# MoE layers); A and M keep Llama's 32
+PATH_LAYERS = {"G": 8, "H": 8, "K": 8, "L": 8, "E": 16, "J": 8, "P": 8, "B": 8, "C": 8,
+               "I": 8, "D": 4, "F": 4, "N": 4, "O": 4}
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
-PAGED = ("E", "F", "L")
+PAGED = ("E", "F", "L", "O")
 # paths whose decode attention is also profiled at ~1024 keys a slot (K5,
 # K15 at MLA's geometry), beside the 8 x 32 -> 24 window every path takes
-LONG_WINDOW = ("D", "F")
+LONG_WINDOW = ("D", "F", "N", "O")
 TRAFFIC = (8, 1024, 64)  # requests x prompt tokens -> new tokens, every path
 
 
@@ -2628,22 +2778,25 @@ def serve_bundle(torch, name, bundle, cfg) -> dict:
 SKIP_CALIB_BATCHES = 4  # RULER batches of 2 x 1024 tokens for path J's tau
 
 
-def skip_path(torch) -> dict:
-    """Path J at the Decoder level (the reference engine cannot serve a
-    skip-softmax bundle, so neither does the port's): path A's model
-    (Llama-3-8B, W4A8_INT8KV_CFG, seed 0) and its KV calibration, then,
+def skip_path(torch, name: str = "J") -> dict:
+    """A skip-softmax path at the Decoder level (the reference engine cannot
+    serve a skip-softmax bundle, so neither does the port's): Llama-3-8B at
+    ``PATH_LAYERS``' depth under the path's preset (``SKIP_PATHS``; J: path
+    A's W4A8_INT8KV_CFG, P: FP8_KV_CFG), seed 0, its static quantizers (KV
+    scales, P's e4m3 activations) calibrated by one 64-token forward, then,
     with the launch counters zeroed, ``calibrate_skip_softmax`` on RULER
-    needle batches (uncached capture forwards: K1 and K14) with the
+    needle batches (uncached capture forwards: K1 or K8, and K14) with the
     reference's defaults (recall 0.99, 128-row blocks, its tau grid, budget
-    1.0), an int8 cache of 8 x 2176 rows with block summaries, 8 random
-    prompts of 1024 tokens prefilled through ``bundle.apply`` in two chunks
-    (544 + 480, as the engine's buckets split them: the masked einsum over
-    the cache), and 64 greedy decode steps (K3 writes, K17 over the
-    selected blocks). Asserts the launches (K1, K3, K14 and K17 > 0, K17 =
-    32 x 64, every other kernel 0) and finite logits and in-vocabulary
-    tokens; logs tau, recalls, the worst head, the rates and how many of
-    the in-range blocks each decode step attended; then profiles 16 more
-    decode steps. Returns the counts."""
+    1.0), a cache of 8 x 2176 rows of the path's KV dtype (int8, e4m3) with
+    block summaries, 8 random prompts of 1024 tokens prefilled through
+    ``bundle.apply`` in two chunks (544 + 480, as the engine's buckets split
+    them: the masked einsum over the cache), and 64 greedy decode steps (K3
+    writes, K17 over the selected blocks). Asserts the launches (the path's
+    kernels > 0, K17 = layers x 64, K3 = layers x 66, every other kernel 0),
+    a cache of the path's dtype, finite logits and in-vocabulary tokens;
+    logs tau, recalls, the worst head, the rates and how many of the
+    in-range blocks each decode step attended; then profiles 16 more decode
+    steps. Returns the counts."""
     from modelopt_tpu_torch import kernels
     from modelopt_tpu_torch.models import make_cache
     from modelopt_tpu_torch.models.synthetic import build_compressed_bundle
@@ -2651,9 +2804,11 @@ def skip_path(torch) -> dict:
     from modelopt_tpu_torch.sparsity import calibrate_skip_softmax, ruler_needle_batches
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = path_config(torch, "llama3_8b")
+    _, preset, kv = SKIP_PATHS[name]
+    kv_dtype = getattr(torch, kv)
+    cfg = path_config(torch, "llama3_8b", PATH_LAYERS.get(name))
     n_req, in_len, steps = 8, 1024, 64
-    bundle = build_compressed_bundle(cfg, "W4A8_INT8KV_CFG", seed=0, device="cuda")
+    bundle = build_compressed_bundle(cfg, preset, seed=0, device="cuda")
     ids = torch.randint(1, cfg.vocab_size, (1, 64), dtype=torch.int32, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(0))
     calibrate(bundle, "max", lambda f: f(ids, make_cache(cfg, 1, 64, device="cuda")))
@@ -2672,7 +2827,7 @@ def skip_path(torch) -> dict:
 
     prompts = torch.randint(1, cfg.vocab_size, (n_req, in_len), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(1)).to("cuda")
-    cache = make_cache(sb.module.cfg, n_req, 2176, torch.int8, device="cuda")
+    cache = make_cache(sb.module.cfg, n_req, 2176, kv_dtype, device="cuda")
     torch.cuda.synchronize()
     t0 = time.time()
     for lo, hi in ((0, 544), (544, in_len)):  # the engine's bucket split
@@ -2692,8 +2847,9 @@ def skip_path(torch) -> dict:
     launches = kernels.launch_counts()
     out = torch.stack(toks, 1)
     if not (torch.isfinite(logits).all() and ((out >= 0) & (out < cfg.vocab_size)).all()
-            and int(cache["lengths"][0]) == in_len + steps):
-        raise AssertionError("path J: bad logits, tokens or lengths")
+            and int(cache["lengths"][0]) == in_len + steps
+            and all(t.dtype == kv_dtype for t in cache["k"] + cache["v"])):
+        raise AssertionError(f"path {name}: bad logits, tokens, lengths or cache dtype")
     nvalid = torch.stack([t[1] for t in trace]).float()            # [steps * layers, B]
     in_range = -(-(in_len + steps) // sb.module.cfg.skip_softmax.block_size)
     new = n_req * (steps + 1)
@@ -2704,17 +2860,17 @@ def skip_path(torch) -> dict:
     log(f"  blocks attended per decode step and layer: nvalid mean {nvalid.mean().item():.3f}, "
         f"min {int(nvalid.min().item())} of {in_range} in range at the last step (skipped "
         f"share {1 - nvalid.mean().item() / in_range:.3f})")
-    log(f"  launches on path J: {launches}")
+    log(f"  launches on path {name}: {launches}")
     if launches["block_sparse_decode_attention"] != cfg.num_layers * steps:
-        raise AssertionError(f"path J: {launches['block_sparse_decode_attention']} K17 "
+        raise AssertionError(f"path {name}: {launches['block_sparse_decode_attention']} K17 "
                              f"launches, expected {cfg.num_layers * steps}")
     if launches["dense_kv_write"] != cfg.num_layers * (2 + steps):  # K and V in one launch
-        raise AssertionError(f"path J: {launches['dense_kv_write']} K3 launches, expected "
+        raise AssertionError(f"path {name}: {launches['dense_kv_write']} K3 launches, expected "
                              f"{cfg.num_layers * (2 + steps)}")
-    missing = [k for k in PATH_KERNELS["J"] if launches[k] <= 0]
-    strays = [k for k in launches if k not in PATH_KERNELS["J"] and launches[k]]
+    missing = [k for k in PATH_KERNELS[name] if launches[k] <= 0]
+    strays = [k for k in launches if k not in PATH_KERNELS[name] and launches[k]]
     if missing or strays:
-        raise AssertionError(f"path J: never launched {missing}, launched {strays}")
+        raise AssertionError(f"path {name}: never launched {missing}, launched {strays}")
 
     # profile window: 16 more decode steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3381,7 +3537,8 @@ PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode
 # sources none of whose instances may spill registers, and kernels (by
 # name, in any source) none of whose instances may: K1's decode tile, K17's
 # cluster kernel, K12's and K11's 8-token instances (the decode steps') and
-# K5 / K15's latent cluster kernel
+# K5 / K15's latent cluster kernel (its int8 and its e4m3 instances:
+# latent_cluster_kernel<DJ, false> and <DJ, true>)
 NO_SPILL = ("w4a16_gemm", "nvfp4_gemm", "w8a16_gemm")
 NO_SPILL_KERNELS = ("w4a8_dec_kernel", "sparse_cluster_kernel", "grouped_w4a8_combine_kernel<1,",
                     "grouped_w4a8_kernel<1,", "latent_cluster_kernel")
@@ -3472,9 +3629,10 @@ def main() -> int:
     for name in PATHS:
         log(f"path {name}: {PATHS[name][0]}, ServingEngine ({time.time() - t_start:.0f} s)")
         by_path[name] = ptq_path(torch, name) if name == "M" else serve_path(torch, name)
-    log(f"path J: Llama-3-8B W4A8 + int8 KV, calibrated skip-softmax decode, Decoder "
-        f"({time.time() - t_start:.0f} s)")
-    by_path["J"] = skip_path(torch)
+    for name, (title, _, _) in SKIP_PATHS.items():
+        log(f"path {name}: {title}, {PATH_LAYERS[name]} of 32 layers, calibrated "
+            f"skip-softmax decode, Decoder ({time.time() - t_start:.0f} s)")
+        by_path[name] = skip_path(torch, name)
     log(f"PTQ phase: Llama-3-8B at full width, {PTQ_LAYERS} layers, the AWQ presets "
         f"quantized, compressed and served on the card ({time.time() - t_start:.0f} s)")
     by_path["PTQ"] = ptq_phase(torch)

@@ -38,12 +38,10 @@
 //    plain version's order;
 //  * bf16 caches: bf16 q x k with f32 sums, exp in f32, PV with the
 //    probabilities rounded to bf16, the denominator from the f32 values
-//    (sums in another order than the plain version); e4m3 pools (K15 only)
-//    the same, the codes decoded exactly by the reference's bit assembly
-//    (e4m3.cuh), k_scale in the score scale and v_scale on the output, as
-//    for int8. K5's and K17's entries refuse e4m3 caches: no path of the
-//    port runs the reference's e4m3 branch of those kernels yet, so their
-//    e4m3 instances are not compiled;
+//    (sums in another order than the plain version); e4m3 caches the same
+//    (all three entries), the codes decoded exactly by the reference's bit
+//    assembly (e4m3.cuh), k_scale in the score scale and v_scale on the
+//    output, as for int8;
 //  * keys at or past lengths[b] carry -1e30 in the reference (exp gives 0):
 //    dense and paged, they are not visited (a length past the cache is
 //    clamped to S); block-sparse, they score -1e30 here too;
@@ -85,8 +83,9 @@
 // every page.
 //
 // K5, and K15 off the D = 128 cluster geometry, at MLA's geometry (KH = 1,
-// G <= 16, D a multiple of 128 up to 640, an int8 cache given as both K and
-// V, chunks of at most 2176 keys: paths D's and F's decode steps) run
+// G <= 16, D a multiple of 128 up to 640, an int8 or e4m3 cache given as
+// both K and V, chunks of at most 2176 keys: the decode steps of paths D
+// and F (int8) and N and O (e4m3)) run
 // latent_decode.cuh's tensor-core cluster kernel instead (latent_ok): one
 // cluster of 16 CTAs a slot that splits the slot's latent rows into pieces
 // of at most 68 keys inside chunk boundaries, each CTA staging its rows once
@@ -98,10 +97,13 @@
 // exactly in any order, so the owner of each column slice sums a chunk's
 // partials over the ranks that hold it and replays the f32 recurrence
 // chunk by chunk in order, as the body here does. An int8 output is the
-// same arithmetic on the same integers, bit for bit this body's. With one
-// piece in the slot (the short contexts), rank 0 alone runs it. Every other
-// geometry (bf16 at D = 640, K15's e4m3 instance, K and V two buffers, K17
-// off its cluster geometry) keeps the one-CTA body.
+// same arithmetic on the same integers, bit for bit this body's; an e4m3
+// output is the same arithmetic with its f32 sums in another order (the
+// bf16 rounding of each probability against its chunk's running max is
+// the reference's). With one piece in the slot (the short contexts), rank
+// 0 alone runs it. Every other geometry (bf16 at D = 640, K and V two
+// buffers, the MHA decodes K2 turns away, K17 off its cluster geometry)
+// keeps the one-CTA body.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -532,16 +534,9 @@ int launch(const Args& a, cudaStream_t s) {
                        GB * D / 4);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const bool paged = a.page_table != nullptr, sparse = a.sel != nullptr;
-  // e4m3 caches: the paged kernel only (K5's and K17's e4m3 branches wait)
-  constexpr bool kPagedOnly = std::is_same<CT, e4m3_t>::value;
-  if (kPagedOnly && !paged) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if constexpr (kPagedOnly)
-    e = allow_smem(paged_attention_kernel<CT, GB, DJ>, smem);
-  else
-    e = paged    ? allow_smem(paged_attention_kernel<CT, GB, DJ>, smem)
-        : sparse ? allow_smem(block_sparse_attention_kernel<CT, GB, DJ>, smem)
-                 : allow_smem(decode_attention_kernel<CT, GB, DJ>, smem);
+  const cudaError_t e = paged    ? allow_smem(paged_attention_kernel<CT, GB, DJ>, smem)
+                        : sparse ? allow_smem(block_sparse_attention_kernel<CT, GB, DJ>, smem)
+                                 : allow_smem(decode_attention_kernel<CT, GB, DJ>, smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = a.B * a.KH * (a.G / GB);
   const auto* q = static_cast<const __nv_bfloat16*>(a.q);
@@ -556,7 +551,7 @@ int launch(const Args& a, cudaStream_t s) {
     paged_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
         q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.page_table), a.S, a.KH,
         a.G, a.chunk);
-  } else if constexpr (!kPagedOnly) {
+  } else {
     if (sparse)
       block_sparse_attention_kernel<CT, GB, DJ><<<grid, NT, smem, s>>>(
           q, kc, vc, lengths, ks, vs, of, ob, static_cast<const int*>(a.sel),
@@ -585,7 +580,7 @@ int dispatch_g(int D, const Args& a, cudaStream_t s) {
   return a.G % 2 == 0 ? dispatch_d<CT, 2>(D, a, s) : dispatch_d<CT, 1>(D, a, s);
 }
 
-// cache_kind: 0 bf16, 1 int8, 2 e4m3 (paged only)
+// cache_kind: 0 bf16, 1 int8, 2 e4m3
 int dispatch(int D, int cache_kind, const Args& a, cudaStream_t s) {
   if (a.B * a.KH * a.G == 0) return 0;
   switch (cache_kind) {
@@ -612,17 +607,12 @@ int launch_cluster(const Args& a, int pmax, cudaStream_t s) {
   auto* of = static_cast<float*>(a.out_f32);
   auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
   if (a.sel != nullptr) {
-    // K17's e4m3 branch waits (as the one-CTA body's)
-    if constexpr (std::is_same<CT, e4m3_t>::value) {
-      return (int)cudaErrorInvalidValue;
-    } else {
-      static unsigned done = 0;
-      const int e = cd::allow_smem(cd::sparse_cluster_kernel<CT, G>, smem, done);
-      if (e != 0) return e;
-      cd::sparse_cluster_kernel<CT, G><<<grid, cd::NT, smem, s>>>(
-          q, kc, vc, static_cast<const int*>(a.sel), static_cast<const int*>(a.nvalid), lengths,
-          ks, vs, of, ob, a.nsel, a.S, a.chunk, a.KH);
-    }
+    static unsigned done = 0;
+    const int e = cd::allow_smem(cd::sparse_cluster_kernel<CT, G>, smem, done);
+    if (e != 0) return e;
+    cd::sparse_cluster_kernel<CT, G><<<grid, cd::NT, smem, s>>>(
+        q, kc, vc, static_cast<const int*>(a.sel), static_cast<const int*>(a.nvalid), lengths,
+        ks, vs, of, ob, a.nsel, a.S, a.chunk, a.KH);
   } else {
     static unsigned done = 0;
     const int e = cd::allow_smem(cd::paged_cluster_kernel<CT, G>, smem, done);
@@ -651,17 +641,18 @@ bool cluster_ok(int D, int G, int ps) {
 }
 
 // whether latent_decode.cuh's cluster kernel takes the geometry (else the
-// one-CTA body): int8, one KV head, G <= 16, K and V one buffer (its rows
-// are staged once for both), D a multiple of 128 up to 640 and a chunk
-// (dense: 256 keys or all of S; paged: a page) that fits one round
+// one-CTA body): int8 or e4m3, one KV head, G <= 16, K and V one buffer
+// (its rows are staged once for both), D a multiple of 128 up to 640 and a
+// chunk (dense: 256 keys or all of S; paged: a page) that fits one round
 bool latent_ok(const Args& a, int D, int cache_kind) {
-  return cache_kind == 1 && a.KH == 1 && a.G <= latent::GM && D % 128 == 0 && D <= 640 &&
+  return (cache_kind == 1 || cache_kind == 2) && a.KH == 1 && a.G <= latent::GM && D % 128 == 0 && D <= 640 &&
          a.kc == a.vc && a.sel == nullptr && a.chunk <= latent::MAX_CHUNK;
 }
 
+template <bool E4>
 int launch_latent(const Args& a, int D, int pmax, cudaStream_t s) {
   const auto* q = static_cast<const __nv_bfloat16*>(a.q);
-  const auto* c = static_cast<const int8_t*>(a.kc);
+  const auto* c = static_cast<const unsigned char*>(a.kc);
   const auto* lengths = static_cast<const int*>(a.lengths);
   const auto* pt = static_cast<const int*>(a.page_table);
   const auto* ks = static_cast<const float*>(a.kscale);
@@ -669,19 +660,23 @@ int launch_latent(const Args& a, int D, int pmax, cudaStream_t s) {
   auto* of = static_cast<float*>(a.out_f32);
   auto* ob = static_cast<__nv_bfloat16*>(a.out_bf16);
   switch (D) {
-    case 128: return latent::launch<1>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
-    case 256: return latent::launch<2>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
-    case 384: return latent::launch<3>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
-    case 512: return latent::launch<4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
-    case 640: return latent::launch<5>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 128: return latent::launch<1, E4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 256: return latent::launch<2, E4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 384: return latent::launch<3, E4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 512: return latent::launch<4, E4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
+    case 640: return latent::launch<5, E4>(q, c, lengths, pt, ks, vs, of, ob, a.B, a.S, a.chunk, pmax, a.G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+int launch_latent(const Args& a, int D, int cache_kind, int pmax, cudaStream_t s) {
+  return cache_kind == 2 ? launch_latent<true>(a, D, pmax, s) : launch_latent<false>(a, D, pmax, s);
+}
+
 }  // namespace
 
-// q bf16 [B, KH, G, D]; caches [B, S, KH*D] of bf16 (cache_kind 0) or int8
-// (1), 16-byte aligned (K and V may be the same buffer); lengths int32 [B];
+// q bf16 [B, KH, G, D]; caches [B, S, KH*D] of bf16 (cache_kind 0), int8
+// (1) or e4m3 (2), 16-byte aligned (K and V may be the same buffer); lengths int32 [B];
 // kscale/vscale f32 scalars on the device or null (scale 1); exactly one of
 // out_f32 / out_bf16 non-null, [B, KH, G, D]. D a multiple of 128 up to 640,
 // G >= 1 (checked by the Python wrapper).
@@ -692,13 +687,13 @@ extern "C" int decode_attention(const void* q, const void* kc, const void* vc,
   const Args a{q, kc, vc, lengths, kscale, vscale, nullptr, nullptr, nullptr, out_f32, out_bf16,
                B, S, KH, G, chunk, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B * KH * G > 0 && latent_ok(a, D, cache_kind)) return launch_latent(a, D, 0, s);
+  if (B * KH * G > 0 && latent_ok(a, D, cache_kind)) return launch_latent(a, D, cache_kind, 0, s);
   return dispatch(D, cache_kind, a, s);
 }
 
 // K15, paged decode attention: at D = 128, G in {1, 2, 4, 8} and pages of
 // 8 to 512 rows (paths E and L) the cluster kernel; at MLA's geometry
-// (latent_ok: path F) latent_decode.cuh's cluster kernel, one page a
+// (latent_ok: paths F and O) latent_decode.cuh's cluster kernel, one page a
 // chunk; else the same kernel as K5 with chunk = page. Pools
 // [n_pages, page_size, KH*D] (bf16, int8 or e4m3: cache_kind 0, 1, 2;
 // 16-byte aligned; K and V may be one buffer); page_table int32 [B, pmax] of pool page ids, every entry a
@@ -714,7 +709,8 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * KH * G == 0) return 0;
   if (!cluster_ok(D, G, page_size))
-    return latent_ok(a, D, cache_kind) ? launch_latent(a, D, pmax, s) : dispatch(D, cache_kind, a, s);
+    return latent_ok(a, D, cache_kind) ? launch_latent(a, D, cache_kind, pmax, s)
+                                       : dispatch(D, cache_kind, a, s);
   switch (cache_kind) {
     case 0: return cluster_g<__nv_bfloat16>(a, pmax, s);
     case 1: return cluster_g<int8_t>(a, pmax, s);
@@ -724,7 +720,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages, const 
 }
 
 // K17, block-sparse decode attention: at D = 128, G in {1, 2, 4, 8} and
-// blocks of 8 to 512 rows (path J) K15's cluster kernel body over the
+// blocks of 8 to 512 rows (paths J and P) K15's cluster kernel body over the
 // selected blocks, else (D up to 640, G up to 16) the one-CTA body over them.
 // Caches [B, S, KH*D] as decode_attention's, S a multiple of block_size;
 // sel int32 [B, nsel] block indices, each in [0, S / block_size); nvalid
@@ -742,20 +738,46 @@ extern "C" int block_sparse_decode_attention(const void* q, const void* kc, cons
   switch (cache_kind) {
     case 0: return cluster_g<__nv_bfloat16>(a, 0, s);
     case 1: return cluster_g<int8_t>(a, 0, s);
+    case 2: return cluster_g<e4m3_t>(a, 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // dynamic shared memory of one CTA of latent_decode.cuh's cluster kernel at
-// D (0 for a D it does not take): kernels/attention.py's latent_smem must
-// agree
-extern "C" int latent_decode_smem(int D) {
+// D for cache_kind 1 (int8) or 2 (e4m3) (0 for a D it does not take):
+// kernels/attention.py's latent_smem must agree
+template <bool E4>
+int latent_smem_of(int D) {
   switch (D) {
-    case 128: return latent::Geo<1>::SMEM;
-    case 256: return latent::Geo<2>::SMEM;
-    case 384: return latent::Geo<3>::SMEM;
-    case 512: return latent::Geo<4>::SMEM;
-    case 640: return latent::Geo<5>::SMEM;
+    case 128: return latent::Geo<1, E4>::SMEM;
+    case 256: return latent::Geo<2, E4>::SMEM;
+    case 384: return latent::Geo<3, E4>::SMEM;
+    case 512: return latent::Geo<4, E4>::SMEM;
+    case 640: return latent::Geo<5, E4>::SMEM;
     default: return 0;
   }
+}
+
+extern "C" int latent_decode_smem(int D, int cache_kind) {
+  return cache_kind == 2 ? latent_smem_of<true>(D) : cache_kind == 1 ? latent_smem_of<false>(D) : 0;
+}
+
+__global__ void e4m3_pair_kernel(const uint8_t* __restrict__ codes, float* __restrict__ out,
+                                 int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const uint32_t v = e4m3_cache_pair((uint32_t)codes[i] << 8);  // the code in byte 1
+    out[i] = __uint_as_float(v << 16);                            // the low half's bf16
+  }
+}
+
+// the latent cluster kernel's e4m3 operand decode (e4m3.cuh's
+// e4m3_cache_pair) applied to every code of codes [n], f32 out: a probe of
+// the device function, not a kernel of the port (chip_smoke.py reads all
+// 256 codes back against the reference's decode)
+extern "C" int e4m3_pair_decode(const void* codes, void* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  e4m3_pair_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<float*>(out), n);
+  return (int)cudaGetLastError();
 }

@@ -36,6 +36,19 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two e4m3 cache codes, in bytes 1 and 3 of r (bytes 0 and 2 are ignored) ->
+// bf16x2, byte 1's value in the low half: the reference's decode of every
+// code, 0x7f / 0xff to +-480 included. A code's exponent and mantissa
+// fields shifted into a bf16's (sign apart) are 2^-120 times its value, a
+// subnormal bf16 where the exponent field is 0, and one bf16 multiply by
+// 2^120 gives the value exactly. A prmt puts any two bytes in place, so
+// the latent cluster kernel builds its tensor-core operands from staged
+// cache bytes with it (latent_decode.cuh).
+__device__ __forceinline__ uint32_t e4m3_cache_pair(uint32_t r) {
+  const uint32_t t = ((r >> 4) & 0x07F007F0u) | (r & 0x80008000u);  // 2^-120 x, in bf16
+  return bits(__hmul2(as_bf16x2(t), as_bf16x2(0x7B807B80u)));        // x 2^120
+}
+
 // two float8_e4m3fn codes (the low 16 bits of p, not NaN) -> bf16x2, exact:
 // the card's e4m3x2 -> f16x2 conversion (exact; every e4m3 value is a
 // normal f16 or zero), then the f16 bits less their three low mantissa

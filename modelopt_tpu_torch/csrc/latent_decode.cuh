@@ -1,9 +1,9 @@
 // K5 decode_attention and K15 paged_decode_attention at MLA's geometry (one
 // shared KV head, G <= 16 query rows, D a multiple of 128 up to 640, one
-// int8 latent tensor as K and V), on the tensor cores, one thread-block
-// cluster of up to C = 16 CTAs a slot that splits the slot's latent rows
-// (decode_attention.cu routes those geometries here; see its header for
-// the arithmetic, which is K5's unchanged).
+// int8 or e4m3 latent tensor as K and V), on the tensor cores, one
+// thread-block cluster of up to C = 16 CTAs a slot that splits the slot's
+// latent rows (decode_attention.cu routes those geometries here; see its
+// header for the arithmetic, which is K5's unchanged).
 //
 // What bounds it on an H100: bytes, each live latent row read once (K = V),
 // over the 3.35 TB/s of HBM; below ~1 MB a slot, the latency of the rounds
@@ -47,6 +47,33 @@
 //     a last cluster barrier before the rows are staged again (or the CTA
 //     leaves) keeps every partial alive while an owner reads it.
 //
+// The e4m3 instance (E4) keeps the plan, the staged bytes, the exchanges
+// and the replay, and runs the reference's e4m3 arithmetic in between:
+//  1. scores by mma.sync m16n8k16 bf16 x bf16 -> f32, q's rows as they are
+//     (bf16, not requantized) the A operand from shared memory, B built
+//     from the staged bytes by a prmt and e4m3_cache_pair (e4m3.cuh: the
+//     reference's decode, exact); the same 16-byte load a lane makes for
+//     the int8 scores feeds four k-steps, q's fragments holding the same
+//     columns in the same order; s = dot * (k_scale / sqrt(D)). A warp keeps
+//     its 8-key tiles' scores in registers (shared memory has no room for
+//     them beside q's bf16 fragments); the piece maxima go through a small
+//     per-warp table. Step 3 scores the staged rows again (the same
+//     products, so the same scores): held in registers over the exchange,
+//     they made the D = 640 instance spill at its 96 registers a thread;
+//  3. e = exp(s - m_c) in f32 against the chunk's running max, from the
+//     registers: its f32 sum per row (lanes, then warps in order) is the
+//     piece's esum, and e rounded to bf16 is written as PV's A operand for
+//     one piece at a time; PV is m16n8k16 with B from four key rows'
+//     bytes (4 tig + 0..3 of each 16-key step, so a lane's four 32-bit
+//     loads are the int8 body's), two bytes put in place by a prmt and
+//     decoded; partials are f32 [16][D + 1] over the first piece's rows;
+//  4. the owner sums a chunk's f32 partials and esums over its ranks in
+//     rank order, then l = l alpha + esum, acc = acc alpha + y.
+// The f32 sums run in another order than the one-CTA body's (and than the
+// plain version's), so the e4m3 instance is held to both within an order
+// bar, not bit for bit; the rounding of e to bf16 against each chunk's
+// running max, which decides PV's operands, is the reference's.
+//
 // One rank. Where the slot has at most one piece (L <= min(PK, chunk): the
 // serving paths' short contexts), rank 0 does the whole slot with the same
 // pieces (its piece's max is its chunk's running max, so max and codes take
@@ -61,18 +88,25 @@
 //
 // Shared memory budget (D = 640; two CTAs an SM, so that 8 clusters of 16
 // fit in one wave): staged rows 2 x 68 x 640 = 87,040 bytes (the partials
-// overlay them), q's fragments 16 x 640 = 10,240, scores 2 x 16 x 72 x 4 =
-// 9,216, codes 2 x 16 x 112 = 3,584 (the gathered maxima and code sums
-// overlay them); static: chunk maxima and code sums 2 x 32 x 16 x 4, piece
-// maxima and sums, row scales, the piece and segment tables 5,008. 115,088
-// bytes of the 115,712 that each of two CTAs an SM may take
-// (kernels/attention.py's latent_smem counts the dynamic part).
+// overlay them). int8: q's fragments 16 x 640 = 10,240, scores 2 x 16 x
+// 72 x 4 = 9,216, codes 2 x 16 x 112 = 3,584 (the gathered maxima and code
+// sums overlay them); static: chunk maxima and code sums 2 x 32 x 16 x 4,
+// piece maxima and sums, row scales, the piece and segment tables 5,008.
+// 115,088 bytes of the 115,712 that each of two CTAs an SM may take. e4m3:
+// q's bf16 fragments 16 x 640 x 2 = 20,480 and a 4,096-byte region that
+// holds in turn the warps' piece maxima, the gathered maxima, one piece's
+// bf16 e with the warps' esums, and the gathered esums with the chunk
+// esums; static 2,896 (ptxas): 114,512 bytes (kernels/attention.py's
+// latent_smem counts the dynamic part).
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "e4m3.cuh"
 
 namespace latent {
 
@@ -88,22 +122,35 @@ constexpr int SCW = 72;                // scores a (slot, row): 9 tiles of 8 key
 constexpr int KMAX = 96;               // codes a (slot, row): 3 k-steps of 32 keys
 constexpr int CODEW = 112;             // their row stride in bytes (28 words: no bank conflicts)
 constexpr int MAXP = C * SLOTS;        // pieces (and chunks) a round at most
+constexpr int NTILE = 10;              // e4m3: 8-key tiles of e a piece (5 k-steps of 16 keys)
+constexpr int EW = 40;                 // e4m3: words of a row of bf16 e (80 keys; 8 mod 32: no bank conflicts)
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int DJ>
+template <int DJ, bool E4>
 struct Geo {
   static constexpr int D = 128 * DJ;
   static constexpr int NT = D / 2;         // threads: a warp takes 64 columns of PV
   static constexpr int NW = NT / 32;
   static constexpr int CH = D / 16;        // 16-byte chunks of a row
   static constexpr int PSTRIDE = D + 1;    // words of a held partial's row
+  static constexpr int TPW = (NTILE + NW - 1) / NW;  // e4m3: tiles a warp scores a piece
   static constexpr int ROWS_B = ROWS * D;
-  static constexpr int QF_B = GM * D;      // q's A fragments, D / 32 k-steps x 32 lanes x 16 bytes
+  // q's A fragments: int8 D / 32 k-steps x 32 lanes x 16 bytes; bf16 twice that
+  static constexpr int QF_B = (E4 ? 2 : 1) * GM * D;
   static constexpr int SC_B = 4 * SLOTS * GM * SCW;
   static constexpr int CODE_B = SLOTS * GM * CODEW;
-  static constexpr int SMEM = ROWS_B + QF_B + SC_B + CODE_B;
+  // e4m3: the region after q's fragments, in turn the warps' piece maxima
+  // [SLOTS][NW][GM], the gathered maxima [MAXP][GM], one piece's e
+  // [GM][EW] words with the warps' esums [NW][GM] at EBUF_B, and the
+  // gathered esums with the chunk esums [MAXP][GM] at 4 MAXP GM
+  static constexpr int EBUF_B = 4 * GM * EW;
+  static constexpr int REG_B = 8 * MAXP * GM;
+  static constexpr int SMEM = E4 ? ROWS_B + QF_B + REG_B : ROWS_B + QF_B + SC_B + CODE_B;
   static_assert(4 * GM * PSTRIDE <= PK * D, "a chunk's partial fits over its piece's rows");
   static_assert(4 * MAXP * GM <= CODE_B, "the gathered maxima fit over the codes");
+  static_assert(4 * SLOTS * NW * GM <= EBUF_B && EBUF_B + 4 * NW * GM <= REG_B &&
+                    4 * MAXP * GM <= EBUF_B,
+                "e4m3: the region holds each phase's tables");
 };
 
 // 16-byte chunk `ch` of staged row `r`: swizzled within its group of 8 so
@@ -133,6 +180,21 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint4 a, uint32_t b0, uint32
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint4 a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The plan of a slot of L keys in chunks of `ch` keys (see the header)
@@ -171,35 +233,47 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&ou
 }
 
 // q [B, 1, G, D] bf16; cache [B, S, D] (page_table null) or pool
-// [n_pages, chunk, D] (page_table [B, pmax]) of int8 codes, read as K and
-// V; out [B, 1, G, D]. S: the keys a slot may hold (paged: pmax * chunk).
-template <int DJ>
-__global__ void __launch_bounds__(Geo<DJ>::NT, 2)
-latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ cache,
+// [n_pages, chunk, D] (page_table [B, pmax]) of int8 codes (E4: e4m3
+// codes), read as K and V; out [B, 1, G, D]. S: the keys a slot may hold
+// (paged: pmax * chunk).
+template <int DJ, bool E4>
+__global__ void __launch_bounds__(Geo<DJ, E4>::NT, 2)
+latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const unsigned char* __restrict__ cache,
                       const int* __restrict__ lengths, const int* __restrict__ page_table,
                       const float* __restrict__ kscale, const float* __restrict__ vscale,
                       float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16, int S,
                       int chunk, int pmax, int G) {
-  using Gm = Geo<DJ>;
+  using Gm = Geo<DJ, E4>;
+  using Acc = std::conditional_t<E4, float, int>;  // PV partials and esums
   constexpr int D = Gm::D, NT = Gm::NT, NW = Gm::NW, CH = Gm::CH, PS = Gm::PSTRIDE;
+  constexpr int TPW = Gm::TPW;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* rows = smem;                                                  // [ROWS][D]
-  uint4* qf = reinterpret_cast<uint4*>(smem + Gm::ROWS_B);                     // [D/32][32]
-  float* sc = reinterpret_cast<float*>(smem + Gm::ROWS_B + Gm::QF_B);          // [SLOTS][GM][SCW]
-  unsigned char* codes = smem + Gm::ROWS_B + Gm::QF_B + Gm::SC_B;              // [SLOTS][GM][CODEW]
-  float* gath = reinterpret_cast<float*>(codes);  // [MAXP][GM], over the codes between uses
+  uint4* qf = reinterpret_cast<uint4*>(smem + Gm::ROWS_B);  // int8 [D/32][32]; e4m3 [D/64][4][32]
+  unsigned char* reg = smem + Gm::ROWS_B + Gm::QF_B;
+  float* sc = reinterpret_cast<float*>(reg);                         // int8: [SLOTS][GM][SCW]
+  unsigned char* codes = reg + Gm::SC_B;                             // int8: [SLOTS][GM][CODEW]
+  // the gathered maxima and esums [MAXP][GM]: int8 over the codes, e4m3 at
+  // the region's start
+  float* gath = reinterpret_cast<float*>(E4 ? reg : codes);
+  float* wmax = reinterpret_cast<float*>(reg);                       // e4m3: [SLOTS][NW][GM]
+  uint32_t* ebuf = reinterpret_cast<uint32_t*>(reg);                 // e4m3: [GM][EW]
+  float* wsum = reinterpret_cast<float*>(reg + Gm::EBUF_B);          // e4m3: [NW][GM]
   __shared__ float pmx[SLOTS][GM];   // this CTA's piece maxima
-  __shared__ int pes[SLOTS][GM];     // this CTA's sums of codes, by segment's first slot
+  __shared__ Acc pes[SLOTS][GM];     // this CTA's esums (int8: sums of codes), by segment's first slot
   __shared__ float cmax[MAXP][GM];   // the running max at each chunk of the round
-  __shared__ int ces[MAXP][GM];      // each chunk's sum of codes
-  __shared__ float fsr[GM];          // score scale of each query row
+  __shared__ int ces_s[E4 ? 1 : MAXP][GM];  // int8: each chunk's sum of codes
+  __shared__ float fsr[E4 ? 1 : GM];  // int8: score scale of each query row
   __shared__ float mprev[GM];        // the running max the rounds before left
-  __shared__ int* segp[MAXP];        // each segment's partial (its rank's held slot)
+  __shared__ Acc* segp[MAXP];        // each segment's partial (its rank's held slot)
   __shared__ int segc[MAXP];         // the chunk a segment ends, or -1
   __shared__ int nseg;               // segments in the round
   // each piece of the round: rank (bits 0-4), slot (5), chunk of the round
   // (6-11), first piece of its rank's segment (12), last of its chunk (13)
   __shared__ int pinf[MAXP];
+  // each chunk's esum: e4m3 in the region, after the gathered esums
+  Acc (*ces)[GM] = E4 ? reinterpret_cast<Acc (*)[GM]>(reg + 4 * MAXP * GM)
+                      : reinterpret_cast<Acc (*)[GM]>(ces_s);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -232,17 +306,19 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
   if (rank == 0) {
     const size_t row0 = page_table != nullptr ? (size_t)page_table[(size_t)b * pmax] * chunk
                                               : (size_t)b * S;
-    stage(0, reinterpret_cast<const unsigned char*>(cache) + row0 * D, min(PK, chunk));
+    stage(0, cache + row0 * D, min(PK, chunk));
   }
   constexpr int QR = (GM + NW - 1) / NW;
-  uint2 qraw[QR][DJ];
+  uint2 qraw[E4 ? 1 : QR][DJ];
+  if constexpr (!E4) {
 #pragma unroll
-  for (int u = 0; u < QR; ++u) {
-    const int g = warp + u * NW;
+    for (int u = 0; u < QR; ++u) {
+      const int g = warp + u * NW;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      qraw[u][j] = g < G ? *reinterpret_cast<const uint2*>(q + qoff + g * D + 4 * (lane + 32 * j))
-                         : make_uint2(0u, 0u);
+      for (int j = 0; j < DJ; ++j)
+        qraw[u][j] = g < G ? *reinterpret_cast<const uint2*>(q + qoff + g * D + 4 * (lane + 32 * j))
+                           : make_uint2(0u, 0u);
+    }
   }
   const Plan plan(max(min(len, S), 0), chunk);
   const bool solo = plan.total <= 1;
@@ -273,7 +349,7 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
                              ? (size_t)page_table[(size_t)b * pmax + plo[s] / chunk] * chunk +
                                    plo[s] % chunk
                              : (size_t)b * S + plo[s];
-        stage(s, reinterpret_cast<const unsigned char*>(cache) + r * D, pn[s]);
+        stage(s, cache + r * D, pn[s]);
       } else {
         cp_async_commit();  // an empty group: two a round
       }
@@ -297,7 +373,8 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
         const unsigned later = starts & ~((2u << lane) - 1u);
         const int last = later != 0u ? __ffs(later) - 2 : n - 1;  // the segment's last piece
         const int idx = __popc(starts & ((1u << lane) - 1u));
-        segp[idx] = cluster.map_shared_rank(reinterpret_cast<int*>(rows), r) + sl * (PK * D / 4);
+        segp[idx] = reinterpret_cast<Acc*>(cluster.map_shared_rank(reinterpret_cast<int*>(rows), r)) +
+                    sl * (PK * D / 4);
         segc[idx] = (ends >> last & 1u) ? c : -1;
       }
       if (lane == 0) nseg = __popc(starts);
@@ -305,10 +382,10 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
   };
   if (plan.nrounds > 0) begin_round(0);
 
-  // q rounded to bf16 (it is), requantized per row to int8 with
-  // qmax = max|q_row|, into A fragments: step 2i + h, lane (gid, tig) holds
-  // rows gid, gid + 8 at columns [64 i + 16 tig + 8 h, +8)
-  {
+  if constexpr (!E4) {
+    // q rounded to bf16 (it is), requantized per row to int8 with
+    // qmax = max|q_row|, into A fragments: step 2i + h, lane (gid, tig) holds
+    // rows gid, gid + 8 at columns [64 i + 16 tig + 8 h, +8)
     uint32_t* qw = reinterpret_cast<uint32_t*>(qf);
 #pragma unroll
     for (int u = 0; u < QR; ++u) {
@@ -344,10 +421,25 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
         mprev[g] = -1e30f;
       }
     }
+  } else {
+    // q's bf16 rows as A fragments: k-step 4 i + j, lane (gid, tig) holds
+    // rows gid, gid + 8 at columns 64 i + 16 tig + 4 j + {0, 1} (a0, a1)
+    // and + {2, 3} (a2, a3), the columns a score lane's staged bytes
+    // 4 j .. 4 j + 3 give B; rows past G zero
+    for (int e = tid; e < (D / 64) * 4 * 32; e += NT) {
+      const int ln = e & 31, col = 64 * (e >> 7) + 16 * (ln & 3) + 4 * ((e >> 5) & 3);
+      const int g = ln >> 2;
+      const uint2 lo = g < G ? *reinterpret_cast<const uint2*>(q + qoff + g * D + col)
+                             : make_uint2(0u, 0u);
+      const uint2 hi = g + 8 < G ? *reinterpret_cast<const uint2*>(q + qoff + (g + 8) * D + col)
+                                 : make_uint2(0u, 0u);
+      qf[e] = make_uint4(lo.x, hi.x, lo.y, hi.y);
+    }
+    if (tid < GM) mprev[tid] = -1e30f;
   }
 
-  // scores of slot s's staged keys into sc[s][g][0, 72) (-1e30 past the
-  // piece): warp w takes 8-key tiles w, w + NW, ...
+  // int8: scores of slot s's staged keys into sc[s][g][0, 72) (-1e30 past
+  // the piece): warp w takes 8-key tiles w, w + NW, ...
   auto score = [&](int s) {
     const int nk = pn[s];
     for (int t = warp; t * 8 < nk; t += NW) {
@@ -370,6 +462,89 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
       s1[k0 + 1] = k0 + 1 < nk ? __fmul_rn((float)c[3], fsr[gid + 8]) : -1e30f;
     }
   };
+  // e4m3: scores of slot s's staged keys, this warp's tiles warp + i NW
+  // (i < TPW) into registers: scr[s][i][0, 1] row gid, keys 8 t + 2 tig
+  // + {0, 1}; [2, 3] row gid + 8; -1e30 past the piece
+  float scr[SLOTS][E4 ? TPW : 1][4];
+  auto score_e4 = [&](int s) {
+    const int nk = pn[s];
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int t = warp + i * NW;
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};  // two chains
+      if (t * 8 < nk) {  // uniform over the warp
+        const int r = s * PK + t * 8 + gid;
+#pragma unroll
+        for (int i2 = 0; i2 < D / 64; ++i2) {
+          const uint4 kv = *reinterpret_cast<const uint4*>(at(r, 64 * i2 + 16 * tig));
+          const uint4* qa = qf + i2 * 128 + lane;
+          mma_bf16(c, qa[0], e4m3_cache_pair(__byte_perm(kv.x, 0u, 0x1100)),
+                   e4m3_cache_pair(__byte_perm(kv.x, 0u, 0x3322)));
+          mma_bf16(c2, qa[32], e4m3_cache_pair(__byte_perm(kv.y, 0u, 0x1100)),
+                   e4m3_cache_pair(__byte_perm(kv.y, 0u, 0x3322)));
+          mma_bf16(c, qa[64], e4m3_cache_pair(__byte_perm(kv.z, 0u, 0x1100)),
+                   e4m3_cache_pair(__byte_perm(kv.z, 0u, 0x3322)));
+          mma_bf16(c2, qa[96], e4m3_cache_pair(__byte_perm(kv.w, 0u, 0x1100)),
+                   e4m3_cache_pair(__byte_perm(kv.w, 0u, 0x3322)));
+        }
+      }
+      const int k0 = t * 8 + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        scr[s][i][j] = k0 + (j & 1) < nk ? __fmul_rn(__fadd_rn(c[j], c2[j]), inv_sqrt_d) : -1e30f;
+    }
+  };
+  // e4m3: this warp's max of slot s's scores of rows gid and gid + 8 into
+  // wmax[s][warp][row]
+  auto warp_max_e4 = [&](int s) {
+    float m0 = -1e30f, m1 = -1e30f;
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      m0 = fmaxf(m0, fmaxf(scr[s][i][0], scr[s][i][1]));
+      m1 = fmaxf(m1, fmaxf(scr[s][i][2], scr[s][i][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, off));
+    }
+    if (tig == 0) {
+      wmax[(s * NW + warp) * GM + gid] = m0;
+      wmax[(s * NW + warp) * GM + gid + 8] = m1;
+    }
+  };
+  // e4m3: slot s's e = exp(s - m) against the running max m of its chunk
+  // (0 past the piece), rounded to bf16 into ebuf (rows gid, gid + 8; the
+  // 80 keys of PV's five k-steps), and this warp's f32 sums of e of each
+  // row into wsum[warp][row]: a lane's in tile order, then over its row's
+  // four lanes
+  auto codes_e4 = [&](int s, float mlo, float mhi) {
+    const int nk = pn[s];
+    float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      const int t = warp + i * NW;
+      if (t >= NTILE) break;  // uniform over the warp
+      const int k0 = t * 8 + 2 * tig;
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = k0 + (j & 1) < nk ? expf(__fsub_rn(scr[s][i][j], j < 2 ? mlo : mhi)) : 0.f;
+      e0 = __fadd_rn(__fadd_rn(e0, e[0]), e[1]);
+      e1 = __fadd_rn(__fadd_rn(e1, e[2]), e[3]);
+      ebuf[gid * EW + 4 * t + tig] = pack_bf16(e[0], e[1]);
+      ebuf[(gid + 8) * EW + 4 * t + tig] = pack_bf16(e[2], e[3]);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      e0 = __fadd_rn(e0, __shfl_xor_sync(FULL, e0, off));
+      e1 = __fadd_rn(e1, __shfl_xor_sync(FULL, e1, off));
+    }
+    if (tig == 0) {
+      wsum[warp * GM + gid] = e0;
+      wsum[warp * GM + gid + 8] = e1;
+    }
+  };
   // row g of slot s: its codes against the running max m (0 past the
   // piece, to the end of its last k-step) and their sum, by the W lanes
   // (32 or 16, aligned) of one warp that hold the row
@@ -385,7 +560,7 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
       es += code;
     }
     for (int off = W / 2; off > 0; off >>= 1) es += __shfl_xor_sync(FULL, es, off);
-    if ((lane & (W - 1)) == 0) pes[s][g] = es;
+    if ((lane & (W - 1)) == 0) pes[s][g] = (Acc)es;
   };
   // the max of slot s's scores of row g, by W lanes as above
   auto piece_max = [&](int s, int g, int W) {
@@ -394,40 +569,90 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
     for (int off = W / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
     return m;
   };
-  int acc[2][4][4];  // PV: [32-column group][n-tile][fragment]
+  Acc acc[2][4][4];  // PV: [32-column group][n-tile][fragment]
   auto zero_acc = [&]() {
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int t = 0; t < 4; ++t)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[u][t][c] = 0;
+        for (int c = 0; c < 4; ++c) acc[u][t][c] = (Acc)0;
   };
   // acc += slot s's codes (A) x its staged rows (B); warp w takes columns
-  // [64 w, 64 w + 64), column 64 w + 32 u + 4 gid + t of n-tile t
+  // [64 w, 64 w + 64), column 64 w + 32 u + 4 gid + t of n-tile t. e4m3:
+  // A is the bf16 e of ebuf, a 16-key step's k-slots 2 tig, 2 tig + 1,
+  // 2 tig + 8, 2 tig + 9 the keys 4 tig + 0..3, whose rows a lane reads
   auto pv = [&](int s) {
-    const unsigned char* cs = codes + s * GM * CODEW;
-    for (int k0 = 0; k0 < pn[s]; k0 += 32) {
-      uint4 a;
-      a.x = *reinterpret_cast<const uint32_t*>(cs + gid * CODEW + k0 + 4 * tig);
-      a.y = *reinterpret_cast<const uint32_t*>(cs + (gid + 8) * CODEW + k0 + 4 * tig);
-      a.z = *reinterpret_cast<const uint32_t*>(cs + gid * CODEW + k0 + 16 + 4 * tig);
-      a.w = *reinterpret_cast<const uint32_t*>(cs + (gid + 8) * CODEW + k0 + 16 + 4 * tig);
-      const int r0 = s * PK + k0 + 4 * tig;
+    if constexpr (E4) {
+      for (int kb = 0; kb < pn[s]; kb += 16) {
+        const uint2 r0w = *reinterpret_cast<const uint2*>(ebuf + gid * EW + kb / 2 + 2 * tig);
+        const uint2 r1w = *reinterpret_cast<const uint2*>(ebuf + (gid + 8) * EW + kb / 2 + 2 * tig);
+        const uint4 a = make_uint4(r0w.x, r1w.x, r0w.y, r1w.y);
+        const int r0 = s * PK + kb + 4 * tig;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int byte = 64 * warp + 32 * u + 4 * gid;  // columns [byte, +4) of 4 rows
-        uint32_t w[4], b0[4], b1[4];
+        for (int u = 0; u < 2; ++u) {
+          const int byte = 64 * warp + 32 * u + 4 * gid;
+          uint32_t w[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(at(r0 + i, byte));
-        transpose4(w, b0);
+          for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(at(r0 + i, byte));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(at(r0 + 16 + i, byte));
-        transpose4(w, b1);
+          for (int t = 0; t < 4; ++t) {
+            // byte t of rows 4 tig, 4 tig + 1 (b0) and 4 tig + 2, 4 tig + 3 (b1)
+            // into bytes 1 and 3
+            const uint32_t sel = t | t << 4 | (4 + t) << 8 | (4 + t) << 12;
+            mma_bf16(acc[u][t], a, e4m3_cache_pair(__byte_perm(w[0], w[1], sel)),
+                     e4m3_cache_pair(__byte_perm(w[2], w[3], sel)));
+          }
+        }
+      }
+    } else {
+      const unsigned char* cs = codes + s * GM * CODEW;
+      for (int k0 = 0; k0 < pn[s]; k0 += 32) {
+        uint4 a;
+        a.x = *reinterpret_cast<const uint32_t*>(cs + gid * CODEW + k0 + 4 * tig);
+        a.y = *reinterpret_cast<const uint32_t*>(cs + (gid + 8) * CODEW + k0 + 4 * tig);
+        a.z = *reinterpret_cast<const uint32_t*>(cs + gid * CODEW + k0 + 16 + 4 * tig);
+        a.w = *reinterpret_cast<const uint32_t*>(cs + (gid + 8) * CODEW + k0 + 16 + 4 * tig);
+        const int r0 = s * PK + k0 + 4 * tig;
 #pragma unroll
-        for (int t = 0; t < 4; ++t) mma_s8(acc[u][t], a, b0[t], b1[t]);
+        for (int u = 0; u < 2; ++u) {
+          const int byte = 64 * warp + 32 * u + 4 * gid;  // columns [byte, +4) of 4 rows
+          uint32_t w[4], b0[4], b1[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(at(r0 + i, byte));
+          transpose4(w, b0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(at(r0 + 16 + i, byte));
+          transpose4(w, b1);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) mma_s8(acc[u][t], a, b0[t], b1[t]);
+        }
       }
     }
+  };
+  // e4m3: the piece maxima of slots [0, ns) from the warps' table
+  auto piece_max_e4 = [&](int ns) {
+    if (tid < ns * GM) {
+      const int s = tid / GM, g = tid % GM;
+      float m = -1e30f;
+      for (int w = 0; w < NW; ++w) m = fmaxf(m, wmax[(s * NW + w) * GM + g]);
+      pmx[s][g] = m;
+    }
+  };
+  // e4m3: slot s's esum of each row, the warps' sums in order
+  auto piece_sum_e4 = [&](int s) {
+    if (tid < GM) {
+      float e = 0.f;
+      for (int w = 0; w < NW; ++w) e = __fadd_rn(e, wsum[w * GM + tid]);
+      pes[s][tid] = (Acc)e;
+    }
+  };
+  // y = the partial as a value: int8's sums of codes times 1/127
+  auto value = [](Acc t) {
+    if constexpr (E4)
+      return t;
+    else
+      return __fmul_rn((float)t, 1.f / 127.f);
   };
 
   __syncthreads();  // q's fragments and scales
@@ -446,14 +671,26 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
       return;
     }
     __syncthreads();
-    score(0);
-    __syncthreads();
-    for (int g = 2 * warp + (lane >> 4); g < GM; g += 2 * NW) {  // a half-warp a row
-      const float m = piece_max(0, g, 16);
-      round_codes(0, g, m, 16);
-      if ((lane & 15) == 0) pmx[0][g] = m;
+    if constexpr (E4) {
+      score_e4(0);
+      warp_max_e4(0);
+      __syncthreads();
+      piece_max_e4(1);
+      __syncthreads();
+      codes_e4(0, pmx[0][gid], pmx[0][gid + 8]);
+      __syncthreads();
+      piece_sum_e4(0);
+      __syncthreads();
+    } else {
+      score(0);
+      __syncthreads();
+      for (int g = 2 * warp + (lane >> 4); g < GM; g += 2 * NW) {  // a half-warp a row
+        const float m = piece_max(0, g, 16);
+        round_codes(0, g, m, 16);
+        if ((lane & 15) == 0) pmx[0][g] = m;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     zero_acc();
     pv(0);
     // one f32 update from acc = 0, l = 0 a value; a thread's 8 consecutive
@@ -463,7 +700,8 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
       const int g = gid + 8 * h;
       if (g >= G) continue;
       const float alpha = expf(__fsub_rn(-1e30f, pmx[0][g]));
-      const float l = __fadd_rn(__fmul_rn(0.f, alpha), __fmul_rn((float)pes[0][g], 1.f / 127.f));
+      const float es = E4 ? (float)pes[0][g] : __fmul_rn((float)pes[0][g], 1.f / 127.f);
+      const float l = __fadd_rn(__fmul_rn(0.f, alpha), es);
       const float ratio = __fdiv_rn(vs, fmaxf(l, 1e-30f));
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -472,7 +710,7 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
         for (int t = 0; t < 4; ++t)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float y = __fmul_rn((float)acc[u][t][2 * h + e], 1.f / 127.f);
+            const float y = value(acc[u][t][2 * h + e]);
             o[4 * e + t] = __fmul_rn(__fadd_rn(__fmul_rn(0.f, alpha), y), ratio);
           }
         const size_t at_o = qoff + g * D + 64 * warp + 32 * u + 8 * tig;
@@ -507,9 +745,9 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
     og[p] = (tid + p * NT) / (D / C);
     od[p] = rank * (D / C) + (tid + p * NT) % (D / C);
   }
-  // this segment's s32 partial [GM][PS] over the rows of slot j
+  // this segment's partial [GM][PS] (s32; e4m3 f32) over the rows of slot j
   auto flush = [&](int j) {
-    int* part = reinterpret_cast<int*>(rows + j * PK * D);
+    Acc* part = reinterpret_cast<Acc*>(rows + j * PK * D);
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
@@ -535,12 +773,21 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
       else
         cp_async_wait<0>();
       __syncthreads();
-      score(s);
+      if constexpr (E4) {
+        score_e4(s);
+        warp_max_e4(s);
+      } else {
+        score(s);
+      }
     }
     __syncthreads();
-    for (int i = warp; i < SLOTS * GM; i += NW) {
-      const float m = piece_max(i / GM, i % GM, 32);
-      if (lane == 0) pmx[i / GM][i % GM] = m;
+    if constexpr (E4) {
+      piece_max_e4(SLOTS);
+    } else {
+      for (int i = warp; i < SLOTS * GM; i += NW) {
+        const float m = piece_max(i / GM, i % GM, 32);
+        if (lane == 0) pmx[i / GM][i % GM] = m;
+      }
     }
 
     // 2. every piece's max, then the running max at each chunk of the round
@@ -563,40 +810,64 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
 
     // 3. codes against the chunk's running max, each row's sum of them;
     // then the partials, a chunk's pieces summed in the same registers
-    for (int i = warp; i < SLOTS * GM; i += NW) {
-      const int s = i / GM, g = i % GM;
-      if (s < nm) round_codes(s, g, cmax[pc[s] - k * plan.cpr][g], 32);  // uniform over the warp
-    }
-    __syncthreads();
-    if (merged && tid < GM) pes[0][tid] += pes[1][tid];
-    zero_acc();
-    for (int s = 0; s < nm; ++s) {
-      if (s == 1 && !merged) {  // a new chunk: slot 0's partial goes over its rows
-        __syncthreads();
-        flush(0);
+    if constexpr (E4) {
+      // one piece at a time through ebuf
+      zero_acc();
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        if (s < nm) {  // uniform over the block
+          if (s == 1) __syncthreads();  // every warp's PV of slot 0 has read ebuf
+          const int cc = pc[s] - k * plan.cpr;
+          score_e4(s);  // again: scores held over the exchange would spill (96 registers)
+          codes_e4(s, cmax[cc][gid], cmax[cc][gid + 8]);
+          __syncthreads();
+          piece_sum_e4(s);
+          if (s == 1 && !merged) flush(0);  // a new chunk: slot 0's partial goes over its rows
+          pv(s);
+        }
       }
-      pv(s);
-    }
-    if (nm > 0) {
+      if (nm > 0) {
+        __syncthreads();
+        flush(nm == 2 && !merged ? 1 : 0);
+      }
+      if (merged && tid < GM) pes[0][tid] = __fadd_rn(pes[0][tid], pes[1][tid]);
+    } else {
+      for (int i = warp; i < SLOTS * GM; i += NW) {
+        const int s = i / GM, g = i % GM;
+        if (s < nm) round_codes(s, g, cmax[pc[s] - k * plan.cpr][g], 32);  // uniform over the warp
+      }
       __syncthreads();
-      flush(nm == 2 && !merged ? 1 : 0);
+      if (merged && tid < GM) pes[0][tid] += pes[1][tid];
+      zero_acc();
+      for (int s = 0; s < nm; ++s) {
+        if (s == 1 && !merged) {  // a new chunk: slot 0's partial goes over its rows
+          __syncthreads();
+          flush(0);
+        }
+        pv(s);
+      }
+      if (nm > 0) {
+        __syncthreads();
+        flush(nm == 2 && !merged ? 1 : 0);
+      }
     }
 
-    // 4. each chunk's sum of codes, then the owner's recurrence over the
-    // round's chunks in order
+    // 4. each chunk's sum of codes (e4m3: esum), then the owner's
+    // recurrence over the round's chunks in order
     cluster.sync();
+    Acc* gsum = reinterpret_cast<Acc*>(gath);
     for (int i = tid; i < n * GM; i += NT) {
       const int pq = i / GM, g = i % GM, inf = pinf[pq];
-      reinterpret_cast<int*>(gath)[pq * GM + g] =
+      gsum[pq * GM + g] =
           inf >> 12 & 1 ? cluster.map_shared_rank(&pes[0][0], inf & 31)[(inf >> 5 & 1) * GM + g]
-                        : 0;
+                        : (Acc)0;
     }
     __syncthreads();
     if (tid < GM) {
-      int e = 0;
+      Acc e = 0;
       for (int pq = 0; pq < n; ++pq) {
         const int inf = pinf[pq];
-        e += reinterpret_cast<const int*>(gath)[pq * GM + tid];
+        e += gsum[pq * GM + tid];
         if (inf >> 13 & 1) {
           ces[inf >> 6 & 63][tid] = e;
           e = 0;
@@ -608,17 +879,17 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
     // distributed shared memory (8 in flight), a chunk's summed, then one
     // f32 update a chunk
     {
-      int t[PER];
+      Acc t[PER];
 #pragma unroll
       for (int p = 0; p < PER; ++p) t[p] = 0;
       const int ns = nseg;
       for (int i0 = 0; i0 < ns; i0 += 8) {
-        int v[8][PER];
+        Acc v[8][PER];
 #pragma unroll
         for (int u = 0; u < 8; ++u)
 #pragma unroll
           for (int p = 0; p < PER; ++p)
-            v[u][p] = i0 + u < ns && og[p] < G ? segp[i0 + u][og[p] * PS + od[p]] : 0;
+            v[u][p] = i0 + u < ns && og[p] < G ? segp[i0 + u][og[p] * PS + od[p]] : (Acc)0;
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           if (i0 + u >= ns) break;
@@ -627,8 +898,8 @@ latent_cluster_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restr
           for (int p = 0; p < PER; ++p) {
             t[p] += v[u][p];
             if (cc >= 0) {
-              const float y = __fmul_rn((float)t[p], 1.f / 127.f);
-              const float es = __fmul_rn((float)ces[cc][og[p]], 1.f / 127.f);
+              const float y = value(t[p]);
+              const float es = value(ces[cc][og[p]]);
               const float mc = cmax[cc][og[p]];
               const float alpha = expf(__fsub_rn(m_run[p], mc));
               l_run[p] = __fadd_rn(__fmul_rn(l_run[p], alpha), es);
@@ -670,13 +941,13 @@ int allow(F* kernel, int bytes, unsigned& done_devices) {
   return 0;
 }
 
-template <int DJ>
-int launch(const __nv_bfloat16* q, const int8_t* cache, const int* lengths,
+template <int DJ, bool E4>
+int launch(const __nv_bfloat16* q, const unsigned char* cache, const int* lengths,
            const int* page_table, const float* ks, const float* vs, float* of,
            __nv_bfloat16* ob, int B, int S, int chunk, int pmax, int G, cudaStream_t s) {
-  using Gm = Geo<DJ>;
+  using Gm = Geo<DJ, E4>;
   static unsigned done = 0;
-  const int err = allow(latent_cluster_kernel<DJ>, Gm::SMEM, done);
+  const int err = allow(latent_cluster_kernel<DJ, E4>, Gm::SMEM, done);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * C, 1, 1);
@@ -690,8 +961,8 @@ int launch(const __nv_bfloat16* q, const int8_t* cache, const int* lengths,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, latent_cluster_kernel<DJ>, q, cache, lengths, page_table,
-                                 ks, vs, of, ob, S, chunk, pmax, G);
+  return (int)cudaLaunchKernelEx(&cfg, latent_cluster_kernel<DJ, E4>, q, cache, lengths,
+                                 page_table, ks, vs, of, ob, S, chunk, pmax, G);
 }
 
 }  // namespace latent

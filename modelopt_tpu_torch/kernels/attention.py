@@ -12,12 +12,11 @@ K3's ``dense_kv_write_pair`` writes an MHA layer's K and V in one launch.
 On CUDA tensors the wrappers launch ``csrc/kv_write.cu``,
 ``csrc/fused_decode_attention.cu`` and ``csrc/decode_attention.cu`` (at
 MLA's geometry K5's entry runs ``csrc/latent_decode.cuh``'s cluster kernel,
-else its one-CTA body); on CPU
+int8 or e4m3, else its one-CTA body); on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as
 the card's oracles). Caches hold bf16 values or int8 or e4m3 codes with
 f32 scalar scales; e4m3 codes are read as the reference reads them
-(``e4m3_decode_plain``). K5 keeps the reference's e4m3 branch unported: no
-path of the port runs it yet.
+(``e4m3_decode_plain``), in every kernel's e4m3 branch.
 """
 
 from __future__ import annotations
@@ -114,6 +113,27 @@ def e4m3_decode_plain(codes: torch.Tensor) -> torch.Tensor:
     sub = (m.float() * 2.0**-9).view(torch.int32)
     bits = ((b & 0x80) << 24) | torch.where(e > 0, norm, sub)
     return bits.view(torch.float32)
+
+
+def e4m3_pair_decode(codes: torch.Tensor) -> torch.Tensor:
+    """The latent cluster kernel's e4m3 operand decode
+    (``csrc/e4m3.cuh``'s ``e4m3_cache_pair``: the code's fields shifted into
+    a bf16's, times 2^120 in bf16) applied to every code of ``codes`` on the
+    card, f32 out; on a CPU tensor ``e4m3_decode_plain``. A probe of the
+    device function, not a kernel of the port: no path calls it."""
+    if codes.device.type == "cpu":
+        return e4m3_decode_plain(codes)
+    if codes.dtype not in (torch.float8_e4m3fn, torch.uint8):
+        raise ValueError(f"e4m3_pair_decode: wants e4m3 codes, got {codes.dtype}")
+    codes = codes.contiguous()
+    _build.check_cuda("e4m3_pair_decode", codes)
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    fn = _build.function("e4m3_pair_decode", [_build.c_ptr] * 2 + [_build.c_int, _build.c_ptr],
+                         source="decode_attention")
+    with torch.cuda.device(codes.device):
+        err = fn(codes.data_ptr(), out.data_ptr(), codes.numel(), _build.stream(codes))
+    _build.raise_on_error("e4m3_pair_decode", err)
+    return out
 
 
 def e4m3_decode(codes: torch.Tensor) -> torch.Tensor:
@@ -338,7 +358,7 @@ DECODE_MAX_D = 640
 
 
 # K5 and K15 at MLA's geometry (one KV head, G <= 16, D a multiple of 128
-# up to 640, one int8 tensor as K and V, chunks of at most
+# up to 640, one int8 or e4m3 tensor as K and V, chunks of at most
 # LATENT_RANKS * LATENT_SLOTS * LATENT_PIECE = 2176 keys) run
 # csrc/latent_decode.cuh's cluster kernel; its C entry decides
 # (``latent_ok`` in csrc/decode_attention.cu), every other geometry takes
@@ -349,7 +369,9 @@ LATENT_PIECE = 68      # keys a piece at most
 LATENT_SLOTS = 2       # pieces a CTA holds a round
 # two CTAs an SM: each may take (228 KB - 2 x 1 KB reserved) / 2 bytes
 LATENT_CTA_SMEM = 115_712
-LATENT_STATIC_SMEM = 5_008  # the kernel's static arrays (maxima, code sums, scales, tables)
+# the kernel's static arrays (maxima, code sums, scales, tables), by cache
+# dtype: e4m3 keeps its chunk esums in the dynamic region
+LATENT_STATIC_SMEM = {torch.int8: 5_008, torch.float8_e4m3fn: 2_896}
 
 
 def latent_plan(L: int, chunk: int) -> list:
@@ -380,35 +402,39 @@ def latent_plan(L: int, chunk: int) -> list:
     return rounds
 
 
-def latent_smem(D: int) -> int:
+def latent_smem(D: int, cache_dtype=torch.int8) -> int:
     """Dynamic shared memory of one CTA of the latent cluster kernel:
-    staged rows (the held partials over them), q's int8 A fragments, the
-    scores and the 7-bit codes of its two pieces. ``chip_smoke.py`` holds
-    it to the kernel's own count (``latent_decode_smem``)."""
+    staged rows (the held partials over them), then for int8 caches q's
+    int8 A fragments, the scores and the 7-bit codes of its two pieces; for
+    e4m3 caches q's bf16 A fragments and a region of 8 x 32 x 16 bytes
+    (the warps' piece maxima, the gathered maxima, one piece's bf16
+    probabilities and the warps' sums of them, the gathered and the
+    chunks' sums, each in turn). ``chip_smoke.py`` holds it to the kernel's
+    own count (``latent_decode_smem``)."""
     rows = LATENT_SLOTS * LATENT_PIECE * D
+    if cache_dtype == torch.float8_e4m3fn:
+        return rows + 2 * 16 * D + 8 * LATENT_RANKS * LATENT_SLOTS * 16
     return rows + 16 * D + 4 * LATENT_SLOTS * 16 * 72 + LATENT_SLOTS * 16 * 112
 
 
 def decode_attention_ok(q_shape, S: int, cache_dtype) -> bool:
-    """Whether a decode step takes K5. The reference's rule for its TPU
-    kernel (``decode_attention_ok``): quantized caches (int8 or e4m3) with
-    S <= 8192 and D % 128 == 0; other decodes take the einsum path. Then
-    what the port's K5 takes: int8 caches only, since its e4m3 branch is not
-    ported (the wrapper refuses e4m3), so an e4m3 step takes the einsum
-    over the cache, as the reference's do where its gate says no. The
+    """Whether a decode step takes K5: the reference's rule for its TPU
+    kernel (``decode_attention_ok``), quantized caches (int8 or e4m3) with
+    S <= 8192 and D % 128 == 0; other decodes take the einsum path. The
     reference's CPU branch (always the einsum path) is not followed: on a
     CPU tensor the wrapper computes the kernel's twin."""
     D = q_shape[-1]
-    return (cache_dtype in (torch.int8, torch.float8_e4m3fn) and S <= 8192
-            and D % 128 == 0 and cache_dtype == torch.int8)
+    return cache_dtype in (torch.int8, torch.float8_e4m3fn) and S <= 8192 and D % 128 == 0
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, k_scale=None,
                            v_scale=None, out_dtype=torch.bfloat16,
                            chunk: int = 256):
     """Plain PyTorch K5 with the reference kernel's rounding points (the
-    chunk rule, q requantized to int8 per (head, group) row, 7-bit
-    probability codes against the running max; see
+    chunk rule; int8 caches: q requantized to int8 per (head, group) row,
+    7-bit probability codes against the running max; bf16 and e4m3 caches:
+    f32 scores, the denominator from f32 e, PV from e rounded to bf16, e4m3
+    codes decoded as the reference decodes them; see
     csrc/decode_attention.cu): attention of q [B, KH, G, D] over keys
     [0, lengths[b]) of caches [B, S, KH*D] -> [B, KH, G, D]."""
     S = k_cache.shape[1]
@@ -426,15 +452,14 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
                      out_dtype=torch.bfloat16, chunk: int = 256, sinks=None,
                      softcap=None):
     """Attention of q [B, KH, G, D] over the first ``lengths[b]`` keys of
-    caches [B, S, KH*D] (int8 codes with f32 scalar scales, or bf16), which
-    it only reads; K and V may be one tensor (MLA passes its latent cache
-    twice). A length past the cache is clamped to S. Returns
-    [B, KH, G, D] in ``out_dtype``."""
+    caches [B, S, KH*D] (int8 or e4m3 codes with f32 scalar scales, or
+    bf16), which it only reads; K and V may be one tensor (MLA passes its
+    latent cache twice). A length past the cache is clamped to S. Returns
+    [B, KH, G, D] in ``out_dtype``. On the card an e4m3 cache runs the
+    kernel's e4m3 branch: nothing dequantizes it first."""
     if sinks is not None or softcap is not None:
         raise NotImplementedError(
             "decode_attention: attention sinks and logit softcap are not ported yet")
-    if torch.float8_e4m3fn in (k_cache.dtype, v_cache.dtype):
-        raise NotImplementedError("decode_attention: e4m3 caches are not ported yet")
     B, S, KHD = k_cache.shape
     KH, G, D = q.shape[1:]
     if q.shape[0] != B or KH * D != KHD or v_cache.shape != k_cache.shape:
@@ -445,10 +470,10 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, k_scale,
                                       v_scale, out_dtype, chunk)
-    if k_cache.dtype not in (torch.int8, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+    if k_cache.dtype not in CACHE_KIND or v_cache.dtype != k_cache.dtype:
         raise NotImplementedError(
             f"decode_attention: {k_cache.dtype} caches are not ported to the card "
-            "(int8 and bf16 are)")
+            "(int8, e4m3 and bf16 are)")
     if D % 128 or D > DECODE_MAX_D or not 1 <= G <= DECODE_MAX_G:
         raise NotImplementedError(
             f"decode_attention: the CUDA kernel takes D a multiple of 128 up to "
@@ -471,8 +496,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None,
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  lengths.data_ptr(), _build.ptr(scales[0]), _build.ptr(scales[1]),
                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                 B, S, KH, G, D, chunk, int(k_cache.dtype == torch.int8),
-                 _build.stream(q))
+                 B, S, KH, G, D, chunk, CACHE_KIND[k_cache.dtype], _build.stream(q))
     decode_attention.launches += 1
     _build.raise_on_error("decode_attention", err)
     return out

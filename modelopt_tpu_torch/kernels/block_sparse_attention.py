@@ -5,7 +5,7 @@ Counterpart of ``modelopt_tpu/kernels/block_sparse_attention.py``. The
 blocks to attend come from ``sparsity/skip_softmax.py::select_blocks``:
 ``sel [B, NSEL]`` block indices of which the first ``nvalid[b]`` are live
 (the tail aliases block 0 and is never read), over dense lane-merged caches
-[B, S, KH*D] (int8 codes with per-tensor scales, or bf16).
+[B, S, KH*D] (int8 or e4m3 codes with per-tensor scales, or bf16).
 
 On CUDA tensors the wrapper launches ``csrc/decode_attention.cu``'s
 ``block_sparse_decode_attention`` entry: at D = 128, G in {1, 2, 4, 8} and
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import DECODE_MAX_D, DECODE_MAX_G, _attend_chunks, _scalar
+from .attention import CACHE_KIND, DECODE_MAX_D, DECODE_MAX_G, _attend_chunks, _scalar
 
 
 def block_sparse_ok(B: int, KH: int, G: int, D: int, block_size: int) -> bool:
@@ -53,7 +53,8 @@ def block_sparse_decode_attention_plain(q, k_cache, v_cache, sel, nvalid, length
     ``sel[b, p] * block_size`` on, live where ``p < nvalid[b]``, keys at or
     past ``lengths[b]`` masked. int8 caches: q requantized per (head, group)
     row, 7-bit probability codes against each block's running max; bf16
-    caches: f32 scores, bf16 PV operands."""
+    and e4m3 caches: f32 scores, bf16 PV operands, e4m3 codes decoded as
+    the reference decodes them."""
     NSEL = sel.shape[1]
     dev = q.device
     int8 = k_cache.dtype == torch.int8 and v_cache.dtype == torch.int8
@@ -98,13 +99,12 @@ def block_sparse_decode_attention(q, k_cache, v_cache, sel, nvalid, lengths, k_s
                                   out_dtype=torch.bfloat16):
     """Attention of q [B, KH, G, D] over the KV blocks ``sel [B, NSEL]``
     (int32 block indices, entries p >= ``nvalid[b]`` aliasing a valid
-    block) of caches [B, S, KH*D] (int8 codes with f32 scalar scales, or
-    bf16; only read), keys below ``lengths[b]``. Returns [B, KH, G, D] in
-    ``out_dtype``. Every sel entry must lie in [0, S / block_size): the
-    kernel reads the blocks it names."""
-    if torch.float8_e4m3fn in (k_cache.dtype, v_cache.dtype):
-        raise NotImplementedError(
-            "block_sparse_decode_attention: e4m3 caches are not ported yet")
+    block) of caches [B, S, KH*D] (int8 or e4m3 codes with f32 scalar
+    scales, or bf16; only read), keys below ``lengths[b]``. Returns
+    [B, KH, G, D] in ``out_dtype``. Every sel entry must lie in
+    [0, S / block_size): the kernel reads the blocks it names. On the card
+    an e4m3 cache runs the kernel's e4m3 branch: nothing dequantizes it
+    first."""
     B, KH, G, D = q.shape
     S = k_cache.shape[1]
     NSEL = sel.shape[1] if sel.dim() == 2 else -1
@@ -120,10 +120,10 @@ def block_sparse_decode_attention(q, k_cache, v_cache, sel, nvalid, lengths, k_s
         return block_sparse_decode_attention_plain(q, k_cache, v_cache, sel, nvalid,
                                                    lengths, k_scale, v_scale, block_size,
                                                    out_dtype)
-    if k_cache.dtype not in (torch.int8, torch.bfloat16) or v_cache.dtype != k_cache.dtype:
+    if k_cache.dtype not in CACHE_KIND or v_cache.dtype != k_cache.dtype:
         raise NotImplementedError(
             f"block_sparse_decode_attention: {k_cache.dtype} caches are not ported to the "
-            "card (int8 and bf16 are)")
+            "card (int8, e4m3 and bf16 are)")
     if not block_sparse_ok(B, KH, G, D, block_size):
         raise NotImplementedError(
             f"block_sparse_decode_attention: the CUDA kernel takes D a multiple of 128 up "
@@ -150,7 +150,7 @@ def block_sparse_decode_attention(q, k_cache, v_cache, sel, nvalid, lengths, k_s
                  nvalid.data_ptr(), lengths.data_ptr(), _build.ptr(scales[0]),
                  _build.ptr(scales[1]), out.data_ptr() if f32 else None,
                  None if f32 else out.data_ptr(), B, S, NSEL, block_size, KH, G, D,
-                 int(k_cache.dtype == torch.int8), _build.stream(q))
+                 CACHE_KIND[k_cache.dtype], _build.stream(q))
     block_sparse_decode_attention.launches += 1
     _build.raise_on_error("block_sparse_decode_attention", err)
     return out

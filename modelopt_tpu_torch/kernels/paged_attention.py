@@ -9,7 +9,8 @@ On CUDA tensors the wrappers launch ``csrc/decode_attention.cu``'s
 ``paged_decode_attention`` entry (at D = 128 and G in {1, 2, 4, 8} a
 thread-block cluster of 8 CTAs per slot and KV head that splits the
 slot's pages, ``csrc/cluster_decode.cuh``; at MLA's geometry K5's
-latent cluster kernel, ``csrc/latent_decode.cuh``, one page a chunk; else
+latent cluster kernel, ``csrc/latent_decode.cuh``, one page a chunk, for
+int8 and e4m3 latent pools; else
 K5's one-CTA body walking one page per chunk) and
 ``csrc/paged_kv_write.cu``; on CPU
 tensors the ``*_plain`` versions compute the same functions (and serve as

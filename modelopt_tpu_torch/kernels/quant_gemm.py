@@ -502,10 +502,16 @@ def _check_byte(name, x, data, scale, scale_shape):
                          f"scale {tuple(scale.shape)}")
 
 
+def byte_gemm_ok(K: int, N: int) -> bool:
+    """Whether the CUDA byte GEMMs (K7 ``w8a16_gemm``, K8 ``wfp8_gemm``)
+    take a [K, N] weight: whole 128-row blocks and 64-column tiles."""
+    return K % 128 == 0 and N % 64 == 0
+
+
 def _byte_launch(name, x, data, scale, out_dtype, want_dtype):
     M, K = x.shape
     N = data.shape[1]
-    if K % 128 or N % 64:
+    if not byte_gemm_ok(K, N):
         raise NotImplementedError(f"the CUDA {name} takes K % 128 == 0 and N % 64 == 0, "
                                   f"got K={K}, N={N}")
     if (data.dtype, scale.dtype) != (want_dtype, torch.float32):

@@ -16,14 +16,17 @@ the layer's ``k_quantizer`` and zero-padded to whole 128-lane tiles
 The latent row is written by ``dense_kv_write`` at every T (a paged cache:
 ``paged_kv_write_rows``, which finds the page and zero-pads the row in one
 launch). A decode step (T == 1) over an
-int8 latent cache is exactly one KV head of read-only decode attention:
-q_eff = [q_lat ; q_pe ; 0-pad] against the padded rows, K and V the same
-tensor, the value projection commuted out of the PV product; it runs
-``decode_attention`` (K5) under the reference's rule
-(``decode_attention_ok``), or over an int8 latent pool
+int8 or e4m3 latent cache is exactly one KV head of read-only decode
+attention: q_eff = [q_lat ; q_pe ; 0-pad] against the padded rows, K and V
+the same tensor, the value projection commuted out of the PV product; it
+runs ``decode_attention`` (K5) under the reference's rule
+(``decode_attention_ok``), or over an int8 or e4m3 latent pool
 ``paged_decode_attention`` (K15) under ``paged_attention_ok``. Prefill and
 decode over a bf16 cache take the reference's own einsum path over the
-dequantized cache (a paged one gathered dense first).
+dequantized cache (a paged one gathered dense first). An e4m3 latent cache
+holds the k quantizer's e4m3 codes with its scale, or, where the quantizer
+has no calibrated scale, the rows cast to e4m3 with scale 1 (the
+reference's rule; an int8 latent cache needs the scale).
 """
 
 from __future__ import annotations
@@ -155,12 +158,15 @@ class MLAttention(nn.Module):
         if cache_kv is not None:
             ck, cv_ph, positions_kv = cache_kv[:3]
             page_table = cache_kv[3] if len(cache_kv) == 4 else None
-            if ck.dtype == torch.int8:
+            if ck.dtype in (torch.int8, torch.float8_e4m3fn):
                 row_codes, row_scale = self.k_quantizer(rows, with_scale=True)
-                if row_scale is None:
+                if ck.dtype == torch.int8 and row_scale is None:
                     raise ValueError(
                         "an int8 latent cache needs a CALIBRATED per-tensor int8 "
                         "k_quantizer (INT8_KV_CFG-style)")
+                if row_scale is None:  # e4m3 with no calibrated scale: a cast, scale 1
+                    row_codes = row_codes.to(ck.dtype)
+                    row_scale = torch.ones((), device=rows.device)
             elif ck.dtype.is_floating_point and ck.element_size() >= 2:
                 row_codes = self.k_quantizer(rows).to(ck.dtype)
             else:
@@ -181,7 +187,7 @@ class MLAttention(nn.Module):
         if cache_kv is not None and T == 1 and (
                 decode_attention_ok((B, 1, H, ck.shape[-1]), ck.shape[1], ck.dtype)
                 if page_table is None else
-                ck.dtype == torch.int8
+                ck.dtype in (torch.int8, torch.float8_e4m3fn)
                 and paged_attention_ok(B, 1, H, ck.shape[-1], ck.shape[1])):
             # one shared KV head over the latent rows: q_eff scaled so the
             # kernel's 1/sqrt(Dc) becomes the MLA scale

@@ -34,8 +34,8 @@ each row's page and writes K and V in one launch); T == 1
 attends with ``paged_decode_attention`` under the reference's rule, other
 forwards gather the pages dense and take the reference's masked einsum.
 Caches hold bf16 values or int8 or e4m3 codes with the k / v quantizers'
-f32 scales (FP8_KV_CFG's e4m3 codes go to every kernel above but K5's,
-whose gate admits int8 caches only, and K17's, which raises on them).
+f32 scales (FP8_KV_CFG's e4m3 codes go to every kernel above, each
+decoding them as the reference does; an MLA latent cache too).
 Caches are updated IN PLACE (the reference donates
 them through jitted steps instead).
 """

@@ -8,7 +8,10 @@ kernel on the card, its plain twin on the CPU):
     every M;
   * int8, e4m3 and NVFP4 weights at M <= 256 rows: ``w8a16_gemm``,
     ``wfp8_gemm``, ``nvfp4_gemm``, for every shape their layouts take (a
-    shape the CUDA kernel cannot take raises on the card);
+    shape the CUDA kernel cannot take raises on the card), but int8 and
+    e4m3 weights whose K is not a whole number of 128-row blocks (the
+    reference's ``_pallas_ok`` refuses them too: DeepSeek-V2-Lite's dense
+    down projection, K = 10944) take the dequantize path below;
   * MoE down-projections at M <= 256: int4 with int8 activations and gates
     the fused ``grouped_w4a8_combine_gemm`` (straddle widths such as
     DeepSeek's K=1408 included), without gates ``grouped_w4a8_gemm`` (the
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.quant_gemm import (PREFILL_MIN_M, grouped_nvfp4_gemm,
+from ..kernels.quant_gemm import (PREFILL_MIN_M, byte_gemm_ok, grouped_nvfp4_gemm,
                                   grouped_w4a8_combine_gemm, grouped_w4a8_gemm,
                                   grouped_w4a16_gemm, nvfp4_gemm, w4a8_gemm, w4a16_gemm,
                                   w8a16_gemm, wfp8_gemm)
@@ -120,7 +123,7 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
     if act_int8 and act_raw:
         # a 16-bit product still serves A8: one per-token rounding
         x2d = _fq_int8_per_token(x2d)
-    if x2d.shape[0] <= PREFILL_MIN_M:
+    if x2d.shape[0] <= PREFILL_MIN_M and (fmt == "nvfp4" or byte_gemm_ok(*kn)):
         if fmt == "int8":
             return w8a16_gemm(x2d, qt["data"], qt["scale"], out_dtype=out_dtype)
         if fmt == "fp8":

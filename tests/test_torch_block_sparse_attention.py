@@ -141,18 +141,22 @@ def test_selection_order_changes_the_codes(rng):
 
 def test_dispatch_rule_and_refusals():
     """``block_sparse_ok`` is the reference's shape rule plus the CUDA
-    kernel's limits; e4m3 caches and bad shapes raise."""
+    kernel's limits; bad shapes raise; off the CPU an e4m3 cache reaches
+    the kernel's own checks (here, with no card, they refuse meta
+    tensors): it has a CUDA branch, so it is never dequantized first."""
     assert tbs.block_sparse_ok(8, 8, 4, 128, 128)
     assert not tbs.block_sparse_ok(8, 8, 4, 64, 128)     # D % 128
     assert not tbs.block_sparse_ok(8, 1, 4, 128, 64)     # block * KH < 128
     assert not tbs.block_sparse_ok(8, 8, 4, 128, 12)     # block % 8
     assert not tbs.block_sparse_ok(8, 1, 32, 128, 128)   # G above the kernel's 16
     q = torch.zeros(1, 1, 1, 128)
-    c8 = torch.zeros(1, 64, 128, dtype=torch.float8_e4m3fn)
     one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="e4m3"):
-        tbs.block_sparse_decode_attention(q, c8, c8, torch.zeros(1, 2, dtype=torch.int32),
-                                          one, one, block_size=32)
+    meta = dict(device="meta")
+    c8 = torch.zeros(1, 256, 128, dtype=torch.float8_e4m3fn, **meta)
+    with pytest.raises(ValueError, match="on the card"):
+        tbs.block_sparse_decode_attention(torch.zeros(1, 1, 1, 128, **meta), c8, c8,
+                                          torch.zeros(1, 2, dtype=torch.int32, **meta),
+                                          one.to("meta"), one.to("meta"), block_size=128)
     c = torch.zeros(1, 60, 128, dtype=torch.int8)
     with pytest.raises(ValueError):
         tbs.block_sparse_decode_attention(q, c, c, torch.zeros(1, 2, dtype=torch.int32),

@@ -536,5 +536,6 @@ def test_latent_plan_covers_every_length(chunk, S):
         assert keys == L
         assert (total <= 1) == (L <= min(ta.LATENT_PIECE, chunk))
     for D in range(128, 641, 128):
-        assert ta.latent_smem(D) + ta.LATENT_STATIC_SMEM <= ta.LATENT_CTA_SMEM
+        for dtype, static in ta.LATENT_STATIC_SMEM.items():
+            assert ta.latent_smem(D, dtype) + static <= ta.LATENT_CTA_SMEM
         assert 4 * 16 * (D + 1) <= ta.LATENT_PIECE * D  # a chunk's partial over its rows

@@ -134,18 +134,21 @@ def test_lengths_past_the_cache_are_clamped(rng):
 
 
 def test_decode_attention_refusals():
-    """Sinks, softcap and e4m3 caches are not ported: refused on every
-    device. Off the CPU a tensor never reaches the twin: here (no card) the
-    kernel's checks refuse a meta tensor, and shapes the CUDA kernel was
+    """Sinks and softcap are not ported: refused on every device. Off the
+    CPU a tensor never reaches the twin: here (no card) the kernel's checks
+    refuse a meta tensor, e4m3 caches too (they have a CUDA branch, so they
+    are never dequantized for the bf16 one), and shapes the CUDA kernel was
     not written for raise before them."""
     q = torch.zeros(1, 1, 2, 128)
     c = torch.zeros(1, 4, 128, dtype=torch.int8)
     n = torch.ones(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="sinks"):
         ta.decode_attention(q, c, c, n, softcap=5.0)
-    with pytest.raises(NotImplementedError, match="e4m3"):
-        ta.decode_attention(q, c.to(torch.float8_e4m3fn), c.to(torch.float8_e4m3fn), n)
     meta = dict(device="meta")
+    e4 = torch.zeros(1, 4, 128, dtype=torch.float8_e4m3fn, **meta)
+    with pytest.raises(ValueError, match="on the card"):
+        ta.decode_attention(torch.zeros(1, 1, 2, 128, **meta), e4, e4,
+                            torch.ones(1, dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="on the card"):
         ta.decode_attention(torch.zeros(1, 1, 2, 128, **meta),
                             torch.zeros(1, 4, 128, dtype=torch.int8, **meta),
@@ -163,10 +166,9 @@ def test_decode_attention_refusals():
     (torch.bfloat16, 2176, 640, False), (torch.int8, 8193, 640, False),
     (torch.int8, 64, 192, False)])
 def test_dispatch_rule_is_the_reference_tpu_rule(dtype, S, D, ok):
-    """The reference's TPU rule (``decode_attention_ok``, attention.py:396):
-    a quantized cache, S <= 8192, D a multiple of 128 (``ok``); the port's
-    gate then admits int8 caches only, since K5's e4m3 branch is not
-    ported: an e4m3 step the reference sends to its kernel takes the
-    einsum (``test_torch_kernel_gates.py``)."""
-    assert ta.decode_attention_ok((8, 1, 16, D), S, dtype) is (
-        ok and dtype != torch.float8_e4m3fn)
+    """The reference's TPU rule (``decode_attention_ok``, attention.py:396)
+    and nothing else: a quantized cache (int8 or e4m3), S <= 8192, D a
+    multiple of 128 (``ok``); K5's e4m3 branch is ported, so an e4m3 step
+    the reference sends to its kernel goes to the port's
+    (``test_torch_kernel_gates.py``)."""
+    assert ta.decode_attention_ok((8, 1, 16, D), S, dtype) is ok

@@ -215,24 +215,51 @@ def test_kv_writes_copy_e4m3_rows(rng):
                                   np.asarray(jax.lax.bitcast_convert_type(want, jnp.uint8)))
 
 
-def test_unported_e4m3_branches_raise():
-    """The reference's e4m3 branches that no path of the port runs yet are
-    refused on every device: K5 (read-only decode attention), K17
-    (block-sparse decode attention) and the MLA latent cache."""
+def test_unported_e4m3_branches_raise(rng):
+    """The reference's e4m3 branches the port once refused now run on the
+    CPU and match: K5 (read-only decode attention) and K17 (block-sparse
+    decode attention) on e4m3 caches give their plain versions, which
+    decode the codes as the reference does (the e4m3 codes' values, scaled,
+    through the same function on a bf16 cache of those exact values: e4m3
+    is exact in bf16); and an MLA model writes an e4m3 latent cache (a cast,
+    scale 1, with no calibrated quantizer) and decodes over it through K5.
+    The name dates from when the port refused them;
+    tests/test_torch_e4m3_branches.py holds them to the JAX package."""
     from modelopt_tpu_torch.kernels import block_sparse_attention as tb
+    from modelopt_tpu_torch.models import mla as tm
 
-    q = torch.zeros(1, 1, 2, 128)
-    c = torch.zeros(1, 256, 128, dtype=torch.float8_e4m3fn)
-    n = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="e4m3"):
-        ta.decode_attention(q, c, c, n)
-    with pytest.raises(NotImplementedError, match="e4m3"):
-        tb.block_sparse_decode_attention(q, c, c, torch.zeros(1, 2, dtype=torch.int32), n, n)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 2, 128)).astype(np.float32))
+    _, c = _codes(rng, (2, 256, 128))
+    vals = ta.e4m3_decode_plain(c).to(torch.bfloat16)
+    n = torch.tensor([1, 200], dtype=torch.int32)
+    sel, nv = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32), torch.tensor([1, 2],
+                                                                              dtype=torch.int32)
+    for got, want in ((ta.decode_attention(q, c, c, n, 0.5, 0.25, out_dtype=torch.float32),
+                       ta.decode_attention(q * 0.5, vals, vals, n, out_dtype=torch.float32)
+                       * 0.25),
+                      (tb.block_sparse_decode_attention(q, c, c, sel, nv, n, 0.5, 0.25,
+                                                        block_size=128, out_dtype=torch.float32),
+                       tb.block_sparse_decode_attention(q * 0.5, vals, vals, sel, nv, n,
+                                                        block_size=128,
+                                                        out_dtype=torch.float32) * 0.25)):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     cfg = tt.tiny_mla_test_config(dtype=torch.float32)
     model = tt.Decoder(cfg, device="cpu")
+    for p in model.parameters():
+        p.data.copy_(torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
+                     * 0.1)
     cache = tt.make_cache(cfg, 1, 16, dtype=torch.float8_e4m3fn, device="cpu")
-    with pytest.raises(NotImplementedError, match="latent caches are not ported"):
-        model(torch.ones(1, 4, dtype=torch.int32), cache)
+    calls = []
+    real = tm.decode_attention
+    tm.decode_attention = lambda *a, **k: calls.append(a[1].dtype) or real(*a, **k)
+    try:
+        _, cache = model(torch.ones(1, 4, dtype=torch.int32), cache)
+        out, cache = model(torch.ones(1, 1, dtype=torch.int32), cache)
+    finally:
+        tm.decode_attention = real
+    assert torch.isfinite(out).all() and cache["k"][0].dtype == torch.float8_e4m3fn
+    assert calls == [torch.float8_e4m3fn] * cfg.num_layers
 
 
 def test_e4m3_caches_go_to_the_kernels_off_cpu():

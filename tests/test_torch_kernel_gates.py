@@ -21,7 +21,7 @@ from modelopt_tpu.core.tree import flatten_with_paths, set_in
 from modelopt_tpu.models import transformer as jt
 from modelopt_tpu.quant import qtensor as jq
 from modelopt_tpu.quant.config import get_config as jget_config
-from modelopt_tpu_torch.kernels.attention import fused_decode_ok
+from modelopt_tpu_torch.kernels.attention import decode_attention, fused_decode_ok
 from modelopt_tpu_torch.kernels.flash_attention import flash_attention_ok, flash_prefill_ok
 from modelopt_tpu_torch.models import transformer as tt
 from modelopt_tpu_torch.models.convert import from_jax_variables
@@ -275,20 +275,24 @@ def test_uncached_forward_at_d256_takes_the_einsum(reference_rules, monkeypatch)
     dict(num_heads=2, num_kv_heads=1),                 # D = 256
     dict(num_heads=16, num_kv_heads=1, head_dim=128),  # G = 16
 ], ids=["d256", "g16"])
-def test_e4m3_decode_that_k2_turns_away_takes_the_einsum(geometry, monkeypatch,
-                                                          no_dense_kernels):
+def test_e4m3_decode_that_k2_turns_away_takes_the_einsum(geometry, monkeypatch):
     """An 8-token prefill and one decode step over an e4m3 dense cache (bf16
     weights: the keys and values go in as direct e4m3 casts), at head
     geometries the reference's K2 admits and the port's card kernel lacks.
-    The port's ``fused_decode_ok`` refuses the step, and its
-    ``decode_attention_ok`` admits int8 caches only (K5's e4m3 branch is
-    not ported), so the step takes the masked einsum over the cache, codes
-    times their scale in the model dtype; before the repair the gate sent
-    it to K5, whose wrapper raises on e4m3. Held to the reference on its
-    CPU route (both of its gates say no there, so it takes the same einsum)
-    at two bf16 ulps, and to the reference under its shape rules (its K2
-    takes the step in interpret mode, attending rounded e4m3 codes) at the
-    engine tests' logit bar."""
+    The port's ``fused_decode_ok`` refuses the step and its
+    ``decode_attention_ok`` is the reference's rule again (K5's e4m3 branch
+    is ported), so the step writes by K3 and attends by K5 (its plain
+    version here; K2 and K4 are never called): the reference's chain where
+    its K2 says no. Held to the reference along that chain (its
+    ``fused_decode_ok`` refused, its K5 interpreted) at two bf16 ulps of the
+    largest logit (the same rounding points; a probability whose f32 value
+    lands on a bf16 midpoint otherwise could move a logit by one ulp), to
+    the reference under its shape rules alone (its K2 interpreted) and on
+    its CPU route (the einsum over the dequantized cache) at the engine
+    tests' logit bar. The name dates from when the port took the einsum
+    here."""
+    from modelopt_tpu.kernels import attention as jattention
+
     wide = dict(hidden_size=512, intermediate_size=256, num_layers=1,
                 max_position_embeddings=512, **geometry)
     B, T, S = 1, 8, 256
@@ -305,14 +309,33 @@ def test_e4m3_decode_that_k2_turns_away_takes_the_einsum(geometry, monkeypatch,
         logits, _ = fn(jb.variables, jnp.asarray(ids[:, T:]), cache)
         return np.asarray(logits[:, -1], np.float32)
 
-    tb = from_jax_variables(to_numpy(jb.variables), cfg, device="cpu")
-    tcache = tt.make_cache(cfg, B, S, dtype=torch.float8_e4m3fn, device="cpu")
-    _, tcache = tb.apply(torch.from_numpy(ids[:, :T]), tcache)
-    got, _ = tb.apply(torch.from_numpy(ids[:, T:]), tcache)
+    def refuse(name):
+        def call(*a, **k):
+            raise AssertionError(f"{name} called where the reference's K2 says no")
+        return call
+
+    calls = []
+
+    def k5(q, kc, vc, lengths, **kw):
+        calls.append((tuple(q.shape), kc.dtype))
+        return decode_attention(q, kc, vc, lengths, **kw)
+
+    with monkeypatch.context() as m:
+        for name in ("fused_decode_attention", "flash_prefill_attention"):
+            m.setattr(tt, name, refuse(name))
+        m.setattr(tt, "decode_attention", k5)
+        tb = from_jax_variables(to_numpy(jb.variables), cfg, device="cpu")
+        tcache = tt.make_cache(cfg, B, S, dtype=torch.float8_e4m3fn, device="cpu")
+        _, tcache = tb.apply(torch.from_numpy(ids[:, :T]), tcache)
+        got, _ = tb.apply(torch.from_numpy(ids[:, T:]), tcache)
     got = got[:, -1].float().numpy()
     assert np.isfinite(got).all()
-    want = reference()
-    np.testing.assert_allclose(got, want, rtol=0, atol=_two_ulps(want))
+    assert calls == [((B, cfg.num_kv_heads, G, D), torch.float8_e4m3fn)]
     with reference_shape_rules(monkeypatch):
         want_k2 = reference()
+        monkeypatch.setattr(jattention, "fused_decode_ok", lambda *a, **k: False)
+        want_k5 = reference()
+    np.testing.assert_allclose(got, want_k5, rtol=0, atol=_two_ulps(want_k5))
     np.testing.assert_allclose(got, want_k2, rtol=0, atol=0.15)
+    monkeypatch.undo()
+    np.testing.assert_allclose(got, reference(), rtol=0, atol=0.15)
