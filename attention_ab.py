@@ -1,7 +1,12 @@
 """Time the port's attention kernels and quantized GEMMs of one source tree on
-the card, to compare two commits on one card.
+the card, to compare two commits on one card. ``--gemms`` builds only the GEMM sources
+and times only ``moe_kernels`` and ``fp_kernels`` (K6, K10, K11, K12, K7,
+K8, K9, K13); the rows of K6 / K10 at straddle K and of K9 / K13 with a
+64-row tail are left out for a tree whose kernels refuse those shapes
+(one without ``nvfp4_gemm_ok``).
 
     python3 attention_ab.py TREE [--prefill]   # TREE: a checkout holding modelopt_tpu_torch/
+    python3 attention_ab.py TREE --gemms       # the quantized GEMMs only
 
 Builds the tree's ``decode_attention``, ``fused_decode_attention``,
 ``flash_attention``, ``flash_prefill_attention``, ``w4a8_gemm``,
@@ -65,13 +70,19 @@ from modelopt_tpu_torch.kernels import _build  # noqa: E402
 from modelopt_tpu_torch.kernels import attention as ka  # noqa: E402
 
 prefill = "--prefill" in sys.argv[2:]
+gemms = "--gemms" in sys.argv[2:]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-_build.build_all(("decode_attention", "fused_decode_attention", "flash_attention",
+_build.build_all(("w4a16_gemm", "grouped_w4a8_gemm", "w8a16_gemm", "nvfp4_gemm") if gemms else
+                 ("decode_attention", "fused_decode_attention", "flash_attention",
                   "flash_prefill_attention", "w4a8_gemm", "w4a16_gemm", "grouped_w4a8_gemm",
                   "w8a16_gemm", "nvfp4_gemm", "kv_write", "paged_kv_write"))
 cs.one_launch = lambda *args: None  # the tree's own chip_smoke.py checks its launch counts
 cs.combine_smem_agrees = lambda *args: None  # and K12's shared-memory count
+from modelopt_tpu_torch.kernels import quant_gemm as kq  # noqa: E402
+
+if not hasattr(kq, "nvfp4_gemm_ok"):  # a tree before straddle K in K6 / K10 and K9 / K13's tail
+    cs.w4a16_straddle_rows = cs.nvfp4_tail_rows = lambda *args: None
 # a tree before K1's decode-tile redesign names that tile w4a8_kernel
 cs.PREFILL_SPLIT["A"] = (("K1", ("w4a8_dec_kernel", "w4a8_wg_kernel", "::w4a8_kernel<")),
                          *cs.PREFILL_SPLIT["A"][1:])
@@ -88,13 +99,14 @@ from modelopt_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 one_launch_writes = hasattr(kp, "paged_kv_write_rows")
 # a tree with K5's and K17's e4m3 branches also times their rows
 e4m3_branches = hasattr(ka, "e4m3_pair_decode")
-for phase in (cs.kv_write_kernels, cs.mla_decode_kernel, cs.fused_decode_kernels,
-              cs.flash_prefill_kernels, cs.flash_kernels, cs.w4a8_kernels, cs.moe_kernels,
-              cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels) + (
-                  (cs.kv_pair_kernels, cs.paged_rows_kernels) if one_launch_writes else ()) + (
-                  (cs.e4m3_branch_kernels,) if e4m3_branches else ()):
+phases = (cs.kv_write_kernels, cs.mla_decode_kernel, cs.fused_decode_kernels,
+          cs.flash_prefill_kernels, cs.flash_kernels, cs.w4a8_kernels, cs.moe_kernels,
+          cs.fp_kernels, cs.paged_kernels, cs.block_sparse_kernels) + (
+              (cs.kv_pair_kernels, cs.paged_rows_kernels) if one_launch_writes else ()) + (
+              (cs.e4m3_branch_kernels,) if e4m3_branches else ())
+for phase in (cs.moe_kernels, cs.fp_kernels) if gemms else phases:
     phase(torch, torch.Generator(device=dev).manual_seed(0), timer, cs.recorder(rows))
-if not one_launch_writes:
+if not one_launch_writes and not gemms:
     # a tree before the one-launch layer writes: the calls its models made
     # for a layer, at the same cases
     import torch.nn.functional as F  # noqa: E402
@@ -112,7 +124,7 @@ if not one_launch_writes:
                 pad = p.shape[-1] - v.shape[-1]
                 kp.paged_kv_write(p, F.pad(v, (0, pad)) if pad else v, pids, offs)
         out[f"K16 {label}"] = timer(layer_write)
-for model, counts in cs.write_census(torch, strict=False).items():
+for model, counts in ({} if gemms else cs.write_census(torch, strict=False)).items():
     for what, n in zip(("host launch calls", "device kernel records"), counts):
         out[f"census {model} {what}"] = n
 for name, tag in (("dense_kv_write", "K3"), ("decode_attention", "K5"),
@@ -123,7 +135,7 @@ for name, tag in (("dense_kv_write", "K3"), ("decode_attention", "K5"),
                   ("grouped_w4a8_gemm", "K11"), ("grouped_w4a8_combine_gemm", "K12"),
                   ("paged_decode_attention", "K15"), ("paged_kv_write", "K16"),
                   ("block_sparse_decode_attention", "K17")):
-    for r in rows[name]:
+    for r in rows.get(name, ()):
         out[f"{tag} {r['shape']}"] = r["ms"]
 
 
@@ -141,8 +153,10 @@ def host_us(fn, n: int = 100) -> float:
     return dt / n * 1e6
 
 
-from modelopt_tpu_torch.kernels import quant_gemm as kq  # noqa: E402
-
+if gemms:
+    print(f"{os.path.basename(tree) or tree}: "
+          + " | ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    sys.exit(0)
 pos = torch.tensor([1023, 1500, 7, 2175, 300, 1024, 2000, 0], dtype=torch.int32, device=dev)
 ks, vs = torch.tensor(0.02, device=dev), torch.tensor(0.03, device=dev)
 q = torch.randn(8, 8, 4, 128, generator=gen, device=dev).to(torch.bfloat16)

@@ -27,15 +27,20 @@ Phases, in order (any failure exits non-zero):
      routed at M = 1 and 32, with no row routed and with each used expert
      routed by one row, and at DeepSeek's straddle shape K=1408, K11
      grouped_w4a8_gemm at M = 8, 32, 1 and 16 and at the straddle shape,
-     bit for bit, one device kernel a call at M = 8; K12's shared memory as
-     its plan counts it against the kernel's own count), the fp / int8
+     bit for bit, one device kernel a call at M = 8; K10 at the straddle
+     shape (64 experts, M = 1, 8, 16, 32) and K6 at K = 1408, N = 2048
+     (M = 8, 32, 544), one device kernel a call at M <= 16; K12's shared
+     memory as its plan counts it against the kernel's own count), the fp / int8
      weight kernels (K7
      w8a16_gemm and K8 wfp8_gemm at Llama-3-8B's four projections, also at
      M = 1 and 16 for N = 4096, every byte code read back through both
      tiles bit for bit, K9 nvfp4_gemm at Qwen3-30B-A3B's, also at M = 1
      and 16 for N = 4096, K7 / K8 / K9 at the wgmma tile's token-tile edges
      (M = 17, 64, 65, 200, 256 at N = 4096), K13 grouped_nvfp4_gemm at its
-     expert down projection, also at M = 1 and 16, every (e2m1 code, e4m3
+     expert down projection, also at M = 1 and 16, K13 at DeepSeek-V2-Lite's
+     (64 experts, K = 1408: a 64-row tail; M = 1, 8, 16, 32) and K9 at
+     K = 1408, N = 2048 (M = 8, 32, 128), one device kernel a call at
+     M <= 16, every (e2m1 code, e4m3
      scale) pair read back through both of K9's tiles bit for bit; one
      device kernel a call for K6 / K10 at M <= 16, K9 / K13 at M = 8 and
      above and K7 / K8 at M = 8, 32 and 128), then K1-K4: K1 at Llama-3-8B's four projections at
@@ -95,7 +100,9 @@ Phases, in order (any failure exits non-zero):
      the llama and the DeepSeek-V2 again over paged caches (64-row pages
      scattered over the pool); the llama under FP8_DEFAULT_CFG (activation
      amax calibrated on the CPU) and the Qwen3-MoE under
-     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; the llama under
+     NVFP4_WEIGHT_ONLY_CFG, both with a bf16 cache; the DeepSeek-V2 under
+     INT4_BLOCKWISE_WEIGHT_ONLY_CFG and NVFP4_WEIGHT_ONLY_CFG with a bf16
+     latent cache (K10's straddle tiles, K13's tail); the llama under
      FP8_KV_CFG with an e4m3 KV cache, dense and paged; the DeepSeek-V2
      under FP8_KV_CFG with an e4m3 latent cache, dense and paged; an f32
      llama with skip-softmax (64-row blocks, int8 KV; again with no
@@ -120,10 +127,10 @@ Phases, in order (any failure exits non-zero):
      the KV write once a layer (K16 a forward on E, F, L; K3 a forward on D,
      a prefill chunk on the other dense paths, a forward on J);
      every cache tensor must be of the path's KV dtype;
-       B: Qwen3-30B-A3B (full width, 8 of its 48 layers, PATH_LAYERS, so
+       B: Qwen3-30B-A3B (full width, 4 of its 48 layers, PATH_LAYERS, so
           that the script keeps well inside its limit) under
           W4A8_INT8KV_CFG, KV scales calibrated by one 64-token forward;
-       C: Qwen3-30B-A3B (full width, 8 of 48 layers) under
+       C: Qwen3-30B-A3B (full width, 4 of 48 layers) under
           INT4_BLOCKWISE_WEIGHT_ONLY_CFG (W4A16), bf16 KV cache;
        A: Llama-3-8B (full width and depth) under W4A8_INT8KV_CFG;
        D: DeepSeek-V2-Lite (full width: MLA, 64 experts top-6 plus 2
@@ -138,7 +145,7 @@ Phases, in order (any failure exits non-zero):
           FP8_DEFAULT_CFG (e4m3 weights, static e4m3 activations
           calibrated by one 64-token forward), bf16 KV cache;
        H: A's model under INT8_WEIGHT_ONLY_CFG, bf16 KV cache;
-       I: B's model (8 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
+       I: B's model (4 of 48 layers) under NVFP4_WEIGHT_ONLY_CFG, bf16 KV
           cache;
        K: A's model under FP8_KV_CFG (G's static e4m3 activations, and the
           k / v quantizers calibrated by the same 64-token forward) with an
@@ -150,7 +157,7 @@ Phases, in order (any failure exits non-zero):
           layer's K = 10944 down projection take the reference's dequantize
           route) with an e4m3 latent cache: K5's e4m3 latent cluster;
        O: N over paged e4m3 latent pools of 145 pages: K15's;
-       M: Llama-3-8B (full width and depth) built in bf16 on the card with
+       M: Llama-3-8B (full width, 16 of 32 layers) built in bf16 on the card with
           channel outliers, quantized there under INT8_KV_CFG by its own
           algorithm (SmoothQuant on 4 x 512 captured tokens, then max
           calibration), held against its fake-quant self layer by layer
@@ -158,6 +165,14 @@ Phases, in order (any failure exits non-zero):
           served: the 544-row prefill chunks through int8_dynamic_gemm,
           the 32-row bucket and decode through K7, K2-K4 over the int8
           KV cache;
+       Q: D's model under INT4_BLOCKWISE_WEIGHT_ONLY_CFG with a bf16 latent
+          cache: K6, K10 at straddle K (the experts' K = 1408; the dense
+          layer's K = 10944 stays uncompressed, as in the reference), K3,
+          the einsum's attention;
+       R: D's model under NVFP4_WEIGHT_ONLY_CFG with a bf16 latent cache:
+          K9, K13 with its 64-row tail, K3; the dense layer's K = 10944
+          down projection takes the reference's dequantize route, counted
+          once a forward;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request; after
      A's and C's, a prefill window (one 1024-token prompt in the engine's
@@ -285,6 +300,14 @@ PATH_KERNELS = {
     "N": ("wfp8_gemm", "dense_kv_write", "decode_attention"),
     "O": ("wfp8_gemm", "paged_kv_write", "paged_decode_attention"),
     "P": ("wfp8_gemm", "dense_kv_write", "flash_attention", "block_sparse_decode_attention"),
+    # DeepSeek-V2-Lite under the weight-only presets over a bf16 latent cache
+    # (attention through the einsum, as the reference's decode_attention_ok
+    # admits int8 and e4m3 caches only): K6 and K10 at straddle K (the
+    # experts' K = 1408; the dense layer's K = 10944 stays uncompressed, as
+    # in the reference), K9 and K13 with the 64-row tail (the dense layer's
+    # K = 10944 down projection takes the reference's dequantize route)
+    "Q": ("w4a16_gemm", "grouped_w4a16_gemm", "dense_kv_write"),
+    "R": ("nvfp4_gemm", "grouped_nvfp4_gemm", "dense_kv_write"),
     # the PTQ phase: AWQ's capture and calibration forwards (K14 at 512
     # rows), then each compressed model's one request (K1 under W4A8 with
     # an int8 cache, K6 under INT4_AWQ_FULL_CFG with a bf16 one)
@@ -1660,7 +1683,9 @@ def fp_kernels(torch, gen, timer, record) -> None:
     tile, split over a cluster where its tiles are few); K7 / K8 / K9 also
     at M = 1 and 16 (the decode tile's edges) for N = 4096, and at M = 17,
     64, 65, 200 and 256 (the wgmma tile's 64- and 128-token tiles and their
-    tails), K13 at 1, 8, 16, 17 and 32. Each kernel
+    tails), K13 at 1, 8, 16, 17 and 32; K13 at path R's expert down
+    projection (K = 1408, a 64-row tail) at 1, 8, 16 and 32, K9 at K =
+    1408 at 8, 32 and 128, one device kernel a call at M <= 16. Each kernel
     and its plain version multiply the same bf16 x by the same weights,
     exact in bf16 (int8, e4m3, e2m1 times its e4m3 block scale), in f32, and
     apply the f32 scale once: they differ only in the order of the f32 sums,
@@ -1741,31 +1766,84 @@ def fp_kernels(torch, gen, timer, record) -> None:
     wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1) \
         .contiguous()
     args = (qt["data"], qt["scale"], qt["scale2"], N)
-    for M in (1, 8, 16, 17, 32):
-        x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        if M in (8, 32):
-            one_launch(torch, f"grouped_nvfp4_gemm M={M}",
-                       lambda: kq.grouped_nvfp4_gemm(x, *args))
-        y = kq.grouped_nvfp4_gemm(x, *args)
-        ref = kq.grouped_nvfp4_gemm_plain(x, *args)
+    expert_rows(torch, timer, record, "grouped_nvfp4_gemm",
+                lambda x: kq.grouped_nvfp4_gemm(x, *args),
+                lambda x: kq.grouped_nvfp4_gemm_plain(x, *args), wdq,
+                [torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+                 for M in (1, 8, 16, 17, 32)], (8, 32), "bf16 out",
+                K * N // 2 + (K // 16) * N)
+    del qt, wdq
+
+    nvfp4_tail_rows(torch, gen, timer, record)
+
+
+def nvfp4_tail_rows(torch, gen, timer, record) -> None:
+    """K13 at path R's expert down projection (E=64 experts of [1408, 2048],
+    K/2 = 5 x 128 + 64: each CTA's walk ends with a 64-row tail) at M = 1,
+    8, 16, 32 and K9 at the same K (no ported model has a plain NVFP4
+    product there) at M = 8, 32, 128: each expert held to its plain version
+    at the W4A16 bar, as the aligned rows; one device kernel a call at
+    M <= 16."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+    from modelopt_tpu_torch.quant import qtensor as qt_
+
+    dev = "cuda"
+    E, K, N = 64, 1408, 2048
+    for name, e_, Ms in (("grouped_nvfp4_gemm", E, (1, 8, 16, 32)),
+                         ("nvfp4_gemm", 1, (8, 32, 128))):
+        log(f"{'K13' if e_ > 1 else 'K9'} {name}, 64-row tail")
+        w = torch.randn(K, e_ * N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+        qt = qt_.quantize_nvfp4(w)
+        del w
+        wdq = qt_.dequantize_nvfp4(qt).to(torch.bfloat16).reshape(K, e_, N).transpose(0, 1) \
+            .contiguous()
+        args = (qt["data"], qt["scale"], qt["scale2"])
+        if e_ > 1:
+            fn, plain = (lambda x: kq.grouped_nvfp4_gemm(x, *args, N),
+                         lambda x: kq.grouped_nvfp4_gemm_plain(x, *args, N))
+        else:
+            fn, plain = (lambda x: kq.nvfp4_gemm(x[0], *args)[None],
+                         lambda x: kq.nvfp4_gemm_plain(x[0], *args)[None])
+        expert_rows(torch, timer, record, name, fn, plain, wdq,
+                    [torch.randn(e_, M, K, generator=gen, device=dev).to(torch.bfloat16)
+                     for M in Ms], (1, 8, 16), "bf16 out (64-row tail)",
+                    K * N // 2 + (K // 16) * N)
+        del qt, wdq
+
+
+def expert_rows(torch, timer, record, name, fn, plain, wdq, xs, launch_ms, suffix,
+                weight_bytes) -> None:
+    """Rows of a bf16-activation weight GEMM, one for each x [E, M, K] of
+    ``xs`` (E = 1 for a plain product): ``fn`` and its plain version
+    ``plain`` give [E, M, N]; each expert is held to its plain version at
+    the W4A16 bar (``wdq`` [E, K, N] the dequantized bf16 weight, which the
+    library call ``bmm`` multiplies); one device kernel a call at the M in
+    ``launch_ms``. ``weight_bytes``: an expert's packed weight and scale
+    bytes; ``suffix`` ends the row's shape."""
+    for x in xs:
+        E, M, K = x.shape
+        N = wdq.shape[-1]
+        shape = (f"E={E} " if name.startswith("grouped") else "") + f"M={M} K={K} N={N}"
+        if M in launch_ms:
+            one_launch(torch, f"{name} {shape}", lambda: fn(x))
+        y, ref = fn(x), plain(x)
         errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
         bars = [w4a16_bar(torch, ref[e], x[e], wdq[e]) for e in range(E)]
         if any(a > b for a, b in zip(errs, bars)):
-            raise AssertionError(f"grouped_nvfp4_gemm M={M}: an expert exceeds its bar")
+            raise AssertionError(f"{name} {shape}: an expert exceeds its bar")
         err = max(errs)
         tol = bars[errs.index(err)]
-        ms = timer(lambda: kq.grouped_nvfp4_gemm(x, *args))
-        plain_ms = timer(lambda: kq.grouped_nvfp4_gemm_plain(x, *args), 5)
+        ms = timer(lambda: fn(x))
+        plain_ms = timer(lambda: plain(x), 5)
         lib_ms = timer(lambda: torch.bmm(x, wdq))
-        nbytes = E * M * K * 2 + E * (K * N // 2 + (K // 16) * N) + 4 + E * M * N * 2
-        record("grouped_nvfp4_gemm", f"E={E} M={M} K={K} N={N} bf16 out", err, tol, ms,
-               plain_ms, lib_ms, nbytes, 2 * E * M * K * N, BF16_FLOPS)
-    del qt, wdq
+        record(name, f"{shape} {suffix}".strip(), err, tol, ms, plain_ms, lib_ms,
+               E * M * K * 2 + E * weight_bytes + E * M * N * 2, 2 * E * M * K * N, BF16_FLOPS)
 
 
 def moe_kernels(torch, gen, timer, record) -> None:
-    """K6, K10, K12 and K11 at the Qwen3-30B-A3B paths' shapes, K12 and K11
-    also at DeepSeek-V2-Lite's; then K12's shared-memory count."""
+    """K6, K10, K12 and K11 at the Qwen3-30B-A3B paths' shapes, K12, K11
+    and K10 also at DeepSeek-V2-Lite's (straddle K), K6 at its K = 1408;
+    then K12's shared-memory count."""
     from modelopt_tpu_torch.kernels import quant_gemm as kq
     from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
 
@@ -1809,25 +1887,11 @@ def moe_kernels(torch, gen, timer, record) -> None:
     log("K10 grouped_w4a16_gemm")
     # K6's arithmetic per expert: the same bar, expert by expert; M = 32 the
     # wgmma tile the 32-row bucket reaches through grouped_qgemm
-    for M in (1, 8, 32):
-        x = torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
-        if M == 8:
-            one_launch(torch, "grouped_w4a16_gemm M=8",
-                       lambda: kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N))
-        y = kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N)
-        ref = kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N)
-        errs = [(y[e].float() - ref[e].float()).abs().max().item() for e in range(E)]
-        bars = [w4a16_bar(torch, ref[e], x[e], wdq[e]) for e in range(E)]
-        if any(a > b for a, b in zip(errs, bars)):
-            raise AssertionError(f"grouped_w4a16_gemm M={M}: an expert exceeds its bar")
-        err = max(errs)
-        tol = bars[errs.index(err)]
-        ms = timer(lambda: kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N))
-        plain_ms = timer(lambda: kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N), 5)
-        lib_ms = timer(lambda: torch.bmm(x, wdq))
-        record("grouped_w4a16_gemm", f"E={E} M={M} K={K} N={N}", err, tol, ms, plain_ms,
-               lib_ms, E * M * K * 2 + E * per_expert + E * M * N * 2, 2 * E * M * K * N,
-               BF16_FLOPS)
+    expert_rows(torch, timer, record, "grouped_w4a16_gemm",
+                lambda x: kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N),
+                lambda x: kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N), wdq,
+                [torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+                 for M in (1, 8, 32)], (8,), "", per_expert)
 
     log("K12 grouped_w4a8_combine_gemm")
     combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 8,
@@ -1845,8 +1909,39 @@ def moe_kernels(torch, gen, timer, record) -> None:
     wdq = dequantize_int4(qt).to(torch.bfloat16).reshape(K, E, N).transpose(0, 1).contiguous()
     combine_rows(torch, gen, timer, record, qt, wdq, E, K, N, 6, ((8, "routed"),))
     gateless_rows(torch, gen, timer, record, qt, wdq, E, K, N, (8,))
+    w4a16_straddle_rows(torch, gen, timer, record, qt, wdq, E, K, N)
     del qt, wdq
     combine_smem_agrees(torch)
+
+
+def w4a16_straddle_rows(torch, gen, timer, record, qt, wdq, E, K, N) -> None:
+    """K10 at DeepSeek-V2-Lite's straddle shape (``qt``, ``wdq``: its
+    folded int4 experts; path Q's expert down projection at decode and the
+    32-row bucket) at M = 1, 8, 16, 32, and K6 at the same K (no ported
+    model has a plain int4 product there) at M = 8, 32, 544: each expert
+    held to its plain version at the W4A16 bar, one device kernel a call
+    at M <= 16."""
+    from modelopt_tpu_torch.kernels import quant_gemm as kq
+    from modelopt_tpu_torch.quant.qtensor import dequantize_int4, quantize_int4
+
+    dev = "cuda"
+    per_expert = K * N // 2 + (K // 128) * N * 4  # packed bytes + scale bytes
+    log("K10 grouped_w4a16_gemm, straddle K")
+    expert_rows(torch, timer, record, "grouped_w4a16_gemm",
+                lambda x: kq.grouped_w4a16_gemm(x, qt["data"], qt["scale"], N),
+                lambda x: kq.grouped_w4a16_gemm_plain(x, qt["data"], qt["scale"], N), wdq,
+                [torch.randn(E, M, K, generator=gen, device=dev).to(torch.bfloat16)
+                 for M in (1, 8, 16, 32)], (1, 8, 16), "bf16 out (straddle)", per_expert)
+    log("K6 w4a16_gemm, straddle K")
+    w = torch.randn(K, N, generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+    q1 = quantize_int4(w)
+    del w
+    expert_rows(torch, timer, record, "w4a16_gemm",
+                lambda x: kq.w4a16_gemm(x[0], q1["data"], q1["scale"])[None],
+                lambda x: kq.w4a16_gemm_plain(x[0], q1["data"], q1["scale"])[None],
+                dequantize_int4(q1).to(torch.bfloat16)[None],
+                [torch.randn(1, M, K, generator=gen, device=dev).to(torch.bfloat16)
+                 for M in (8, 32, 544)], (8,), "bf16 out (straddle)", per_expert)
 
 
 def combine_smem_agrees(torch) -> None:
@@ -2495,6 +2590,14 @@ def parity_phase(torch) -> None:
             noise_floor=True)
     _parity(torch, "Qwen3-MoE NVFP4 + bf16 KV", moe, "NVFP4_WEIGHT_ONLY_CFG", torch.bfloat16,
             MOE_NVFP4_IDS_SEED, 2, 16)
+    # paths Q and R: the experts' K = 1408 through K10's straddle tiles and
+    # K13's tail (their twins on the CPU), the dense layer's K = 10944
+    # uncompressed (W4A16) or through the dequantize route (NVFP4), a bf16
+    # latent cache through the einsum
+    _parity(torch, "DeepSeek-V2 W4A16 + bf16 latent cache", small_mla_config(),
+            "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", torch.bfloat16, MLA_IDS_SEED, 2, 16)
+    _parity(torch, "DeepSeek-V2 NVFP4 weight-only + bf16 latent cache", small_mla_config(),
+            "NVFP4_WEIGHT_ONLY_CFG", torch.bfloat16, MLA_IDS_SEED, 2, 16)
     # paths K and L: FP8_KV_CFG's e4m3 caches through K2 / K4 and K15 (the
     # twins on the CPU), e4m3 codes as jumpy as the e4m3 activations, so the
     # same noise floor and replay, the k / v codes replayed too
@@ -2629,6 +2732,10 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
           "float8_e4m3fn"),
     "O": ("DeepSeek-V2-Lite FP8 W8A8 + e4m3 latent pages", "deepseek_v2_lite", "FP8_KV_CFG",
           "float8_e4m3fn"),
+    "Q": ("DeepSeek-V2-Lite W4A16 + bf16 latent cache", "deepseek_v2_lite",
+          "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bfloat16"),
+    "R": ("DeepSeek-V2-Lite NVFP4 weight-only + bf16 latent cache", "deepseek_v2_lite",
+          "NVFP4_WEIGHT_ONLY_CFG", "bfloat16"),
 }
 # the skip-softmax paths at the Decoder level (``skip_path``): name ->
 # (title, preset, KV cache dtype), on Llama-3-8B
@@ -2636,11 +2743,11 @@ SKIP_PATHS = {"J": ("Llama-3-8B W4A8 + int8 KV", "W4A8_INT8KV_CFG", "int8"),
               "P": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "FP8_KV_CFG", "float8_e4m3fn")}
 # paths served at a cut depth, to keep the script well inside its time
 # limit on a slow host (which ran the whole script ~35% longer than a fast
-# one): Llama-3-8B 8 of 32 layers (G, H, K, L, J, P) or 16 (E),
-# Qwen3-30B-A3B 8 of 48, DeepSeek-V2-Lite 4 of 27 (a dense first layer and 3
-# MoE layers); A and M keep Llama's 32
-PATH_LAYERS = {"G": 8, "H": 8, "K": 8, "L": 8, "E": 16, "J": 8, "P": 8, "B": 8, "C": 8,
-               "I": 8, "D": 4, "F": 4, "N": 4, "O": 4}
+# one): Llama-3-8B 8 of 32 layers (G, H, K, L, J, P) or 16 (E, M),
+# Qwen3-30B-A3B 4 of 48, DeepSeek-V2-Lite 4 of 27 (a dense first layer and 3
+# MoE layers); A keeps Llama's 32
+PATH_LAYERS = {"G": 8, "H": 8, "K": 8, "L": 8, "E": 16, "M": 16, "J": 8, "P": 8, "B": 4,
+               "C": 4, "I": 4, "D": 4, "F": 4, "N": 4, "O": 4, "Q": 4, "R": 4}
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
@@ -2743,8 +2850,19 @@ def serve_bundle(torch, name, bundle, cfg) -> dict:
     run_serving_benchmark(eng, n_requests=1, input_len=TRAFFIC[1], output_len=8,
                           vocab=cfg.vocab_size)
     log(f"  warm-up request {time.time() - t0:.1f} s")
-    with dynamic_gemm_calls() as calls:
+    with dynamic_gemm_calls() as calls, dequantize_calls() as dequantized:
         launches = measured_run(torch, eng, name)
+    if name == "R":
+        # the reference's NVFP4 rule (K % 128 == 0) sends the dense layer's
+        # K = 10944 down projection to the dequantize route in every forward,
+        # decode steps included (K9 would refuse it)
+        dense = sum(k == 10944 for k in dequantized)
+        forwards = eng.stats["prefill_chunks"] + eng.stats["decode_forwards"]
+        log(f"  dequantize route at K = 10944 (no kernel): {dense} calls in the measured run, "
+            f"one a forward ({forwards} forwards)")
+        if dense != forwards:
+            raise AssertionError(f"path R: {dense} K = 10944 dequantize calls, want one a "
+                                 f"forward ({forwards})")
     if name == "M":
         # every projection of every 544-row prefill chunk, and nothing else
         per_chunk = 4 * cfg.num_layers
@@ -2911,6 +3029,27 @@ def dynamic_gemm_calls():
         qb.int8_dynamic_gemm = real
 
 
+@contextlib.contextmanager
+def dequantize_calls():
+    """While active, record the K of every packed weight the GEMM dispatch
+    dequantizes (``qgemm``'s and ``grouped_qgemm``'s dequantize route: the
+    calls no kernel serves; a list, yielded)."""
+    from modelopt_tpu_torch.quant import backends as qb
+
+    calls: list = []
+    real = qb.dequantize_qtensor
+
+    def counted(qt, spec, kn):
+        calls.append(kn[0])
+        return real(qt, spec, kn)
+
+    qb.dequantize_qtensor = counted
+    try:
+        yield calls
+    finally:
+        qb.dequantize_qtensor = real
+
+
 def int8_dynamic_rows(torch, gen, timer, results: dict) -> None:
     """``int8_dynamic_gemm`` (quant/backends.py: per-row int8 codes, the
     s8 x s8 -> s32 product by ``torch._int_mm``, ``acc * xscale * scale``)
@@ -2998,7 +3137,8 @@ PTQ_PROBE = 64  # tokens of the prompt whose fake-quant and compressed logits ar
 # random model's per-tensor int8 activations amplify the first layers'
 # differences layer by layer, so the logit bar grows with depth.
 PTQ_LAYER_BAR = 0.02
-PTQ_LOGIT_BAR = {("INT8_KV_CFG", 32): 0.8, ("W4A8_INT8KV_CFG", 4): 0.2,
+PTQ_LOGIT_BAR = {("INT8_KV_CFG", 32): 0.8, ("INT8_KV_CFG", 16): 0.8,
+                 ("W4A8_INT8KV_CFG", 4): 0.2,
                  ("INT4_AWQ_FULL_CFG", 4): 0.1}
 
 
@@ -3117,14 +3257,14 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
 
 
 def ptq_path(torch, name: str = "M") -> dict:
-    """Path M: Llama-3-8B at full width and depth built in bf16 on the card,
-    quantized under INT8_KV_CFG by its own algorithm (SmoothQuant over the
-    captured inputs, then max calibration of the per-channel weights, the
-    static activations and the int8 KV cache), compressed, then served as
-    ``serve_bundle`` serves the other paths. Returns the measured run's
-    launches."""
+    """Path M: Llama-3-8B at full width (``PATH_LAYERS``' depth) built in
+    bf16 on the card, quantized under INT8_KV_CFG by its own algorithm
+    (SmoothQuant over the captured inputs, then max calibration of the
+    per-channel weights, the static activations and the int8 KV cache),
+    compressed, then served as ``serve_bundle`` serves the other paths.
+    Returns the measured run's launches."""
     title, model, preset, _ = PATHS[name]
-    cfg = path_config(torch, model)
+    cfg = path_config(torch, model, PATH_LAYERS.get(name))
     bundle, _ = quantize_on_card(torch, cfg, preset)
     return serve_bundle(torch, name, bundle, cfg)
 
@@ -3509,7 +3649,8 @@ def report_profile(torch, prof, wall: float, what: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(v for n, v in by_name.items() if k in n) for k in (
         "w4a8_dec_kernel", "w4a8_wg_kernel", "w4a16_dec_kernel", "w4a16_wg_kernel",
-        "grouped_w4a8_combine_kernel", "fused_decode_kernel",
+        "w4a16_straddle_kernel", "w4a16_wgs_kernel", "grouped_w4a8_combine_kernel",
+        "fused_decode_kernel",
         "flash_prefill_kernel", "kv_write_kernel", "decode_attention_kernel",
         "paged_attention_kernel", "paged_cluster_kernel", "latent_cluster_kernel",
         "page_write_kernel", "w8_dec_kernel", "w8_wg_kernel",
@@ -3541,7 +3682,11 @@ PTXAS_BY_INSTANCE = ("flash_attention", "flash_prefill_attention", "fused_decode
 # latent_cluster_kernel<DJ, false> and <DJ, true>)
 NO_SPILL = ("w4a16_gemm", "nvfp4_gemm", "w8a16_gemm")
 NO_SPILL_KERNELS = ("w4a8_dec_kernel", "sparse_cluster_kernel", "grouped_w4a8_combine_kernel<1,",
-                    "grouped_w4a8_kernel<1,", "latent_cluster_kernel")
+                    "grouped_w4a8_kernel<1,", "latent_cluster_kernel",
+                    # K6 / K10's straddle tiles, K9 / K13's tail instances
+                    "w4a16_straddle_kernel", "w4a16_wgs_kernel", "nvfp4_dec_kernel<1, 1, true>",
+                    "nvfp4_dec_kernel<2, 1, true>", "nvfp4_dec_kernel<1, 2, true>",
+                    "nvfp4_wg_kernel<64, true>", "nvfp4_wg_kernel<128, true>")
 
 
 def ptxas_by_function(text: str) -> dict:

@@ -13,7 +13,12 @@
 // the high nibble weight row K/2+p, each an e2m1 code (bit 3 the sign,
 // magnitudes 0, .5, 1, 1.5, 2, 3, 4, 6). scale e4m3 [K/16, EN]: row r
 // scales weight rows 16r..16r+15, so rows [0, K/32) the low half.
-// scale2 f32 [1] (read on the card: no host sync).
+// scale2 f32 [1] (read on the card: no host sync). K/2 is whole 128-row
+// blocks and at most one tail of 64 packed rows (K/2 % 128 == 64:
+// DeepSeek-V2-Lite's experts at K = 1408, K/2 = 5 x 128 + 64): the
+// reference's K % 128 == 0 rule for its NVFP4 kernel. The scales are in
+// the weights and the walk keeps one f32 sum, so the tail is four k16 steps
+// a half at the end of the walk, counted as one block by the cluster split.
 //
 // Numerics, as the reference: Hopper has no FP4 MMA, so each weight is
 // decoded to bf16 in registers and multiplied by its block scale in bf16.
@@ -91,6 +96,17 @@
 //    the tile sums them in rank order over distributed shared memory, as
 //    the decode tile's; the Python wrapper picks R (64 tokens a CTA when
 //    R > 1).
+//
+// The tail has instances of its own (kTail; the aligned ones are
+// unchanged): the decode tile's tail stage carries 64 packed rows, 4 scale
+// rows a half and both halves' x columns of the tail, and zeros in the
+// rest of the stage (cp.async's zero fill), which its k-steps 4-7 multiply
+// (+0 products, and no branch in the product loop); in the wgmma tile the tail block's raw [128, 128] box
+// reads zero bytes past row K/2 (code 0 with scale 0 or a finite scale is
+// +0), each tail unit loads one 64-column x box (a second would read the
+// other half's x or past K), and its k-steps 4-7 take a zeroed box of
+// shared memory as x: +0 products, issued like every other (a wgmma in a
+// branch is serialized).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -109,6 +125,14 @@ namespace cg = cooperative_groups;
 constexpr int KB = 128;      // packed rows of one block (a decode stage; two wgmma stages)
 constexpr int BLK = 16;      // weight rows of one e4m3 scale
 constexpr int SB = KB / BLK; // scale rows of one half of a block
+
+// cp.async of 16 bytes, or of none (`in` false): the 16 bytes at dst are
+// zero-filled, src is not read
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 16 : 0));
+}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -198,7 +222,7 @@ struct Tile {
 // .. c0 + 2 AT - 1 of a k-row at once; A tile i takes columns c0 + 2 i
 // (fragment row g) and c0 + 2 i + 1 (row g + 8), so acc[i][mt][c] holds
 // column c0 + 2 i + c / 2 for token 8 mt + 2 t + c % 2.
-template <int MT, int AT>
+template <int MT, int AT, bool kTail>
 __global__ void __launch_bounds__(NT)
 nvfp4_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
                  const uint8_t* __restrict__ scale, const float* __restrict__ scale2,
@@ -212,7 +236,8 @@ nvfp4_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rank = blockIdx.x % R, n0 = (blockIdx.x / R) * BN, e = blockIdx.z;
-  const int K = 2 * K2, nblk = K2 / KB, nsrow = K2 / BLK;  // scale rows of one half
+  // blocks (kTail: the last is the 64-row tail) and scale rows of one half
+  const int K = 2 * K2, nblk = (K2 + KB - 1) / KB, nsrow = K2 / BLK;
   const int b0 = rank * nblk / R, nb = (rank + 1) * nblk / R - b0;  // this rank's blocks
   const int c0 = 16 * AT * warp + 2 * AT * g;
   x += (size_t)e * M * K;
@@ -228,6 +253,29 @@ nvfp4_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   }
   auto load = [&](int st, int blk) {
     unsigned char* s = smem + st * S::BYTES;
+    if (kTail && blk == nblk - 1) {
+      // the 64-row tail: copies past its rows fill zeros (code 0 under
+      // scale 0 by x 0: +0 products in k-steps 4-7, whatever an earlier
+      // block left in the stage), from an address inside the tail
+      for (int i = tid; i < KB * CH; i += NT) {
+        const int r = i / CH, c = i % CH;
+        cp_async16_zfill(s + r * BN + ((c ^ (AT * ((r >> 1) & 3))) << 4),
+                         w + (size_t)(blk * KB + (r & (KB / 2 - 1))) * EN + 16 * c, r < KB / 2);
+      }
+      for (int i = tid; i < 2 * SB * CH; i += NT) {
+        const int q = i / CH, c = i % CH;  // scale row q: half q / SB, block row q % SB
+        cp_async16_zfill(s + WB + q * BN + 16 * c,
+                         scale + (size_t)((q / SB) * nsrow + blk * SB + (q & (SB / 2 - 1))) * EN +
+                             16 * c,
+                         q % SB < SB / 2);
+      }
+      for (int i = tid; i < 2 * M * 16; i += NT) {
+        const int half = i / (M * 16), m = (i / 16) % M, c = i & 15;
+        cp_async16_zfill(s + WB + SCB + ((half * TOK + m) * 16 + (c ^ (m & 7))) * 16,
+                         x + (size_t)m * K + half * K2 + blk * KB + 8 * (c & 7), c < 8);
+      }
+      return;
+    }
     for (int i = tid; i < KB * CH; i += NT) {
       const int r = i / CH, c = i % CH;
       cluster_decode::cp_async16(s + r * BN + ((c ^ (AT * ((r >> 1) & 3))) << 4),
@@ -373,13 +421,13 @@ nvfp4_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   cluster.sync();
 }
 
-template <int MT, int AT>
+template <int MT, int AT, bool kTail>
 int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const float* s2,
            float* of, __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, int R,
            cudaStream_t s) {
   using S = Tile<MT, AT>;
   static unsigned done = 0;  // devices whose shared memory limit is raised
-  const int err = cluster_decode::allow_smem(nvfp4_dec_kernel<MT, AT>, S::SMEM, done);
+  const int err = cluster_decode::allow_smem(nvfp4_dec_kernel<MT, AT, kTail>, S::SMEM, done);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / S::BN * R, 1, E);
@@ -393,8 +441,8 @@ int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const fl
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, nvfp4_dec_kernel<MT, AT>, x, w, sc, s2, of, ob, M, N, K2,
-                                 EN, R);
+  return (int)cudaLaunchKernelEx(&cfg, nvfp4_dec_kernel<MT, AT, kTail>, x, w, sc, s2, of, ob, M,
+                                 N, K2, EN, R);
 }
 
 }  // namespace dec
@@ -415,11 +463,12 @@ constexpr int ST = SB * BN;     // a half's 8 e4m3 scale rows [8, BN]
 
 // BT tokens a CTA (the wgmma's N): 64 or 128, chosen by launch() from M and
 // the CTAs each gives
-template <int BT>
+template <int BT, bool kTail>
 struct Tile {
   static constexpr int XB = BT * 128;   // one TMA box of x: BT rows x 64 bf16 (128 bytes)
   static constexpr int XU = 2 * XB;     // one stage's x: a half's two 64-column boxes
-  static constexpr int SMEM = 1024 + NU * XU + NWB * WT + NU * ST + 2 * NU * 8;
+  static constexpr int ZB = kTail ? XB : 0;  // the tail's zeroed x box
+  static constexpr int SMEM = 1024 + NU * XU + NWB * WT + NU * ST + ZB + 2 * NU * 8;
 };
 
 // Stages are halves of blocks: unit u = 2 blk + half holds x's two
@@ -433,19 +482,20 @@ struct Tile {
 // A-fragment row r of warp w holds weight column 16 w + 2 (r % 8) + r / 8
 // of its warpgroup's 64; its accumulator's rows 2 r and 2 r + 1 are the
 // columns c0 and c0 + 1.
-template <int BT>
+template <int BT, bool kTail>
 __global__ void __launch_bounds__(NT, 1)
 nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                 const __grid_constant__ CUtensorMap smap, const float* __restrict__ scale2,
                 float* __restrict__ out_f32, __nv_bfloat16* __restrict__ out_bf16, int M, int N,
                 int K2, int R) {
-  using T = Tile<BT>;
+  using T = Tile<BT, kTail>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* xs = smem;                      // [NU][box][BT][128 B], swizzled
   unsigned char* wr = xs + NU * T::XU;           // [NWB][128][BN] raw, swizzled
   unsigned char* sc = wr + NWB * WT;             // [NU][8][BN] e4m3
-  const uint32_t full = smem_u32(sc + NU * ST);  // NU mbarriers: the unit landed
+  unsigned char* zx = sc + NU * ST;              // kTail: a zeroed x box [BT][128 B]
+  const uint32_t full = smem_u32(zx + T::ZB);    // NU mbarriers: the unit landed
   const uint32_t empty = full + 8 * NU;          // NU mbarriers: all 8 warps are done
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -453,18 +503,20 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   const int gid = lane >> 2, tig = lane & 3;
   const int rank = blockIdx.x % R, m0 = (blockIdx.x / R) * BT, n0 = blockIdx.y * BN;
   const int e = blockIdx.z;
-  const int nblk = K2 / KB;
+  const int nblk = (K2 + KB - 1) / KB;  // kTail: the last is the 64-row tail
   const int b0 = rank * nblk / R, nb = (rank + 1) * nblk / R - b0;  // this rank's blocks
   const int nunits = 2 * nb;
   const int c0 = 64 * wgi + 16 * wiw + 2 * gid;  // this thread's two weight columns
+  // the rank's units of the tail block (kTail): its last two
+  auto tail = [&](int u) { return kTail && b0 + (u >> 1) == nblk - 1; };
 
   // unit u: half u & 1 of the rank's block u >> 1
   auto load_unit = [&](int u) {
     const int st = u % NU, blk = b0 + (u >> 1), half = u & 1;
     const uint32_t bar = full + 8 * st, xb = smem_u32(xs + st * T::XU);
-    mbar_expect_tx(bar, T::XU + ST + (half == 0 ? WT : 0));
-#pragma unroll
-    for (int box = 0; box < 2; ++box)
+    const int boxes = tail(u) ? 1 : 2;
+    mbar_expect_tx(bar, boxes * T::XB + ST + (half == 0 ? WT : 0));
+    for (int box = 0; box < boxes; ++box)
       tma_load3(xb + box * T::XB, &xmap, half * K2 + blk * KB + 64 * box, m0, e, bar);
     tma_load2(smem_u32(sc + st * ST), &smap, e * N + n0, (half * K2 + blk * KB) / BLK, bar);
     if (half == 0)
@@ -494,13 +546,15 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
   float d[BT / 2];
 #pragma unroll
   for (int i = 0; i < BT / 2; ++i) d[i] = 0.f;
-  // the 8 products of unit u into d, one commit group
+  // the 8 products of unit u into d, one commit group (a tail unit's
+  // k-steps 4-7 against the zeroed box)
   auto products = [&](const uint32_t (&a)[8][4], int u) {
     const uint32_t xb = smem_u32(xs + (u % NU) * T::XU);
+    const uint32_t x1 = tail(u) ? smem_u32(zx) : xb + T::XB;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks)
-      wgmma_rs(d, a[ks], desc(xb + (ks >> 2) * T::XB + 32 * (ks & 3)), 1);
+      wgmma_rs(d, a[ks], desc((ks < 4 ? xb : x1) + 32 * (ks & 3)), 1);
     wgmma_commit();
   };
   // unit u's products done and this warp's reads of its raw tile and
@@ -516,6 +570,11 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     }
   };
 
+  if (kTail) {  // the zeroed box, made visible to the tensor cores' reads
+    for (int i = tid; i < T::ZB / 16; i += NT)
+      reinterpret_cast<uint4*>(zx)[i] = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < NU; ++s) {
@@ -598,18 +657,18 @@ nvfp4_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     }
 }
 
-template <int BT>
+template <int BT, bool kTail>
 int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const float* s2,
            float* of, __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, int R,
            cudaStream_t s) {
-  using T = Tile<BT>;
+  using T = Tile<BT, kTail>;
   CUtensorMap xmap, wmap, smap;
   if (!x_map(&xmap, x, E, M, 2 * K2, BT) ||
       !byte_map(&wmap, w, K2, EN, KB, BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !byte_map(&smap, sc, 2 * K2 / BLK, EN, SB, BN, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   static unsigned done = 0;  // devices whose shared memory limit is raised
-  const int err = cluster_decode::allow_smem(nvfp4_wg_kernel<BT>, T::SMEM, done);
+  const int err = cluster_decode::allow_smem(nvfp4_wg_kernel<BT, kTail>, T::SMEM, done);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + BT - 1) / BT * R, (N + BN - 1) / BN, E);
@@ -623,11 +682,34 @@ int launch(const __nv_bfloat16* x, const uint8_t* w, const uint8_t* sc, const fl
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, nvfp4_wg_kernel<BT>, xmap, wmap, smap, s2, of, ob, M, N,
-                                 K2, R);
+  return (int)cudaLaunchKernelEx(&cfg, nvfp4_wg_kernel<BT, kTail>, xmap, wmap, smap, s2, of, ob,
+                                 M, N, K2, R);
 }
 
 }  // namespace wg
+
+// the tile and instance for M, the columns and the cluster
+template <bool kTail>
+int dispatch(const __nv_bfloat16* xp, const uint8_t* w, const uint8_t* sc, const float* s2,
+             float* of, __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, int ranks,
+             cudaStream_t s) {
+  if (M <= 16) {
+    // 128 columns a CTA halve the x rows each weight byte is read with, where
+    // the blocks are not split and that leaves two CTAs an SM (at up to 8
+    // tokens: at 16 the narrow tile ran K13 as fast); else 64
+    if (M <= 8 && ranks == 1 && N % 128 == 0 && (long)E * N / 128 >= 2 * wgmma_tile::sm_count())
+      return dec::launch<1, 2, kTail>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
+    return M <= 8 ? dec::launch<1, 1, kTail>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s)
+                  : dec::launch<2, 1, kTail>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
+  }
+  // 128 tokens a CTA halve the fragment work per product, where that still
+  // leaves at least half the SMs a CTA (and the blocks are not split);
+  // else 64
+  const long ctas128 = (long)((M + 127) / 128) * ((N + wg::BN - 1) / wg::BN) * E;
+  if (ranks == 1 && M > 64 && 2 * ctas128 >= wgmma_tile::sm_count())
+    return wg::launch<128, kTail>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
+  return wg::launch<64, kTail>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
+}
 
 int launch(const void* x, const void* packed, const void* scale, const void* scale2,
            void* out_f32, void* out_bf16, int E, int M, int N, int K2, int EN, int ranks,
@@ -639,24 +721,11 @@ int launch(const void* x, const void* packed, const void* scale, const void* sca
   const float* s2 = static_cast<const float*>(scale2);
   float* of = static_cast<float*>(out_f32);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out_bf16);
-  if ((ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) || ranks > K2 / KB)
+  if (K2 % 64 != 0 || K2 <= 0) return (int)cudaErrorInvalidValue;
+  if ((ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) || ranks > (K2 + KB - 1) / KB)
     return (int)cudaErrorInvalidValue;
-  if (M <= 16) {
-    // 128 columns a CTA halve the x rows each weight byte is read with, where
-    // the blocks are not split and that leaves two CTAs an SM (at up to 8
-    // tokens: at 16 the narrow tile ran K13 as fast); else 64
-    if (M <= 8 && ranks == 1 && N % 128 == 0 && (long)E * N / 128 >= 2 * wgmma_tile::sm_count())
-      return dec::launch<1, 2>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
-    return M <= 8 ? dec::launch<1, 1>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s)
-                  : dec::launch<2, 1>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
-  }
-  // 128 tokens a CTA halve the fragment work per product, where that still
-  // leaves at least half the SMs a CTA (and the blocks are not split);
-  // else 64
-  const long ctas128 = (long)((M + 127) / 128) * ((N + wg::BN - 1) / wg::BN) * E;
-  if (ranks == 1 && M > 64 && 2 * ctas128 >= wgmma_tile::sm_count())
-    return wg::launch<128>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, 1, s);
-  return wg::launch<64>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
+  return K2 % KB ? dispatch<true>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s)
+                 : dispatch<false>(xp, w, sc, s2, of, ob, E, M, N, K2, EN, ranks, s);
 }
 
 }  // namespace
@@ -664,8 +733,9 @@ int launch(const void* x, const void* packed, const void* scale, const void* sca
 // x bf16 [M, 2*K2]; packed uint8 [K2, N]; scale e4m3 [2*K2/16, N]; scale2
 // f32 [1]. Exactly one of out_f32 / out_bf16 [M, N] is non-null. ranks: the
 // CTAs of one cluster that share an output tile's blocks (1, 2, 4 or 8, at
-// most K2 / 128), at every M. Needs K2 % 128 == 0, N % 64 == 0 and 16-byte
-// aligned x, packed and scale (checked by the Python wrapper).
+// most the blocks, a 64-row tail counted as one), at every M. Needs K2 % 64
+// == 0, N % 64 == 0 and 16-byte aligned x, packed and scale (checked by the
+// Python wrapper).
 extern "C" int nvfp4_gemm(const void* x, const void* packed, const void* scale,
                           const void* scale2, void* out_f32, void* out_bf16, int M, int N,
                           int K2, int ranks, void* stream) {

@@ -13,6 +13,11 @@
 // E = 1 for the plain product). The low nibble of row p holds weight row p
 // as offset-binary q+8, the high nibble weight row K/2+p in two's
 // complement. scale f32 [K/128, EN]: rows [0, K/256) scale the low half.
+// Straddle K (K/2 % 128 == 64, DeepSeek-V2-Lite's experts at K = 1408):
+// with nfull = K/2 / 128, scale row nfull covers the low half's 64-row tail
+// and the high half's 64-row head, and the high half's blocks (packed rows
+// 64 + 128 b) take rows nfull + 1 + b: scale row s covers rows [128 s,
+// 128 s + 128) of the unpacked K, whichever nibble holds them.
 //
 // What bounds it on an H100: at decode (M <= 16) the packed weight bytes
 // over 3.35 TB/s of HBM; at prefill (M = 544) the bf16 multiply-adds over
@@ -34,6 +39,10 @@
 // order. The order of the f32 sums inside a block's dot differs, and where
 // the decode tile splits the blocks over a cluster, each rank's recurrence
 // starts from zero and the ranks' partials are summed in rank order.
+// Straddle K follows the reference's stage order (_w4a16_body): the nfull
+// low-half blocks, the straddle stage acc + (d_tail + d_head)*s_nfull, then
+// the nfull high-half blocks, each stage one update acc + d*s; the decode
+// tile's cluster splits these 2 nfull + 1 stages into contiguous runs.
 //
 // Decode tile (M <= 16): mma.sync m16n8k16, one CTA of 4 warps per 64
 // weight columns (16 a warp) and 8 or 16 tokens (one or two n8 tiles) and
@@ -63,6 +72,35 @@
 //    the other warpgroup's products run;
 //  * the grid runs token tiles fastest, so the tiles that share a weight
 //    tile run together and read it from HBM once.
+//
+// Straddle K has two tiles of its own (the aligned ones above are
+// unchanged):
+//  * decode (M <= 16): K12's walk (grouped_w4a8_gemm.cu). A stage of the
+//    ring is a unit of 64 packed rows carrying both nibbles (the raw [64, 64]
+//    tile, both halves' x columns of the unit, the scale rows of the stages
+//    it ends), in a ring of 3 (a shallow ring leaves room for more CTAs an
+//    SM, which on the card ran K10 faster than rings of 4 to 8), so every
+//    weight byte crosses the ring once.
+//    Low block b ends at unit 2 b + 1 and updates acc there; high block b
+//    (packed rows 64 + 128 b) ends at unit 2 b + 2, 64 rows later, so its
+//    rounded product d*s is held in shared memory (each thread its own);
+//    unit 0's high dots (the head) wait in registers; at the last unit,
+//    2 nfull, the straddle stage acc + (d_tail + d_head)*s, then the held
+//    high blocks in order. A cluster rank with a run of the stages walks
+//    the units its stages need, in order;
+//  * wgmma (M > 16): a stage is one scale row's 128 rows of the unpacked K,
+//    two TMA boxes of [64 packed rows, 128 columns], each with its own
+//    nibble (the straddle stage: the low half's tail, then the high half's
+//    head at packed row 0), and x's two 64-column boxes. The stages come in
+//    the recurrence's order, so one accumulator and one update a stage
+//    suffice; the price is that a packed row is fetched twice, its low
+//    nibble's stage and its high nibble's (the second time from L2 where it
+//    still holds the row).
+//    Holding the high blocks as the decode tile does would keep two wgmma
+//    accumulators live (a low and a high block overlap by 64 rows): at 128
+//    tokens 128 accumulator registers beside the update's 64. The 64-row
+//    boxes never reach past row K/2, whose zero bytes are not zero weights
+//    (offset-binary low nibbles decode 0 to -8).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,6 +114,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int KB = 128;  // packed rows of one scale block (one staging step)
+constexpr int MAX_SMEM = 227 * 1024;  // a CTA's shared memory at most
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -134,6 +173,51 @@ struct Stage {
   static constexpr int BYTES = WB + XB + SB;
   static constexpr int SMEM = NS * BYTES + TOK * BN * 4;  // + the rank's partial
 };
+
+// The decode tiles' end: the thread's f32 sums (acc[mt][c]: column c0 + c / 2,
+// token 8 mt + 2 t + c % 2) to the output, rounded once to its type. Where
+// a cluster of R splits the stages, every rank's partial goes to `part`
+// ([TOK][BN] f32 of shared memory); rank r owns columns [r BN / R,
+// (r + 1) BN / R) of the tile and adds the ranks' partials in rank order.
+// Every CTA reaches both barriers; the second keeps each CTA's shared
+// memory alive while another still reads it.
+template <int MT>
+__device__ __forceinline__ void epilogue(const float (&acc)[MT][4], float* part,
+                                         float* __restrict__ out_f32,
+                                         __nv_bfloat16* __restrict__ out_bf16, int M, int N,
+                                         int e, int n0, int c0, int t, int rank, int R) {
+  auto store = [&](int m, int col, float v) {
+    const size_t o = ((size_t)e * M + m) * N + n0 + col;
+    if (out_bf16 != nullptr)
+      out_bf16[o] = __float2bfloat16(v);
+    else
+      out_f32[o] = v;
+  };
+  if (R == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int m = 8 * mt + 2 * t + (c & 1);
+        if (m < M) store(m, c0 + (c >> 1), acc[mt][c]);
+      }
+    return;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[(8 * mt + 2 * t + (c & 1)) * BN + c0 + (c >> 1)] = acc[mt][c];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int cols = BN / R;
+  for (int i = threadIdx.x; i < M * cols; i += NT) {
+    const int m = i / cols, col = rank * cols + i % cols;
+    float v = cluster.map_shared_rank(part, 0)[m * BN + col];
+    for (int q = 1; q < R; ++q) v = __fadd_rn(v, cluster.map_shared_rank(part, q)[m * BN + col]);
+    store(m, col, v);
+  }
+  cluster.sync();
+}
 
 // Shared memory of a stage: the raw tile [128][64 B], 16-byte chunk c of
 // k-row r at chunk c ^ ((r >> 1) & 3) (the 4 k-rows 2t + j a fragment load
@@ -247,46 +331,230 @@ w4a16_dec_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
       }
   }
 
-  auto store = [&](int m, int col, float v) {
-    const size_t o = ((size_t)e * M + m) * N + n0 + col;
-    if (out_bf16 != nullptr)
-      out_bf16[o] = __float2bfloat16(v);
-    else
-      out_f32[o] = v;
+  epilogue<MT>(acc, part, out_f32, out_bf16, M, N, e, n0, c0, t, rank, R);
+}
+
+// the straddle decode tile: 64-row units in a ring of NS
+constexpr int KU = 64;       // packed rows a unit
+constexpr int WU = KU * BN;  // the raw packed [64, 64] tile
+
+template <int MT>
+struct Unit {
+  static constexpr int NS = 3;  // cp.async stages, one unit each
+  static constexpr int TOK = 8 * MT;
+  static constexpr int XB = 2 * TOK * KU * 2;  // both halves' x columns of the unit, bf16
+  static constexpr int SB = 2 * BN * 4;        // the scale rows of the stages it ends, f32
+  static constexpr int BYTES = WU + XB + SB;
+  static constexpr int SLOT = TOK * BN * 4;    // a held high block's products; the partial
+};
+// the unit ring, nfull held high blocks and the rank's partial
+template <int MT>
+constexpr int straddle_smem(int nfull) {
+  return Unit<MT>::NS * Unit<MT>::BYTES + (nfull + 1) * Unit<MT>::SLOT;
+}
+
+// Shared memory of a unit: the raw tile [64][64 B] swizzled as the aligned
+// tile's; x [half][TOK][64 bf16], chunk c of token m at chunk c ^ (m & 7);
+// the two scale rows [2][64 f32] (low stage's, high stage's). The stages
+// ending at unit u: the low block u / 2 at odd u, the straddle at u =
+// 2 nfull (scale row nfull, slot 0), the high block (u - 2) / 2 at even
+// u >= 2 (scale row nfull + u / 2, slot 1). Rank r owns stages [s0, s1) of
+// the 2 nfull + 1 and walks the units they need: a run [a0, a1), then a
+// run [b0, b1) (a rank that holds the straddle walks from unit 0, the
+// head, to its last high block, then its low blocks up to the tail).
+template <int MT>
+__global__ void __launch_bounds__(NT)
+w4a16_straddle_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                      const float* __restrict__ scale, float* __restrict__ out_f32,
+                      __nv_bfloat16* __restrict__ out_bf16, int M, int N, int K2, int EN, int R) {
+  using U = Unit<MT>;
+  constexpr int TOK = U::TOK, NSU = U::NS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nfull = K2 / KB, nst = 2 * nfull + 1;
+  float* hold = reinterpret_cast<float*>(smem + NSU * U::BYTES);  // [nfull][MT * 4][NT]
+  float* part = hold + nfull * MT * 4 * NT;                         // [TOK][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x % R, n0 = (blockIdx.x / R) * BN, e = blockIdx.z;
+  const int K = 2 * K2;
+  const int c0 = 16 * warp + 2 * g;
+  x += (size_t)e * M * K;
+  w += (size_t)e * N + n0;
+  scale += (size_t)e * N + n0;
+
+  const int s0 = rank * nst / R, s1 = (rank + 1) * nst / R;  // this rank's stages
+  const bool strad = s0 <= nfull && nfull < s1;
+  int a0, a1, b0 = 0, b1 = 0;  // the units walked: [a0, a1), then [b0, b1)
+  if (s1 <= nfull) {           // low blocks only
+    a0 = 2 * s0;
+    a1 = 2 * s1;
+  } else if (s0 > nfull) {     // high blocks only
+    a0 = 2 * (s0 - nfull) - 1;
+    a1 = 2 * (s1 - nfull) - 1;
+  } else {                     // the straddle, high blocks 0 .. s1 - nfull - 2, low from s0
+    a0 = 0;
+    a1 = 2 * (s1 - nfull) - 1;
+    b0 = max(2 * s0, a1);
+    b1 = nst;
+  }
+  const int na = a1 - a0, nu = na + b1 - b0;
+  auto unit = [&](int i) { return i < na ? a0 + i : b0 + i - na; };
+  auto lo_on = [&](int u) { return u < 2 * nfull ? s0 <= (u >> 1) && (u >> 1) < s1 : strad; };
+  auto hi_on = [&](int u) {
+    return u == 0 ? strad : s0 <= nfull + 1 + ((u - 1) >> 1) && nfull + 1 + ((u - 1) >> 1) < s1;
   };
-  if (R == 1) {
+
+  // x rows past M stay zero: no load writes them
+  for (int i = tid; i < NSU * 2 * (TOK - M) * 8; i += NT) {
+    const int st = i / (2 * (TOK - M) * 8), r = i % (2 * (TOK - M) * 8);
+    const int row = (r / 8) % (TOK - M) + M, half = r / ((TOK - M) * 8);
+    *reinterpret_cast<uint4*>(smem + st * U::BYTES + WU + ((half * TOK + row) * 8 + r % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  auto load = [&](int st, int u) {
+    unsigned char* s = smem + st * U::BYTES;
+    for (int i = tid; i < KU * 4; i += NT) {
+      const int r = i >> 2, c = i & 3;
+      cluster_decode::cp_async16(s + r * BN + ((c ^ ((r >> 1) & 3)) << 4),
+                                 w + (size_t)(u * KU + r) * EN + 16 * c);
+    }
+    for (int i = tid; i < 2 * M * 8; i += NT) {
+      const int half = i / (M * 8), m = (i / 8) % M, c = i & 7;
+      cluster_decode::cp_async16(s + WU + ((half * TOK + m) * 8 + (c ^ (m & 7))) * 16,
+                                 x + (size_t)m * K + half * K2 + u * KU + 8 * c);
+    }
+    if (tid < 32) {
+      const int half = tid >> 4, c = tid & 15;
+      const int row = half == 0 ? (u < 2 * nfull ? u >> 1 : nfull) : nfull + (u >> 1);
+      cluster_decode::cp_async16(s + WU + U::XB + half * BN * 4 + 16 * c,
+                                 scale + (size_t)row * EN + 4 * c);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < NSU - 1; ++st) {
+    if (st < nu) load(st, unit(st));
+    cluster_decode::cp_async_commit();
+  }
+  float acc[MT][4], dlo[MT][4], dhi[MT][4], head[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = dlo[i][c] = dhi[i][c] = head[i][c] = 0.f;
+
+  for (int i = 0; i < nu; ++i) {
+    cluster_decode::cp_async_wait<NSU - 2>();
+    __syncthreads();  // unit i landed for every thread; stage (i - 1) % NSU is free
+    if (i + NSU - 1 < nu) load((i + NSU - 1) % NSU, unit(i + NSU - 1));
+    cluster_decode::cp_async_commit();
+    const int u = unit(i);
+    const unsigned char* s = smem + (i % NSU) * U::BYTES;
+    const unsigned char* xs = s + WU;
+    // the dots restart with each stage: a low block's at even units, a
+    // high block's at odd ones, the head's at unit 0
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int m = 8 * mt + 2 * t + (c & 1);
-        if (m < M) store(m, c0 + (c >> 1), acc[mt][c]);
+        if ((u & 1) == 0) dlo[mt][c] = 0.f;
+        if ((u & 1) == 1 || u == 0) dhi[mt][c] = 0.f;
       }
-    return;
-  }
-  // the cluster's sum: every rank's partial to shared memory; rank r owns
-  // columns [r BN / R, (r + 1) BN / R) of the tile and adds the ranks'
-  // partials in rank order. Every CTA reaches both barriers; the second
-  // keeps each CTA's shared memory alive while another still reads it.
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int ks = 0; ks < KU / 16; ++ks) {
+      uint32_t wv[4], alo[4], ahi[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) part[(8 * mt + 2 * t + (c & 1)) * BN + c0 + (c >> 1)] = acc[mt][c];
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int cols = BN / R;
-  for (int i = tid; i < M * cols; i += NT) {
-    const int m = i / cols, col = rank * cols + i % cols;
-    float v = cluster.map_shared_rank(part, 0)[m * BN + col];
-    for (int q = 1; q < R; ++q) v = __fadd_rn(v, cluster.map_shared_rank(part, q)[m * BN + col]);
-    store(m, col, v);
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * ks + 2 * t + (j & 1) + 8 * (j >> 1);
+        wv[j] = *reinterpret_cast<const uint16_t*>(s + r * BN + ((warp ^ ((r >> 1) & 3)) << 4) +
+                                                   2 * g);
+      }
+      int4_fragments(wv, alo, ahi);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int m = 8 * mt + g;
+        const unsigned char* lo = xs + m * 128 + 4 * t;
+        const unsigned char* hi = lo + TOK * 128;
+        const int q0 = ((2 * ks) ^ (m & 7)) << 4, q1 = ((2 * ks + 1) ^ (m & 7)) << 4;
+        mma_bf16(dlo[mt], alo, *reinterpret_cast<const uint32_t*>(lo + q0),
+                 *reinterpret_cast<const uint32_t*>(lo + q1));
+        mma_bf16(dhi[mt], ahi, *reinterpret_cast<const uint32_t*>(hi + q0),
+                 *reinterpret_cast<const uint32_t*>(hi + q1));
+      }
+    }
+    const float* ss = reinterpret_cast<const float*>(xs + U::XB);
+    const float2 slo = *reinterpret_cast<const float2*>(ss + c0);
+    const float2 shi = *reinterpret_cast<const float2*>(ss + BN + c0);
+    if ((u & 1) && lo_on(u)) {  // low block u / 2 ends: its update, in order
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[mt][c] = __fadd_rn(acc[mt][c], __fmul_rn(dlo[mt][c], (c & 2) ? slo.y : slo.x));
+    }
+    if (u == 0 && strad) {  // the high head waits for the straddle stage
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) head[mt][c] = dhi[mt][c];
+    }
+    if ((u & 1) == 0 && u >= 2 && hi_on(u)) {  // high block (u - 2) / 2 ends
+      float* hb = hold + ((u - 2) >> 1) * MT * 4 * NT + tid;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float p = __fmul_rn(dhi[mt][c], (c & 2) ? shi.y : shi.x);
+          if (strad)
+            hb[(mt * 4 + c) * NT] = p;  // held until the straddle stage
+          else
+            acc[mt][c] = __fadd_rn(acc[mt][c], p);
+        }
+    }
+    if (u == 2 * nfull && strad) {  // the straddle stage, then the held high blocks in order
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[mt][c] = __fadd_rn(acc[mt][c], __fmul_rn(__fadd_rn(dlo[mt][c], head[mt][c]),
+                                                       (c & 2) ? slo.y : slo.x));
+      for (int b = 0; b < s1 - nfull - 1; ++b) {
+        const float* hb = hold + b * MT * 4 * NT + tid;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][c] = __fadd_rn(acc[mt][c], hb[(mt * 4 + c) * NT]);
+      }
+    }
   }
-  cluster.sync();
+  epilogue<MT>(acc, part, out_f32, out_bf16, M, N, e, n0, c0, t, rank, R);
 }
 
 template <int MT>
 int launch(const __nv_bfloat16* x, const uint8_t* w, const float* sc, float* of,
            __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, int R, cudaStream_t s) {
+  if (K2 % KB != 0) {
+    const int smem = straddle_smem<MT>(K2 / KB);
+    if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    static unsigned done_s = 0;  // devices whose shared memory limit is raised
+    const int err = cluster_decode::allow_smem(w4a16_straddle_kernel<MT>,
+                                               MAX_SMEM, done_s);
+    if (err != 0) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((N / BN) * R, 1, E);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = R;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaLaunchKernelEx(&cfg, w4a16_straddle_kernel<MT>, x, w, sc, of, ob, M, N, K2,
+                                   EN, R);
+  }
   static unsigned done = 0;  // devices whose shared memory limit is raised
   const int err = cluster_decode::allow_smem(w4a16_dec_kernel<MT>, Stage<MT>::SMEM, done);
   if (err != 0) return err;
@@ -328,6 +596,28 @@ struct Tile {
   static constexpr int XU = 2 * XB;     // one stage: a half's two 64-column boxes
   static constexpr int SMEM = 1024 + NU * XU + NWB * WT + 2 * NU * 8;
 };
+
+// The tiles' end: rows 2 r and 2 r + 1 of a warpgroup's accumulator are the
+// thread's columns c0 and c0 + 1, token m0 + 8 j + 2 tig + c in acc[4 j + c]
+// and acc[4 j + 2 + c]; tokens past M are not written.
+template <int BT>
+__device__ __forceinline__ void store(const float (&acc)[BT / 2], float* __restrict__ out_f32,
+                                      __nv_bfloat16* __restrict__ out_bf16, int M, int N, int e,
+                                      int m0, int n0, int c0, int tig) {
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = m0 + 8 * j + 2 * tig + c;
+      if (m >= M) continue;
+      const size_t o = ((size_t)e * M + m) * N + n0 + c0;
+      const float v0 = acc[4 * j + c], v1 = acc[4 * j + 2 + c];
+      if (out_bf16 != nullptr)
+        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
+    }
+}
 
 // The product runs transposed, out^T = W^T x^T: the weights are wgmma's A
 // operand, which it takes from registers, and x is B, K-major in shared
@@ -481,25 +771,181 @@ w4a16_wg_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
     update(shi);
   }
 
-  if (!live) return;
+  if (live) store<BT>(acc, out_f32, out_bf16, M, N, e, m0, n0, c0, tig);
+}
+
+// The straddle tile (K2 % 128 == 64): stage s (0 .. 2 nfull) is scale row
+// s's 128 rows of the unpacked K, two boxes q = 2 s, 2 s + 1 of 64: box q
+// is x's columns [64 q, 64 q + 64) and packed rows 64 (q mod nb2) of the
+// low nibbles where q < nb2 = K2 / 64, else of the high ones. Each stage
+// has its own two raw boxes [64][BN] (128-byte swizzle, stacked as one
+// [128][BN] tile) beside its x boxes, in a ring of NU; one accumulator,
+// one update acc + d * s_s a stage, in stage order. nst = 2 nfull + 1 is
+// odd: stage 0, then pairs, so every product is issued unconditionally.
+template <int BT>
+struct STile {
+  static constexpr int XU = Tile<BT>::XU;
+  static constexpr int SU = XU + WT;  // a stage: x's two boxes and the raw tile
+  static constexpr int SMEM = 1024 + NU * SU + 2 * NU * 8;
+};
+
+template <int BT>
+__global__ void __launch_bounds__(NT, 1)
+w4a16_wgs_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, float* __restrict__ out_f32,
+                 __nv_bfloat16* __restrict__ out_bf16, int M, int N, int K2, int EN) {
+  using T = STile<BT>;
+  constexpr int XB = Tile<BT>::XB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // stage st: x [box][BT][128 B] then the raw tile [128][BN], both swizzled
+  const uint32_t full = smem_u32(smem + NU * T::SU);  // NU mbarriers: the stage landed
+  const uint32_t empty = full + 8 * NU;               // NU mbarriers: all 8 warps are done
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wgi = warp >> 2, wiw = warp & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.x * BT, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int nb2 = K2 / 64, nst = K2 / KB * 2 + 1;
+  const int c0 = 64 * wgi + 16 * wiw + 2 * gid;  // this thread's two weight columns
+  const bool live = n0 + c0 < N;                  // (N % 128 == 64: the last tile's right half)
+  const size_t col = (size_t)e * N + n0 + c0;     // in the folded [., EN] layout
+
+  auto load_stage = [&](int u) {
+    const int st = u % NU;
+    const uint32_t bar = full + 8 * st, base = smem_u32(smem + st * T::SU);
+    mbar_expect_tx(bar, T::SU);
 #pragma unroll
-  for (int j = 0; j < BT / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int m = m0 + 8 * j + 2 * tig + c;
-      if (m >= M) continue;
-      const size_t o = ((size_t)e * M + m) * N + n0 + c0;
-      const float v0 = acc[4 * j + c], v1 = acc[4 * j + 2 + c];
-      if (out_bf16 != nullptr)
-        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) = __floats2bfloat162_rn(v0, v1);
-      else
-        *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
+    for (int box = 0; box < 2; ++box) {
+      const int q = 2 * u + box;
+      tma_load3(base + box * XB, &xmap, 64 * q, m0, e, bar);
+      tma_load2(base + T::XU + box * (WT / 2), &wmap, e * N + n0, 64 * (q < nb2 ? q : q - nb2),
+                bar);
     }
+  };
+  // A fragments of stage u, 8 k-steps: k-rows 16 ks + 2 tig (+1, +8, +9)
+  // of the thread's two columns, box ks / 4's nibble
+  auto fragments = [&](uint32_t (&a)[8][4], int u) {
+    const unsigned char* t = smem + (u % NU) * T::SU + T::XU;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const bool high = 2 * u + (ks >> 2) >= nb2;
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * ks + 2 * tig + (j & 1) + 8 * (j >> 1);
+        w[j] = *reinterpret_cast<const uint16_t*>(t + r * BN + ((((c0 >> 4) ^ (r & 7)) << 4) |
+                                                                (c0 & 15)));
+      }
+      // bytes (k, column): p0 = (2t, c) (2t+1, c) (2t, c+1) (2t+1, c+1), p1 the same 8 rows on;
+      // the low nibbles q_lo + 8, or the high ones (q_hi + 8 after XOR 8)
+      const int sh = high ? 4 : 0;
+      const uint32_t flip = high ? 0x08080808u : 0u;
+      const uint32_t p0 = ((__byte_perm(w[0], w[1], 0x5140) >> sh) & 0x0F0F0F0Fu) ^ flip;
+      const uint32_t p1 = ((__byte_perm(w[2], w[3], 0x5140) >> sh) & 0x0F0F0F0Fu) ^ flip;
+      a[ks][0] = nibbles_to_bf16x2(__byte_perm(p0, 0x43434343u, 0x4140));
+      a[ks][1] = nibbles_to_bf16x2(__byte_perm(p0, 0x43434343u, 0x4342));
+      a[ks][2] = nibbles_to_bf16x2(__byte_perm(p1, 0x43434343u, 0x4140));
+      a[ks][3] = nibbles_to_bf16x2(__byte_perm(p1, 0x43434343u, 0x4342));
+    }
+  };
+  float d[BT / 2];
+  auto products = [&](const uint32_t (&a)[8][4], int u) {
+    const uint32_t xb = smem_u32(smem + (u % NU) * T::SU);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_rs(d, a[ks], desc(xb + (ks >> 2) * XB + 32 * (ks & 3)), ks);
+    wgmma_commit();
+  };
+  // stage u's products done and this warp's reads of its raw tile too:
+  // release it (one arrival per warp), and thread 0 refills it with stage
+  // u + NU once all warps have
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (u % NU));
+    if (tid == 0 && u + NU < nst) {
+      mbar_wait(empty + 8 * (u % NU), (u / NU) & 1);
+      load_stage(u + NU);
+    }
+  };
+  float acc[BT / 2];
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+  auto update = [&](int u) {
+    const float2 s = live ? __ldg(reinterpret_cast<const float2*>(scale + (size_t)u * EN + col))
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i)
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(d[i], (i & 2) ? s.y : s.x));
+  };
+  auto arrive = [&](int u) { mbar_wait(full + 8 * (u % NU), (u / NU) & 1); };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NU; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < NU && u < nst; ++u) load_stage(u);
+  }
+  __syncthreads();
+
+  uint32_t a0[8][4], a1[8][4];
+  arrive(0);
+  fragments(a0, 0);
+  products(a0, 0);
+  if (nst > 1) {
+    arrive(1);
+    fragments(a1, 1);
+  }
+  wgmma_wait();
+  fence_regs(d);
+  release(0);
+  update(0);
+  for (int u = 1; u < nst; u += 2) {
+    products(a1, u);
+    arrive(u + 1);
+    fragments(a0, u + 1);
+    wgmma_wait();
+    fence_regs(d);
+    release(u);
+    update(u);
+    products(a0, u + 1);
+    if (u + 2 < nst) {
+      arrive(u + 2);
+      fragments(a1, u + 2);
+    }
+    wgmma_wait();
+    fence_regs(d);
+    release(u + 1);
+    update(u + 1);
+  }
+
+  if (live) store<BT>(acc, out_f32, out_bf16, M, N, e, m0, n0, c0, tig);
+}
+
+template <int BT>
+int launch_straddle(const __nv_bfloat16* x, const uint8_t* w, const float* sc, float* of,
+                    __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, cudaStream_t s) {
+  using T = STile<BT>;
+  CUtensorMap xmap, wmap;
+  if (!x_map(&xmap, x, E, M, 2 * K2, BT) ||
+      !byte_map(&wmap, w, K2, EN, KB / 2, BN, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static unsigned done = 0;  // devices whose shared memory limit is raised
+  const int err = cluster_decode::allow_smem(w4a16_wgs_kernel<BT>, T::SMEM, done);
+  if (err != 0) return err;
+  dim3 grid((M + BT - 1) / BT, (N + BN - 1) / BN, E);
+  w4a16_wgs_kernel<BT><<<grid, NT, T::SMEM, s>>>(xmap, wmap, sc, of, ob, M, N, K2, EN);
+  return (int)cudaGetLastError();
 }
 
 template <int BT>
 int launch(const __nv_bfloat16* x, const uint8_t* w, const float* sc, float* of,
            __nv_bfloat16* ob, int E, int M, int N, int K2, int EN, cudaStream_t s) {
+  if (K2 % KB != 0) return launch_straddle<BT>(x, w, sc, of, ob, E, M, N, K2, EN, s);
   using T = Tile<BT>;
   CUtensorMap xmap, wmap;
   if (!x_map(&xmap, x, E, M, 2 * K2, BT) ||
@@ -523,8 +969,11 @@ int launch(const void* x, const void* packed, const void* scale, void* out_f32,
   const float* sc = static_cast<const float*>(scale);
   float* of = static_cast<float*>(out_f32);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out_bf16);
+  if (K2 % 64 != 0 || K2 < 64) return (int)cudaErrorInvalidValue;
   if (M <= 16) {
-    if ((ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) || ranks > K2 / KB)
+    // the stages of the block recurrence a cluster splits
+    const int stages = K2 % KB ? 2 * (K2 / KB) + 1 : K2 / KB;
+    if ((ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) || ranks > stages)
       return (int)cudaErrorInvalidValue;
     return M <= 8 ? dec::launch<1>(xp, w, sc, of, ob, E, M, N, K2, EN, ranks, s)
                   : dec::launch<2>(xp, w, sc, of, ob, E, M, N, K2, EN, ranks, s);
@@ -542,9 +991,10 @@ int launch(const void* x, const void* packed, const void* scale, void* out_f32,
 
 // x bf16 [M, 2*K2]; packed uint8 [K2, N]; scale f32 [2*K2/128, N]. Exactly
 // one of out_f32 / out_bf16 [M, N] is non-null. ranks: the decode tile's
-// cluster size (M <= 16: 1, 2, 4 or 8, at most K2 / 128; M > 16: 1). Needs
-// K2 % 128 == 0, N % 64 == 0 and 16-byte aligned x, packed and scale
-// (checked by the Python wrapper).
+// cluster size (M <= 16: 1, 2, 4 or 8, at most the recurrence's stages,
+// K2 / 128 or, straddle K, 2 (K2 / 128) + 1; M > 16: 1). Needs K2 % 64 ==
+// 0 (K2 % 128 == 64 is the straddle layout), N % 64 == 0 and 16-byte
+// aligned x, packed and scale (checked by the Python wrapper).
 extern "C" int w4a16_gemm(const void* x, const void* packed, const void* scale,
                           void* out_f32, void* out_bf16, int M, int N, int K2, int ranks,
                           void* stream) {

@@ -19,7 +19,9 @@ K/2 // block covers the low half's tail and the high half's head, and the
 high half's blocks follow it. The grouped kernels take the folded expert
 layout [K/2, E*N] (expert e is columns e*N:(e+1)*N,
 quant/qtensor.py::fold_experts). Every twin computes straddle shapes; of
-the CUDA kernels K11 and K12 take them, K1, K6 and K10 refuse them.
+the CUDA kernels K6, K10, K11 and K12 take them (K/2 % 128 == 64), K1
+refuses them. The NVFP4 kernels (K9, K13) take K/2 % 64 == 0: whole
+128-row packed blocks and at most one 64-row tail.
 """
 
 from __future__ import annotations
@@ -91,10 +93,11 @@ def _check_packed(name, packed, scale, block, K, EN):
 def _check_card(name, packed, scale, block, N, n_mult, straddle=False):
     """What the CUDA kernels take: block-128 weights, N a multiple of
     ``n_mult``; straddle shapes (K/2 % 128 == 64) only where ``straddle``."""
-    if block != 128 or (packed.shape[0] % block and not straddle) or packed.shape[0] % 64:
+    if block != 128 or packed.shape[0] % (64 if straddle else block):
         raise NotImplementedError(
-            f"the CUDA {name} takes block-128 weights with K/2 % 128 == 0; "
-            "straddle shapes (K=1408, 2880) are not ported to it yet")
+            f"the CUDA {name} takes block-128 weights with K/2 % "
+            f"{'64' if straddle else '128'} == 0, got block {block}, K/2 = {packed.shape[0]}"
+            + ("" if straddle else "; straddle shapes (K=1408, 2880) are not ported to it yet"))
     if N % n_mult:
         raise ValueError(f"{name}: N={N} must be a multiple of {n_mult}")
     if (packed.dtype, scale.dtype) != (torch.uint8, torch.float32):
@@ -229,15 +232,24 @@ def _cluster_ranks(tiles: int, blocks: int, target: int = CLUSTER_TARGET_CTAS) -
     return r
 
 
+def _w4a16_stages(K2) -> int:
+    """The f32 updates of a W4A16 product's block recurrence: one a 128-row
+    block (both halves) where K/2 % 128 == 0; else (straddle K) the
+    reference's 2 nfull + 1, each low-half block, the straddle block and
+    each high-half block on its own (``_block_dots``)."""
+    return K2 // 128 if K2 % 128 == 0 else 2 * (K2 // 128) + 1
+
+
 def _w4a16_ranks(E, M, N, K2) -> int:
     """Cluster size of a W4A16 product: up to M = 16 the decode tile's
-    (one 64-column tile per cluster, E * N / 64 tiles); 1 above."""
-    return _cluster_ranks(E * (N // 64), K2 // 128) if M <= 16 else 1
+    (one 64-column tile per cluster, E * N / 64 tiles, each rank a
+    contiguous run of the stages); 1 above."""
+    return _cluster_ranks(E * (N // 64), _w4a16_stages(K2)) if M <= 16 else 1
 
 
 def _w4a16_launch(name, x3, packed, scale, n, block, out_dtype, grouped):
     E, M, K = x3.shape
-    _check_card(name, packed, scale, block, n, 64)
+    _check_card(name, packed, scale, block, n, 64, straddle=True)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: out_dtype {out_dtype} not supported")
     x3 = x3.to(torch.bfloat16).contiguous()
@@ -261,9 +273,10 @@ def w4a16_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                block: int = 128, out_dtype=torch.bfloat16) -> torch.Tensor:
     """x [M, K] (rounded to bf16) @ int4-packed W -> [M, N] in ``out_dtype``
     (f32 or bf16), every M: up to M = 16 the mma.sync decode tile (64
-    weight columns, the 128-row blocks split over a cluster of
-    ``_w4a16_ranks`` CTAs), above it the wgmma tile (128 weight columns x
-    64 or 128 tokens). One launch either way."""
+    weight columns, the stages of the block recurrence split over a cluster
+    of ``_w4a16_ranks`` CTAs), above it the wgmma tile (128 weight columns x
+    64 or 128 tokens). One launch either way; straddle K (K/2 % 128 == 64)
+    included."""
     M, K = x.shape
     N = packed.shape[1]
     _check_packed("w4a16_gemm", packed, scale, block, K, N)
@@ -508,6 +521,14 @@ def byte_gemm_ok(K: int, N: int) -> bool:
     return K % 128 == 0 and N % 64 == 0
 
 
+def nvfp4_gemm_ok(K: int, N: int) -> bool:
+    """Whether an NVFP4 [K, N] weight (N per expert for K13) goes to the
+    kernels: K % 128 == 0, the reference's ``_pallas_ok`` rule for NVFP4
+    (so K/2 is whole 128-row packed blocks and at most one 64-row tail),
+    and 64-column tiles."""
+    return K % 128 == 0 and N % 64 == 0
+
+
 def _byte_launch(name, x, data, scale, out_dtype, want_dtype):
     M, K = x.shape
     N = data.shape[1]
@@ -623,21 +644,23 @@ def _check_nvfp4(name, packed, scale, scale2, block, K, EN):
 
 def _nvfp4_ranks(E, M, N, K2) -> int:
     """Cluster size of an NVFP4 product (CTAs that split one output tile's
-    128-row blocks, their partials summed in the same launch): up to M = 16
+    128-row blocks, a 64-row tail counted as one, their partials summed in
+    the same launch): up to M = 16
     over E experts' 64-column tiles of the decode tile, which only draws
     weight bytes, at K7 / K8's BYTE_TARGET_CTAS (where R is 1 and tiles are
     many the kernel takes 128 columns a CTA); above over 128 columns x 64
     tokens of the wgmma tile."""
+    blocks = -(-K2 // 128)
     if M <= 16:
-        return _cluster_ranks(E * (N // 64), K2 // 128, BYTE_TARGET_CTAS)
-    return _cluster_ranks(E * -(-N // 128) * -(-M // 64), K2 // 128)
+        return _cluster_ranks(E * (N // 64), blocks, BYTE_TARGET_CTAS)
+    return _cluster_ranks(E * -(-N // 128) * -(-M // 64), blocks)
 
 
 def _nvfp4_launch(name, x3, packed, scale, scale2, n, block, out_dtype, grouped):
     E, M, K = x3.shape
     K2 = packed.shape[0]
-    if block != 16 or K2 % 128 or n % 64:
-        raise NotImplementedError(f"the CUDA {name} takes block-16 scales, K/2 % 128 == 0 "
+    if block != 16 or K2 % 64 or n % 64:
+        raise NotImplementedError(f"the CUDA {name} takes block-16 scales, K/2 % 64 == 0 "
                                   f"and N % 64 == 0, got block {block}, K={K}, N={n}")
     if (packed.dtype, scale.dtype, scale2.dtype) != (torch.uint8, torch.float8_e4m3fn,
                                                      torch.float32):
@@ -665,8 +688,9 @@ def nvfp4_gemm(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     """x [M, K] (rounded to bf16) @ NVFP4 W (packed uint8 [K/2, N], e4m3
     scale [K/block, N], f32 scale2 [1, 1]) -> [M, N] in ``out_dtype``, every
     M in one launch: up to M = 16 the mma.sync decode tile, above it the
-    wgmma tile, each splitting the 128-row blocks over a cluster of
-    ``_nvfp4_ranks`` CTAs where tiles are few."""
+    wgmma tile, each splitting the 128-row blocks (and a 64-row tail where
+    K/2 % 128 == 64) over a cluster of ``_nvfp4_ranks`` CTAs where tiles
+    are few."""
     M, K = x.shape
     N = packed.shape[1]
     _check_nvfp4("nvfp4_gemm", packed, scale, scale2, block, K, N)

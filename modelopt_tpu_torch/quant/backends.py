@@ -7,16 +7,19 @@ kernel on the card, its plain twin on the CPU):
     per-token activation quantization; int4 weight-only: ``w4a16_gemm`` at
     every M;
   * int8, e4m3 and NVFP4 weights at M <= 256 rows: ``w8a16_gemm``,
-    ``wfp8_gemm``, ``nvfp4_gemm``, for every shape their layouts take (a
-    shape the CUDA kernel cannot take raises on the card), but int8 and
-    e4m3 weights whose K is not a whole number of 128-row blocks (the
-    reference's ``_pallas_ok`` refuses them too: DeepSeek-V2-Lite's dense
-    down projection, K = 10944) take the dequantize path below;
+    ``wfp8_gemm``, ``nvfp4_gemm``, where K is a whole number of 128-row
+    blocks and N of 64-column tiles (``byte_gemm_ok``, ``nvfp4_gemm_ok``);
+    other K (the reference's ``_pallas_ok`` refuses K % 128 != 0 too:
+    DeepSeek-V2-Lite's dense down projection, K = 10944) take the
+    dequantize path below;
   * MoE down-projections at M <= 256: int4 with int8 activations and gates
     the fused ``grouped_w4a8_combine_gemm`` (straddle widths such as
     DeepSeek's K=1408 included), without gates ``grouped_w4a8_gemm`` (the
-    same widths), int4 weight-only ``grouped_w4a16_gemm``, NVFP4
-    ``grouped_nvfp4_gemm``;
+    same widths), int4 weight-only ``grouped_w4a16_gemm`` (the same
+    widths), NVFP4 ``grouped_nvfp4_gemm`` where ``nvfp4_gemm_ok`` holds
+    (the reference's grouped rule admits any K/2 that is a whole number of
+    16-row scale blocks; the CUDA kernel takes K/2 % 64 == 0, so other
+    widths take the einsum below on both devices);
   * int8 weights with int8 activations above 256 rows:
     ``int8_dynamic_gemm`` (dynamic per-row int8 activations, an s8 x s8 ->
     s32 product: ``torch._int_mm`` on the card, an exact int32 product on
@@ -36,8 +39,8 @@ import torch
 
 from ..kernels.quant_gemm import (PREFILL_MIN_M, byte_gemm_ok, grouped_nvfp4_gemm,
                                   grouped_w4a8_combine_gemm, grouped_w4a8_gemm,
-                                  grouped_w4a16_gemm, nvfp4_gemm, w4a8_gemm, w4a16_gemm,
-                                  w8a16_gemm, wfp8_gemm)
+                                  grouped_w4a16_gemm, nvfp4_gemm, nvfp4_gemm_ok, w4a8_gemm,
+                                  w4a16_gemm, w8a16_gemm, wfp8_gemm)
 from .formats import true_divide
 from .qspec import QuantizerSpec
 from .qtensor import block_of, compressible_format, dequantize_qtensor
@@ -123,7 +126,8 @@ def qgemm(x2d: torch.Tensor, qt: dict, spec: QuantizerSpec, kn, out_dtype=None,
     if act_int8 and act_raw:
         # a 16-bit product still serves A8: one per-token rounding
         x2d = _fq_int8_per_token(x2d)
-    if x2d.shape[0] <= PREFILL_MIN_M and (fmt == "nvfp4" or byte_gemm_ok(*kn)):
+    if x2d.shape[0] <= PREFILL_MIN_M and (nvfp4_gemm_ok(*kn) if fmt == "nvfp4"
+                                          else byte_gemm_ok(*kn)):
         if fmt == "int8":
             return w8a16_gemm(x2d, qt["data"], qt["scale"], out_dtype=out_dtype)
         if fmt == "fp8":
@@ -142,7 +146,8 @@ def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtyp
     int4 with int8 activations rides ``grouped_w4a8_gemm`` (per-(expert,
     row) scale xs = max(|x|, 1e-12)/127 in f32, xq = round-half-even(x/xs)
     clipped to +-127, the kernel's f32 product times xs, then ``out_dtype``),
-    int4 weight-only ``grouped_w4a16_gemm`` and NVFP4 ``grouped_nvfp4_gemm``.
+    int4 weight-only ``grouped_w4a16_gemm`` and NVFP4 ``grouped_nvfp4_gemm``
+    (where ``nvfp4_gemm_ok(K, N)``).
     Every other case runs the reference's XLA steps (per-(token, expert)
     int8 fake-quant when the layer skipped its own, dequantized weight in
     ``out_dtype``, one batched product) with ``torch.einsum`` on either
@@ -162,7 +167,7 @@ def grouped_qgemm(x3: torch.Tensor, qt: dict, spec: QuantizerSpec, efn, out_dtyp
     if act_int8 and act_raw:
         # the 16-bit product still serves A8: one per-(token, expert) rounding
         x3 = _fq_int8_per_token(x3)
-    if small and (fmt == "nvfp4" or (fmt == "int4" and not act_int8)):
+    if small and (nvfp4_gemm_ok(K, N) if fmt == "nvfp4" else fmt == "int4" and not act_int8):
         xe = x3.to(out_dtype).transpose(0, 1)  # [E, M, K]
         if fmt == "int4":
             y = grouped_w4a16_gemm(xe, qt["data"], qt["scale"], N, block=block_of(spec),

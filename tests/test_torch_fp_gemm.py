@@ -99,7 +99,8 @@ def test_byte_gemm_plain_matches_pallas(rng, interp, fmt, M, out):
                                atol=order_bar(yj, _bf16(x), wd, out))
 
 
-@pytest.mark.parametrize("K", [512, 1024])  # one 256-row chunk a half; two
+# K = 384: K/2 = 128 + 64, the card's 64-row tail (DeepSeek-V2-Lite's K = 1408)
+@pytest.mark.parametrize("K", [512, 1024, 384])  # one 256-row chunk a half; two; one of 192
 # M = 40: the card's wgmma tile (above M = 16), one ragged 64-token tile
 @pytest.mark.parametrize("M", [1, 8, 40])
 @pytest.mark.parametrize("out", ["f32", "bf16"])
@@ -131,7 +132,8 @@ def test_nvfp4_plain_matches_pallas(rng, interp, K, M, out):
     np.testing.assert_allclose((unit * pt["scale2"]).numpy(), wd, rtol=2.0**-23, atol=0)
 
 
-@pytest.mark.parametrize("K", [512, 768])  # one 256-row chunk a half; two of 192
+# K = 384: the card's 64-row tail, as DeepSeek-V2-Lite's experts (K = 1408)
+@pytest.mark.parametrize("K", [512, 768, 384])  # one 256-row chunk a half; two of 192; one
 @pytest.mark.parametrize("M", [3, 8])
 def test_grouped_nvfp4_plain_matches_pallas(rng, interp, K, M):
     """K13: K9's arithmetic per expert on the folded layout [K/2, E*N],
@@ -236,7 +238,7 @@ def test_nvfp4_splits_and_cluster_ranks(E, M, N, K2, want):
 
 def test_cuda_wrappers_refuse_shapes_they_cannot_take():
     """Off the CPU a wrapper launches its kernel or raises: shapes outside
-    the CUDA kernels' tiles (K % 128 for K7/K8, K/2 % 128 for K9/K13,
+    the CUDA kernels' tiles (K % 128 for K7/K8, K/2 % 64 for K9/K13,
     N % 64) are refused before any launch, as are wrong dtypes."""
     meta = dict(device="meta")
     x = torch.empty(8, 192, dtype=torch.bfloat16, **meta)
@@ -256,7 +258,7 @@ def test_cuda_wrappers_refuse_shapes_they_cannot_take():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tk.wfp8_gemm(xo, torch.empty(256, 128, dtype=torch.float8_e4m3fn, **meta),
                      torch.empty(1, 1, **meta))
-    with pytest.raises(NotImplementedError, match="K/2 % 128"):
+    with pytest.raises(NotImplementedError, match="K/2 % 64"):
         tk.nvfp4_gemm(torch.empty(8, 192, dtype=torch.bfloat16, **meta),
                       torch.empty(96, 128, dtype=torch.uint8, **meta),
                       torch.empty(12, 128, dtype=torch.float8_e4m3fn, **meta),

@@ -131,15 +131,106 @@ def test_w4a16_straddle_plain_matches_pallas(rng, interp, M):
 
 
 def test_w4a16_straddle_refused():
-    """The CUDA K6 and K10 do not take straddle shapes yet: a tensor off
-    the CPU with K/2 % 128 != 0 is refused before any launch."""
+    """The CUDA K6 and K10 take straddle shapes (K/2 % 128 == 64): such a
+    tensor off the CPU passes the card's shape check and reaches the
+    device check (here, with no card, refused as not on the card), while
+    block sizes other than 128 are still refused by the shape check."""
     p = tq.quantize_int4(torch.randn(384, 256))
     x = torch.empty(2, 384, dtype=torch.bfloat16, device="meta")
     data, scale = p["data"].to("meta"), p["scale"].to("meta")
-    with pytest.raises(NotImplementedError, match="straddl"):
+    with pytest.raises(ValueError, match="on the card"):
         tk.w4a16_gemm(x, data, scale)
-    with pytest.raises(NotImplementedError, match="straddl"):
+    with pytest.raises(ValueError, match="on the card"):
         tk.grouped_w4a16_gemm(x.reshape(2, 1, 384), data, scale, 128)
+    p64 = tq.quantize_int4(torch.randn(384, 256), block=64)
+    with pytest.raises(NotImplementedError, match="block-128"):
+        tk.w4a16_gemm(x, p64["data"].to("meta"), p64["scale"].to("meta"), block=64)
+    with pytest.raises(NotImplementedError, match="block-128"):
+        tk.grouped_w4a16_gemm(x.reshape(2, 1, 384), p64["data"].to("meta"),
+                              p64["scale"].to("meta"), 128, block=64)
+
+
+def _w4a16_rank_split(x3, packed, scale, n, R, out_dtype):
+    """K6 / K10's straddle decode tile on a cluster of R CTAs, in f32 on the
+    CPU: the reference's 2 nfull + 1 stages (the low-half blocks, the
+    straddle block's low tail plus high head, the high-half blocks), each
+    an f32 product rounded under its scale row; rank r runs the recurrence
+    ``acc + d*s`` from zero over its contiguous run of stages [r nst / R,
+    (r + 1) nst / R), and the ranks' partials are summed in rank order."""
+    E, _, K = x3.shape
+    K2 = K // 2
+    nfull = K2 // 128
+    xf = x3.to(torch.bfloat16).float()
+    p = packed.to(torch.int32)
+    qlo = ((p & 0xF) - 8).float().reshape(K2, E, n).transpose(0, 1)
+    qhi = (((p >> 4) ^ 8) - 8).float().reshape(K2, E, n).transpose(0, 1)
+    sc = scale.reshape(-1, E, n).transpose(0, 1)
+
+    def lo(r0, m):
+        return torch.bmm(xf[..., r0:r0 + m], qlo[:, r0:r0 + m])
+
+    def hi(r0, m):
+        return torch.bmm(xf[..., K2 + r0:K2 + r0 + m], qhi[:, r0:r0 + m])
+
+    stages = ([lo(128 * b, 128) for b in range(nfull)] + [lo(128 * nfull, 64) + hi(0, 64)]
+              + [hi(64 + 128 * b, 128) for b in range(nfull)])
+    nst = len(stages)
+    out = None
+    for r in range(R):
+        acc = torch.zeros_like(stages[0])
+        for s in range(r * nst // R, (r + 1) * nst // R):
+            acc = acc + stages[s] * sc[:, s:s + 1]
+        out = acc if out is None else out + acc
+    return out.to(out_dtype)
+
+
+def test_w4a16_straddle_rank_split_matches_twin_and_pallas(rng, interp):
+    """The order of sums of K6's and K10's straddle decode tile on a
+    cluster (R = 1, 2, 4, 8 over DeepSeek-V2-Lite's K = 1408: 11 stages,
+    contiguous runs of them per rank, partials summed in rank order) stays
+    within ``order_bar`` of the twin, and of K10's Pallas kernel in
+    interpret mode (E = 2), at M = 8, f32 out; the plain product (expert
+    0's columns) against K6's twin. At R = 1 it is the twin's order
+    exactly."""
+    K, N, M, E = 1408, 128, 8, 2
+    w = rng.standard_normal((K, E * N)).astype(np.float32) / np.sqrt(K)
+    pt = tq.quantize_int4(torch.from_numpy(w))
+    wd = tq.dequantize_int4(pt).numpy()
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    yj = np.asarray(jk.grouped_w4a16_gemm(jnp.asarray(x, jnp.bfloat16),
+                                          jnp.asarray(pt["data"].numpy()),
+                                          jnp.asarray(pt["scale"].numpy()), N,
+                                          out_dtype=jnp.float32))
+    yp = tk.grouped_w4a16_gemm_plain(xt, pt["data"], pt["scale"], N, out_dtype=torch.float32)
+    d0, s0 = pt["data"][:, :N].contiguous(), pt["scale"][:, :N].contiguous()
+    y0 = tk.w4a16_gemm_plain(xt[0], d0, s0, out_dtype=torch.float32)
+    assert tk._w4a16_stages(K // 2) == 11
+    for R in (1, 2, 4, 8):
+        ys = _w4a16_rank_split(xt, pt["data"], pt["scale"], N, R, torch.float32)
+        ys0 = _w4a16_rank_split(xt[:1], d0, s0, N, R, torch.float32)[0]
+        if R == 1:
+            assert torch.equal(ys, yp) and torch.equal(ys0, y0)
+        np.testing.assert_allclose(ys0.numpy(), y0.numpy(), rtol=0,
+                                   atol=order_bar(y0.numpy(), _bf16(x[0]), wd[:, :N], "f32"))
+        for e in range(E):
+            bar = order_bar(yj[e], _bf16(x[e]), wd[:, e * N:(e + 1) * N], "f32")
+            np.testing.assert_allclose(ys[e].numpy(), yp[e].numpy(), rtol=0, atol=bar)
+            np.testing.assert_allclose(ys[e].numpy(), yj[e], rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("E,M,N,K,want", [
+    (1, 8, 2048, 1408, 4),     # one 2048-column straddle weight: 32 tiles, 11 stages
+    (1, 8, 64, 1408, 8),       # one tile: 8 ranks of the 11 stages (more than K // 256)
+    (1, 8, 64, 384, 2),        # one tile, K = 384: 3 stages, never more ranks than stages
+    (64, 8, 2048, 1408, 1),    # K10, DeepSeek-V2-Lite's expert down projection: 2,048 tiles
+])
+def test_w4a16_straddle_cluster_ranks(E, M, N, K, want):
+    """The decode tile's cluster size at straddle K counts the 2 nfull + 1
+    stages of the recurrence, not the 128-row blocks."""
+    R = tk._w4a16_ranks(E, M, N, K // 2)
+    assert R == want
+    assert R <= tk._w4a16_stages(K // 2) == 2 * (K // 256) + 1
 
 
 @pytest.mark.parametrize("E,M,N,K,want", [
