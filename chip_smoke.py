@@ -112,8 +112,12 @@ Phases, in order (any failure exits non-zero):
      one decode step, which the dense-cache gates send to K3 and the
      einsum on both devices; a tiny f32 llama quantized by the port on
      both devices from the same weights and ids under INT8_KV_CFG
-     (SmoothQuant) and W4A8_INT8KV_CFG (awq_lite): the same exponents,
-     pre-quant scales within 1e-5, compressed logits at the 3% bar; then K11's
+     (SmoothQuant), W4A8_INT8KV_CFG (awq_lite) and NVFP4_SVDQUANT_CFG
+     (SVDQuant on weights with a planted rank-32 part: each layer's
+     low-rank product and residual, cuSOLVER against LAPACK): the same
+     exponents, pre-quant scales within 1e-5, every fake-quant call of the
+     CPU run (NVFP4 activations among them) repeated on the card bit for
+     bit, compressed logits at the 3% bar; then K11's
      entry point, the compressed gateless QuantEinsum down projection at
      Qwen3-30B-A3B's expert geometry: K11 once a call and no other kernel,
      the card's result the CPU twin's bit for bit;
@@ -173,6 +177,17 @@ Phases, in order (any failure exits non-zero):
           K9, K13 with its 64-row tail, K3; the dense layer's K = 10944
           down projection takes the reference's dequantize route, counted
           once a forward;
+       S: Llama-3-8B (full width, 8 of 32 layers) built in bf16 on the card
+          with channel outliers, quantized there under NVFP4_SVDQUANT_CFG by
+          its own algorithm (SVDQuant: smoothing, a rank-32 branch and the
+          residual on every projection, each SVD timed, then max
+          calibration; K14 in its forwards), held against its fake-quant
+          self layer by layer (the SVD branch included) and at the logits,
+          compressed, a census of one decode forward with and without the
+          NVFP4 activation fake-quant, then served: K9 behind the
+          fake-quantized NVFP4 activations at decode, the 544-row chunks
+          through the reference's dequantize route (counted), K2-K4 over a
+          bf16 KV cache;
      after each measured run, a torch.profiler window over decode ticks
      (device time by kernel, idle share) and one checked request; after
      A's and C's, a prefill window (one 1024-token prompt in the engine's
@@ -186,10 +201,13 @@ Phases, in order (any failure exits non-zero):
        P: J under FP8_KV_CFG with an e4m3 KV cache (K8, K14, K3, K17's e4m3
           branch);
   5. the PTQ phase: Llama-3-8B at full width, 4 of 32 layers, under
-     W4A8_INT8KV_CFG (awq_lite) and INT4_AWQ_FULL_CFG (awq_lite then
-     awq_clip), each quantized, compressed and held against its
-     fake-quant self as path M, its exponents and clip ratios logged, and
-     one request served (K1, K6 and K2-K4), with launch asserts.
+     W4A8_INT8KV_CFG (awq_lite), INT4_AWQ_FULL_CFG (awq_lite then
+     awq_clip), NVFP4_AWQ_FULL_CFG (the same on NVFP4 weights, NVFP4
+     activations) and NVFP4_KV_ROTATE_CFG (max calibration, q / k / v
+     fake-quantized to NVFP4 in the Hadamard basis), each quantized,
+     compressed and held against its fake-quant self as path M, its
+     exponents and clip ratios logged, and one request served (K1, K6, K9
+     and K2-K4), with launch asserts.
 Then the int8_dynamic_gemm rows and one JSON line of per-kernel numbers
 (launches by path, M and the PTQ phase among them), and last the device
 line.
@@ -308,11 +326,20 @@ PATH_KERNELS = {
     # K = 10944 down projection takes the reference's dequantize route)
     "Q": ("w4a16_gemm", "grouped_w4a16_gemm", "dense_kv_write"),
     "R": ("nvfp4_gemm", "grouped_nvfp4_gemm", "dense_kv_write"),
-    # the PTQ phase: AWQ's capture and calibration forwards (K14 at 512
+    # Llama-3-8B under NVFP4_SVDQUANT_CFG, quantized on the card and served:
+    # K9 behind the NVFP4 activation fake-quant at decode and in the 32-row
+    # bucket (the 544-row chunks take the dequantize route, as the
+    # reference's NVFP4 rule above 256 rows), K2-K4 over a bf16 cache
+    "S": ("nvfp4_gemm", "dense_kv_write", "fused_decode_attention", "flash_prefill_attention"),
+    # path S's quantize step, counted on its own: K14 in the capture and
+    # calibration forwards, K9 in the per-layer checks of the packed model
+    "S-quantize": ("nvfp4_gemm", "flash_attention"),
+    # the PTQ phase: the capture and calibration forwards (K14 at 512
     # rows), then each compressed model's one request (K1 under W4A8 with
-    # an int8 cache, K6 under INT4_AWQ_FULL_CFG with a bf16 one)
-    "PTQ": ("w4a8_gemm", "w4a16_gemm", "dense_kv_write", "fused_decode_attention",
-            "flash_prefill_attention", "flash_attention"),
+    # an int8 cache, K6 under INT4_AWQ_FULL_CFG with a bf16 one, K9 under
+    # NVFP4_AWQ_FULL_CFG and NVFP4_KV_ROTATE_CFG)
+    "PTQ": ("w4a8_gemm", "w4a16_gemm", "nvfp4_gemm", "dense_kv_write",
+            "fused_decode_attention", "flash_prefill_attention", "flash_attention"),
     # the gateless-einsum phase: no served path reaches K11 (the MoE block
     # always passes gates, in the reference too)
     "gateless": ("grouped_w4a8_gemm",),
@@ -2736,18 +2763,23 @@ PATHS = {  # name: (title, model, preset, KV cache dtype)
           "INT4_BLOCKWISE_WEIGHT_ONLY_CFG", "bfloat16"),
     "R": ("DeepSeek-V2-Lite NVFP4 weight-only + bf16 latent cache", "deepseek_v2_lite",
           "NVFP4_WEIGHT_ONLY_CFG", "bfloat16"),
+    # quantized and compressed on the card, as M
+    "S": ("Llama-3-8B NVFP4 SVDQuant W4A4 + bf16 KV, quantized and compressed on the card",
+          "llama3_8b", "NVFP4_SVDQUANT_CFG", "bfloat16"),
 }
+# the paths quantized and compressed on the card (``ptq_path``)
+PTQ_PATHS = ("M", "S")
 # the skip-softmax paths at the Decoder level (``skip_path``): name ->
 # (title, preset, KV cache dtype), on Llama-3-8B
 SKIP_PATHS = {"J": ("Llama-3-8B W4A8 + int8 KV", "W4A8_INT8KV_CFG", "int8"),
               "P": ("Llama-3-8B FP8 W8A8 + e4m3 KV", "FP8_KV_CFG", "float8_e4m3fn")}
 # paths served at a cut depth, to keep the script well inside its time
 # limit on a slow host (which ran the whole script ~35% longer than a fast
-# one): Llama-3-8B 8 of 32 layers (G, H, K, L, J, P) or 16 (E, M),
+# one): Llama-3-8B 8 of 32 layers (G, H, K, L, J, P, S) or 16 (E, M),
 # Qwen3-30B-A3B 4 of 48, DeepSeek-V2-Lite 4 of 27 (a dense first layer and 3
 # MoE layers); A keeps Llama's 32
 PATH_LAYERS = {"G": 8, "H": 8, "K": 8, "L": 8, "E": 16, "M": 16, "J": 8, "P": 8, "B": 4,
-               "C": 4, "I": 4, "D": 4, "F": 4, "N": 4, "O": 4, "Q": 4, "R": 4}
+               "C": 4, "I": 4, "D": 4, "F": 4, "N": 4, "O": 4, "Q": 4, "R": 4, "S": 8}
 # paths over a paged KV cache. A 1024-token request holds at most
 # pages_needed(min(1024 + 63 + 16, 2176), 64) = 18 pages (a 16-token burst's
 # lookahead from its 63rd token), 8 of them 144, plus the null page.
@@ -2863,6 +2895,15 @@ def serve_bundle(torch, name, bundle, cfg) -> dict:
         if dense != forwards:
             raise AssertionError(f"path R: {dense} K = 10944 dequantize calls, want one a "
                                  f"forward ({forwards})")
+    if name == "S":
+        # the reference's NVFP4 rule sends every projection of every prefill
+        # chunk (544 and 480 rows, above 256) to the dequantize route
+        want = 4 * cfg.num_layers * eng.stats["prefill_chunks"]
+        log(f"  dequantize route above 256 rows (no kernel): {len(dequantized)} calls in the "
+            f"measured run, 4 projections x {cfg.num_layers} layers x "
+            f"{eng.stats['prefill_chunks']} prefill chunks")
+        if len(dequantized) != want:
+            raise AssertionError(f"path S: {len(dequantized)} dequantize calls, want {want}")
     if name == "M":
         # every projection of every 544-row prefill chunk, and nothing else
         per_chunk = 4 * cfg.num_layers
@@ -3137,9 +3178,16 @@ PTQ_PROBE = 64  # tokens of the prompt whose fake-quant and compressed logits ar
 # random model's per-tensor int8 activations amplify the first layers'
 # differences layer by layer, so the logit bar grows with depth.
 PTQ_LAYER_BAR = 0.02
+# NVFP4 activations: a random model's logits move chaotically with the
+# weights' midpoint codes (see the per-layer check in ``quantize_on_card``);
+# CPU runs of this phase at hidden 1024 gave 0.26 (SVDQuant), 0.34 (AWQ
+# full) and 0.44 (rotated KV) at 4 layers and 0.35 (SVDQuant) at 8
 PTQ_LOGIT_BAR = {("INT8_KV_CFG", 32): 0.8, ("INT8_KV_CFG", 16): 0.8,
                  ("W4A8_INT8KV_CFG", 4): 0.2,
-                 ("INT4_AWQ_FULL_CFG", 4): 0.1}
+                 ("INT4_AWQ_FULL_CFG", 4): 0.1,
+                 ("NVFP4_SVDQUANT_CFG", 8): 0.8,
+                 ("NVFP4_AWQ_FULL_CFG", 4): 0.8,
+                 ("NVFP4_KV_ROTATE_CFG", 4): 0.8}
 
 
 def with_outliers(bundle) -> None:
@@ -3151,11 +3199,16 @@ def with_outliers(bundle) -> None:
 
 
 @contextlib.contextmanager
-def step_times(torch, module):
+def step_times(torch, module, each: list = None):
     """Time an algorithm module's ``capture_inputs`` and ``max_calibrate``
-    calls (the card synchronized around each); yields {step: seconds}."""
-    times = {"capture": 0.0, "calibration": 0.0}
-    real = {"capture": module.capture_inputs, "calibration": module.max_calibrate}
+    calls and, where the module has one (SVDQuant), its ``low_rank`` SVD
+    (the card synchronized around each); yields {step: seconds}. ``each``
+    receives every SVD call's (shape, seconds)."""
+    attrs = {"capture": "capture_inputs", "calibration": "max_calibrate"}
+    if hasattr(module, "low_rank"):
+        attrs["svd"] = "low_rank"
+    times = dict.fromkeys(attrs, 0.0)
+    real = {step: getattr(module, attr) for step, attr in attrs.items()}
 
     def timed(step):
         def fn(*args, **kw):
@@ -3163,15 +3216,20 @@ def step_times(torch, module):
             t0 = time.time()
             out = real[step](*args, **kw)
             torch.cuda.synchronize()
-            times[step] += time.time() - t0
+            dt = time.time() - t0
+            times[step] += dt
+            if step == "svd" and each is not None:
+                each.append((tuple(args[0].shape), dt))
             return out
         return fn
 
-    module.capture_inputs, module.max_calibrate = timed("capture"), timed("calibration")
+    for step, attr in attrs.items():
+        setattr(module, attr, timed(step))
     try:
         yield times
     finally:
-        module.capture_inputs, module.max_calibrate = real["capture"], real["calibration"]
+        for step, attr in attrs.items():
+            setattr(module, attr, real[step])
 
 
 def quantize_on_card(torch, cfg, preset) -> tuple:
@@ -3184,9 +3242,12 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
     the peak memory and the compressed model's size. Returns the bundle and
     {step: seconds}."""
     from modelopt_tpu_torch.models.synthetic import build_bundle
-    from modelopt_tpu_torch.quant.algorithms import awq, smoothquant
+    from modelopt_tpu_torch.quant.algorithms import awq, smoothquant, svdquant
     from modelopt_tpu_torch.quant.api import quantize
     from modelopt_tpu_torch.quant.compress import compress
+    from modelopt_tpu_torch.quant.config import get_config
+    from modelopt_tpu_torch.quant.fake_quant import is_two_level_fp
+    from modelopt_tpu_torch.quant.qtensor import dequantize_qtensor, quantize_qtensor
 
     dev, times = "cuda", {}
     torch.cuda.synchronize()
@@ -3203,14 +3264,22 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
     n, T = PTQ_BATCHES
     batches = [torch.randint(1, cfg.vocab_size, (1, T), dtype=torch.int32, device=dev,
                              generator=gen) for _ in range(n)]
-    algorithm = {"INT8_KV_CFG": smoothquant}.get(preset, awq)
-    with step_times(torch, algorithm) as steps:
+    method = get_config(preset).algorithm_name
+    algorithm = {"smoothquant": smoothquant, "svdquant": svdquant}.get(method, awq)
+    svds: list = []
+    with step_times(torch, algorithm, svds) as steps:
         t0 = time.time()
         bundle = quantize(bundle, preset, lambda f: [f(ids) for ids in batches])
         torch.cuda.synchronize()
         total = time.time() - t0
-    times.update(steps)
-    times["search"] = total - steps["capture"] - steps["calibration"]
+    if method == "max":  # max calibration alone: one step
+        times["calibration"] = total
+    else:
+        times.update(steps)
+        times["search"] = total - sum(steps.values())
+    if svds:
+        log(f"  SVD (svdquant.low_rank: top-32 triplets by an f64 Gram eigensolve) per call: "
+            + ", ".join(f"{'x'.join(map(str, shp))} {dt:.2f} s" for shp, dt in svds))
     peak = torch.cuda.max_memory_allocated()
     probe = torch.randint(1, cfg.vocab_size, (1, PTQ_PROBE), dtype=torch.int32, device=dev,
                           generator=gen)
@@ -3221,6 +3290,38 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
     fq = bundle.apply(probe)[0].float()
     for h in hooks:
         h.remove()
+    # NVFP4 weights: the packing rounds an exact midpoint of the e2m1 grid
+    # down (the reference's ``sum(|x| > midpoints)``) where fake
+    # quantization rounds it to even, and takes each kernel's own
+    # per-tensor amax where the weight quantizer may hold a larger one
+    # (NVFP4_AWQ_FULL_CFG: awq_clip clips after awq_lite's max calibration,
+    # whose running max keeps the pre-clip amax, as the reference's does).
+    # So an NVFP4 layer's fake-quant self is taken again with the packed
+    # grid's weights (the logits keep the calibrated fake-quant model's)
+    moved = stale = n_w = 0
+    with bundle.contexts(), torch.no_grad():
+        nvfp4 = [m for m in seen if (m.weight_quantizer.specs() or ())
+                 and is_two_level_fp(m.weight_quantizer.specs()[0])]
+        for m in nvfp4:
+            spec, kernel = m.weight_quantizer.specs()[0], m.kernel
+            w_pk = dequantize_qtensor(quantize_qtensor(kernel, spec)[0], spec,
+                                      tuple(kernel.shape)).to(kernel.dtype)
+            moved += int((m.weight_quantizer(kernel) != w_pk).sum())
+            stale += not torch.equal(m.weight_quantizer.amax, kernel.float().abs().amax())
+            n_w += kernel.numel()
+            m.weight_quantizer.forward = lambda *a, w=w_pk, **k: w
+            seen[m] = (seen[m][0], m(seen[m][0]))
+            del m.weight_quantizer.forward, w_pk
+        if nvfp4:
+            # the card's packing of one full-width layer, bit for bit
+            # against the CPU's packing of the same kernel
+            m0 = nvfp4[0]
+            cpu_qt = quantize_qtensor(m0.kernel.cpu(), m0.weight_quantizer.specs()[0])[0]
+    if nvfp4:
+        log(f"  NVFP4 weights: {moved} of {n_w} elements ({moved / n_w:.3%}) differ between the "
+            f"calibrated fake quantization and the packed grid (exact midpoints, and "
+            f"{stale} of {len(nvfp4)} weight quantizers holding a per-tensor amax other "
+            f"than their kernel's); each layer's fake-quant self taken on the packed grid")
     torch.cuda.synchronize()
     t0 = time.time()
     bundle = compress(bundle)
@@ -3232,6 +3333,15 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
         raise AssertionError(f"compress: packed {len(packed)}, dense kernels left {dense}")
     size_c = sum(t.numel() * t.element_size() for t in
                  list(bundle.module.parameters()) + list(bundle.module.buffers()))
+    if nvfp4:
+        differ = [k for k, v in cpu_qt.items() if not torch.equal(
+            m0.qweight[k].cpu().view(torch.uint8), v.view(torch.uint8))]
+        log(f"  packed NVFP4 bytes of {m0.path} ({m0.in_features}x{m0.features}): card against "
+            f"the CPU's quantize_qtensor of the same kernel, {sorted(cpu_qt)} "
+            + (f"differ in {differ}" if differ else "bit-identical"))
+        if differ or sorted(cpu_qt) != sorted(m0.qweight):
+            raise AssertionError(f"{preset}: the card packs {m0.path} otherwise than the CPU")
+        del cpu_qt
     layer_err = {}
     with bundle.contexts(), torch.no_grad():
         for m, (x, y) in seen.items():
@@ -3256,31 +3366,105 @@ def quantize_on_card(torch, cfg, preset) -> tuple:
     return bundle, times
 
 
+def act_quant_census(torch, bundle, cfg) -> dict:
+    """What the NVFP4 activation fake-quant adds to a decode forward: the
+    compressed ``bundle`` over a fresh bf16 cache of 8 slots, 40 tokens
+    prefilled, then two decode forwards, the second profiled (the first
+    warms the profiler up), once as quantized and once with every input
+    quantizer disabled (``disable_quantizer``; the SVD branch, K9 and the
+    attention unchanged). Logs host launch calls and device kernel records
+    of each, and their difference, the fake-quant's; returns
+    {"quantized": (calls, records), "inputs raw": (calls, records)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from modelopt_tpu_torch.models import make_cache
+    from modelopt_tpu_torch.quant.api import disable_quantizer
+
+    ids = torch.randint(1, cfg.vocab_size, (8, 42), dtype=torch.int32, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+    out = {}
+    for what, b in (("quantized", bundle),
+                    ("inputs raw", disable_quantizer(bundle, "*input_quantizer"))):
+        cache = make_cache(cfg, 8, 64, dtype=torch.bfloat16, device="cuda")
+        _, cache = b.apply(ids[:, :40], cache)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for i in range(2):
+                _, cache = b.apply(ids[:, 40 + i:41 + i], cache)
+                torch.cuda.synchronize()
+                prof.step()
+        events = prof.key_averages()
+        calls = sum(ev.count for ev in events if ev.device_type == DeviceType.CPU
+                    and any(k in ev.key for k in ("Launch", "Memcpy", "Memset")))
+        records = sum(ev.count for ev in events if ev.device_type == DeviceType.CUDA
+                      and not ev.key.startswith("ProfilerStep"))
+        out[what] = (calls, records)
+        del cache
+    (c1, r1), (c0, r0) = out["quantized"], out["inputs raw"]
+    n_q = 4 * cfg.num_layers
+    log(f"  census, one decode forward of {cfg.num_layers} layers (8 slots): {c1} host launch "
+        f"calls, {r1} device kernel records; with the input quantizers off {c0} / {r0}: the "
+        f"NVFP4 activation fake-quant adds {c1 - c0} launch calls and {r1 - r0} device kernels "
+        f"({(r1 - r0) / n_q:.1f} per quantized projection input, {n_q} a forward)")
+    if r1 <= r0:
+        raise AssertionError("census: the NVFP4 activation fake-quant launched nothing")
+    return out
+
+
 def ptq_path(torch, name: str = "M") -> dict:
-    """Path M: Llama-3-8B at full width (``PATH_LAYERS``' depth) built in
-    bf16 on the card, quantized under INT8_KV_CFG by its own algorithm
-    (SmoothQuant over the captured inputs, then max calibration of the
-    per-channel weights, the static activations and the int8 KV cache),
-    compressed, then served as ``serve_bundle`` serves the other paths.
-    Returns the measured run's launches."""
+    """Paths M and S: Llama-3-8B at full width (``PATH_LAYERS``' depth)
+    built in bf16 on the card, quantized by its preset's own algorithm (M:
+    INT8_KV_CFG, SmoothQuant over the captured inputs, then max calibration
+    of the per-channel weights, the static activations and the int8 KV
+    cache; S: NVFP4_SVDQUANT_CFG, SVDQuant's smoothing and rank-32 branch
+    on every projection, then max calibration of the NVFP4 weights' and
+    activations' per-tensor amax), compressed, then served as
+    ``serve_bundle`` serves the other paths. On S the launch counters are
+    also zeroed just before the quantize step and read just after it, and
+    those launches are checked against PATH_KERNELS["S-quantize"] on their
+    own; S also takes ``act_quant_census``. Returns {path: launches}: the
+    served run's under ``name``, and on S the quantize step's under
+    "S-quantize"."""
+    from modelopt_tpu_torch import kernels
+
     title, model, preset, _ = PATHS[name]
     cfg = path_config(torch, model, PATH_LAYERS.get(name))
+    kernels.reset_launch_counts()
     bundle, _ = quantize_on_card(torch, cfg, preset)
-    return serve_bundle(torch, name, bundle, cfg)
+    torch.cuda.synchronize()
+    quantize_launches = kernels.launch_counts()
+    if name != "S":
+        return {name: serve_bundle(torch, name, bundle, cfg)}
+    log(f"  launches in the quantize step: {quantize_launches}")
+    step = "S-quantize"
+    missing = [k for k in PATH_KERNELS[step] if quantize_launches[k] <= 0]
+    strays = [k for k, n in quantize_launches.items() if n and k not in PATH_KERNELS[step]]
+    if missing or strays:
+        raise AssertionError(f"path S quantize step: never launched {missing}, launched "
+                             f"{strays}")
+    act_quant_census(torch, bundle, cfg)
+    return {name: serve_bundle(torch, name, bundle, cfg), step: quantize_launches}
 
 
 PTQ_LAYERS = 4  # of Llama-3-8B's 32, at full width
-PTQ_PRESETS = (("W4A8_INT8KV_CFG", "int8"), ("INT4_AWQ_FULL_CFG", "bfloat16"))
+PTQ_PRESETS = (("W4A8_INT8KV_CFG", "int8"), ("INT4_AWQ_FULL_CFG", "bfloat16"),
+               ("NVFP4_AWQ_FULL_CFG", "bfloat16"), ("NVFP4_KV_ROTATE_CFG", "bfloat16"))
 
 
 def ptq_phase(torch) -> dict:
-    """The AWQ family on the card: Llama-3-8B at full width, PTQ_LAYERS
-    layers, under W4A8_INT8KV_CFG (awq_lite, then K1 serving) and
-    INT4_AWQ_FULL_CFG (awq_lite then awq_clip, then K6 serving): quantize,
-    compress and compare (``quantize_on_card``), log each group's chosen
-    exponent and the clip ratios, then serve one request of TRAFFIC's
-    prompt length. Launch counters are zeroed before the first quantize and
-    read after the last request; returns them."""
+    """The AWQ family and a rotated NVFP4 KV preset on the card: Llama-3-8B
+    at full width, PTQ_LAYERS layers, under W4A8_INT8KV_CFG (awq_lite, then
+    K1 serving), INT4_AWQ_FULL_CFG (awq_lite then awq_clip, then K6
+    serving), NVFP4_AWQ_FULL_CFG (awq_lite then awq_clip on NVFP4 weights,
+    NVFP4 activations, then K9 serving) and NVFP4_KV_ROTATE_CFG (max
+    calibration; q / k / v fake-quantized to NVFP4 in the Hadamard basis
+    into a bf16 cache, K9 serving): quantize, compress and compare
+    (``quantize_on_card``), log each group's chosen exponent and the clip
+    ratios, then serve one request of TRAFFIC's prompt length. Launch
+    counters are zeroed before the first quantize and read after the last
+    request; returns them."""
     from modelopt_tpu_torch import kernels
     from modelopt_tpu_torch.serve import ServingEngine
 
@@ -3289,8 +3473,9 @@ def ptq_phase(torch) -> dict:
     for preset, kv in PTQ_PRESETS:
         log(f"  {preset} at {PTQ_LAYERS} layers")
         bundle, _ = quantize_on_card(torch, cfg, preset)
-        alphas = {p: round(v["alpha"], 2) for p, v in bundle.metadata["awq_lite"].items()}
-        log(f"  awq_lite exponents: {json.dumps(alphas)}")
+        if "awq_lite" in bundle.metadata:
+            alphas = {p: round(v["alpha"], 2) for p, v in bundle.metadata["awq_lite"].items()}
+            log(f"  awq_lite exponents: {json.dumps(alphas)}")
         if "awq_clip" in bundle.metadata:
             total: dict = {}
             for hist in bundle.metadata["awq_clip"].values():
@@ -3322,14 +3507,51 @@ def ptq_phase(torch) -> dict:
 
 
 PTQ_FLOOR_DRAWS = 4
+PTQ_PARITY_PRESETS = ("INT8_KV_CFG", "W4A8_INT8KV_CFG", "NVFP4_SVDQUANT_CFG")
+# SVDQuant on both devices: each layer's low-rank product svd_lora_a @
+# svd_lora_b and residual kernel, max |card - CPU| over max |CPU| (the f64
+# Gram eigensolve by cuSOLVER against LAPACK, on smoothed kernels that
+# differ by the scales' last bits), on weights whose top-32 singular values
+# stand at least SVD_GAP above the 33rd (``plant_low_rank``), where the
+# truncation is well posed
+SVD_PARITY_BAR = 1e-3
+SVD_GAP = 2.0
+
+
+def plant_low_rank(torch, bundle, rank: int = 32, seed: int = 3) -> None:
+    """Add to every projection kernel [in, out] of ``bundle`` (in place) a
+    rank-``rank`` part U diag(sigma) V^T, orthonormal U and V drawn from
+    ``seed``, sigma from 20 down to 10 times the kernel's own largest
+    singular value: the outlier part SVDQuant takes into its branch, with
+    a clear gap after it even once the channel outliers' smoothing scales
+    (a range of ~10) have reshaped the spectrum. The sum is scaled back to
+    the kernel's own largest singular value: at full strength the attention
+    is so peaked that the f32 sums' order moved a later layer's channel
+    maxima, and so its pre-quant scale, 3.55e-4 apart between card and CPU
+    (past the parity's 1e-4 bar)."""
+    g = torch.Generator().manual_seed(seed)
+    for m in bundle.module.modules():
+        if type(m).__name__ != "QuantDense" or m.path == "lm_head":
+            continue
+        w = m.kernel.data
+        u = torch.linalg.qr(torch.randn(w.shape[0], rank, generator=g))[0]
+        v = torch.linalg.qr(torch.randn(w.shape[1], rank, generator=g))[0]
+        norm = torch.linalg.matrix_norm(w.float(), ord=2)
+        w += ((u * (torch.linspace(20.0, 10.0, rank) * norm)) @ v.T).to(w.dtype)
+        w *= norm / torch.linalg.matrix_norm(w.float(), ord=2)
 
 
 def ptq_parity(torch) -> None:
     """A tiny f32 llama (hidden 1024, 2 layers, D = 128) drawn on the CPU
     (``build_bundle``, channel outliers) and copied to the card, quantized
     by the port on both devices with the same ids under INT8_KV_CFG
-    (SmoothQuant) and W4A8_INT8KV_CFG (awq_lite): the same awq_lite
-    exponents (or, where they differ, losses within 1e-5 relative), the
+    (SmoothQuant), W4A8_INT8KV_CFG (awq_lite) and NVFP4_SVDQUANT_CFG
+    (SVDQuant, on weights with a planted rank-32 part, ``plant_low_rank``;
+    NVFP4 activations): the same awq_lite
+    exponents (or, where they differ, losses within 1e-5 relative), under
+    SVDQuant each layer's low-rank product and residual within
+    SVD_PARITY_BAR (the spectral gap of every CPU-smoothed kernel checked
+    to be at least SVD_GAP first), the
     same pre-quant scales and calibrated amax (the first projection's,
     layer 0's qkv_proj, whose input is the same up to the embedding's norm,
     to rtol 1e-5; the others', whose inputs come through f32 GEMMs summed
@@ -3362,9 +3584,11 @@ def ptq_parity(torch) -> None:
     g = torch.Generator().manual_seed(4)
     calib = torch.randint(1, cfg.vocab_size, (2, 64), dtype=torch.int32, generator=g)
     probe = torch.randint(1, cfg.vocab_size, (2, 32), dtype=torch.int32, generator=g)
-    for preset in ("INT8_KV_CFG", "W4A8_INT8KV_CFG"):
+    for preset in PTQ_PARITY_PRESETS:
         cpu = build_bundle(cfg, seed=0, init_scale=0.05, device="cpu")
         with_outliers(cpu)
+        if preset == "NVFP4_SVDQUANT_CFG":
+            plant_low_rank(torch, cpu)
         gpu = ModelBundle(module=copy.deepcopy(cpu.module).to("cuda"))
         out = {}
         for dev, b in (("cpu", cpu), ("cuda", gpu)):
@@ -3372,8 +3596,29 @@ def ptq_parity(torch) -> None:
             b = quantize(b, preset, lambda f: f(ids))
             state = {(m.path, k): getattr(m, k).float().cpu() for m in b.module.modules()
                      for k in ("pre_quant_scale", "amax") if getattr(m, k, None) is not None}
-            out[dev] = (b, b.metadata.get("awq_lite", {}), state)
-        (_, aw_c, st_c), (gpu, aw_g, st_g) = out["cpu"], out["cuda"]
+            # SVDQuant's branch: the low-rank product and the residual kernel
+            svd = {m.path: ((m.svd_lora_a @ m.svd_lora_b).cpu(), m.kernel.float().cpu(),
+                            (1.0 / m.input_quantizer.pre_quant_scale).cpu())
+                   for m in b.module.modules() if getattr(m, "svd_lora_a", None) is not None}
+            out[dev] = (b, b.metadata.get("awq_lite", {}), state, svd)
+        (_, aw_c, st_c, svd_c), (gpu, aw_g, st_g, svd_g) = out["cpu"], out["cuda"]
+        svd_err, gaps = {}, []
+        for p, (lr, res, sm) in svd_c.items():
+            # the CPU's smoothed kernel W' = R + diag(s) svd_lora_a svd_lora_b
+            sv = torch.linalg.svdvals((res + sm[:, None] * lr).double())
+            gaps.append((sv[31] / sv[32]).item())
+            svd_err[p] = max(((svd_g[p][i] - t).abs().max() / t.abs().max()).item()
+                             for i, t in enumerate((lr, res)))
+        if preset == "NVFP4_SVDQUANT_CFG":
+            worst_svd = max(svd_err, key=svd_err.get)
+            log(f"  ptq {preset}: {len(svd_err)} layers with a rank-32 branch on both devices; "
+                f"smallest spectral gap sigma_32 / sigma_33 {min(gaps):.2f} (at least {SVD_GAP}); "
+                f"card against CPU, low-rank product and residual within "
+                f"{svd_err[worst_svd]:.3g} of their largest value ({worst_svd}; bar "
+                f"{SVD_PARITY_BAR})")
+            if (sorted(svd_g) != sorted(svd_c) or len(svd_c) != 4 * cfg.num_layers
+                    or min(gaps) < SVD_GAP or svd_err[worst_svd] > SVD_PARITY_BAR):
+                raise AssertionError(f"ptq parity {preset}: SVD branch {svd_err}, gaps {gaps}")
 
         def back():  # the card's calibrated state, compressed on the CPU
             b = ModelBundle(module=copy.deepcopy(gpu.module).to("cpu"), records=gpu.records)
@@ -3773,7 +4018,10 @@ def main() -> int:
     by_path = {"gateless": gateless_phase(torch)}
     for name in PATHS:
         log(f"path {name}: {PATHS[name][0]}, ServingEngine ({time.time() - t_start:.0f} s)")
-        by_path[name] = ptq_path(torch, name) if name == "M" else serve_path(torch, name)
+        if name in PTQ_PATHS:
+            by_path.update(ptq_path(torch, name))
+        else:
+            by_path[name] = serve_path(torch, name)
     for name, (title, _, _) in SKIP_PATHS.items():
         log(f"path {name}: {title}, {PATH_LAYERS[name]} of 32 layers, calibrated "
             f"skip-softmax decode, Decoder ({time.time() - t_start:.0f} s)")

@@ -8,8 +8,9 @@ kernel, a kernel left dense by ``compress``) and ``quant`` (packed ``qweight``
 {data, scale} in the same [in, out] layout, the folded [in, E*out] one for
 experts, plus NVFP4's ``scale2``, the e4m3 arrays of fp8 and NVFP4 weights
 carried bit for bit; calibrated quantizer ``amax``, per tensor or per
-channel, and the ``pre_quant_scale`` SmoothQuant and AWQ set on input
-quantizers) — and loads them into a port Decoder, so both packages compute
+channel, the ``pre_quant_scale`` SmoothQuant, AWQ and SVDQuant set on
+input quantizers, and SVDQuant's ``svd_lora_a`` / ``svd_lora_b`` of a
+dense layer) — and loads them into a port Decoder, so both packages compute
 the same model. Every leaf must be consumed: a leaf the port has no place
 for (an unported quantizer state) raises instead of being dropped.
 """
@@ -73,6 +74,10 @@ def from_jax_variables(variables: dict, cfg: DecoderConfig, quant_config=None,
                 qt["scale2"] = take(f"quant/{base}/qweight/scale2")
             mod.set_qweight(qt)
             compressed = True
+        if isinstance(mod, QuantDense):  # SVDQuant's low-rank branch
+            for name in ("svd_lora_a", "svd_lora_b"):
+                if f"quant/{base}/{name}" in leaves:
+                    setattr(mod, name, take(f"quant/{base}/{name}").float())
         if isinstance(mod, TensorQuantizer):
             for name in ("amax", "pre_quant_scale"):
                 if f"quant/{base}/{name}" in leaves:

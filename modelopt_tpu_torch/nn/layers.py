@@ -7,6 +7,9 @@ layer computes ``x @ kernel``; a compressed layer holds the packed
 layout) instead of a kernel and multiplies through
 ``quant.backends.qgemm``. An expert kernel
 [E, in, out] is packed in its folded [in, E*out] view (quant/qtensor.py).
+A dense layer quantized by SVDQuant also holds the low-rank branch
+``svd_lora_a`` [in, r] and ``svd_lora_b`` [r, out] (f32), added to the
+output on both the fake-quant and the compressed path.
 """
 
 from __future__ import annotations
@@ -68,6 +71,10 @@ class QuantDense(PackedWeight, nn.Module):
                                               device=device), requires_grad=False)
                      if use_bias else None)
         self._init_qweight()
+        # SVDQuant's low-rank branch (f32 [in, r] and [r, out]; None unless
+        # the svdquant algorithm set them)
+        self.register_buffer("svd_lora_a", None)
+        self.register_buffer("svd_lora_b", None)
         self.input_quantizer = TensorQuantizer()
         self.weight_quantizer = TensorQuantizer()
         self.output_quantizer = TensorQuantizer()
@@ -77,6 +84,7 @@ class QuantDense(PackedWeight, nn.Module):
         act_int8 = skip_fake = False
         if self.compressed:
             act_int8, skip_fake = _act_int8(cfg, self.path)
+        x_in = x
         x = self.input_quantizer(x, skip_fake=skip_fake)
         dtype = self.dtype or x.dtype
         if self.compressed:
@@ -92,6 +100,12 @@ class QuantDense(PackedWeight, nn.Module):
         else:
             kernel = self.weight_quantizer(self.kernel)
             y = torch.matmul(x.to(dtype), kernel.to(dtype))
+        if self.svd_lora_a is not None:
+            # SVDQuant: the kernel holds the quantized residual, the 16-bit
+            # branch on the raw input (before the pre-quant scale, which
+            # svd_lora_a has folded in) restores the low-rank part
+            a, b = self.svd_lora_a.to(dtype), self.svd_lora_b.to(dtype)
+            y = y + torch.matmul(torch.matmul(x_in.to(dtype), a), b)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return self.output_quantizer(y)

@@ -16,8 +16,10 @@ Ported specs: per-tensor static int8 and e4m3 (calibrated amax, also the
 real-codes path for the KV cache), per-channel static integer amax
 (``axis=(-1,)``: the INT8 presets' weights), per-token dynamic int8, the
 FP8 presets' static e4m3 activations and NVFP4's two-level blocks (a
-calibrated per-tensor amax over dynamic block scales). Sequential chains,
-rotation and affine specs raise NotImplementedError.
+calibrated per-tensor amax over dynamic block scales), each also in a
+Hadamard-rotated basis (``rotate``: x is rotated before the spec
+calibrates or quantizes it and rotated back after, as the reference
+does). Sequential chains and affine specs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..quant.config import QuantizeConfig
 from ..quant.fake_quant import fake_quantize
 from ..quant.formats import cast_to_fp, true_divide
 from ..quant.qspec import QuantizerSpec
+from ..quant.rotation import hadamard_rotate
 
 _ACTIVE_CFG: contextvars.ContextVar = contextvars.ContextVar("quant_cfg", default=None)
 # {path: [recorded inputs]} while ``capture_records`` is active
@@ -174,7 +177,13 @@ class TensorQuantizer(nn.Module):
         if len(specs) > 1:
             raise NotImplementedError("sequential quantizer chains are not ported")
         if sp.enable:
+            # a rotated spec quantizes (and calibrates) in the Hadamard basis,
+            # then rotates back: the matrix is its own inverse
+            if sp.rotate:
+                x = hadamard_rotate(x)
             x = self._apply_one(x, sp, phase)
+            if sp.rotate:
+                x = hadamard_rotate(x)
         return ret(x)
 
     def _record(self, x: torch.Tensor) -> None:

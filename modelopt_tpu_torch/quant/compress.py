@@ -7,7 +7,10 @@ hands it to its layer with ``set_qweight``, which drops the kernel
 parameter so its memory is freed; a 3-D expert kernel [E, in, out] packs
 through the folded [in, E*out] view (a spec with a positive axis does not
 fold and stays dense). The layers then multiply through
-``quant.backends``. The mode record lists the packed layers:
+``quant.backends``. What calibration set beside the kernel stays: the
+input quantizers' ``pre_quant_scale`` and amax, and SVDQuant's
+``svd_lora_a`` / ``svd_lora_b`` beside the packed residual (the reference
+deletes only ``kernel``). The mode record lists the packed layers:
 ``{"compressed": [paths]}``.
 """
 

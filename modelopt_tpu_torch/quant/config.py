@@ -11,8 +11,13 @@ serving paths and the ported calibration algorithms run:
 ``INT4_BLOCKWISE_WEIGHT_ONLY_CFG`` (W4A16),
 ``INT8_WEIGHT_ONLY_CFG``, ``FP8_DEFAULT_CFG`` (e4m3 weights and static
 e4m3 activations), ``FP8_KV_CFG`` (the same with an e4m3 KV cache),
-``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG`` and
-its equal ``W4A16_NVFP4_CFG``.
+``FP8_WEIGHT_ONLY_CFG``, ``NVFP4_WEIGHT_ONLY_CFG``, its equal
+``W4A16_NVFP4_CFG``, and the NVFP4 presets that quantize activations:
+``NVFP4_DEFAULT_CFG``, ``NVFP4_AWQ_LITE_CFG``, ``NVFP4_AWQ_CLIP_CFG``,
+``NVFP4_AWQ_FULL_CFG``, ``NVFP4_SVDQUANT_CFG``, ``NVFP4_MLP_ONLY_CFG``,
+``W4A8_NVFP4_FP8_CFG`` (NVFP4 weights, static e4m3 activations),
+``NVFP4_EXPERTS_ONLY_CFG`` (expert weights only), ``NVFP4_KV_CFG`` and
+``NVFP4_KV_ROTATE_CFG`` (NVFP4 q / k / v in a Hadamard-rotated basis).
 
 Layout convention (kept from the reference): weight kernels are
 ``[in_features, out_features]``, so per-output-channel weight scales are
@@ -129,7 +134,7 @@ def _resolve_cached(cfg: QuantizeConfig, path: str):
 
 
 # ---------------------------------------------------------------------------
-# Named presets (the reference's quant/config.py:144-295)
+# Named presets (the reference's quant/config.py:144-311)
 # ---------------------------------------------------------------------------
 # exclusions applied in every preset: LM head, routers and embeddings stay
 # in 16 bits
@@ -160,6 +165,12 @@ _W_NVFP4 = {
     "num_bits": (2, 1),
     "block_sizes": {-2: 16, "type": "dynamic", "scale_format": "e4m3", "two_level": True},
 }
+# dynamic NVFP4 activations: blocks of 16 along the feature dim, e4m3 block
+# scales over a calibrated per-tensor amax
+_A_NVFP4 = {
+    "num_bits": (2, 1),
+    "block_sizes": {-1: 16, "type": "dynamic", "scale_format": "e4m3", "two_level": True},
+}
 # per-token dynamic int8 activations (block of the whole feature dim)
 _A_INT8_PER_TOKEN = {"num_bits": 8, "block_sizes": {-1: 0, "type": "dynamic"}}
 # per-tensor static int8 KV-cache codes + f32 scale (needs calibration)
@@ -172,6 +183,15 @@ KV_CACHE_INT8 = {
 KV_CACHE_FP8 = {
     "*k_quantizer": {"num_bits": (4, 3), "axis": None},
     "*v_quantizer": {"num_bits": (4, 3), "axis": None},
+}
+# NVFP4 fake-quantized k / v (the cache holds their 16-bit values)
+KV_CACHE_NVFP4 = {"*k_quantizer": dict(_A_NVFP4), "*v_quantizer": dict(_A_NVFP4)}
+# the same in a Hadamard-rotated head-dim basis, q included so the scores
+# see one basis (quant/rotation.py)
+KV_CACHE_NVFP4_ROTATE = {
+    "*k_quantizer": dict(_A_NVFP4, rotate=True),
+    "*v_quantizer": dict(_A_NVFP4, rotate=True),
+    "*q_quantizer": dict(_A_NVFP4, rotate=True),
 }
 
 INT8_DEFAULT_CFG = _cfg(_W_INT8_PC, _A_INT8_PT)
@@ -192,6 +212,20 @@ FP8_KV_CFG = _cfg(_W_FP8, _A_FP8, extra=KV_CACHE_FP8)
 FP8_WEIGHT_ONLY_CFG = _cfg(_W_FP8, None)
 NVFP4_WEIGHT_ONLY_CFG = _cfg(_W_NVFP4, None)
 W4A16_NVFP4_CFG = _cfg(_W_NVFP4, None)
+NVFP4_DEFAULT_CFG = _cfg(_W_NVFP4, _A_NVFP4)
+NVFP4_AWQ_LITE_CFG = _cfg(_W_NVFP4, _A_NVFP4, algorithm={"method": "awq_lite"})
+NVFP4_AWQ_CLIP_CFG = _cfg(_W_NVFP4, _A_NVFP4, algorithm={"method": "awq_clip"})
+NVFP4_AWQ_FULL_CFG = _cfg(_W_NVFP4, _A_NVFP4, algorithm={"method": "awq_full"})
+NVFP4_SVDQUANT_CFG = _cfg(_W_NVFP4, _A_NVFP4, algorithm={"method": "svdquant"})
+NVFP4_MLP_ONLY_CFG = _cfg(
+    {"enable": False}, {"enable": False},
+    extra={"*mlp*weight_quantizer": _W_NVFP4, "*mlp*input_quantizer": _A_NVFP4},
+)
+W4A8_NVFP4_FP8_CFG = _cfg(_W_NVFP4, _A_FP8)
+NVFP4_EXPERTS_ONLY_CFG = _cfg({"enable": False}, None,
+                              extra={"*moe*weight_quantizer": _W_NVFP4})
+NVFP4_KV_CFG = _cfg(_W_NVFP4, _A_NVFP4, extra=KV_CACHE_NVFP4)
+NVFP4_KV_ROTATE_CFG = _cfg(_W_NVFP4, _A_NVFP4, extra=KV_CACHE_NVFP4_ROTATE)
 
 choices = {
     "INT8_DEFAULT_CFG": INT8_DEFAULT_CFG,
@@ -209,6 +243,16 @@ choices = {
     "FP8_WEIGHT_ONLY_CFG": FP8_WEIGHT_ONLY_CFG,
     "NVFP4_WEIGHT_ONLY_CFG": NVFP4_WEIGHT_ONLY_CFG,
     "W4A16_NVFP4_CFG": W4A16_NVFP4_CFG,
+    "NVFP4_DEFAULT_CFG": NVFP4_DEFAULT_CFG,
+    "NVFP4_AWQ_LITE_CFG": NVFP4_AWQ_LITE_CFG,
+    "NVFP4_AWQ_CLIP_CFG": NVFP4_AWQ_CLIP_CFG,
+    "NVFP4_AWQ_FULL_CFG": NVFP4_AWQ_FULL_CFG,
+    "NVFP4_SVDQUANT_CFG": NVFP4_SVDQUANT_CFG,
+    "NVFP4_MLP_ONLY_CFG": NVFP4_MLP_ONLY_CFG,
+    "W4A8_NVFP4_FP8_CFG": W4A8_NVFP4_FP8_CFG,
+    "NVFP4_EXPERTS_ONLY_CFG": NVFP4_EXPERTS_ONLY_CFG,
+    "NVFP4_KV_CFG": NVFP4_KV_CFG,
+    "NVFP4_KV_ROTATE_CFG": NVFP4_KV_ROTATE_CFG,
 }
 
 

@@ -9,9 +9,9 @@ DeepSeek-V2-Lite's first down projection, K=10944), per-tensor fp (the FP8 prese
 weights: ``fake_quant_fp``) and NVFP4's dynamic two-level blocks (e2m1
 elements, e4m3 block scales over an f32 per-tensor scale), with the
 reference's zero padding of a dimension the block does not divide. Other
-specs (per-channel fp, static or e8m0 blocks, 4/6 scales, rotation,
-affine) raise NotImplementedError. Inference only: no straight-through
-gradients are defined.
+specs (per-channel fp, static or e8m0 blocks, 4/6 scales, affine) raise
+NotImplementedError; a rotated spec's rotation is TensorQuantizer's.
+Inference only: no straight-through gradients are defined.
 """
 
 from __future__ import annotations
@@ -117,9 +117,11 @@ def _block_scales_two_level(block_amax, elem_max: float, scale_fmt: FPFormat, te
     """NVFP4's two-level scales: s2 = max(tensor_amax, 1e-24) /
     (elem_max * scale_fmt.maxval), each block's s1 = cast_to_fp(amax /
     elem_max / s2, scale_fmt); returns max(s1 * s2, 1e-24)."""
-    s2 = torch.as_tensor(tensor_amax, device=block_amax.device).float().clamp_min(_TINY) \
-        / (elem_max * scale_fmt.maxval)
-    s1 = cast_to_fp(block_amax / elem_max / s2, scale_fmt)
+    # true divisions: a CUDA tensor over a Python float is a reciprocal
+    # times it, an ulp from the CPU's quotient (formats.true_divide)
+    s2 = true_divide(torch.as_tensor(tensor_amax, device=block_amax.device).float()
+                     .clamp_min(_TINY), elem_max * scale_fmt.maxval)
+    s1 = cast_to_fp(true_divide(block_amax, elem_max) / s2, scale_fmt)
     return (s1 * s2).clamp_min(_TINY)
 
 
@@ -157,10 +159,12 @@ def fake_quantize(x: torch.Tensor, spec: QuantizerSpec, amax=None,
                   tensor_amax=None) -> torch.Tensor:
     """Fake-quantize ``x`` per ``spec``; ``amax`` is the calibrated amax for
     static specs (None = from this call's values), ``tensor_amax`` the
-    calibrated per-tensor amax of a two-level block spec."""
+    calibrated per-tensor amax of a two-level block spec. ``spec.rotate``
+    is the caller's: TensorQuantizer rotates x around this call, as in the
+    reference."""
     if not spec.enable:
         return x
-    if spec.rotate or spec.bias_mode is not None:
+    if spec.bias_mode is not None:
         raise NotImplementedError(f"fake quantization of {spec} is not ported")
     if spec.block is not None:
         if is_per_token_int8(spec):

@@ -413,16 +413,25 @@ def test_mla_quantize_and_compress():
 ALGORITHMS = {"INT8_DEFAULT_CFG": "max", "INT8_SMOOTHQUANT_CFG": "smoothquant",
               "INT8_KV_CFG": "smoothquant", "W4A8_INT8_DYNAMIC_CFG": "awq_lite",
               "W4A8_INT8KV_CFG": "awq_lite", "INT4_AWQ_CFG": "awq_lite",
-              "INT4_AWQ_CLIP_CFG": "awq_clip", "INT4_AWQ_FULL_CFG": "awq_full"}
+              "INT4_AWQ_CLIP_CFG": "awq_clip", "INT4_AWQ_FULL_CFG": "awq_full",
+              "NVFP4_DEFAULT_CFG": "max", "NVFP4_AWQ_LITE_CFG": "awq_lite",
+              "NVFP4_AWQ_CLIP_CFG": "awq_clip", "NVFP4_AWQ_FULL_CFG": "awq_full",
+              "NVFP4_SVDQUANT_CFG": "svdquant", "NVFP4_MLP_ONLY_CFG": "max",
+              "W4A8_NVFP4_FP8_CFG": "max", "NVFP4_EXPERTS_ONLY_CFG": "max",
+              "NVFP4_KV_CFG": "max", "NVFP4_KV_ROTATE_CFG": "max"}
+# presets that quantize no projection of the dense llama: the reference's
+# merge of a later rule that sets no "enable" into {"enable": False} leaves
+# NVFP4_MLP_ONLY_CFG's and NVFP4_EXPERTS_ONLY_CFG's quantizers disabled
+NOTHING_PACKED = ("NVFP4_MLP_ONLY_CFG", "NVFP4_EXPERTS_ONLY_CFG")
 
 
 @pytest.mark.parametrize("preset", list(ALGORITHMS))
 def test_every_preset_runs_its_algorithm(preset, monkeypatch):
     """``quantize`` dispatches each preset to its own algorithm through the
     registry (the reference's preset table), which leaves its trace
-    (pre-quant scales for SmoothQuant and AWQ lite, clip ratios for AWQ
-    clip); ``compress`` then packs every projection and the compressed
-    model runs."""
+    (pre-quant scales for SmoothQuant, AWQ lite and SVDQuant, clip ratios
+    for AWQ clip); ``compress`` then packs every projection (none under
+    NOTHING_PACKED) and the compressed model runs."""
     called = []
     for name, fn in list(tapi.CALIB_ALGORITHMS.items()):
         monkeypatch.setitem(tapi.CALIB_ALGORITHMS, name,
@@ -431,8 +440,8 @@ def test_every_preset_runs_its_algorithm(preset, monkeypatch):
                        lambda f: f(torch.from_numpy(CALIB)))
     assert called == [ALGORITHMS[preset]]
     assert bool(port_state(tb, "pre_quant_scale")) == (
-        ALGORITHMS[preset] in ("smoothquant", "awq_lite", "awq_full"))
+        ALGORITHMS[preset] in ("smoothquant", "awq_lite", "awq_full", "svdquant"))
     assert ("awq_clip" in tb.metadata) == (ALGORITHMS[preset] in ("awq_clip", "awq_full"))
     tc = tcompress(tb)
-    assert len(tc.records[-1].metadata["compressed"]) == 7
+    assert len(tc.records[-1].metadata["compressed"]) == (0 if preset in NOTHING_PACKED else 7)
     assert np.isfinite(tlogits(tc)).all()

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of modelopt_tpu_torch, and neither
-chip_smoke.py nor attention_ab.py, imports JAX or anything of the JAX
-package (modelopt_tpu)."""
+"""The port stands alone: no module of modelopt_tpu_torch, and none of
+chip_smoke.py, attention_ab.py and svd_timing.py, imports JAX or anything
+of the JAX package (modelopt_tpu)."""
 
 import pathlib
 import re
@@ -8,8 +8,8 @@ import re
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "modelopt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "attention_ab.py"]
+FILES = sorted((ROOT / "modelopt_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "attention_ab.py", ROOT / "svd_timing.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+modelopt_tpu\.(?!_torch)|"
     r"import\s+modelopt_tpu\s*$|from\s+modelopt_tpu\s+import\b|"
